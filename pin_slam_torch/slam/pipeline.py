@@ -1,0 +1,364 @@
+"""The per-frame SLAM loop, torch counterpart of
+``pin_slam_tpu/slam/pipeline.py`` (the fast path with PGO off).
+
+Per frame: odometry (source voxel-downsample + ``track_frame``), then the map
+update (voxel mask -> ``sample_rays`` -> ``map_insert`` ->
+``build_local_map`` -> new-region flags -> ``append_knn`` -> ``pool_append``),
+then ``cfg.iters`` Adam iterations of ``mapping_loop_cached`` and the
+write-back ``assign_local_to_global``.  Stop frames run a reduced training on
+the existing pool (``stop_train``); frame 0 runs ``init_iter_ratio - 1``
+extra training chunks (``extra_train``).
+
+The JAX package fuses each stage into one jitted program; the port runs the
+same operations eagerly on the device, with the pose hand-over and the
+health-gate decisions on the host.  Every random draw comes from one
+``RandomSource`` (a ``torch.Generator`` on the device); tests substitute the
+JAX package's draws.
+
+Options this slice does not port raise ``NotImplementedError`` pointing at
+ROADMAP.md; none is ignored silently.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pin_slam_torch.dataset.slam_dataset import Frame, SLAMDataset
+from pin_slam_torch.models import neural_points as npts
+from pin_slam_torch.models.decoder import Decoder
+from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
+from pin_slam_torch.ops.scatter import nonzero_static
+from pin_slam_torch.ops.voxel import voxel_down_sample_mask
+from pin_slam_torch.slam import mapper as mp
+from pin_slam_torch.slam import tracker as trk
+from pin_slam_torch.utils.platform import not_ported, resolve_device
+
+TS_CAPACITY = 1 << 16
+
+
+def check_ported(cfg) -> None:
+    """Raise for every option this slice of the port does not cover."""
+    unported = [
+        ("pgo_on", cfg.pgo_on), ("ba_freq_frame > 0", cfg.ba_freq_frame > 0),
+        ("dp_devices > 1", cfg.dp_devices > 1), ("map_shards > 1", cfg.map_shards > 1),
+        ("semantic_on", cfg.semantic_on), ("color_on", cfg.color_on or cfg.color_map_on),
+        ("estimate_normal", cfg.estimate_normal),
+        ("dynamic_filter_on", cfg.dynamic_filter_on),
+        ("pos_encoding_band > 0", cfg.pos_encoding_band > 0),
+        ("deskew", cfg.deskew), ("o3d_vis_on (in-run mesh/SDF artifacts)", cfg.o3d_vis_on),
+        ("layer_norm_on", cfg.layer_norm_on),
+        # pool rows cache exactly 6 neighbours (P_KNN / P_W); a wider kNN
+        # would overwrite the weight columns (ROADMAP C2)
+        ("query_nn_k != 6", cfg.query_nn_k != 6),
+        ("geo_mlp_level != 1 or mlp_bias_on = False",
+         cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on),
+        # knobs the JAX package measured and rejected (PERF_TPU.md); kept
+        # there at their defaults, not carried into the port
+        ("fresh_freespace_damp < 1.0", cfg.fresh_freespace_damp < 1.0),
+        ("probe_dedup_near_budget > 0", cfg.probe_dedup_near_budget > 0)]
+    for name, on in unported:
+        if on:
+            raise not_ported(name)
+
+
+class RandomSource:
+    """Every random draw of the main path, from one ``torch.Generator``."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.device = device
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(int(seed))
+
+    def ray_noise(self, frame_id: int, sc: SamplerConfig, n: int):
+        return draw_ray_noise(self.gen, sc, n, self.device)
+
+    def batch_indices(self, frame_id: int, chunk: int, pool: mp.PoolState,
+                      mcfg: mp.MapperConfig, use_new: bool, num_iters: int):
+        """chunk -1: the frame's main training, -2: a stop frame's training,
+        0..: frame-0 extra chunks (tests key the JAX package's draws on it)."""
+        return mp.sample_batch_indices(self.gen, pool, mcfg,
+                                       torch.tensor(use_new, device=self.device), num_iters)
+
+
+class SlamSystem:
+    """Owns the device state and the host pose books; one frame at a time.
+
+    ``device=None`` runs on the GPU (and raises if there is none); pass
+    ``device="cpu"`` to run the kernels' plain PyTorch versions on the CPU."""
+
+    def __init__(self, config, dataset: Optional[SLAMDataset] = None,
+                 device=None, random_source: Optional[RandomSource] = None,
+                 sync_stages: bool = False):
+        cfg = self.config = config
+        check_ported(cfg)
+        self.device = dev = resolve_device(device)
+        self.dataset = dataset if dataset is not None else SLAMDataset(cfg)
+        self.mc = npts.MapConfig.from_config(cfg)
+        self.mcfg = mp.MapperConfig.from_config(cfg)
+        self.sc = SamplerConfig.from_config(cfg)
+        self.tc = trk.TrackerConfig.from_config(cfg)
+        if not mp.kernel_path_supported(self.mcfg, cfg):
+            raise not_ported("training configuration outside the kernel path")
+        self.sync_stages = sync_stages
+        self.rand = random_source or RandomSource(cfg.seed, dev)
+
+        self.offsets = torch.as_tensor(npts.neighbor_offsets(cfg.num_nei_cells,
+                                                             cfg.search_alpha), device=dev)
+        far_offsets = (torch.as_tensor(npts.neighbor_offsets(
+            cfg.far_num_nei_cells, cfg.far_search_alpha), device=dev)
+            if cfg.far_num_nei_cells > 0 else None)
+        if self.mc.nsub > 1:
+            self.append_tmpl = npts.make_probe_template(self.mc, cfg.num_nei_cells,
+                                                        cfg.search_alpha, dev)
+            self.far_tmpl = (npts.make_probe_template(
+                self.mc, cfg.far_num_nei_cells, cfg.far_search_alpha, dev)
+                if cfg.far_num_nei_cells > 0 else None)
+        else:
+            self.append_tmpl, self.far_tmpl = self.offsets, far_offsets
+
+        gen = torch.Generator().manual_seed(int(cfg.seed))
+        self.decoder = Decoder(cfg.feature_dim + 3, cfg.geo_mlp_hidden_dim,
+                               cfg.geo_mlp_level, 1, cfg.mlp_bias_on, generator=gen,
+                               device=dev)
+        self.decoder.requires_grad_(False)
+
+        wd = cfg.use_probe_dedup
+        self._use_dedup = wd is True or wd == "true" or wd not in (False, "false")
+        if self._use_dedup and int(np.ceil(2.0 * cfg.max_range / self.mc.voxel_size)) >= 1024:
+            self._use_dedup = False     # the 30-bit group key would alias voxels
+
+        self.state = npts.init_map_state(self.mc, dev)
+        self.lm = npts.init_local_map(self.mc, dev)
+        self.pool = mp.init_pool(self.mcfg, dev)
+        self.sdf_scale = cfg.sdf_scale
+        self.cur_pose = np.eye(4)
+        if self.dataset.gt_pose_provided and cfg.track_on:
+            self.cur_pose = self.dataset.gt_poses[cfg.begin_frame].copy()
+            self.dataset.last_pose = self.cur_pose.copy()
+        self.lm_origin64 = np.zeros(3)
+        self.frame_id = 0
+        self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
+        self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
+        self._stop_count = 0
+
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.sync_stages and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _source_prep(self, points, valid):
+        cfg = self.config
+        keep = voxel_down_sample_mask(points, valid, cfg.source_vox_down_m,
+                                      cfg.downsample_hash_size)
+        idx = nonzero_static(keep, cfg.source_bucket, 0)
+        n_keep = torch.sum(keep)
+        src_valid = torch.arange(cfg.source_bucket, device=self.device) < n_keep
+        return points[idx], src_valid
+
+    def _frame_update(self, points, valid, pose_R, pose_t, frame_id):
+        """Sample -> insert -> local map -> new flags -> kNN probe -> pool append."""
+        cfg, mc, mcfg, sc = self.config, self.mc, self.mcfg, self.sc
+        dev = self.device
+        if not cfg.rand_downsample:
+            valid = valid & voxel_down_sample_mask(points, valid, cfg.vox_down_m,
+                                                   cfg.downsample_hash_size)
+        if cfg.mapping_bucket and cfg.mapping_bucket < points.shape[0]:
+            Mb = cfg.mapping_bucket
+            cidx = nonzero_static(valid, Mb, points.shape[0])
+            n_val = torch.sum(valid)
+            points = torch.cat([points, torch.zeros((1, 3), device=dev)])[cidx]
+            valid = torch.arange(Mb, device=dev) < torch.clamp(n_val, max=Mb)
+        batch = sample_rays(sc, points, valid, self.rand.ray_noise(frame_id, sc, points.shape[0]))
+        coord_world = batch.coord @ pose_R.T + pose_t
+        Sn, n_surf_tot = sc.ray_sample_count, 1 + sc.surface_sample_n
+        cw_surf = coord_world.reshape(-1, Sn, 3)[:, :n_surf_tot].reshape(-1, 3)
+        lbl_surf = batch.sdf_label.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
+        vld_surf = batch.valid.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
+        surf_mask = vld_surf & (torch.abs(lbl_surf)
+                                < cfg.surface_sample_range_m * cfg.map_surface_ratio)
+        self.state = npts.map_insert(
+            self.state, mc, cw_surf, surf_mask, frame_id, self._travel,
+            downsample_table_size=cfg.downsample_hash_size,
+            insert_bucket=min(cfg.frame_bucket, cw_surf.shape[0]))
+        lm = npts.build_local_map(self.state, mc, pose_t, frame_id, self._travel)
+
+        new_full = mp.compute_new_sample_mask(lm, mc, mcfg, coord_world, batch.sdf_label,
+                                              batch.valid)
+        col = torch.arange(Sn, device=dev) < n_surf_tot
+        new_mask = (new_full.reshape(-1, Sn) & col[None, :]).reshape(-1)
+        n_rays_f = coord_world.shape[0] // Sn
+        n_far = n_rays_f * (Sn - 1 - sc.surface_sample_n)
+        gidx, w, vec, nvec, dropped = mp.append_knn(
+            lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
+            far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
+            dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0)
+        self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
+                                   batch.sdf_label, batch.weight, batch.valid & ~dropped,
+                                   frame_id, new_mask, gidx, w, vec, nvec)
+        return lm
+
+    def _train(self, lm, feats, gvec, opt, frame_id, chunk, use_new, dec_scale, num_iters):
+        """``num_iters`` Adam iterations on ``lm``; returns (lm_out, feats, gvec,
+        opt, loss history) with lm_out's features set to the trained ones."""
+        idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
+        lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
+            lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale)
+        lm2.geo_features = feats[:, :self.mc.feature_dim]
+        return lm2, feats, gvec, opt, hist
+
+    def _with_cert_column(self, lm):
+        L = self.mc.local_capacity
+        return torch.cat([lm.geo_features, torch.zeros((L + 1, 1), device=self.device)], 1)
+
+    def _travel_step(self, frame_id: int, tran_sel: float) -> None:
+        travel_now = self._travel[max(frame_id - 1, 0)] + tran_sel
+        self._travel[frame_id] = travel_now
+
+    # ------------------------------------------------------------------
+    def process_frame(self, frame: Frame) -> dict:
+        cfg, dev = self.config, self.device
+        info = {}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            points = torch.as_tensor(frame.points, dtype=torch.float32, device=dev)
+            valid = torch.as_tensor(frame.valid, device=dev)
+            tracked = cfg.track_on and self.frame_id > 0
+            conservative = not tracked or (self.frame_id > 0 and self.dataset.stop_status)
+
+            t1 = time.perf_counter()
+            booked = None
+            if tracked:
+                init_pose = self.dataset.initial_guess()
+                origin64 = self.lm_origin64
+                R_init = torch.as_tensor(init_pose[:3, :3], dtype=torch.float32)
+                t_init = torch.as_tensor(init_pose[:3, 3] - origin64, dtype=torch.float32)
+                src, src_valid = self._source_prep(points, valid)
+                res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
+                                      self.append_tmpl, src, src_valid, R_init, t_init)
+                # pose selection in float32, as the JAX package does on device
+                origin = self.lm.origin.cpu()
+                t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
+                t_est_w = res.t + origin
+                jump = bool(torch.linalg.norm(t_est_w - t_last_w)
+                            > 40.0 * cfg.surface_sample_range_m)
+                ok = res.valid and not jump
+                R_sel = res.R if ok else R_init
+                t_w = t_est_w if ok else t_init + origin
+                tran_sel = float(torch.linalg.norm(t_w - t_last_w))
+
+                def fetch_and_book():
+                    if res.valid:
+                        T = np.eye(4)
+                        T[:3, :3] = res.R.double().numpy()
+                        T[:3, 3] = res.t.double().numpy() + origin64
+                        self.cur_pose = T
+                    else:
+                        self.cur_pose = init_pose
+                    self.dataset.update_odom_pose(self.cur_pose, res.valid)
+                    info["reg_valid"] = res.valid
+                    info["reg_residual_cm"] = res.sdf_residual_cm
+                    info["reg_iters"] = res.iterations
+                booked = fetch_and_book
+            else:
+                if not cfg.track_on and self.dataset.gt_pose_provided:
+                    self.cur_pose = self.dataset.gt_poses[self.frame_id].copy()
+                self.dataset.update_odom_pose(self.cur_pose, True)
+                ok = True
+
+            if conservative:
+                if booked is not None:
+                    booked()
+                    booked = None
+                if self.dataset.lose_track:
+                    t2 = time.perf_counter()
+                    self.stage_times.append([t1 - t0, t2 - t1, 0.0, 0.0, 0.0])
+                    self.dataset.time_table.append(self.stage_times[-1])
+                    self.frame_id += 1
+                    info["skipped"] = True
+                    return info
+                R_sel = torch.as_tensor(self.cur_pose[:3, :3], dtype=torch.float32)
+                t_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
+                ok = True
+                td = self.dataset.travel_dist
+                tran_sel = float(np.float32(td[-1] - td[-2])) if len(td) > 1 else 0.0
+            self._sync()
+
+            t2 = time.perf_counter()
+            fid = self.frame_id
+            dec_scale = 0.0 if fid >= cfg.freeze_after_frame else 1.0
+            R_d, t_d = R_sel.to(dev), t_w.to(dev)
+            self._travel_step(fid, tran_sel)
+            stop_frame = fid > 0 and self.dataset.stop_status
+            gvec = self.decoder.pack()
+            if stop_frame:
+                n_it = max(1, cfg.iters - 10) if cfg.adaptive_mode else int(cfg.iters)
+                feats = self._with_cert_column(self.lm)
+                opt = mp.init_opt_state(feats, gvec)
+                lm_out, feats, gvec, opt, hist = self._train(
+                    self.lm, feats, gvec, opt, fid, -2, False, dec_scale, n_it)
+                t_map = time.perf_counter()
+            else:
+                self._stop_count = (self._stop_count + 1
+                                    if tran_sel < 0.01 * cfg.voxel_size_m else 0)
+                use_new = ok and not (self._stop_count > cfg.stop_frame_thre)
+                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid)
+                self._sync()
+                t_map = time.perf_counter()
+                feats = self._with_cert_column(lm2)
+                opt = mp.init_opt_state(feats, gvec)
+                if ok:
+                    lm_out, feats, gvec, opt, hist = self._train(
+                        lm2, feats, gvec, opt, fid, -1, use_new, dec_scale, int(cfg.iters))
+                else:
+                    # lost frame: keep the rebuilt local map and the untrained
+                    # parameters (the JAX package trains and then discards)
+                    lm_out, hist = lm2, None
+            self.state = npts.assign_local_to_global(self.state, lm_out, self.mc, self._travel)
+            self.lm = lm_out
+            self.decoder.load_packed(gvec)
+
+            if booked is not None:
+                booked()
+            self.lm_origin64 = self.cur_pose[:3, 3].copy()
+            if (fid + 1) % cfg.pool_filter_freq == 0:
+                self.pool = mp.pool_filter(self.pool, self.mcfg, t_d)
+
+            extra_chunks = cfg.init_iter_ratio - 1 if fid == 0 else 0
+            for chunk in range(extra_chunks):
+                self.lm, feats, gvec, opt, hist = self._train(
+                    self.lm, feats, gvec, opt, fid, chunk, True, dec_scale, int(cfg.iters))
+                self.state = npts.assign_local_to_global(self.state, self.lm, self.mc,
+                                                         self._travel)
+                self.decoder.load_packed(gvec)
+            if cfg.log_loss_per_frame and hist is not None:
+                info["loss_last"] = float(hist[-1])
+                info["loss_finite"] = bool(torch.isfinite(hist).all())
+            self._sync()
+            t3 = time.perf_counter()
+
+        self.stage_times.append([t1 - t0, t2 - t1, t_map - t2, t3 - t_map, 0.0])
+        self.dataset.time_table.append(self.stage_times[-1])
+        self.frame_id += 1
+        return info
+
+    def run(self, num_frames: Optional[int] = None) -> list:
+        """Process the dataset's frames; writes the odometry poses."""
+        cfg = self.config
+        for name in ("save_map", "save_mesh", "save_merged_pc"):
+            if getattr(cfg, name):
+                raise not_ported(f"{name} (map/mesh artifacts)")
+        n = len(self.dataset) if num_frames is None else min(num_frames, len(self.dataset))
+        end = cfg.end_frame if cfg.end_frame > 0 else n
+        infos = []
+        for i in range(cfg.begin_frame, min(end, n), max(cfg.every_frame, 1)):
+            infos.append(self.process_frame(self.dataset.preprocess_frame(i)))
+            if not cfg.silence:
+                print(f"frame {i}: {infos[-1]}", flush=True)
+        self.dataset.write_results(cfg.run_path or os.path.join(cfg.output_root,
+                                                                cfg.name or "run"))
+        return infos
