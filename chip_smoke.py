@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, both paths, kernel phases
+    python3 chip_smoke.py            # what the checks run: build, three paths, kernel phases
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -11,16 +11,27 @@
 3. Path B: ``config/lidar_slam/run_kitti.yaml`` (per-neighbour decoding,
    vox_down 0.08, 8 samples/ray) at the KITTI capacities (map 2^22,
    local 2^18, 2^17 rays, mapping bucket 2^16, pool 2^23), 8 frames, PGO off.
+4. Path C: ``run_kitti.yaml`` as shipped (per-neighbour decoding, global
+   scan-context loop detection) with PGO on, at path B's capacities, over
+   every frame of the square-loop scene of the JAX package's loop-closure
+   test (seed 7, side 8 m, step 0.8 m), with that test's overrides
+   (pgo_freq 4, min_loop_travel_dist_ratio 1, reg_iter_n 100, valid-ratio
+   gates 0.1 / 0.08).  It must add a loop factor, apply PGO, and keep the
+   pose-graph trajectory within the test's gates (endpoint < 0.3 m and no
+   worse than odometry + 0.5 m, position RMSE < 0.15 m).
    Each path runs with every kernel launch counter at 0 just before it and
-   read just after; every kernel must have launched in it, every frame after
-   the first must register, losses must be finite, poses must stay near the
-   scene's ground truth.
-4. Kernel phases: every kernel is run on the card on the inputs the paths
+   read just after; every kernel must have launched in it, losses must be
+   finite, poses must stay near the scene's ground truth (A and B: every
+   frame after the first must register).
+5. Kernel phases: every kernel is run on the card on the inputs the paths
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
-   (integers exact; floats part by part within the stated tolerances) and
-   timed with CUDA events (median of 25 launches); the train and eikonal
-   kernels also at k = 8 on random inputs.
+   (integers and gathers exact; floats part by part within the stated
+   tolerances; the scatter also bit-identical across two launches) and
+   timed with CUDA events (median of 25 launches) beside the one PyTorch
+   call that computes the same function where there is one; the train and
+   eikonal kernels also at k = 8 on random inputs, the row kernels also at
+   the Pallas experiment's own shape.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -58,6 +69,11 @@ TIMED = 25
 TOL_REL = 1e-4
 TOL_CERT = 1e-6
 DEC_ULPS = 64
+# the row scatter sums each destination row's n contributions in float32, in
+# order: |sum - exact| <= n * 2^-24 * (|table| + sum |values|) (the standard
+# bound for recursive summation, gamma_n ~ n u); each element is held to
+# that bound against the float64 sum.
+SCATTER_ULP = 2.0 ** -24
 
 
 def fail(msg: str) -> None:
@@ -81,17 +97,17 @@ def smi_line() -> str:
 
 
 class Capture:
-    """Wraps the three kernel wrappers.  While a path's timed frames run it
+    """Wraps the five kernel wrappers.  While a path's timed frames run it
     only tallies launches per path and shape; while ``capturing`` (one extra,
     untimed frame after them) it keeps a clone of each kernel's inputs per
     path and shape instead."""
 
     def __init__(self):
-        from pin_slam_torch.ops import rank_kernel, train_kernel
+        from pin_slam_torch.ops import rank_kernel, rows, train_kernel
 
-        self.rk, self.tk = rank_kernel, train_kernel
+        self.rk, self.tk, self.rows = rank_kernel, train_kernel, rows
         self.orig = (rank_kernel.probe_rank, train_kernel.train_iter,
-                     train_kernel.eikonal_iter)
+                     train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_add_rows)
         self.path = None
         self.capturing = False
         self.inputs = {}
@@ -101,14 +117,21 @@ class Capture:
     def _keep(self, key, args, kwargs):
         import torch
 
+        def clone(a):
+            if isinstance(a, torch.Tensor):
+                return a.clone()
+            if isinstance(a, tuple) and hasattr(a, "_fields"):       # a ScatterPlan
+                return type(a)(*(clone(x) for x in a))
+            return a
+
         if self.capturing:
-            self.inputs[key] = ([a.clone() if isinstance(a, torch.Tensor) else a
-                                 for a in args], dict(kwargs))
+            self.inputs[key] = ([clone(a) for a in args],
+                                {k: clone(v) for k, v in kwargs.items()})
         else:
             self.tally[key] = self.tally.get(key, 0) + 1
 
     def install(self):
-        probe_rank, train_iter, eikonal_iter = self.orig
+        probe_rank, train_iter, eikonal_iter, gather_rows, scatter_add_rows = self.orig
 
         def rank(*a, **kw):
             # every frame probes the shared endpoint balls first, then the
@@ -126,10 +149,22 @@ class Capture:
             self._keep((self.path, "eikonal", "main"), a, kw)
             return eikonal_iter(*a, **kw)
 
-        self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter = rank, train, eik
+        def gather(*a, **kw):
+            # the pool rows once per training call, the feature rows
+            # (F + 1 = 9 columns) once per iteration
+            self._keep((self.path, "gather", "feat" if a[0].shape[1] == 9 else "pool"), a, kw)
+            return gather_rows(*a, **kw)
+
+        def scatter(*a, **kw):
+            self._keep((self.path, "scatter", "main"), a, kw)
+            return scatter_add_rows(*a, **kw)
+
+        (self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter,
+         self.rows.gather_rows, self.rows.scatter_add_rows) = rank, train, eik, gather, scatter
 
     def uninstall(self):
-        self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter = self.orig
+        (self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter,
+         self.rows.gather_rows, self.rows.scatter_add_rows) = self.orig
 
 
 # ----------------------------------------------------------------------
@@ -137,14 +172,21 @@ class Capture:
 # ----------------------------------------------------------------------
 
 
-# the two main-path configurations (the JAX package's bench.py passes, PGO off)
+# the main-path configurations: A and B are the JAX package's bench.py
+# passes (PGO off); C is the loop-closure slice (run_kitti.yaml with PGO on)
 PATHS = {
     "A": dict(profile=None, caps=(1 << 18, 1 << 16, 1 << 21, 1 << 21), n_rays=1 << 15,
               n_frames=12, mapping_bucket=0, dedup_budget=0.625),
     "B": dict(profile="config/lidar_slam/run_kitti.yaml",
               caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 17,
               n_frames=8, mapping_bucket=1 << 16, dedup_budget=0.5),
+    "C": dict(profile="config/lidar_slam/run_kitti.yaml",
+              caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 14,
+              n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True),
 }
+# path C's overrides: those of the JAX package's square-loop test
+# (tests/test_full_slam.py), which let a loop close on an 8 m square
+SQUARE_SEED, SQUARE_PGO_FREQ = 7, 4
 
 
 def make_path(name, n_frames=None):
@@ -152,7 +194,7 @@ def make_path(name, n_frames=None):
     import torch
 
     from pin_slam_torch.config import Config
-    from pin_slam_torch.dataset.slam_dataset import Frame
+    from pin_slam_torch.dataset.slam_dataset import Frame, SLAMDataset
     from pin_slam_torch.ops.voxel import pad_to
     from pin_slam_torch.slam.pipeline import SlamSystem
     from pin_slam_torch.utils import synthetic as syn
@@ -163,7 +205,7 @@ def make_path(name, n_frames=None):
     if p["profile"]:
         cfg.load(os.path.join(ROOT, p["profile"]))
         cfg.pc_path = cfg.pose_path = cfg.calib_path = ""
-    cfg.pgo_on = False
+    cfg.pgo_on = p.get("pgo", False)
     cfg.o3d_vis_on = False
     cfg.silence = True
     cfg.min_range, cfg.max_range = 2.0, 20.0
@@ -172,39 +214,67 @@ def make_path(name, n_frames=None):
     cfg.frame_bucket = n_rays
     cfg.mapping_bucket = p["mapping_bucket"]
     cfg.probe_dedup_budget = p["dedup_budget"]
+    dataset = None
+    if cfg.pgo_on:
+        cfg.pgo_freq = SQUARE_PGO_FREQ
+        cfg.min_loop_travel_dist_ratio = 1.0
+        cfg.reg_iter_n = 100
+        cfg.kitti_correction_on = False    # the scene is synthetic, not KITTI's raw scans
     cfg._derive()
 
-    world = syn.make_world(np.random.default_rng(0))
-    rng = np.random.default_rng(0)
-    frames, gt = [], []
-    for i in range(n_frames or p["n_frames"]):
-        R, t = syn.sensor_pose(i)
-        pts = syn.lidar_scan(rng, world, t, R, n_rays,
-                             n_az=1800 if n_rays > (1 << 16) else 900,
-                             n_el=128 if n_rays > (1 << 16) else 96)
-        arr, valid = pad_to(pts, n_rays)
-        frames.append(Frame(arr, valid, pts.shape[0]))
-        gt.append(t)
+    if cfg.pgo_on:
+        scans, gt_poses = syn.make_square_scene(np.random.default_rng(SQUARE_SEED))
+        dataset = SLAMDataset(cfg, scans=scans, gt_poses=gt_poses)
+        frames = [dataset.preprocess_frame(i) for i in range(len(scans))]
+        gt = [T[:3, 3] for T in gt_poses]
+    else:
+        world = syn.make_world(np.random.default_rng(0))
+        rng = np.random.default_rng(0)
+        frames, gt = [], []
+        for i in range(n_frames or p["n_frames"]):
+            R, t = syn.sensor_pose(i)
+            pts = syn.lidar_scan(rng, world, t, R, n_rays,
+                                 n_az=1800 if n_rays > (1 << 16) else 900,
+                                 n_el=128 if n_rays > (1 << 16) else 96)
+            arr, valid = pad_to(pts, n_rays)
+            frames.append(Frame(arr, valid, pts.shape[0]))
+            gt.append(t)
 
     torch.cuda.reset_peak_memory_stats()
-    system = SlamSystem(cfg, sync_stages=True)
+    system = SlamSystem(cfg, dataset=dataset, sync_stages=True)
     # synthetic dense-clutter scenes leave a smaller gate-passing fraction
-    # than real LiDAR (the JAX package's bench makes the same adjustment)
+    # than real LiDAR (the JAX package's bench and square-loop test make the
+    # same adjustment)
     system.tc = dataclasses.replace(system.tc, min_valid_ratio=0.1)
+    system.tc_loop = dataclasses.replace(system.tc_loop, min_valid_ratio=0.08)
     return system, frames, gt
+
+
+def _stage_ms(stage):
+    keys = ("odometry", "map_update", "training", "pgo")
+    if len(stage) == 0:
+        return None
+    return {k: float(stage[:, i + 1].mean() * 1e3) for i, k in enumerate(keys)}
 
 
 def run_path(name, cap):
     import torch
 
     from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
 
-    # the last frame is not timed: it only captures the kernels' inputs
-    system, frames, gt = make_path(name, PATHS[name]["n_frames"] + 1)
-    frames, capture_frame = frames[:-1], frames[-1]
-    cfg, p = system.config, PATHS[name]
+    p = PATHS[name]
+    pgo = p.get("pgo", False)
+    if pgo:
+        # every frame of the sequence is timed; the capture frame re-runs the last scan
+        system, frames, gt = make_path(name)
+        capture_frame = frames[-1]
+    else:
+        # the last frame is not timed: it only captures the kernels' inputs
+        system, frames, gt = make_path(name, p["n_frames"] + 1)
+        frames, capture_frame = frames[:-1], frames[-1]
+    cfg = system.config
     n_rays, n_frames, mapping_bucket = p["n_rays"], len(frames), p["mapping_bucket"]
-    profile = p["profile"]
     cap.path = name
     _cuda.reset_counts()
     infos, times = [], []
@@ -216,43 +286,89 @@ def run_path(name, cap):
         times.append(time.perf_counter() - t0)
     counts = dict(_cuda.COUNTS)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    err = [float(np.linalg.norm(T[:3, 3] - t)) for T, t in zip(system.dataset.odom_poses, gt)]
+    ds = system.dataset
+    poses = np.stack(ds.pgo_poses if pgo else ds.odom_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    if pgo:
+        odom = np.stack(ds.odom_poses)
+        end_err_odom = float(np.linalg.norm(odom[-1, :3, 3] - gt[len(odom) - 1]))
+        loop_edges = [(e.i, e.j) for e in system.pgm.edges if abs(e.j - e.i) > 1]
+        after_pgo = system.after_pgo
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_ref = time.perf_counter()
+        mp.pool_refresh_cache(system.pool, system.state.attr_rows, system.mc)
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t_ref) * 1e3
+        refresh_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     cap.capturing = True
     system.process_frame(capture_frame)
     torch.cuda.synchronize()
     cap.capturing = False
     cap.path = None
 
-    stage = np.asarray(system.stage_times[1:])
+    stage = np.asarray(system.stage_times[1:n_frames])
     res = {
-        "phase": f"path_{name}", "profile": profile or "default (weighted_first)",
+        "phase": f"path_{name}", "profile": p["profile"] or "default (weighted_first)",
         "weighted_first": cfg.weighted_first, "frames": n_frames, "rays_per_frame": n_rays,
         "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
                        "pool": cfg.pool_capacity, "mapping_bucket": mapping_bucket},
         "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:])),
         "frame0_s": times[0],
-        "stage_ms_mean_after_frame0": {
-            "odometry": float(stage[:, 1].mean() * 1e3),
-            "map_update": float(stage[:, 2].mean() * 1e3),
-            "training": float(stage[:, 3].mean() * 1e3)},
+        "stage_ms_mean_after_frame0": _stage_ms(stage),
         "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
         "reg_iters": [int(x.get("reg_iters", 0)) for x in infos[1:]],
-        "max_pose_err_m": max(err), "map_points": int(system.state.count),
+        "max_pose_err_m": float(err.max()), "map_points": int(system.state.count),
         "local_points": int(system.lm.count), "pool_fill": int(system.pool.fill),
         "launches": counts,
         "max_memory_allocated_gb": peak_gb,
     }
+    if pgo:
+        closure = [i for i, x in enumerate(infos) if x.get("pgo_applied")]
+        detect = [i for i in range(1, n_frames)
+                  if i % cfg.pgo_freq == 0 and i not in closure]
+        other = [i for i in range(1, n_frames) if i % cfg.pgo_freq != 0]
+        st = np.asarray(system.stage_times[:n_frames])
+        res.update({
+            "stage_ms_mean": {"other_frames": _stage_ms(st[other]),
+                              "detection_frames": _stage_ms(st[detect]),
+                              "closure_frames": _stage_ms(st[closure])},
+            "closure_frames": closure,
+            "loop_candidates": [(i, x["loop_candidate"], x.get("loop_verified"))
+                                for i, x in enumerate(infos) if "loop_candidate" in x],
+            "loop_factors": loop_edges, "after_pgo": after_pgo,
+            "end_err_pgo_m": float(err[-1]), "end_err_odom_m": end_err_odom,
+            "rmse_pgo_m": float(np.sqrt(np.mean(err ** 2))),
+            "pool_refresh_cache_ms": refresh_ms,
+            "pool_refresh_cache_peak_gb": refresh_peak_gb,
+            "pool_refresh_cache_chunk_rows": mp.REFRESH_CHUNK,
+        })
     emit(res)
-    if not all(res["reg_valid"]):
-        fail(f"path {name}: a frame after the first did not register: {res['reg_valid']}")
-    if not all(x.get("loss_finite", False) for x in infos):
+    if not all(x.get("loss_finite", False) for x in infos if "loss_finite" in x) \
+            or not any("loss_finite" in x for x in infos):
         fail(f"path {name}: non-finite training loss")
     if res["map_points"] <= 0:
         fail(f"path {name}: empty map")
-    if res["max_pose_err_m"] > 0.5:
-        fail(f"path {name}: pose error {res['max_pose_err_m']:.3f} m vs the scene's ground truth")
-    iters = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
-    need = {"rank": n_frames, "train_iter": iters, "eikonal": iters}
+    if pgo:
+        if not loop_edges:
+            fail(f"path {name}: no loop factor was added")
+        if not after_pgo:
+            fail(f"path {name}: PGO never applied (after_pgo is False)")
+        if not (res["end_err_pgo_m"] < 0.3 and res["end_err_pgo_m"] <= end_err_odom + 0.5):
+            fail(f"path {name}: endpoint error {res['end_err_pgo_m']:.3f} m (odometry "
+                 f"{end_err_odom:.3f} m)")
+        if res["rmse_pgo_m"] >= 0.15:
+            fail(f"path {name}: position RMSE {res['rmse_pgo_m']:.3f} m vs the ground truth")
+        need = {k: 1 for k in counts}
+    else:
+        if not all(res["reg_valid"]):
+            fail(f"path {name}: a frame after the first did not register: {res['reg_valid']}")
+        if res["max_pose_err_m"] > 0.5:
+            fail(f"path {name}: pose error {res['max_pose_err_m']:.3f} m vs the scene's "
+                 f"ground truth")
+        iters = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
+        need = {"rank": n_frames, "train_iter": iters, "eikonal": iters,
+                "gather": iters + n_frames, "scatter": iters}
     for k, n in need.items():
         if counts[k] < n:
             fail(f"path {name}: kernel {k} launched {counts[k]} times, expected >= {n}")
@@ -412,6 +528,120 @@ def eik_phase(label, args, kwargs, launches):
     return row
 
 
+def gather_check(out, table, idx, label):
+    """Fails unless a gather's result equals ``table[idx]`` bit for bit."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    ref = rows.gather_rows_plain(table, idx)
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        bad = int((out != ref).any(1).sum()) if out.shape == ref.shape else -1
+        fail(f"gather kernel {label}: {bad} rows differ from table[idx]")
+
+
+def gather_phase(label, args, kwargs, launches):
+    """The row gather on a captured input: exact against ``table[idx]``;
+    timed as the kernel alone (the wrapper's range check, one host sync, is
+    done once per frame on the main path), the plain version and
+    ``torch.index_select``."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    table, idx = args[0], args[1]
+    M, C = idx.shape[0], table.shape[1]
+    out_k = rows.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    gather_check(out_k, table, idx, label)
+    ms = time_ms(lambda: rows.gather_rows(table, idx, bounds_checked=True))
+    plain = time_ms(lambda: rows.gather_rows_plain(table, idx))
+    lib = time_ms(lambda: torch.index_select(table, 0, idx))
+    b, by = bound(nbytes(idx, out_k) + M * C * 4, 0)
+    row = {"name": f"gather[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
+           "replaces": "experiments/profile_pallas_gather.py:43", "launches": launches,
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+           "library_ms": lib, "shape": {"N": table.shape[0], "C": C, "M": M},
+           "check": "bit-exact against table[idx]"}
+    emit({"phase": "kernel", **row})
+    return row
+
+
+def scatter_check(out, table, idx, val, skip_row):
+    """Holds a scatter's result against the float64 sum, element by element,
+    to the recursive-summation bound (see SCATTER_ULP).  Returns the largest
+    |error| and the largest error/bound ratio; fails past the bound."""
+    import torch
+
+    keep = idx != skip_row if skip_row is not None else torch.ones_like(idx, dtype=torch.bool)
+    i, v = idx[keep], val[keep].double()
+    exact = table.double().index_add(0, i, v)
+    mag = table.double().abs().index_add(0, i, v.abs())
+    n = torch.bincount(i, minlength=table.shape[0]).double()[:, None]
+    err = (out.double() - exact).abs()
+    lim = (n + 1.0) * SCATTER_ULP * mag
+    ratio = float((err / torch.clamp(lim, min=1e-300)).max())
+    if bool((err > lim).any()):
+        bad = int((err > lim).any(1).sum())
+        fail(f"scatter: {bad} rows beyond n * 2^-24 * sum|terms| of the float64 sum "
+             f"(max err {float(err.max()):.3e})")
+    return float(err.max()), ratio
+
+
+def scatter_phase(label, args, kwargs, launches):
+    """The row scatter on a captured input: against the float64 sum (see
+    SCATTER_ULP) and bit-identical across two launches; timed as the kernel
+    alone (plan given, as on the main path), the plain version, and
+    ``Tensor.index_add``.  The plan (sort + bincount) is timed apart."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    table, idx, val = args[:3]
+    plan, skip = kwargs.get("plan"), kwargs.get("skip_row")
+    if plan is None:
+        plan = rows.scatter_plans(idx, table.shape[0])
+    N, C, M = table.shape[0], table.shape[1], idx.shape[0]
+    out_k = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
+    out_k2 = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_k2):
+        fail(f"scatter kernel {label}: two launches differ")
+    err64, ratio = scatter_check(out_k, table, idx, val, skip)
+    out_p = rows.scatter_add_rows_plain(table, idx, val, skip)
+    ms = time_ms(lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip))
+    plain = time_ms(lambda: rows.scatter_add_rows_plain(table, idx, val, skip))
+    lib = time_ms(lambda: table.index_add(0, idx, val))
+    plan_ms = time_ms(lambda: rows.scatter_plans(idx, N))
+    b, by = bound(nbytes(table, idx, val, out_k), M * C)
+    row = {"name": f"scatter[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
+           "replaces": "experiments/profile_pallas_gather.py:66", "launches": launches,
+           "max_abs_err": float((out_k - out_p).abs().max()), "ms": ms, "plain_ms": plain,
+           "bound_ms": b, "bound_by": by, "library_ms": lib,
+           "shape": {"N": N, "C": C, "M": M, "skip_row": skip,
+                     "skip_row_terms": int((idx == skip).sum()) if skip is not None else 0},
+           "plan_ms": plan_ms, "err_vs_f64": err64, "err_over_bound": ratio,
+           "check": "bit-identical across two launches; each element within "
+                    "(n+1) * 2^-24 * (|table| + sum|terms|) of the float64 sum"}
+    emit({"phase": "kernel", **row})
+    return row
+
+
+def experiment_shape_rows():
+    """The row kernels at the Pallas experiment's own shape (table 65536 x 8,
+    98304 random rows), checked and timed like the captured inputs; not a
+    main-path shape, so these rows stay out of the kernels line."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    L, F, M = 65536, 8, 98304
+    tab = torch.randn(L, F, generator=g, device="cuda")
+    idx = torch.randint(0, L, (M,), generator=g, device="cuda")
+    val = torch.randn(M, F, generator=g, device="cuda")
+    gather_phase("experiment", (tab, idx), {}, 0)
+    scatter_phase("experiment", (tab, idx, val), {}, 0)
+
+
 def synthetic_train_args(wf, B, k, seed, device="cuda"):
     """Random inputs at the main path's widths (F=8, VD=3, H=64)."""
     import torch
@@ -468,13 +698,12 @@ def main() -> int:
     cap = Capture()
     cap.install()
     try:
-        path_a = run_path("A", cap)
-        path_b = run_path("B", cap)
+        results = {name: run_path(name, cap) for name in PATHS}
     finally:
         cap.uninstall()
 
     rows = []
-    for path, res in (("A", path_a), ("B", path_b)):
+    for path, res in results.items():
         for kind in ("far", "near"):
             key = (path, "rank", kind)
             if key not in cap.inputs:
@@ -484,14 +713,23 @@ def main() -> int:
         rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
         a, kw = cap.inputs[(path, "eikonal", "main")]
         rows.append(eik_phase(f"path{path}", a, kw, res["launches"]["eikonal"]))
-        if sum(cap.tally[(path, "rank", x)] for x in ("far", "near")) != res["launches"]["rank"]:
-            fail(f"path {path}: rank launch tallies disagree with the counter")
+        for kind in ("pool", "feat"):
+            a, kw = cap.inputs[(path, "gather", kind)]
+            rows.append(gather_phase(f"path{path}-{kind}", a, kw,
+                                     cap.tally.get((path, "gather", kind), 0)))
+        a, kw = cap.inputs[(path, "scatter", "main")]
+        rows.append(scatter_phase(f"path{path}", a, kw, res["launches"]["scatter"]))
+        for kernel, kinds in (("rank", ("far", "near")), ("gather", ("pool", "feat")),
+                              ("scatter", ("main",))):
+            if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
+                fail(f"path {path}: {kernel} launch tallies disagree with the counter")
     # k = 8 (which the JAX kernels cannot run): checked and timed on random
     # inputs at the main path's widths; not a main-path shape, so these rows
     # stay out of the kernels line
     for wf in (True, False):
         train_phase(f"k8-wf{int(wf)}", synthetic_train_args(wf, 16384, 8, 1), {}, 0)
         eik_phase(f"k8-wf{int(wf)}", synthetic_eik_args(wf, 1638, 8, 2), {}, 0)
+    experiment_shape_rows()
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -1,7 +1,8 @@
 """Frame pipeline + host pose books, torch-port counterpart of
 ``pin_slam_tpu/dataset/slam_dataset.py``: KITTI frame discovery and
 preprocessing (range crop, bucket cap), the constant-velocity initial
-guess, odometry poses, travel distance, stop and lose-track detection."""
+guess, odometry and pose-graph poses, travel distance, stop and lose-track
+detection."""
 
 from __future__ import annotations
 
@@ -28,21 +29,31 @@ class Frame:
 
 
 class SLAMDataset:
-    def __init__(self, config):
+    """Frames from ``config.pc_path`` (KITTI ``.bin`` / ``.npy``) and ground
+    truth from ``config.pose_path``, or, when ``scans`` is given, frames held
+    in memory ((N, >=3) float arrays, sensor frame) with optional ground-truth
+    poses ``gt_poses`` (n, 4, 4)."""
+
+    def __init__(self, config, scans: Optional[List[np.ndarray]] = None,
+                 gt_poses: Optional[np.ndarray] = None):
         self.config = config
         if config.deskew:
             raise not_ported("deskew with per-point timestamps")
+        self.scans = scans
         self.pc_filenames: List[str] = []
-        if config.pc_path and os.path.isdir(config.pc_path):
+        if scans is None and config.pc_path and os.path.isdir(config.pc_path):
             self.pc_filenames = [
                 os.path.join(config.pc_path, f)
                 for f in pio.natural_sort(os.listdir(config.pc_path))
                 if os.path.splitext(f)[1].lower() in PC_EXTS]
-        self.total_pc_count = len(self.pc_filenames)
+        self.total_pc_count = len(self.pc_filenames) if scans is None else len(scans)
 
         self.gt_poses: Optional[np.ndarray] = None
         self.gt_pose_provided = False
-        if config.pose_path and os.path.exists(config.pose_path):
+        if gt_poses is not None:
+            self.gt_poses = np.asarray(gt_poses, np.float64)
+            self.gt_pose_provided = True
+        elif config.pose_path and os.path.exists(config.pose_path):
             if config.calib_path and os.path.exists(config.calib_path):
                 raise not_ported("KITTI calibration of GT poses")
             poses = pio.read_kitti_poses(config.pose_path)
@@ -52,6 +63,7 @@ class SLAMDataset:
             self.gt_pose_provided = True
 
         self.odom_poses: List[np.ndarray] = []
+        self.pgo_poses: List[np.ndarray] = []     # odometry, corrected by each PGO
         self.travel_dist: List[float] = [0.0]
         self.last_pose = np.eye(4)
         self.last_odom_tran = np.eye(4)
@@ -70,7 +82,10 @@ class SLAMDataset:
         cfg = self.config
         if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
             raise not_ported("KITTI intrinsic correction")
-        points, _, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
+        if self.scans is not None:
+            points = np.asarray(self.scans[frame_id])[:, :3].astype(np.float32)
+        else:
+            points, _, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
         d = np.linalg.norm(points, axis=1)
         keep = ((d > cfg.min_range) & (d < cfg.max_range)
                 & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
@@ -120,14 +135,23 @@ class SLAMDataset:
         if not self.lose_track:
             self.last_odom_tran = cur_odom_tran
         self.odom_poses.append(cur_pose.copy())
+        self.pgo_poses.append(cur_pose.copy())
         self.last_pose = cur_pose.copy()
         self.processed_frame += 1
         if self.consecutive_lose_track_frame > 20:
             raise RuntimeError("tracking lost for 20+ consecutive frames")
 
+    def update_poses_after_pgo(self, pgo_poses: np.ndarray) -> None:
+        """Replace the pose-graph poses by an optimisation's result."""
+        self.pgo_poses = [pgo_poses[i].copy() for i in range(len(pgo_poses))]
+        self.last_pose = self.pgo_poses[-1].copy()
+
     def write_results(self, run_path: str) -> None:
+        """The trajectory (pose-graph poses when PGO is on, else odometry) in
+        KITTI format, and the stage time table."""
         os.makedirs(run_path, exist_ok=True)
+        poses = self.pgo_poses if self.config.pgo_on else self.odom_poses
         pio.write_kitti_poses(os.path.join(run_path, "odom_poses_kitti.txt"),
-                              np.asarray(self.odom_poses))
+                              np.asarray(poses))
         if self.time_table:
             np.save(os.path.join(run_path, "time_table.npy"), np.asarray(self.time_table))

@@ -1,7 +1,9 @@
 """Neural point map, torch counterpart of ``pin_slam_tpu/models/neural_points.py``
-(main-path subset): a fixed-capacity structure-of-arrays point buffer whose
-last row is a sentinel, a global voxel hash, the per-frame local map with its
-packed local hash, kNN probes and IDW feature interpolation.
+(main-path and loop-closure subset): a fixed-capacity structure-of-arrays
+point buffer whose last row is a sentinel, a global voxel hash, the
+per-frame local map with its packed local hash, kNN probes, IDW feature
+interpolation, and the elastic deformation and rehash after a pose-graph
+optimisation.
 
 The row layouts are the JAX package's, so the two can be compared row for
 row.  Where the JAX package returns new arrays (XLA donation), the port
@@ -21,7 +23,9 @@ import torch
 
 from pin_slam_torch.ops.hash3d import grid_coords, spatial_hash
 from pin_slam_torch.ops.scatter import nonzero_static, scatter_set_last
-from pin_slam_torch.ops.voxel import sqnorm3, voxel_down_sample_mask
+from pin_slam_torch.ops.transforms import apply_quaternion_rotation, quat_multiply, rotmat_to_quat
+from pin_slam_torch.ops.voxel import (sqnorm3, voxel_down_sample_mask,
+                                      voxel_down_sample_min_value_mask)
 
 _SENTINEL_POS = 1e8
 _INVALID_DIST2 = 9e3
@@ -325,9 +329,12 @@ def map_insert(state: MapState, mc: MapConfig, points: torch.Tensor,
 
 
 def build_local_map(state: MapState, mc: MapConfig, origin: torch.Tensor,
-                    cur_ts: int, travel_dist: torch.Tensor) -> LocalMap:
+                    cur_ts: int, travel_dist: torch.Tensor,
+                    travel_window: Optional[float] = None) -> LocalMap:
     """Points within radius AND the travel-distance window, constrained to
-    two contiguous index spans (so the write-back is two dense merges)."""
+    two contiguous index spans (so the write-back is two dense merges).
+    ``travel_window`` overrides ``mc.travel_dist_window`` (loop verification
+    rebuilds the map roughly as it was at the loop frame)."""
     dev = state.attr_rows.device
     cap, L = mc.capacity, mc.local_capacity
     dist2 = sqnorm3(state.attr_rows[:cap, C_POS] - origin)
@@ -339,10 +346,10 @@ def build_local_map(state: MapState, mc: MapConfig, origin: torch.Tensor,
     else:
         travel_used = state.attr_rows[:cap, C_TRC]
     delta_travel = torch.abs(travel_now - travel_used)
+    window = mc.travel_dist_window if travel_window is None else float(travel_window)
     rows = torch.arange(cap, dtype=torch.int64, device=dev)
     active = rows < state.count
-    mask = (active & (dist2 < mc.local_map_radius ** 2)
-            & (delta_travel < mc.travel_dist_window))
+    mask = active & (dist2 < mc.local_map_radius ** 2) & (delta_travel < window)
 
     S = mc.assign_span
     ar = torch.arange(S, dtype=torch.int64, device=dev)
@@ -482,16 +489,20 @@ def idw_weights(dist2: torch.Tensor, valid: torch.Tensor, eps: float):
 
 
 def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
-                         knn_lidx: torch.Tensor):
+                         knn_lidx: torch.Tensor, after_pgo: bool = False):
     """IDW interpolation at the selected neighbors (differentiable in
-    ``points`` and ``lm.geo_features``).  Returns (geo_feat [B,F+3] or
-    per-neighbor [B,k,F+3], weights [B,k], certainty [B])."""
+    ``points`` and ``lm.geo_features``).  After a pose-graph optimisation
+    (``after_pgo``) each offset vector is rotated into its neighbour's frame
+    by the neighbour's quaternion.  Returns (geo_feat [B,F+3] or per-neighbor
+    [B,k,F+3], weights [B,k], certainty [B])."""
     L = mc.local_capacity
     valid = knn_lidx < L
     safe_idx = torch.where(valid, knn_lidx, torch.full_like(knn_lidx, L))
     pose = lm.attr_rows[safe_idx]
     vec = points[:, None, :] - pose[..., C_POS]
     dist2 = torch.where(valid, sqnorm3(vec), torch.full_like(vec[..., 0], _INVALID_DIST2))
+    if after_pgo:
+        vec = apply_quaternion_rotation(pose[..., C_QUAT], vec)
     vec = torch.where(valid[..., None], vec, torch.zeros_like(vec))
     feats = lm.geo_features[safe_idx]
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
@@ -510,6 +521,59 @@ def query_certainty(lm: LocalMap, mc: MapConfig, points: torch.Tensor) -> torch.
     valid = (lidx < L) & (sqnorm3(rows[:, :3] - points) <= mc.max_valid_dist2)
     cert = lm.attr_rows[torch.where(valid, lidx, torch.full_like(lidx, L)), C_CERT]
     return torch.where(valid, cert, torch.zeros_like(cert))
+
+
+# ----------------------------------------------------------------------
+# map maintenance after a pose-graph optimisation
+# ----------------------------------------------------------------------
+
+
+def _ts_used(state: MapState, mc: MapConfig) -> torch.Tensor:
+    tsc = state.attr_rows[:, C_TSC].to(torch.int64)
+    if mc.use_mid_ts:
+        return torch.div(tsc + state.attr_rows[:, C_TSU].to(torch.int64), 2,
+                         rounding_mode="floor")
+    return tsc
+
+
+def adjust_map(state: MapState, mc: MapConfig, pose_diff: torch.Tensor) -> MapState:
+    """Elastic map deformation: move every neural point by the pose
+    correction of its (mid-)timestamp and compose its quaternion.
+    pose_diff (T,4,4) float32 per-frame old -> new correction.  Updates
+    ``state.attr_rows`` in place and returns ``state``."""
+    ts = _ts_used(state, mc)
+    Rf, tf = pose_diff[:, :3, :3], pose_diff[:, :3, 3]
+    # one quaternion per frame, then per point: the same rows as converting
+    # every point's own gathered matrix
+    dq = rotmat_to_quat(Rf)[ts]
+    R, t = Rf[ts], tf[ts]
+    pos = state.attr_rows[:, C_POS]
+    positions = torch.einsum("nij,nj->ni", R, pos) + t
+    orientations = quat_multiply(dq, state.attr_rows[:, C_QUAT])
+    state.attr_rows[:, C_POS] = positions
+    state.attr_rows[:, C_QUAT] = orientations
+    state.attr_rows[mc.capacity] = attr_sentinel_row(state.attr_rows.device)
+    return state
+
+
+def recreate_hash(state: MapState, mc: MapConfig, cur_ts: int,
+                  downsample_table_size: int = 1 << 21) -> MapState:
+    """Rebuild the voxel hash from the current point positions, keeping per
+    voxel the point whose timestamp is closest to ``cur_ts``."""
+    dev = state.attr_rows.device
+    cap = mc.capacity
+    idx = torch.arange(cap + 1, dtype=torch.int64, device=dev)
+    active = idx < state.count
+    ts_diff = torch.abs(_ts_used(state, mc) - int(cur_ts)).to(torch.float32)
+    pos = state.attr_rows[:, C_POS]
+    keep = voxel_down_sample_min_value_mask(pos, active, mc.voxel_size, ts_diff,
+                                            downsample_table_size)
+    h = spatial_hash(grid_coords(pos, mc.voxel_size), mc.hash_size)
+    slot = torch.where(keep, h, torch.full_like(h, mc.hash_size))
+    table = torch.full((mc.hash_size + 1,), cap, dtype=torch.int64, device=dev)
+    state.hash_table = scatter_set_last(table, slot,
+                                        torch.where(keep, idx, torch.full_like(idx, cap)))
+    return state
 
 
 # ----------------------------------------------------------------------

@@ -30,10 +30,12 @@ BUILD = os.path.join(ROOT, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-COUNTS: Dict[str, int] = {"rank": 0, "train_iter": 0, "eikonal": 0}
+COUNTS: Dict[str, int] = {"rank": 0, "train_iter": 0, "eikonal": 0, "gather": 0,
+                          "scatter": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
+I64 = ctypes.c_int64
 F = ctypes.c_float
 
 

@@ -60,6 +60,22 @@ def voxel_down_sample_mask(points: torch.Tensor, valid: torch.Tensor,
     return _scatter_argmin_mask(key, score_q, valid, table_size)
 
 
+def voxel_down_sample_min_value_mask(points: torch.Tensor, valid: torch.Tensor,
+                                     voxel_size: float, values: torch.Tensor,
+                                     table_size: int) -> torch.Tensor:
+    """Keep the point with the minimum ``values`` per voxel (lowest index on
+    ties); the score is ``values`` quantised over its valid range."""
+    grid = grid_coords(points, voxel_size)
+    key = spatial_hash(grid, table_size)
+    vmax = torch.max(torch.where(valid, values, torch.full_like(values, -float("inf"))))
+    vmin = torch.min(torch.where(valid, values, torch.full_like(values, float("inf"))))
+    span = torch.clamp(vmax - vmin, min=1e-12)
+    vb = _val_bits(points.shape[0])
+    score_q = torch.clamp(((values - vmin) / span * ((1 << vb) - 1)).to(torch.int32),
+                          0, (1 << vb) - 1)
+    return _scatter_argmin_mask(key, score_q, valid, table_size)
+
+
 def pad_to(points: np.ndarray, n: int, fill=0.0):
     """Host-side helper: pad/truncate [M,...] array to [n,...], return (arr, valid)."""
     m = points.shape[0]

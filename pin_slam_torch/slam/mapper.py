@@ -1,7 +1,8 @@
 """Incremental mapping, torch counterpart of ``pin_slam_tpu/slam/mapper.py``
-(main-path subset): the replay pool, the append-time kNN with its cached
-geometry, and the cached training loop on the kernel path
-(gather -> train/eikonal kernels -> ``index_add_`` scatter -> Adam).
+(main-path and loop-closure subset): the replay pool, the append-time kNN
+with its cached geometry, its re-derivation after a pose-graph optimisation,
+and the cached training loop on the kernel path (row gather -> train/eikonal
+kernels -> deterministic row scatter -> Adam).
 
 Pool rows keep the JAX package's packed layout (see ``P_*``): sample
 coordinates, label, weight, frame id, sensor-frame coordinates, the k = 6
@@ -19,9 +20,10 @@ import numpy as np
 import torch
 
 from pin_slam_torch.models import neural_points as npts
-from pin_slam_torch.ops import rank_kernel, train_kernel
+from pin_slam_torch.ops import rank_kernel, rows as rowk, train_kernel
 from pin_slam_torch.ops.hash3d import grid_coords
 from pin_slam_torch.ops.scatter import nonzero_static
+from pin_slam_torch.ops.transforms import apply_quaternion_rotation
 from pin_slam_torch.ops.voxel import sqnorm3
 from pin_slam_torch.utils.platform import not_ported
 
@@ -117,11 +119,15 @@ def pool_from_numpy(src, device=None) -> PoolState:
 
 
 def idw_blend(points: torch.Tensor, nbr_pos: torch.Tensor, valid: torch.Tensor,
-              return_per_neighbor: bool = False):
+              quat: Optional[torch.Tensor] = None, return_per_neighbor: bool = False):
     """Normalized IDW weights + weight-blended offset vector at fixed
-    neighbour positions.  points (...,3), nbr_pos (...,k,3), valid (...,k)."""
+    neighbour positions.  points (...,3), nbr_pos (...,k,3), valid (...,k),
+    quat (...,k,4) or None: each offset vector rotated into its neighbour's
+    frame (identity until a pose-graph optimisation deforms the map)."""
     vec = points[..., None, :] - nbr_pos
     dist2 = torch.where(valid, sqnorm3(vec), torch.full_like(vec[..., 0], npts._INVALID_DIST2))
+    if quat is not None:
+        vec = apply_quaternion_rotation(quat, vec)
     vec = torch.where(valid[..., None], vec, torch.zeros_like(vec))
     _, _, w = npts.idw_weights(dist2, valid, 1e-15)
     vec_blend = torch.einsum("...k,...kp->...p", w, vec)
@@ -211,11 +217,13 @@ def dedup_group_probe(lm, mc, offsets, probe_pts: torch.Tensor, queries: torch.T
 def append_knn(lm: npts.LocalMap, mc: npts.MapConfig, offsets, coords: torch.Tensor,
                ray_sample_count: int, near_count: int, far_offsets=None,
                per_neighbor_vecs: bool = False,
-               dedup_far_budget: int = 0):
+               dedup_far_budget: int = 0, quats: Optional[torch.Tensor] = None):
     """kNN + cached geometry of one frame's samples at append time: the
     first ``near_count`` samples of a ray rank within the ENDPOINT's probed
     ball, the free-space samples probe individually (optionally deduplicated
-    by voxel).  coords (n_rays * S, 3) ray-major.
+    by voxel).  coords (n_rays * S, 3) ray-major.  ``quats``: the global
+    (cap+1, 4) quaternion column after a pose-graph optimisation (offset
+    vectors rotated into each neighbour's frame), else None.
 
     Returns (gidx (M,k) int32 global ids, w (M,k), vec_blend (M,3),
     per-neighbour vectors (M,k,3) or None, dropped (M,))."""
@@ -251,7 +259,12 @@ def append_knn(lm: npts.LocalMap, mc: npts.MapConfig, offsets, coords: torch.Ten
     else:
         gidx, pos, valid = g_near.reshape(-1, k), p_near.reshape(-1, k, 3), v_near.reshape(-1, k)
         dropped = d_near[:, None].expand(n_rays, near_count).reshape(-1)
-    w, vec_blend, enc = idw_blend(coords, pos, valid, return_per_neighbor=True)
+    quat = None
+    if quats is not None:
+        g64 = gidx.to(torch.int64)
+        cap = mc.capacity
+        quat = quats[torch.where(g64 >= 0, torch.clamp(g64, max=cap), torch.full_like(g64, cap))]
+    w, vec_blend, enc = idw_blend(coords, pos, valid, quat, return_per_neighbor=True)
     return gidx, w, vec_blend, (enc if per_neighbor_vecs else None), dropped
 
 
@@ -319,6 +332,45 @@ def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> Po
     rows[P, P_KNN] = -1.0
     return PoolState(rows=rows, head=count % P, fill=count, new_idx=pool.new_idx,
                      new_count=torch.zeros_like(pool.new_count))
+
+
+def pool_retransform(pool: PoolState, poses: torch.Tensor) -> PoolState:
+    """Re-derive the world coordinates of every pool row from the per-frame
+    poses (T,4,4) after a pose-graph optimisation (in place)."""
+    T = poses[torch.clamp(pool.rows[:, P_TS].to(torch.int64), min=0)]
+    coord = torch.einsum("nij,nj->ni", T[:, :3, :3], pool.rows[:, P_LOCAL]) + T[:, :3, 3]
+    pool.rows[:, P_COORD] = coord
+    return pool
+
+
+REFRESH_CHUNK = 1 << 20
+
+
+def pool_refresh_cache(pool: PoolState, state_attr_rows: torch.Tensor,
+                       mc: npts.MapConfig) -> PoolState:
+    """Recompute every pool row's cached kNN geometry (IDW weights, blended
+    and per-neighbour offset vectors) from the current global positions and
+    quaternions, keeping the cached neighbour sets (in place).  Rows are
+    independent; they are processed ``REFRESH_CHUNK`` at a time so that the
+    gathered neighbour rows ((P+1) x 6 x 16 floats, 3.2 GB at P = 2^23) are
+    never held at once."""
+    cap = mc.capacity
+    n = pool.rows.shape[0]
+    for a in range(0, n, REFRESH_CHUNK):
+        rows_c = pool.rows[a:a + REFRESH_CHUNK]
+        gidx = rows_c[:, P_KNN].to(torch.int64)
+        safe = torch.where(gidx >= 0, torch.clamp(gidx, max=cap), torch.full_like(gidx, cap))
+        nbr = state_attr_rows[safe]                                   # (c, k, 16)
+        nbr_pos, quat = nbr[..., 0:3], nbr[..., 3:7]
+        coord = rows_c[:, P_COORD]
+        valid = (gidx >= 0) & (sqnorm3(nbr_pos - coord[:, None, :]) <= mc.max_valid_dist2)
+        w, vec_blend, enc = idw_blend(coord, nbr_pos, valid, quat, return_per_neighbor=True)
+        rows_c[:, P_W] = w
+        vd = vec_blend.shape[-1]
+        rows_c[:, P_VEC0:P_VEC0 + vd] = vec_blend
+        if rows_c.shape[1] > P_VEC0 + vd:
+            rows_c[:, P_VEC0 + vd:] = enc.reshape(enc.shape[0], -1)
+    return pool
 
 
 # ----------------------------------------------------------------------
@@ -392,14 +444,23 @@ def kernel_path_supported(mcfg: MapperConfig, cfg) -> bool:
 def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
                         gvec: torch.Tensor, opt: AdamState, pool: PoolState,
                         mcfg: MapperConfig, batch_idx: torch.Tensor,
-                        decoder_lr_scale: float):
+                        decoder_lr_scale: float, after_pgo: bool = False):
     """The per-frame training loop with pool-cached kNN (the kernel path).
 
     ``feats`` is the (L+1, F+1) local feature table whose column F is the
     certainty channel (kept at 0; the scatter of the kernels' dfeats delivers
     the per-point IDW weight sums there, harvested each iteration and kept
     out of Adam).  ``gvec`` is the packed decoder.  ``batch_idx`` (T, bs)
-    pool rows per iteration (``sample_batch_indices``).
+    pool rows per iteration (``sample_batch_indices``).  ``after_pgo``: the
+    eikonal stencil's offset vectors are rotated by the neighbours'
+    quaternions (the cached pool geometry already is).
+
+    The pool rows and each iteration's feature rows come from the row-gather
+    kernel; the feature gradients go back through the deterministic row
+    scatter, whose destination-sorted plans are built once for all T
+    iterations.  Every invalid neighbour points at the sentinel row L: the
+    scatter skips it (its gradient and certainty are never read: feats[L] is
+    zeroed after every Adam step and attr[L] reset at the end).
 
     Returns (lm with updated certainty / ts bookkeeping, feats, gvec, opt,
     loss history (T,))."""
@@ -413,7 +474,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     wf = mcfg.weighted_first
 
     flat_idx = batch_idx.reshape(-1)
-    rows = pool.rows[flat_idx]
+    rows = rowk.gather_rows(pool.rows, flat_idx)
     labels = rows[:, P_LABEL].reshape(T, B).contiguous()
     weights = torch.abs(rows[:, P_WEIGHT]).reshape(T, B)
     ts_flat = rows[:, P_TS]
@@ -445,10 +506,12 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
         stencil = torch.cat([coord_r[:, None] + eps_mat[None, :, None, :],
                              coord_r[:, None] - eps_mat[None, :, None, :]], 1)  # (T,6,n,3)
         valid_b = valid_k.reshape(T, B, k)[:, :n_grad]
-        nbr_b = lm.attr_rows[safe_g[:, :n_grad]][..., :3]                       # (T,n,k,3)
+        pose_b = lm.attr_rows[safe_g[:, :n_grad]]                               # (T,n,k,16)
+        quat_b = (pose_b[..., 3:7][:, None].expand(T, 6, n_grad, k, 4) if after_pgo
+                  else None)
         w_st, vecb_st, enc_st = idw_blend(
-            stencil, nbr_b[:, None].expand(T, 6, n_grad, k, 3),
-            valid_b[:, None].expand(T, 6, n_grad, k), return_per_neighbor=True)
+            stencil, pose_b[..., :3][:, None].expand(T, 6, n_grad, k, 3),
+            valid_b[:, None].expand(T, 6, n_grad, k), quat_b, return_per_neighbor=True)
         wst2 = w_st.reshape(T, 6 * n_grad, k).contiguous()
         vst = (vecb_st.reshape(T, 6 * n_grad, VD) if wf
                else enc_st.reshape(T, 6 * n_grad, k * VD)).contiguous()
@@ -456,24 +519,31 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
         denom_e = torch.clamp(torch.sum(inp_e, dim=1), min=1.0)
         esc = mcfg.weight_e * inp_e / denom_e[:, None]
 
+    # every iteration's scatter destinations: the B*k train rows, then the
+    # n_grad*k eikonal base rows; range-checked once, sorted once
+    idx_it = safe_g.reshape(T, B * k)
+    if eik:
+        idx_it = torch.cat([idx_it, safe_g[:, :n_grad].reshape(T, n_grad * k)], 1)
+    plans = rowk.scatter_plans(idx_it, L + 1)
+
     cert_acc = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
     losses = []
     for t in range(T):
-        sg = safe_g[t]
-        feats2 = feats[sg]                                             # (B,k,F+1)
+        feats2 = rowk.gather_rows(feats, idx_it[t, :B * k],
+                                  bounds_checked=True).view(B, k, F + 1)
         loss, dfe, gp = train_kernel.train_iter(
             feats2, w[t], vin[t], labels[t], wt_eff[t], gvec, wf,
             mcfg.sdf_scale, mcfg.sigma_sigmoid)
-        idx_cat, val_cat = sg.reshape(-1), dfe.reshape(-1, F + 1)
+        val_cat = dfe.reshape(-1, F + 1)
         if eik:
             el, dfe_e, gpe = train_kernel.eikonal_iter(
                 feats2[:n_grad], wst2[t], vst[t], esc[t], gvec, wf,
                 mcfg.sdf_scale, mcfg.num_grad_step)
             loss = loss + el
             gp = gp + gpe
-            idx_cat = torch.cat([idx_cat, sg[:n_grad].reshape(-1)])
             val_cat = torch.cat([val_cat, dfe_e.reshape(-1, F + 1)])
-        gfeat = torch.zeros_like(feats).index_add_(0, idx_cat, val_cat)
+        gfeat = rowk.scatter_add_rows(torch.zeros_like(feats), idx_it[t], val_cat,
+                                      plan=rowk.plan_at(plans, t), skip_row=L)
         cert_acc = cert_acc + gfeat[:, F]
         gfeat[:, F] = 0.0
         (feats, gvec), opt = adam_step(mcfg, [feats, gvec], [gfeat, decoder_lr_scale * gp], opt)

@@ -1,5 +1,6 @@
 """The per-frame SLAM loop, torch counterpart of
-``pin_slam_tpu/slam/pipeline.py`` (the fast path with PGO off).
+``pin_slam_tpu/slam/pipeline.py``: odometry, mapping, and with ``pgo_on``
+loop closure, pose-graph optimisation and elastic map deformation.
 
 Per frame: odometry (source voxel-downsample + ``track_frame``), then the map
 update (voxel mask -> ``sample_rays`` -> ``map_insert`` ->
@@ -8,6 +9,17 @@ then ``cfg.iters`` Adam iterations of ``mapping_loop_cached`` and the
 write-back ``assign_local_to_global``.  Stop frames run a reduced training on
 the existing pool (``stop_train``); frame 0 runs ``init_iter_ratio - 1``
 extra training chunks (``extra_train``).
+
+With ``pgo_on`` every frame adds a node and an odometry factor to the pose
+graph and a scan-context descriptor of the PRE-update local map to the loop
+detector.  Every ``pgo_freq`` frames (detection frames) the pose books are
+settled before the map update: local (pose-distance) then global
+(scan-context) loop detection, verification by registering the frame's
+source cloud against the map rebuilt around the loop frame, and on success
+pose-graph optimisation, map deformation (``adjust_map``, ``recreate_hash``)
+and the pool's re-derivation (``pool_retransform``, ``pool_refresh_cache``).
+From then on (``after_pgo``) every offset vector is rotated into its
+neighbour's frame.
 
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
@@ -33,8 +45,11 @@ from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder
 from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
 from pin_slam_torch.ops.scatter import nonzero_static
+from pin_slam_torch.ops.transforms import np_se3_inverse
 from pin_slam_torch.ops.voxel import voxel_down_sample_mask
+from pin_slam_torch.slam import loop_detector as ld
 from pin_slam_torch.slam import mapper as mp
+from pin_slam_torch.slam import pgo as pgo_mod
 from pin_slam_torch.slam import tracker as trk
 from pin_slam_torch.utils.platform import not_ported, resolve_device
 
@@ -44,7 +59,7 @@ TS_CAPACITY = 1 << 16
 def check_ported(cfg) -> None:
     """Raise for every option this slice of the port does not cover."""
     unported = [
-        ("pgo_on", cfg.pgo_on), ("ba_freq_frame > 0", cfg.ba_freq_frame > 0),
+        ("ba_freq_frame > 0", cfg.ba_freq_frame > 0),
         ("dp_devices > 1", cfg.dp_devices > 1), ("map_shards > 1", cfg.map_shards > 1),
         ("semantic_on", cfg.semantic_on), ("color_on", cfg.color_on or cfg.color_map_on),
         ("estimate_normal", cfg.estimate_normal),
@@ -146,6 +161,18 @@ class SlamSystem:
         self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
         self._stop_count = 0
 
+        # back end: loop closure + pose graph
+        self.after_pgo = False
+        self.pgm = pgo_mod.PoseGraphManager(cfg) if cfg.pgo_on else None
+        self.loop_mgr = (ld.NeuralPointMapContextManager(ld.LoopConfig.from_config(cfg))
+                         if cfg.pgo_on and cfg.global_loop_on else None)
+        self.gt_loop_mgr = (ld.GTLoopManager(cfg.max_loop_dist)
+                            if cfg.pgo_on and cfg.use_gt_loop else None)
+        self.tc_loop = trk.TrackerConfig.from_config(cfg, loop_reg=True)
+        self.loop_reg_failed_count = 0
+        self.last_source = None        # the frame's source cloud, for loop verification
+        self.last_reg_cov = None
+
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.sync_stages and self.device.type == "cuda":
@@ -196,7 +223,8 @@ class SlamSystem:
         gidx, w, vec, nvec, dropped = mp.append_knn(
             lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
             far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
-            dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0)
+            dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0,
+            quats=self.state.attr_rows[:, npts.C_QUAT] if self.after_pgo else None)
         self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
                                    batch.sdf_label, batch.weight, batch.valid & ~dropped,
                                    frame_id, new_mask, gidx, w, vec, nvec)
@@ -207,7 +235,8 @@ class SlamSystem:
         opt, loss history) with lm_out's features set to the trained ones."""
         idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
         lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
-            lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale)
+            lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
+            self.after_pgo)
         lm2.geo_features = feats[:, :self.mc.feature_dim]
         return lm2, feats, gvec, opt, hist
 
@@ -228,7 +257,13 @@ class SlamSystem:
             points = torch.as_tensor(frame.points, dtype=torch.float32, device=dev)
             valid = torch.as_tensor(frame.valid, device=dev)
             tracked = cfg.track_on and self.frame_id > 0
-            conservative = not tracked or (self.frame_id > 0 and self.dataset.stop_status)
+            # detection frames settle the pose books (and a loop closure may
+            # replace the pose) before the map update
+            detect_due = (self.pgm is not None and self.frame_id > 0
+                          and self.frame_id % max(cfg.pgo_freq, 1) == 0)
+            conservative = (not tracked or detect_due
+                            or (self.frame_id > 0 and self.dataset.stop_status))
+            pgo_pre = pgo_post = 0.0
 
             t1 = time.perf_counter()
             booked = None
@@ -238,8 +273,10 @@ class SlamSystem:
                 R_init = torch.as_tensor(init_pose[:3, :3], dtype=torch.float32)
                 t_init = torch.as_tensor(init_pose[:3, 3] - origin64, dtype=torch.float32)
                 src, src_valid = self._source_prep(points, valid)
+                self.last_source = (src, src_valid)
                 res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
-                                      self.append_tmpl, src, src_valid, R_init, t_init)
+                                      self.append_tmpl, src, src_valid, R_init, t_init,
+                                      after_pgo=self.after_pgo)
                 # pose selection in float32, as the JAX package does on device
                 origin = self.lm.origin.cpu()
                 t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
@@ -260,6 +297,7 @@ class SlamSystem:
                     else:
                         self.cur_pose = init_pose
                     self.dataset.update_odom_pose(self.cur_pose, res.valid)
+                    self.last_reg_cov = res.cov.double().numpy()
                     info["reg_valid"] = res.valid
                     info["reg_residual_cm"] = res.sdf_residual_cm
                     info["reg_iters"] = res.iterations
@@ -268,15 +306,30 @@ class SlamSystem:
                 if not cfg.track_on and self.dataset.gt_pose_provided:
                     self.cur_pose = self.dataset.gt_poses[self.frame_id].copy()
                 self.dataset.update_odom_pose(self.cur_pose, True)
+                self.last_reg_cov = None
                 ok = True
+
+            if self.loop_mgr is not None and tracked and not conservative:
+                # descriptor of the PRE-update local map at the selected pose
+                tp = time.perf_counter()
+                feats = self.lm.geo_features if cfg.loop_with_feature else None
+                self.loop_mgr.add_node_device(self.frame_id, self.lm.positions, self.lm.count,
+                                              R_sel, t_w, feats)
+                self._sync()
+                pgo_pre += time.perf_counter() - tp
 
             if conservative:
                 if booked is not None:
                     booked()
                     booked = None
+                if self.pgm is not None and not self.dataset.lose_track:
+                    tp = time.perf_counter()
+                    self._loop_closure_stage(info)
+                    self._sync()
+                    pgo_pre += time.perf_counter() - tp
                 if self.dataset.lose_track:
                     t2 = time.perf_counter()
-                    self.stage_times.append([t1 - t0, t2 - t1, 0.0, 0.0, 0.0])
+                    self.stage_times.append([t1 - t0, t2 - t1 - pgo_pre, 0.0, 0.0, pgo_pre])
                     self.dataset.time_table.append(self.stage_times[-1])
                     self.frame_id += 1
                     info["skipped"] = True
@@ -324,6 +377,14 @@ class SlamSystem:
 
             if booked is not None:
                 booked()
+                if self.pgm is not None:
+                    tp = time.perf_counter()
+                    if self.dataset.lose_track:
+                        if self.loop_mgr is not None:
+                            self.loop_mgr.drop_pending(fid)
+                    else:
+                        self._pgo_bookkeeping(fid)
+                    pgo_post += time.perf_counter() - tp
             self.lm_origin64 = self.cur_pose[:3, 3].copy()
             if (fid + 1) % cfg.pool_filter_freq == 0:
                 self.pool = mp.pool_filter(self.pool, self.mcfg, t_d)
@@ -341,13 +402,140 @@ class SlamSystem:
             self._sync()
             t3 = time.perf_counter()
 
-        self.stage_times.append([t1 - t0, t2 - t1, t_map - t2, t3 - t_map, 0.0])
+        self.stage_times.append([t1 - t0, t2 - t1 - pgo_pre, t_map - t2,
+                                 t3 - t_map - pgo_post, pgo_pre + pgo_post])
         self.dataset.time_table.append(self.stage_times[-1])
+        if self.pgm is not None:
+            info["pgo_s"] = pgo_pre + pgo_post
         self.frame_id += 1
         return info
 
+    # ------------------------------------------------------------------
+    def _pgo_bookkeeping(self, fid: int) -> None:
+        """One pose-graph node and one odometry factor from the pose books."""
+        pgm = self.pgm
+        cur = self.dataset.pgo_poses[fid].copy()
+        pgm.add_frame_node(fid, cur)
+        if fid > 0:
+            rel = np_se3_inverse(self.dataset.pgo_poses[fid - 1]) @ cur
+            cov = self.last_reg_cov if self.config.use_reg_cov_mat else None
+            pgm.add_odometry_factor(fid, fid - 1, rel, cov)
+        if self.gt_loop_mgr is not None and self.dataset.gt_pose_provided:
+            self.gt_loop_mgr.add_node(fid, self.dataset.gt_poses[fid])
+
+    def _f32_dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _loop_closure_stage(self, info: dict) -> None:
+        """The pose-graph stage of a conservative frame: bookkeeping and the
+        frame's descriptor, and on detection frames loop detection,
+        verification, optimisation and map deformation."""
+        cfg, mc = self.config, self.mc
+        fid = self.frame_id
+        pgm = self.pgm
+        travel = self.dataset.travel_dist
+        cur = self.dataset.pgo_poses[fid].copy()
+
+        self._pgo_bookkeeping(fid)
+        drift = pgm.estimate_drift(travel, fid)
+        if self.loop_mgr is not None and fid > 0:
+            feats = self.lm.geo_features if cfg.loop_with_feature else None
+            self.loop_mgr.add_node_device(fid, self.lm.positions, self.lm.count,
+                                          self._f32_dev(cur[:3, :3]), self._f32_dev(cur[:3, 3]),
+                                          feats)
+        if fid == 0 or fid % max(cfg.pgo_freq, 1) != 0 or self.last_source is None:
+            return
+        if self.loop_mgr is not None:
+            self.loop_mgr.materialize_pending()
+
+        # local loop first (pose distance within the drift radius), then the
+        # global scan-context search; repeated verification failures tighten
+        # the local acceptance distance (capped)
+        poses = np.stack(self.dataset.pgo_poses)
+        gt_trans = None
+        yaw = 0.0
+        if self.gt_loop_mgr is not None:
+            loop_id, _, gt_trans = self.gt_loop_mgr.detect_loop()
+        else:
+            penalty = 1.0 + 0.3 * min(self.loop_reg_failed_count, 4)
+            loop_id, _ = ld.detect_local_loop(
+                poses, travel, fid, drift, cfg.min_loop_travel_dist_ratio,
+                cfg.local_map_radius, cfg.max_loop_dist,
+                accept_divisor=penalty)
+            if loop_id < 0 and self.loop_mgr is not None:
+                loop_id, _, yaw = self.loop_mgr.detect_global_loop(drift, travel, fid,
+                                                                   poses=poses)
+        if loop_id < 0:
+            return
+        if cfg.loop_z_check_on:
+            # delta-z sanity check against multi-floor ambiguity
+            rel_guess = np_se3_inverse(poses[loop_id]) @ (
+                poses[loop_id] @ gt_trans if gt_trans is not None else cur)
+            if abs(rel_guess[2, 3]) > cfg.voxel_size_m * 4.0:
+                info["loop_z_rejected"] = True
+                return
+        info["loop_candidate"] = loop_id
+
+        # verification: register this frame's source cloud against the map
+        # around the loop pose, rebuilt with the travel window tightened to
+        # half the travel gap (the map roughly as it was at the loop frame)
+        loop_pose = poses[loop_id]
+        if gt_trans is not None:
+            guess = loop_pose @ gt_trans
+        else:
+            cz, sz = np.cos(yaw), np.sin(yaw)
+            guess = loop_pose.copy()
+            guess[:3, :3] = loop_pose[:3, :3] @ np.asarray([[cz, -sz, 0], [sz, cz, 0],
+                                                            [0, 0, 1.0]])
+        origin_loop = loop_pose[:3, 3].copy()
+        tw = np.float32(min(mc.travel_dist_window,
+                            max(0.5 * (travel[fid] - travel[loop_id]), 1e-3)))
+        lm_loop = npts.build_local_map(self.state, mc, self._f32_dev(origin_loop), loop_id,
+                                       self._travel, travel_window=float(tw))
+        source, src_valid = self.last_source
+        res = trk.track_frame(
+            lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
+            source, src_valid, torch.as_tensor(guess[:3, :3].astype(np.float32)),
+            torch.as_tensor((guess[:3, 3] - origin_loop).astype(np.float32)),
+            after_pgo=self.after_pgo)
+        if not res.valid:
+            self.loop_reg_failed_count += 1
+            info["loop_verified"] = False
+            return
+        info["loop_verified"] = True
+
+        T_cur = np.eye(4)
+        T_cur[:3, :3] = res.R.double().numpy()
+        T_cur[:3, 3] = res.t.double().numpy() + origin_loop
+        cov = res.cov.double().numpy() if cfg.use_reg_cov_mat else None
+        pgm.add_loop_factor(fid, loop_id, np_se3_inverse(loop_pose) @ T_cur, cov)
+        pgm.last_loop_idx = fid
+
+        # optimise, then deform the map and re-derive the pool
+        new_poses = pgm.optimize_pose_graph()
+        pose_diff = pgm.get_pose_diff(poses)
+        diff_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+        diff_full[:pose_diff.shape[0]] = pose_diff.astype(np.float32)
+        self.state = npts.adjust_map(self.state, mc, self._f32_dev(diff_full))
+        self.state = npts.recreate_hash(self.state, mc, fid,
+                                        downsample_table_size=cfg.downsample_hash_size)
+        poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+        poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
+        self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full))
+        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc)
+
+        self.dataset.update_poses_after_pgo(new_poses)
+        self.cur_pose = new_poses[fid].copy()
+        self.lm = npts.build_local_map(self.state, mc, self._f32_dev(self.cur_pose[:3, 3]),
+                                       fid, self._travel)
+        self.lm_origin64 = self.cur_pose[:3, 3].copy()
+        self.after_pgo = True
+        self.loop_reg_failed_count = 0
+        info["pgo_applied"] = True
+
     def run(self, num_frames: Optional[int] = None) -> list:
-        """Process the dataset's frames; writes the odometry poses."""
+        """Process the dataset's frames; writes the trajectory (pose-graph
+        poses with ``pgo_on``)."""
         cfg = self.config
         for name in ("save_map", "save_mesh", "save_merged_pc"):
             if getattr(cfg, name):

@@ -49,7 +49,9 @@ class TrackerConfig:
     eigenvalue_ratio_thre: float = 0.01
 
     @staticmethod
-    def from_config(cfg) -> "TrackerConfig":
+    def from_config(cfg, loop_reg: bool = False) -> "TrackerConfig":
+        """``loop_reg``: the loop-verification registration, whose source
+        overlaps the map around the loop frame less (valid ratio 0.15)."""
         return TrackerConfig(
             reg_iter_n=cfg.reg_iter_n, min_grad_norm=cfg.reg_min_grad_norm,
             max_grad_norm=cfg.reg_max_grad_norm, GM_dist=cfg.reg_GM_dist_m,
@@ -57,7 +59,8 @@ class TrackerConfig:
             term_thre_deg=cfg.reg_term_thre_deg, term_thre_m=cfg.reg_term_thre_m,
             max_sdf_std_ratio=cfg.max_sdf_std_ratio,
             surface_sample_range=cfg.surface_sample_range_m,
-            eigenvalue_check=cfg.eigenvalue_check, mask_min_nn_count=cfg.query_nn_k)
+            eigenvalue_check=cfg.eigenvalue_check, mask_min_nn_count=cfg.query_nn_k,
+            min_valid_ratio=0.15 if loop_reg else 0.2)
 
 
 class TrackResult(NamedTuple):
@@ -83,10 +86,12 @@ def _f32(x) -> torch.Tensor:
 
 def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decoder,
                 sdf_scale: float, offsets, source: torch.Tensor,
-                source_valid: torch.Tensor, R_init, t_init) -> TrackResult:
+                source_valid: torch.Tensor, R_init, t_init,
+                after_pgo: bool = False) -> TrackResult:
     """Register ``source`` (sensor frame, padded, on the map's device)
     against the implicit map.  R_init / t_init: the initial guess with the
-    translation expressed in the shifted frame (world minus ``lm.origin``)."""
+    translation expressed in the shifted frame (world minus ``lm.origin``).
+    ``after_pgo``: the map has been deformed (quaternion-rotated offsets)."""
     dev = source.device
     with torch.no_grad():
         origin = lm.origin
@@ -103,7 +108,7 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
         def one_step(R, t, cache):
             cur = source @ R.to(dev).T + t.to(dev)
             sdf, grad, nn_count, sdf_std = tg.sdf_value_and_grad_cached(
-                cache, lm, mc, decoder, sdf_scale, cur + origin)
+                cache, lm, mc, decoder, sdf_scale, cur + origin, after_pgo)
             grad_norm = torch.linalg.norm(grad, dim=-1)
             mask = (source_valid & (nn_count >= tc.mask_min_nn_count)
                     & (grad_norm > tc.min_grad_norm) & (grad_norm < tc.max_grad_norm)

@@ -1,11 +1,13 @@
 """Closed-form d(SDF)/d(query point) for the tracker's inner loop, torch
 counterpart of ``pin_slam_tpu/slam/tracker_grad.py`` (both interpolation
-modes, no positional encoding, offsets unrotated: the PGO-deformed map is
-not part of this port yet).
+modes, no positional encoding).  After a pose-graph optimisation
+(``after_pgo``) every offset vector v_i is rotated into its neighbour's
+frame by the passive rotation R_i of the neighbour's quaternion.
 
-    sdf(p)  = s * MLP(h),  h = sum_i w_i(p) [f_i ; v_i(p)]        (weighted_first)
-    sdf(p)  = sum_i w_i(p) o_i,  o_i = s * MLP([f_i ; v_i(p)])     (per neighbour)
+    sdf(p)  = s * MLP(h),  h = sum_i w_i(p) [f_i ; R_i v_i(p)]        (weighted_first)
+    sdf(p)  = sum_i w_i(p) o_i,  o_i = s * MLP([f_i ; R_i v_i(p)])     (per neighbour)
     dw_i/dp = (dwhat_i - w_i sum_j dwhat_j) / S,  dwhat_i = -2 v_i whati^2
+    d(R_i v_i)/dp ^T g = R_i^T g  (the active rotation by the same quaternion)
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.neural_points import _INVALID_DIST2
+from pin_slam_torch.ops.transforms import _cross, apply_quaternion_rotation
 from pin_slam_torch.ops.voxel import sqnorm3
 
 
@@ -41,10 +44,18 @@ def _mlp_value_and_input_grad(layers, h: torch.Tensor, sdf_scale: float):
     return sdf, g
 
 
-def _weights(pts, nbr_pos, feats, valid, eps):
+def _rotate_back(quat, g):
+    """R^T g for the passive rotation R of ``quat``: the active rotation."""
+    quat_w, quat_xyz = quat[..., :1], quat[..., 1:]
+    t2 = 2.0 * _cross(quat_xyz, g)
+    return g + quat_w * t2 + _cross(quat_xyz, t2)
+
+
+def _weights(pts, nbr_pos, quat, feats, valid, eps):
     v_raw = pts[:, None, :] - nbr_pos
     d2 = torch.where(valid, sqnorm3(v_raw), torch.full_like(v_raw[..., 0], _INVALID_DIST2))
-    v = torch.where(valid[..., None], v_raw, torch.zeros_like(v_raw))
+    v = v_raw if quat is None else apply_quaternion_rotation(quat, v_raw)
+    v = torch.where(valid[..., None], v, torch.zeros_like(v))
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
     w_hat, S, w = npts.idw_weights(d2, valid, eps)
     dw_hat = -2.0 * v_raw * (w_hat ** 2)[..., None]
@@ -54,22 +65,25 @@ def _weights(pts, nbr_pos, feats, valid, eps):
     return v, feats, w, dw
 
 
-def _core(mc, layers, sdf_scale, pts, nbr_pos, feats, valid):
-    """weighted_first: (B,k) selected neighbours -> (sdf, grad)."""
-    v, feats, w, dw = _weights(pts, nbr_pos, feats, valid, mc.idw_eps)
+def _core(mc, layers, sdf_scale, pts, nbr_pos, quat, feats, valid):
+    """weighted_first: (B,k) selected neighbours -> (sdf, grad).  ``quat``
+    (B,k,4) after a pose-graph optimisation, else None."""
+    v, feats, w, dw = _weights(pts, nbr_pos, quat, feats, valid, mc.idw_eps)
     fv = torch.cat([feats, v], dim=-1)
     h = torch.sum(fv * w[..., None], dim=1)
     sdf, g_h = _mlp_value_and_input_grad(layers, h, sdf_scale)
     a = torch.einsum("bkd,bd->bk", fv, g_h)
     grad = torch.einsum("bk,bkj->bj", a, dw)
-    g_v = g_h[:, -3:]
-    grad = grad + torch.einsum("bk,bkj->bj", w, g_v[:, None, :].expand(dw.shape))
+    g_v = g_h[:, None, -3:].expand(dw.shape)
+    if quat is not None:
+        g_v = _rotate_back(quat, g_v)
+    grad = grad + torch.einsum("bk,bkj->bj", w, g_v)
     return sdf, grad
 
 
-def _core_pn(mc, layers, sdf_scale, pts, nbr_pos, feats, valid):
+def _core_pn(mc, layers, sdf_scale, pts, nbr_pos, quat, feats, valid):
     """Per-neighbour decode + prediction blend: (sdf, grad, IDW-weighted std)."""
-    v, feats, w, dw = _weights(pts, nbr_pos, feats, valid, mc.idw_eps)
+    v, feats, w, dw = _weights(pts, nbr_pos, quat, feats, valid, mc.idw_eps)
     B, k = w.shape
     fv = torch.cat([feats, v], dim=-1)
     o_flat, g_flat = _mlp_value_and_input_grad(layers, fv.reshape(B * k, -1), sdf_scale)
@@ -78,7 +92,10 @@ def _core_pn(mc, layers, sdf_scale, pts, nbr_pos, feats, valid):
     sdf = torch.sum(w * o, dim=1)
     sdf_std = torch.sqrt(torch.clamp(torch.sum(w * (o - sdf[:, None]) ** 2, dim=1), min=0.0))
     grad = torch.einsum("bk,bkj->bj", o, dw)
-    grad = grad + torch.einsum("bk,bkj->bj", w, g_in[..., -3:])
+    g_v = g_in[..., -3:]
+    if quat is not None:
+        g_v = _rotate_back(quat, g_v)
+    grad = grad + torch.einsum("bk,bkj->bj", w, g_v)
     return sdf, grad, sdf_std
 
 
@@ -127,10 +144,12 @@ def probe_candidates(lm: npts.LocalMap, mc: npts.MapConfig, pts: torch.Tensor,
 
 
 def sdf_value_and_grad_cached(cache: CandCache, lm: npts.LocalMap, mc: npts.MapConfig,
-                              decoder, sdf_scale: float, pts: torch.Tensor):
+                              decoder, sdf_scale: float, pts: torch.Tensor,
+                              after_pgo: bool = False):
     """Re-rank the cached candidates at ``pts`` (exact top-k, lowest index
-    first among ties, like ``lax.top_k``), gather the k winners' features and
-    run the analytic core.  Returns (sdf, grad, nn_count, sdf_std)."""
+    first among ties, like ``lax.top_k``), gather the k winners' features
+    (and quaternions after a pose-graph optimisation) and run the analytic
+    core.  Returns (sdf, grad, nn_count, sdf_std)."""
     L = mc.local_capacity
     M = cache.lidx.shape[1]
     d2 = ((cache.xs - pts[:, 0:1]) ** 2 + (cache.ys - pts[:, 1:2]) ** 2
@@ -145,10 +164,11 @@ def sdf_value_and_grad_cached(cache: CandCache, lm: npts.LocalMap, mc: npts.MapC
     lidx_k = torch.gather(cache.lidx, 1, sel)
     safe = torch.where(valid, torch.clamp(lidx_k, max=L), torch.full_like(lidx_k, L))
     feats = lm.geo_features[safe]
+    quat = lm.attr_rows[safe][..., npts.C_QUAT] if after_pgo else None
     layers = decoder.layers()
     if mc.weighted_first:
-        sdf, grad = _core(mc, layers, sdf_scale, pts, pos_k, feats, valid)
+        sdf, grad = _core(mc, layers, sdf_scale, pts, pos_k, quat, feats, valid)
         sdf_std = torch.zeros_like(sdf)
     else:
-        sdf, grad, sdf_std = _core_pn(mc, layers, sdf_scale, pts, pos_k, feats, valid)
+        sdf, grad, sdf_std = _core_pn(mc, layers, sdf_scale, pts, pos_k, quat, feats, valid)
     return sdf, grad, nn_count, sdf_std

@@ -1,7 +1,8 @@
 """Synthetic LiDAR scenes for smoke runs and tests: a dense cluttered
 corridor world, a smooth sensor trajectory, and an occlusion-aware scan
 simulator (a copy of the JAX package's bench scene, ``bench.py``, so the port
-and the JAX package can be driven with identical frames)."""
+and the JAX package can be driven with identical frames); and the square-loop
+scene of the JAX package's loop-closure test, in memory."""
 
 import numpy as np
 
@@ -96,3 +97,112 @@ def lidar_scan(rng, world, origin, R, n_pts, max_range=20.0,
 
     sub = rng.choice(pts.shape[0], min(n_pts, pts.shape[0]), replace=False)
     return pts[sub].astype(np.float32)
+
+
+def make_square_scene(rng, side=8.0, step=0.8):
+    """The square-loop scene of the JAX package's loop-closure test
+    (``tests/test_full_slam.py``), in memory: a rounded square path of side
+    ``side`` in a cluttered 30 x 30 m room, driven once around and along the
+    first leg again (a genuine revisit), with occlusion-aware, backface-culled
+    scans.  Draws from ``rng`` in the same order as the on-disk version (the
+    intensity column included), so a seed gives the same frames.
+
+    Returns (scans: list of (N, 4) float32 [x, y, z, intensity] in the sensor
+    frame, poses (n, 4, 4) float64 world <- sensor)."""
+    world, normals = [], []
+    g = rng.uniform([-15, -15, 0], [15, 15, 0], size=(20000, 3))
+    g[:, 2] = -1.5 + 0.02 * rng.standard_normal(20000)
+    world.append(g)
+    normals.append(np.tile([0.0, 0.0, 1.0], (20000, 1)))
+    for axis, sign in [(0, -15.0), (0, 15.0), (1, -15.0), (1, 15.0)]:
+        n_w = 30000
+        w = np.empty((n_w, 3))
+        w[:, axis] = sign + 0.05 * rng.standard_normal(n_w)
+        w[:, 1 - axis] = rng.uniform(-15, 15, n_w)
+        w[:, 2] = rng.uniform(-1.5, 2.0, n_w)
+        world.append(w)
+        nv = np.zeros((n_w, 3))
+        nv[:, axis] = -np.sign(sign)          # walls face inward
+        normals.append(nv)
+    for _ in range(70):
+        cx, cy = rng.uniform(-13, 13, 2)
+        if abs(abs(cx) - side / 2) < 1.5 and abs(cy) < side / 2 + 1.5:
+            continue                          # keep the path corridor free
+        if abs(abs(cy) - side / 2) < 1.5 and abs(cx) < side / 2 + 1.5:
+            continue
+        radius = rng.uniform(0.3, 1.2)
+        ang = rng.uniform(0, 2 * np.pi, 4000)
+        world.append(np.column_stack([cx + radius * np.cos(ang), cy + radius * np.sin(ang),
+                                      rng.uniform(-1.5, 1.5, 4000)]))
+        normals.append(np.column_stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)]))
+    world = np.concatenate(world).astype(np.float32)
+    normals = np.concatenate(normals).astype(np.float32)
+
+    # rounded-square centreline parameterised by arc length, so the path
+    # closes exactly; the corner radius keeps the turn rate near 5 deg/frame
+    r = 1.6
+    straight = side - 2 * r
+    L_total = 4 * (straight + np.pi / 2 * r)
+
+    def pose_at(s):
+        s = s % L_total
+        x0, y0 = -side / 2 + r, -side / 2
+        corners = [(side / 2 - r, -side / 2 + r), (side / 2 - r, side / 2 - r),
+                   (-side / 2 + r, side / 2 - r), (-side / 2 + r, -side / 2 + r)]
+        headings = [0.0, np.pi / 2, np.pi, 3 * np.pi / 2]
+        pos = np.array([x0, y0, 0.0])
+        for leg in range(4):
+            hd = headings[leg]
+            d = np.array([np.cos(hd), np.sin(hd), 0.0])
+            if s <= straight:
+                return pos + d * s, hd
+            s -= straight
+            cx, cy = corners[leg]
+            arc = np.pi / 2 * r
+            if s <= arc:
+                a = hd - np.pi / 2 + s / r
+                return np.array([cx + r * np.cos(a), cy + r * np.sin(a), 0.0]), hd + s / r
+            s -= arc
+            a0 = hd - np.pi / 2
+            pos = np.array([cx + r * np.cos(a0 + np.pi / 2), cy + r * np.sin(a0 + np.pi / 2), 0.0])
+        return pos, 0.0
+
+    waypoints, s, frame = [], 0.0, 0
+    while s < L_total + straight * 0.8:       # one full loop + the revisit
+        p, hd = pose_at(s)
+        waypoints.append((p, hd))
+        seg_pos = (s % L_total) % (straight + np.pi / 2 * r)
+        on_arc = seg_pos > straight
+        v = (0.15 if on_arc else step) * min(1.0, (frame + 1) / 5.0)
+        if not on_arc and seg_pos + v > straight:
+            v = (straight - seg_pos) + 0.15   # enter the corner arc gently
+        s += v
+        frame += 1
+
+    n_az, n_el = 900, 64
+    scans, poses = [], []
+    for p, hd in waypoints:
+        c, sn = np.cos(hd), np.sin(hd)
+        T = np.eye(4)
+        T[:3, :3] = [[c, -sn, 0], [sn, c, 0], [0, 0, 1]]
+        T[:3, 3] = p
+        poses.append(T)
+        Tinv = np.linalg.inv(T)
+        local = world @ Tinv[:3, :3].T + Tinv[:3, 3]
+        dist = np.linalg.norm(local, axis=1)
+        facing = np.einsum("ij,ij->i", p - world, normals) > 0
+        keep = (dist > 2.0) & (dist < 20.0) & facing
+        pts, d = local[keep], dist[keep]
+        # spherical depth buffer: the nearest return per az/el bin (occlusion)
+        az = np.arctan2(pts[:, 1], pts[:, 0])
+        el = np.arcsin(np.clip(pts[:, 2] / d, -1.0, 1.0))
+        ia = np.clip(((az + np.pi) / (2 * np.pi) * n_az).astype(np.int64), 0, n_az - 1)
+        ie = np.clip(((el + 0.6) / 1.2 * n_el).astype(np.int64), 0, n_el - 1)
+        order = np.argsort(d, kind="stable")
+        _, first = np.unique((ia * n_el + ie)[order], return_index=True)
+        pts = pts[order[first]]
+        sub = rng.choice(pts.shape[0], min(15000, pts.shape[0]), replace=False)
+        scans.append(np.concatenate(
+            [pts[sub], rng.uniform(0, 1, (sub.size, 1)).astype(np.float32)],
+            axis=1).astype(np.float32))
+    return scans, np.stack(poses)

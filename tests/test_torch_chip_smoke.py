@@ -58,3 +58,40 @@ def test_kernel_check_fails_on_a_wrong_part(kind, part):
     plain, args = _case(kind, True)
     with pytest.raises(SystemExit, match="FAILED"):
         chip_smoke._cmp(_corrupt(plain(*args), part), plain, args, kind)
+
+
+def _row_case():
+    from pin_slam_torch.ops import rows
+
+    g = torch.Generator().manual_seed(3)
+    N, C, M = 513, 9, 4000
+    table = torch.randn(N, C, generator=g)
+    idx = torch.randint(0, N, (M,), generator=g)
+    idx[torch.rand(M, generator=g) < 0.3] = N - 1        # the sentinel's long segment
+    val = torch.randn(M, C, generator=g) * 1e-3
+    return rows, table, idx, val, N - 1
+
+
+def test_gather_check_accepts_twin_and_fails_on_one_wrong_row():
+    rows, table, idx, _, _ = _row_case()
+    out = rows.gather_rows_plain(table, idx)
+    chip_smoke.gather_check(out, table, idx, "cpu")
+    bad = out.clone()
+    bad[7, 4] = torch.nextafter(bad[7, 4], torch.tensor(float("inf")))
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.gather_check(bad, table, idx, "cpu")
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skip_sentinel", "all_rows"])
+def test_scatter_check_accepts_twin_and_fails_on_one_wrong_row(skip):
+    rows, table, idx, val, sentinel = _row_case()
+    skip_row = sentinel if skip else None
+    out = rows.scatter_add_rows_plain(table, idx, val, skip_row)
+    err, ratio = chip_smoke.scatter_check(out, table, idx, val, skip_row)
+    assert ratio <= 1.0
+    # one row off by a few hundred ulps of its magnitude
+    row = int(idx[0])
+    bad = out.clone()
+    bad[row, 2] += 300 * 2.0 ** -23 * (abs(float(bad[row, 2])) + 1.0)
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.scatter_check(bad, table, idx, val, skip_row)
