@@ -27,11 +27,18 @@
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
    (integers and gathers exact; floats part by part within the stated
-   tolerances; the scatter also bit-identical across two launches) and
-   timed with CUDA events (median of 25 launches) beside the one PyTorch
-   call that computes the same function where there is one; the train and
-   eikonal kernels also at k = 8 on random inputs, the row kernels also at
-   the Pallas experiment's own shape.
+   tolerances; the scatter and the eikonal kernel also bit-identical across
+   two launches) and timed beside its plain version and the one PyTorch
+   call that computes the same function where there is one, each two ways:
+   ``ms``, CUDA events around one launch on an idle card (median of 25; the
+   host's launch path included), and ``device_ms``, many launches queued
+   behind ``torch.cuda._sleep`` between two events (the device alone).  The
+   train and eikonal kernels also at k = 8 on random inputs, the row kernels
+   also at the Pallas experiment's own shape.
+6. Edge cases on random inputs: the eikonal kernel at n in {1, 37, 1638} x
+   k in {1, 6, 16} x both modes (float64 check, two launches bit-identical),
+   the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
+   and misaligned tables and on one of more than 2^31 floats (bit-exact).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -51,6 +58,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # float32 outside the tensor cores
 TIMED = 25
+DEVICE_REPS = 64                  # calls per device-time batch (fewer if the queue fills)
+PLAIN_REPS = 8                    # the same for the plain versions (dozens of launches a call)
+SLEEP_CYCLES_PER_S = 2.0e9        # above the H100's top SM clock: a sleep is never too short
 
 # stated tolerances of the float comparisons on the card.  A training
 # kernel's outputs are held, part by part, against its plain twin evaluated
@@ -383,6 +393,8 @@ def run_path(name, cap):
 
 
 def time_ms(fn):
+    """Event time of one call on an idle card (median of TIMED): the call's
+    device time plus the host's launch path, which the card waits for."""
     import torch
 
     for _ in range(3):
@@ -396,6 +408,73 @@ def time_ms(fn):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return float(np.median(ts))
+
+
+def device_ms(fn, reps=DEVICE_REPS):
+    """Device time of one call: ``reps`` calls queued behind ``torch.cuda._sleep``
+    between two events, so the card runs them back to back and the host's
+    launch path is hidden; ms / reps, the median of three batches.  The sleep
+    lasts three times the host's wall time of ``reps`` synchronised calls.  A
+    batch whose first event the card reached before the host had queued
+    every call (the launch queue filled) is retried with half the calls.
+    Returns (ms, hidden): ``hidden`` is False when even one call could not be
+    queued ahead, i.e. the figure still holds host time (a call that waits
+    on the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(max((time.perf_counter() - t0) * reps * 3, 1e-3) * SLEEP_CYCLES_PER_S)
+    ts, hidden = [], True
+    while len(ts) < 3:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        early = a.query()
+        b.synchronize()
+        if early and reps > 1:
+            reps //= 2
+            continue
+        hidden = hidden and not early
+        ts.append(a.elapsed_time(b) / reps)
+    return float(np.median(ts)), hidden
+
+
+def timings(kernel, plain, library=None):
+    """The row's event and device times of the kernel, its plain version and
+    the library call (None where there is none)."""
+    out, exposed = {}, []
+    for key, fn, reps in (("", kernel, DEVICE_REPS), ("plain_", plain, PLAIN_REPS),
+                          ("library_", library, DEVICE_REPS)):
+        if fn is None:
+            out[f"{key}ms"] = out[f"{key}device_ms"] = None
+            continue
+        out[f"{key}ms"] = time_ms(fn)
+        out[f"{key}device_ms"], hidden = device_ms(fn, reps)
+        if not hidden:
+            exposed.append(key.rstrip("_") or "kernel")
+    if exposed:
+        out["device_ms_holds_host_time"] = exposed
+    return out
+
+
+def identical_check(a, b, label):
+    """Fails unless two launches' outputs (a tensor or a tuple of them) are
+    bit-identical."""
+    import torch
+
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    for i, (x, y) in enumerate(zip(a, b)):
+        bits = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in (x, y)]
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(*bits):
+            fail(f"{label}: two launches differ in output {i}")
 
 
 def bound(nbytes, flops):
@@ -424,14 +503,13 @@ def rank_phase(label, args, launches):
     err = float((out_k[1] - out_p[1]).abs().max())
     if err != 0.0:
         fail(f"rank kernel {label}: positions differ (max {err})")
-    ms = time_ms(lambda: rk.probe_rank(rows_fm, queries, k, L, maxd2))
-    plain = time_ms(lambda: rk.probe_rank_plain(rows_fm, queries, k, L, maxd2))
+    t = timings(lambda: rk.probe_rank(rows_fm, queries, k, L, maxd2),
+                lambda: rk.probe_rank_plain(rows_fm, queries, k, L, maxd2))
     b, by = bound(nbytes(rows_fm, queries, *out_k), G * n * K * 9)
     row = {"name": f"rank[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rank.cu",
            "replaces": "pin_slam_tpu/ops/rank_kernel.py:105", "launches": launches,
-           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-           "library_ms": None, "shape": {"G": G, "n": n, "K": K, "k": k},
-           "check": "gidx/valid/pos exact"}
+           "max_abs_err": 0.0, **t, "bound_ms": b, "bound_by": by,
+           "shape": {"G": G, "n": n, "K": K, "k": k}, "check": "gidx/valid/pos exact"}
     emit({"phase": "kernel", **row})
     return row
 
@@ -474,7 +552,8 @@ def _cmp(out_k, plain, args, label):
         scale = float(t.abs().max())
         detail[what] = [e_k, e_p, scale]
         if not (e_k <= tol * scale or (dec and e_k <= dec_floor)):
-            fail(f"{label}: {what} max err {e_k:.3e} vs float64 > {tol} x {scale:.3e}"
+            fail(f"{label}: {what} max err {e_k:.3e} vs float64 (the plain version's own "
+                 f"{e_p:.3e}) > {tol} x {scale:.3e}"
                  + (f" and > {dec_floor:.3e} ({DEC_ULPS} ulps of the largest decoder "
                     f"gradient)" if dec else ""))
         errs.append(float((k - p).abs().max()))
@@ -492,16 +571,15 @@ def train_phase(label, args, kwargs, launches):
     B, k = w.shape
     out_k = tk.train_iter(*args)
     err, detail = _cmp(out_k, tk.train_iter_plain, args, f"train_iter kernel {label}")
-    ms = time_ms(lambda: tk.train_iter(*args))
-    plain = time_ms(lambda: tk.train_iter_plain(*args))
+    t = timings(lambda: tk.train_iter(*args), lambda: tk.train_iter_plain(*args))
     IN, H = tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
     flops = decodes(wf, B, k, 6 * IN * H + 6 * H) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
     b, by = bound(nbytes(feats, w, vin, label_t, wt, params, out_k[1], out_k[2]) + 4, flops)
     row = {"name": f"train_iter[{label}]", "route": "cuda",
            "source": "pin_slam_torch/csrc/train_iter.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:247", "launches": launches,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-           "library_ms": None, "shape": {"B": B, "k": k, "weighted_first": wf},
+           "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+           "shape": {"B": B, "k": k, "weighted_first": wf},
            "check": CHECK_TEXT, "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
@@ -512,20 +590,99 @@ def eik_phase(label, args, kwargs, launches):
 
     feats, wst, vst, esc, params, wf, scale, step = args
     n, k = feats.shape[0], feats.shape[1]
-    out_k = tk.eikonal_iter(*args)
+    out_k = eik_checked(args, f"eikonal kernel {label}")
     err, detail = _cmp(out_k, tk.eikonal_iter_plain, args, f"eikonal kernel {label}")
-    ms = time_ms(lambda: tk.eikonal_iter(*args))
-    plain = time_ms(lambda: tk.eikonal_iter_plain(*args))
+    t = timings(lambda: tk.eikonal_iter(*args), lambda: tk.eikonal_iter_plain(*args))
     IN, H = tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
     flops = decodes(wf, n, k, 6 * (6 * IN * H + 6 * H))
     b, by = bound(nbytes(feats, wst, vst, esc, params, out_k[1], out_k[2]) + 4, flops)
+    R = tk.eikonal_rows_per_block(n, k, bool(wf), _cuda_sms())
     row = {"name": f"eikonal[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/eikonal.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:471", "launches": launches,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-           "library_ms": None, "shape": {"n": n, "k": k, "weighted_first": wf},
-           "check": CHECK_TEXT, "err_vs_f64": detail}
+           "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+           "shape": {"n": n, "k": k, "weighted_first": wf},
+           "launch": {"rows_per_block": R, "blocks": -(-n // R), "threads": 256},
+           "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
+
+
+def _cuda_sms():
+    from pin_slam_torch.ops import _cuda
+
+    return _cuda.sm_count(0)
+
+
+def eik_checked(args, label):
+    """Two launches of the eikonal kernel on ``args``; fails unless their
+    outputs are bit-identical.  Returns the first."""
+    import torch
+
+    from pin_slam_torch.ops import train_kernel as tk
+
+    out1 = tk.eikonal_iter(*args)
+    out2 = tk.eikonal_iter(*args)
+    torch.cuda.synchronize()
+    identical_check(out1, out2, label)
+    return out1
+
+
+def eikonal_edge_phase():
+    """The eikonal kernel on random inputs at n in {1, 37, 1638} x k in
+    {1, 6, 16} x both modes: two launches bit-identical, and part by part
+    against the plain version in float64 at the stated tolerances.  Not a
+    main-path shape, so kept out of the kernels line."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    errs, cases = [], 0
+    for wf in (True, False):
+        for k in (1, 6, 16):
+            for n in (1, 37, 1638):
+                label = f"eikonal kernel edge n={n} k={k} wf={int(wf)}"
+                args = synthetic_eik_args(wf, n, k, 100 + 10 * n + k, dyadic=True)
+                err, _ = _cmp(eik_checked(args, label), tk.eikonal_iter_plain, args, label)
+                errs.append(err)
+                cases += 1
+    emit({"phase": "eikonal_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),
+          "check": CHECK_TEXT + "; two launches bit-identical"})
+
+
+def gather_edge_phase():
+    """The row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304}, on an
+    aligned table and on views 4 and 8 bytes off alignment (the vector
+    widths' fallbacks), and once on a table of more than 2^31 floats (64-bit
+    offsets); each bit-exact against ``table[idx]``.  Kept out of the kernels
+    line."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    N, cases = 65537, 0
+    for C in (1, 9, 24, 42):
+        buf = torch.randn(N * C + 2, generator=g, device="cuda")
+        tables = {"aligned": buf[:N * C].view(N, C), "off4": buf[1:1 + N * C].view(N, C),
+                  "off8": buf[2:2 + N * C].view(N, C)}
+        for M in (0, 1, 98304):
+            idx = torch.randint(0, N, (M,), generator=g, device="cuda")
+            if M > 1:
+                idx[:2] = torch.tensor([0, N - 1], device="cuda")
+            for name, tab in tables.items():
+                out = rows.gather_rows(tab, idx)
+                torch.cuda.synchronize()
+                gather_check(out, tab, idx, f"edge C={C} M={M} {name}")
+                cases += 1
+    C = 42
+    N = (1 << 31) // C + 4096
+    big = torch.randn(N, C, generator=g, device="cuda")
+    idx = torch.randint(0, N, (98304,), generator=g, device="cuda")
+    idx[:2] = torch.tensor([N - 1, N - 4096], device="cuda")
+    out = rows.gather_rows(big, idx)
+    torch.cuda.synchronize()
+    gather_check(out, big, idx, f"edge C={C} N={N} (64-bit offsets)")
+    del big, out
+    torch.cuda.empty_cache()
+    emit({"phase": "gather_edges", "cases": cases + 1, "check": "bit-exact against table[idx]"})
 
 
 def gather_check(out, table, idx, label):
@@ -554,14 +711,15 @@ def gather_phase(label, args, kwargs, launches):
     out_k = rows.gather_rows(table, idx)
     torch.cuda.synchronize()
     gather_check(out_k, table, idx, label)
-    ms = time_ms(lambda: rows.gather_rows(table, idx, bounds_checked=True))
-    plain = time_ms(lambda: rows.gather_rows_plain(table, idx))
-    lib = time_ms(lambda: torch.index_select(table, 0, idx))
+    t = timings(lambda: rows.gather_rows(table, idx, bounds_checked=True),
+                lambda: rows.gather_rows_plain(table, idx),
+                lambda: torch.index_select(table, 0, idx))
     b, by = bound(nbytes(idx, out_k) + M * C * 4, 0)
     row = {"name": f"gather[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
            "replaces": "experiments/profile_pallas_gather.py:43", "launches": launches,
-           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-           "library_ms": lib, "shape": {"N": table.shape[0], "C": C, "M": M},
+           "max_abs_err": 0.0, **t, "bound_ms": b, "bound_by": by,
+           "shape": {"N": table.shape[0], "C": C, "M": M,
+                     "table_16B_aligned": table.data_ptr() % 16 == 0},
            "check": "bit-exact against table[idx]"}
     emit({"phase": "kernel", **row})
     return row
@@ -605,19 +763,18 @@ def scatter_phase(label, args, kwargs, launches):
     out_k = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
     out_k2 = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
     torch.cuda.synchronize()
-    if not torch.equal(out_k, out_k2):
-        fail(f"scatter kernel {label}: two launches differ")
+    identical_check(out_k, out_k2, f"scatter kernel {label}")
     err64, ratio = scatter_check(out_k, table, idx, val, skip)
     out_p = rows.scatter_add_rows_plain(table, idx, val, skip)
-    ms = time_ms(lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip))
-    plain = time_ms(lambda: rows.scatter_add_rows_plain(table, idx, val, skip))
-    lib = time_ms(lambda: table.index_add(0, idx, val))
+    t = timings(lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip),
+                lambda: rows.scatter_add_rows_plain(table, idx, val, skip),
+                lambda: table.index_add(0, idx, val))
     plan_ms = time_ms(lambda: rows.scatter_plans(idx, N))
     b, by = bound(nbytes(table, idx, val, out_k), M * C)
     row = {"name": f"scatter[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
            "replaces": "experiments/profile_pallas_gather.py:66", "launches": launches,
-           "max_abs_err": float((out_k - out_p).abs().max()), "ms": ms, "plain_ms": plain,
-           "bound_ms": b, "bound_by": by, "library_ms": lib,
+           "max_abs_err": float((out_k - out_p).abs().max()), **t,
+           "bound_ms": b, "bound_by": by,
            "shape": {"N": N, "C": C, "M": M, "skip_row": skip,
                      "skip_row_terms": int((idx == skip).sum()) if skip is not None else 0},
            "plan_ms": plan_ms, "err_vs_f64": err64, "err_over_bound": ratio,
@@ -656,12 +813,26 @@ def synthetic_train_args(wf, B, k, seed, device="cuda"):
             u(B) / B, params, wf, 0.055, 0.1)
 
 
-def synthetic_eik_args(wf, n, k, seed, device="cuda"):
+def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False):
+    """Random eikonal inputs at the main path's widths.  ``dyadic``: the
+    features, stencil weights, offset vectors and decoder are small integers
+    over powers of two, so every hidden pre-activation is exact in float32.
+    The float64 check then sees the kernel's own ReLU masks: at a million
+    hidden units a random pre-activation within float32 rounding of 0 is
+    likely, and its mask flip is a difference of the inputs' conditioning,
+    not of the kernel."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
+    if dyadic:
+        q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
+                                                  device=device).float() / den
+        params = torch.cat([q(-32, 32, 128, 11 * 64), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+                            q(-8, 8, 64, 1)])
+        return (q(-16, 16, 8, n, k, 9), q(1, 16, 64, 6 * n, k),
+                q(-8, 8, 32, 6 * n, 3 if wf else 3 * k), u(n) * 0.5 / n, params, wf, 0.055, 0.08)
     wst = u(6 * n, k)
     wst = wst / wst.sum(1, keepdim=True)
     params = torch.cat([r(11 * 64) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
@@ -730,6 +901,8 @@ def main() -> int:
         train_phase(f"k8-wf{int(wf)}", synthetic_train_args(wf, 16384, 8, 1), {}, 0)
         eik_phase(f"k8-wf{int(wf)}", synthetic_eik_args(wf, 1638, 8, 2), {}, 0)
     experiment_shape_rows()
+    eikonal_edge_phase()
+    gather_edge_phase()
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -8,137 +8,314 @@
 // loss = (|g| - 1)^2 * esc.  Backward to the base rows' feature gradients
 // (certainty column = sum of the six stencil weights) and the decoder.
 //
-// Bound on an H100: at n = 1638 base rows the launch moves well under 1 MB
-// and does ~6-40 MFLOP: launch- and latency-bound, and with one thread per
-// row it fills only 26 blocks of the 132 SMs.  Design: the train kernel's
-// structure (train_common.cuh) with the six stencils in a loop; stencil
-// activations are recomputed in the backward pass instead of saved (the
-// Pallas kernel's saved activations and its tile-count sizing for scoped
-// VMEM are TPU workarounds and are not ported).  Decoder gradients by the
-// same fixed-order two-pass reduction, no atomics.
+// Bound on an H100: operations.  At the main path's n = 1638 base rows and
+// k = 6 the launch reads and writes well under 1 MB, and its float32 FMAs
+// (a forward decode, its recomputation and the input gradient, ~2.1 k FMAs
+// per decode, plus ~0.8 k for the decoder-gradient sums) take a few
+// microseconds at the card's peak; a shared-memory read per FMA makes the
+// practical limit the SM's shared-memory port, not the FMA units.
+//
+// Design: parallel over decodes, not base rows.  A block of 256 threads owns
+// R consecutive base rows and all their D = R * 6 (weighted_first) or
+// R * 6k decodes, which it runs in chunks of 64: four lanes share a decode,
+// each taking 16 of the 64 hidden units (unit 4t + lane), and add their
+// partial outputs and input gradients by two xor shuffles.  The wrapper
+// picks R from n, k and the SM count so that the blocks spread over the
+// card with few idle decode slots (ops/train_kernel.eikonal_rows_per_block).
+// Phases, separated by barriers:
+//   1. forward: per chunk, the inputs x (11 per decode) are built into
+//      shared memory once, then each decode's raw output is kept (od);
+//   2. per row (one thread each): sdf_j, g, |g|, the loss term and dsdf_j;
+//      od becomes each decode's upstream gradient dO;
+//   3. backward: per chunk, x is rebuilt, each decode's hidden activations h
+//      and their gradients dh are staged in shared memory and its feature
+//      gradient dx (8 values) is kept; then the block sums the chunk's
+//      decoder-gradient terms once: thread (g, j) owns hidden unit j for a
+//      quarter of the chunk's decodes and adds x_i dh_j (11 entries of dW1),
+//      dh_j (db1), dO h_j (dW2) and, for j = 0, dO (db2) in slot order;
+//   4. feature gradients: for each (row, neighbour, column) the six
+//      stencils' terms are added in stencil order, written contiguously;
+//   5. the four quarter sums are added in order and the block's partial
+//      gradient is stored; `reduce_partials` (train_common.cuh) then adds
+//      the blocks' partials in a fixed order.
+// Every sum has a fixed order and there are no atomics, so two launches on
+// the same inputs give the same bits.  Shared memory depends on D (dynamic,
+// up to ~59 KB, above the 48 KB default after cudaFuncSetAttribute).
+// Float32 on the CUDA cores, as the port's precision policy asks; a
+// 3xTF32 mma.sync split of the 11 x 64 products is a later option.
 
 #include "train_common.cuh"
 
 using namespace tk;
 
-template <bool WF>
-__global__ void __launch_bounds__(BLK) eikonal_kernel(
-    const float* __restrict__ feats, const float* __restrict__ wst,
-    const float* __restrict__ vst, const float* __restrict__ esc,
-    const float* __restrict__ params, int n, int k, float scale, float inv2e,
-    float* __restrict__ dfeats, float* __restrict__ partial) {
-  __shared__ Smem s;
-  load_params(s, params);
-  const long row = (long)blockIdx.x * BLK + threadIdx.x;
-  const bool act = row < n;
-  float acc[NE];
-#pragma unroll
-  for (int m = 0; m < NE; ++m) acc[m] = 0.f;
-  const float* fr = feats + row * k * C;
-  const int vcols = WF ? VD : k * VD;
-  float x[IN], dx[IN];
+namespace eik {
 
-  // stencil j's input for neighbour kk (WF: the blended row, kk unused)
-  auto build_x = [&](int j, int kk) {
-    const long sr = (long)j * n + row;
-    if (WF) {
-      const float* wj = wst + sr * k;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        float a = 0.f;
-        if (act)
-          for (int q = 0; q < k; ++q) a = fmaf(wj[q], fr[q * C + f], a);
-        x[f] = a;
-      }
-#pragma unroll
-      for (int v = 0; v < VD; ++v) x[F + v] = act ? vst[sr * vcols + v] : 0.f;
-    } else {
-#pragma unroll
-      for (int f = 0; f < F; ++f) x[f] = act ? fr[kk * C + f] : 0.f;
-#pragma unroll
-      for (int v = 0; v < VD; ++v) x[F + v] = act ? vst[sr * vcols + kk * VD + v] : 0.f;
-    }
-  };
-  auto wgt = [&](int j, int kk) { return act ? wst[((long)j * n + row) * k + kk] : 0.f; };
+constexpr int EB = 256;                   // threads per block
+constexpr int LANES = 4;                  // lanes per decode
+constexpr int SLOTS = EB / LANES;         // decodes per chunk
+constexpr int UPL = H / LANES;            // hidden units per lane
+constexpr int HP = H + 4;                 // staging pitch: conflict-free writes and reads
+constexpr int DMAX = 512;                 // decodes per block
+constexpr int PAR = (NP + 3) & ~3;        // decoder block, padded
+constexpr int GROUPS = EB / H;            // reduction quarters
+constexpr int RED = IN + 2;               // per-owner sums: dW1[:, j], db1[j], dW2[j]
+constexpr unsigned FULL = 0xffffffffu;
 
-  float sdf[6];
-  for (int j = 0; j < 6; ++j) {
-    if (WF) {
-      build_x(j, 0);
-      sdf[j] = mlp_fwd(s, x) * scale;
-    } else {
-      float p = 0.f;
-      for (int kk = 0; kk < k; ++kk) {
-        build_x(j, kk);
-        p = fmaf(wgt(j, kk), mlp_fwd(s, x), p);
-      }
-      sdf[j] = p * scale;
-    }
-  }
-  const float e = act ? esc[row] : 0.f;
-  const float gx = (sdf[0] - sdf[3]) * inv2e;
-  const float gy = (sdf[1] - sdf[4]) * inv2e;
-  const float gz = (sdf[2] - sdf[5]) * inv2e;
-  const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
-  const float pw = (nrm - 1.f) * (nrm - 1.f) * e;
-  const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
-  const float dsdf[6] = {dg * gx, dg * gy, dg * gz, -dg * gx, -dg * gy, -dg * gz};
-
-  if (act) {
-    for (int kk = 0; kk < k; ++kk) {
-      float* d = dfeats + (row * k + kk) * C;
-      float ws = 0.f;
-      for (int j = 0; j < 6; ++j) ws += wgt(j, kk);
-#pragma unroll
-      for (int f = 0; f < F; ++f) d[f] = 0.f;
-      d[F] = ws;
-    }
-  }
-  for (int j = 0; j < 6; ++j) {
-    if (WF) {
-      build_x(j, 0);
-      mlp_bwd_step(s, x, act ? dsdf[j] * scale : 0.f, j == 0 ? pw : 0.f, dx);
-      if (act)
-        for (int kk = 0; kk < k; ++kk) {
-          float* d = dfeats + (row * k + kk) * C;
-          const float wq = wgt(j, kk);
-#pragma unroll
-          for (int f = 0; f < F; ++f) d[f] = fmaf(wq, dx[f], d[f]);
-        }
-      reduce_step(s, acc);
-    } else {
-      for (int kk = 0; kk < k; ++kk) {
-        build_x(j, kk);
-        mlp_bwd_step(s, x, act ? dsdf[j] * scale * wgt(j, kk) : 0.f,
-                     (j == 0 && kk == 0) ? pw : 0.f, dx);
-        if (act) {
-          float* d = dfeats + (row * k + kk) * C;
-#pragma unroll
-          for (int f = 0; f < F; ++f) d[f] += dx[f];
-        }
-        reduce_step(s, acc);
-      }
-    }
-  }
-  store_partials(acc, partial);
+__host__ __device__ constexpr int smem_floats(int D, int R) {
+  return PAR + SLOTS * IN + 2 * SLOTS * HP + D * (1 + F) + R;
 }
 
+template <bool WF>
+__global__ void __launch_bounds__(EB) eikonal_kernel(
+    const float* __restrict__ feats, const float* __restrict__ wst,
+    const float* __restrict__ vst, const float* __restrict__ esc,
+    const float* __restrict__ params, int n, int k, int R, float scale, float inv2e,
+    float* __restrict__ dfeats, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const float* W1 = sm;                   // packed decoder: W1 (IN, H) | b1 | W2 | b2
+  const float* b1 = sm + IN * H;
+  const float* W2 = b1 + H;
+  const float* b2 = W2 + H;
+  float* xs = sm + PAR;                   // (SLOTS, IN) chunk inputs
+  float* hs = xs + SLOTS * IN;            // (SLOTS, HP) hidden activations
+  float* dhs = hs + SLOTS * HP;           // (SLOTS, HP) their gradients
+  const int kd = WF ? 1 : k;
+  const int dr = 6 * kd;                  // decodes per base row: (stencil, neighbour)
+  const int D = R * dr;
+  float* od = dhs + SLOTS * HP;           // (D,) raw outputs, then dO
+  float* dxs = od + D;                    // (D, F) feature gradients
+  float* pwr = dxs + D * F;               // (R,) loss terms
+
+  const int tid = threadIdx.x;
+  const long row0 = (long)blockIdx.x * R;
+  const int rows = (int)min((long)R, (long)n - row0);
+  const int Dv = rows * dr;               // decodes of real rows
+  for (int e = tid; e < NP; e += EB) sm[e] = params[e];
+
+  // x of chunk c's decodes into xs (zeros past the block's real decodes)
+  auto build_xs = [&](int c) {
+    for (int e = tid; e < SLOTS * IN; e += EB) {
+      const int s = e / IN, i = e - s * IN;
+      const int d = c * SLOTS + s;
+      float v = 0.f;
+      if (d < Dv) {
+        const int r = d / dr, rem = d - r * dr, j = rem / kd, kk = rem - j * kd;
+        const long row = row0 + r, sr = (long)j * n + row;
+        if (i < F) {
+          if (WF) {
+            const float* wj = wst + sr * k;
+            const float* fr = feats + row * k * C;
+            for (int q = 0; q < k; ++q) v = fmaf(wj[q], fr[q * C + i], v);
+          } else {
+            v = feats[(row * k + kk) * C + i];
+          }
+        } else {
+          v = WF ? vst[sr * VD + (i - F)] : vst[sr * (k * VD) + kk * VD + (i - F)];
+        }
+      }
+      xs[e] = v;
+    }
+  };
+
+  const int s = tid / LANES, lane = tid % LANES;
+  const int nchunks = (Dv + SLOTS - 1) / SLOTS;
+
+  // 1. forward
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // params loaded / previous chunk's xs read
+    build_xs(c);
+    __syncthreads();
+    float xv[IN];
+#pragma unroll
+    for (int i = 0; i < IN; ++i) xv[i] = xs[s * IN + i];
+    float o = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < UPL; ++t) {
+      const int j = LANES * t + lane;
+      float z = 0.f;
+#pragma unroll
+      for (int i = 0; i < IN; ++i) z = fmaf(xv[i], W1[i * H + j], z);
+      z += b1[j];
+      o = fmaf(fmaxf(z, 0.f), W2[j], o);
+    }
+    o += __shfl_xor_sync(FULL, o, 1);
+    o += __shfl_xor_sync(FULL, o, 2);
+    const int d = c * SLOTS + s;
+    if (lane == 0 && d < Dv) od[d] = o + b2[0];
+  }
+  __syncthreads();
+
+  // 2. per row: the loss term and each decode's upstream gradient
+  if (tid < rows) {
+    const int r = tid;
+    const long row = row0 + r;
+    float* o = od + r * dr;
+    auto wgt = [&](int j, int kk) { return wst[((long)j * n + row) * k + kk]; };
+    float sdf[6];
+    for (int j = 0; j < 6; ++j) {
+      if (WF) {
+        sdf[j] = o[j] * scale;
+      } else {
+        float p = 0.f;
+        for (int kk = 0; kk < k; ++kk) p = fmaf(wgt(j, kk), o[j * k + kk], p);
+        sdf[j] = p * scale;
+      }
+    }
+    const float e = esc[row];
+    const float gx = (sdf[0] - sdf[3]) * inv2e;
+    const float gy = (sdf[1] - sdf[4]) * inv2e;
+    const float gz = (sdf[2] - sdf[5]) * inv2e;
+    const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+    pwr[r] = (nrm - 1.f) * (nrm - 1.f) * e;
+    const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
+    const float dsdf[6] = {dg * gx, dg * gy, dg * gz, -dg * gx, -dg * gy, -dg * gz};
+    for (int j = 0; j < 6; ++j) {
+      if (WF)
+        o[j] = dsdf[j] * scale;
+      else
+        for (int kk = 0; kk < k; ++kk) o[j * k + kk] = dsdf[j] * scale * wgt(j, kk);
+    }
+  }
+
+  // 3. backward, one decoder-gradient sum per chunk
+  const int grp = tid / H, jo = tid % H;  // reduction owner: quarter, hidden unit
+  float acc[IN];
+#pragma unroll
+  for (int i = 0; i < IN; ++i) acc[i] = 0.f;
+  float adb1 = 0.f, adw2 = 0.f, adb2 = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // dO written / previous chunk's staging read
+    build_xs(c);
+    __syncthreads();
+    const int d = c * SLOTS + s;
+    const bool act = d < Dv;
+    const float dO = act ? od[d] : 0.f;
+    float xv[IN], dx[F];
+#pragma unroll
+    for (int i = 0; i < IN; ++i) xv[i] = xs[s * IN + i];
+#pragma unroll
+    for (int i = 0; i < F; ++i) dx[i] = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < UPL; ++t) {
+      const int j = LANES * t + lane;
+      float w[IN];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) w[i] = W1[i * H + j];
+      float z = 0.f;
+#pragma unroll
+      for (int i = 0; i < IN; ++i) z = fmaf(xv[i], w[i], z);
+      z += b1[j];
+      const float dh = z > 0.f ? dO * W2[j] : 0.f;
+      hs[s * HP + j] = fmaxf(z, 0.f);
+      dhs[s * HP + j] = dh;
+#pragma unroll
+      for (int i = 0; i < F; ++i) dx[i] = fmaf(dh, w[i], dx[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      dx[i] += __shfl_xor_sync(FULL, dx[i], 1);
+      dx[i] += __shfl_xor_sync(FULL, dx[i], 2);
+      if (act && i / 2 == lane) dxs[d * F + i] = dx[i];
+    }
+    __syncthreads();
+    const int nd = min(SLOTS, Dv - c * SLOTS);
+    const int q0 = grp * (SLOTS / GROUPS), q1 = min(q0 + SLOTS / GROUPS, nd);
+    for (int q = q0; q < q1; ++q) {
+      const float h = hs[q * HP + jo], dh = dhs[q * HP + jo], g = od[c * SLOTS + q];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) acc[i] = fmaf(xs[q * IN + i], dh, acc[i]);
+      adb1 += dh;
+      adw2 = fmaf(g, h, adw2);
+      if (jo == 0) adb2 += g;
+    }
+  }
+  __syncthreads();                        // last chunk's staging read: reuse hs as red
+
+  // 5a. stage the quarter sums
+  float* red = hs;                        // (GROUPS, RED, H) then (GROUPS,) db2
+#pragma unroll
+  for (int i = 0; i < IN; ++i) red[(grp * RED + i) * H + jo] = acc[i];
+  red[(grp * RED + IN) * H + jo] = adb1;
+  red[(grp * RED + IN + 1) * H + jo] = adw2;
+  if (jo == 0) red[GROUPS * RED * H + grp] = adb2;
+
+  // 4. feature gradients of the block's rows, in stencil order
+  const int per_row = k * C;
+  float* dst = dfeats + row0 * per_row;
+  for (int e = tid; e < rows * per_row; e += EB) {
+    const int r = e / per_row, rem = e - r * per_row, kk = rem / C, f = rem - kk * C;
+    const long row = row0 + r;
+    const float* dxr = dxs + (long)r * dr * F;
+    float a = 0.f;
+    if (f == F) {
+      for (int j = 0; j < 6; ++j) a += wst[((long)j * n + row) * k + kk];
+    } else if (WF) {
+      for (int j = 0; j < 6; ++j) a = fmaf(wst[((long)j * n + row) * k + kk], dxr[j * F + f], a);
+    } else {
+      for (int j = 0; j < 6; ++j) a += dxr[(j * k + kk) * F + f];
+    }
+    dst[e] = a;
+  }
+  __syncthreads();
+
+  // 5b. the block's partial gradient: quarters added in order
+  float* pb = partial + (long)blockIdx.x * E;
+  for (int e = tid; e < RED * H; e += EB) {
+    const int m = e / H, j = e - m * H;
+    float a = red[m * H + j];
+    for (int g = 1; g < GROUPS; ++g) a += red[(g * RED + m) * H + j];
+    pb[m < IN ? m * H + j : (m == IN ? IN * H + j : IN * H + H + j)] = a;
+  }
+  if (tid == 0) {
+    float a = red[GROUPS * RED * H];
+    for (int g = 1; g < GROUPS; ++g) a += red[GROUPS * RED * H + g];
+    pb[IN * H + 2 * H] = a;
+    float l = 0.f;
+    for (int r = 0; r < rows; ++r) l += pwr[r];
+    pb[E - 1] = l;
+  }
+}
+
+template <bool WF>
+int launch(const void* feats, const void* wst, const void* vst, const void* esc,
+           const void* params, int n, int k, int R, float scale, float inv2e, void* dfeats,
+           void* partial, int nblocks, cudaStream_t st) {
+  static bool opted_in = false;           // the dynamic shared memory above 48 KB
+  if (!opted_in) {
+    const int err = (int)cudaFuncSetAttribute(eikonal_kernel<WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              smem_floats(DMAX, DMAX / 6) * 4);
+    if (err) return err;
+    opted_in = true;
+  }
+  const int D = R * 6 * (WF ? 1 : k);
+  eikonal_kernel<WF><<<nblocks, EB, smem_floats(D, R) * 4, st>>>(
+      (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
+      (const float*)params, n, k, R, scale, inv2e, (float*)dfeats, (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace eik
+
+using namespace eik;
+
+// R base rows per block (R * decodes per row <= 512); partial holds
+// ceil(n / R) rows of E
 extern "C" int eikonal_launch(const void* feats, const void* wst, const void* vst,
                               const void* esc, const void* params, int n, int k,
-                              int weighted_first, float scale, float inv2e, void* dfeats,
-                              void* partial, void* out, void* stream) {
+                              int weighted_first, int R, float scale, float inv2e,
+                              void* dfeats, void* partial, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = (n + BLK - 1) / BLK;
+  if (R < 1 || k < 1 || k > MAXK || R * 6 * (weighted_first ? 1 : k) > DMAX)
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = (n + R - 1) / R;
   if (nblocks > 0) {
-    if (weighted_first)
-      eikonal_kernel<true><<<nblocks, BLK, 0, st>>>(
-          (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
-          (const float*)params, n, k, scale, inv2e, (float*)dfeats, (float*)partial);
-    else
-      eikonal_kernel<false><<<nblocks, BLK, 0, st>>>(
-          (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
-          (const float*)params, n, k, scale, inv2e, (float*)dfeats, (float*)partial);
-    int err = (int)cudaGetLastError();
+    const int err = weighted_first
+        ? launch<true>(feats, wst, vst, esc, params, n, k, R, scale, inv2e, dfeats, partial,
+                       nblocks, st)
+        : launch<false>(feats, wst, vst, esc, params, n, k, R, scale, inv2e, dfeats, partial,
+                        nblocks, st);
     if (err) return err;
   }
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);

@@ -1,7 +1,10 @@
 // Shared pieces of the training-iteration and eikonal kernels
 // (csrc/train_iter.cu, csrc/eikonal.cu).
 //
-// Both kernels run one thread per batch row, with the one-hidden-layer
+// The eikonal kernel takes only the shapes and `reduce_partials` from here
+// (its own design is described in eikonal.cu).
+//
+// The train kernel runs one thread per batch row, with the one-hidden-layer
 // decoder (W1 in x H, b1, W2, b2; F = 8 features + VD = 3 offset dims in,
 // H = 64 hidden) staged in shared memory.  Hidden activations are never
 // stored per row: each decode is recomputed in the backward pass (11 FMAs per
@@ -12,7 +15,7 @@
 // block then sums each of the E = in*H + 2H + 2 gradient entries over its
 // rows in a fixed order into per-thread accumulators.  Each block stores its
 // partial sums to a scratch buffer, and `reduce_partials` adds the blocks in
-// block order, so a run is bit-repeatable.  The output layout
+// a fixed order, so a run is bit-repeatable.  The output layout
 // [dW1 (in,H) | db1 (H) | dW2 (H) | db2 | loss] equals the packed decoder
 // vector's layout plus the summed loss.
 
@@ -124,18 +127,44 @@ __device__ inline void store_partials(const float* acc, float* __restrict__ part
   }
 }
 
-// out[e] = sum over blocks b (in order) of partial[b][e]
-__global__ void reduce_partials(const float* __restrict__ partial, int nblocks,
-                                float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
+// out[e] = the sum over blocks b of partial[b][e] in a fixed order: warp w
+// of a reduction block adds blocks w, w + RW, w + 2 RW, ... in turn for 32
+// consecutive entries (each load a coalesced 128-byte piece of a row, four
+// in flight), then the RW warp sums are added in warp order.  One block per
+// 32 entries, so each thread walks nblocks / RW partial rows, not all.
+constexpr int RW = 8;                     // warps per reduction block
+
+__global__ void __launch_bounds__(RW * 32) reduce_partials(const float* __restrict__ partial,
+                                                           int nblocks,
+                                                           float* __restrict__ out) {
+  __shared__ float sums[RW][33];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * 32 + lane;
   float a = 0.f;
-  for (int b = 0; b < nblocks; ++b) a += partial[(long)b * E + e];
-  out[e] = a;
+  if (e < E) {
+    const float* p = partial + e;
+    int b = w;
+    for (; b + 3 * RW < nblocks; b += 4 * RW) {
+      const float v0 = p[(long)b * E], v1 = p[(long)(b + RW) * E];
+      const float v2 = p[(long)(b + 2 * RW) * E], v3 = p[(long)(b + 3 * RW) * E];
+      a += v0;
+      a += v1;
+      a += v2;
+      a += v3;
+    }
+    for (; b < nblocks; b += RW) a += p[(long)b * E];
+  }
+  sums[w][lane] = a;
+  __syncthreads();
+  if (w == 0 && e < E) {
+    float t = sums[0][lane];
+    for (int i = 1; i < RW; ++i) t += sums[i][lane];
+    out[e] = t;
+  }
 }
 
 inline int launch_reduce(const float* partial, int nblocks, float* out, cudaStream_t st) {
-  reduce_partials<<<(E + 127) / 128, 128, 0, st>>>(partial, nblocks, out);
+  reduce_partials<<<(E + 31) / 32, RW * 32, 0, st>>>(partial, nblocks, out);
   return (int)cudaGetLastError();
 }
 

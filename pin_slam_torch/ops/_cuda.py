@@ -9,6 +9,8 @@ enough.  A library is rebuilt when its source (or a ``csrc`` header) is newer.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero code, because a
 refused launch never runs and a later synchronise would not report it.
+``fn`` resolves an entry point and sets its argument types once per process,
+so a launch pays one dict lookup for it.
 
 ``COUNTS`` holds one launch counter per kernel; each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -22,7 +24,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(ROOT, "pin_slam_torch", "csrc")
@@ -33,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 COUNTS: Dict[str, int] = {"rank": 0, "train_iter": 0, "eikonal": 0, "gather": 0,
                           "scatter": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_SMS: Dict[int, int] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 I64 = ctypes.c_int64
@@ -105,9 +109,15 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def fn(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    f = getattr(lib(name), symbol)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    """The C entry point ``symbol`` of csrc/<name>.cu, resolved (and its
+    ``argtypes`` / ``restype`` set) on the first call only; later calls are
+    one dict lookup."""
+    f = _FNS.get((name, symbol))
+    if f is None:
+        f = getattr(lib(name), symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FNS[(name, symbol)] = f
     return f
 
 
@@ -117,6 +127,20 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The caller's current stream on ``device`` (a torch.device or an index),
+    as the raw ``cudaStream_t`` value, read anew on every call."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    if not isinstance(device, int):
+        device = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(device)     # builds no Stream object
+
+
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    n = _SMS.get(device_index)
+    if n is None:
+        import torch
+
+        n = _SMS[device_index] = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return n

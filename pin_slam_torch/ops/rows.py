@@ -63,9 +63,12 @@ def _check_table(table: torch.Tensor) -> None:
 def _check_idx(idx: torch.Tensor, table: torch.Tensor) -> None:
     if idx.dtype != torch.int64:
         raise TypeError(f"row indices must be int64, got {idx.dtype}")
-    if idx.dim() != 1 or not idx.is_contiguous() or idx.device != table.device:
+    if idx.dim() != 1 or not idx.is_contiguous() or idx.get_device() != table.get_device():
         raise ValueError(f"row indices must be a contiguous (M,) tensor on the table's "
                          f"device, got {tuple(idx.shape)} on {idx.device}")
+
+
+_GATHER_ARGS = [_cuda.P, _cuda.P, _cuda.I64, _cuda.I64, _cuda.I, _cuda.P, _cuda.P]
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -75,20 +78,22 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 bounds_checked: bool = False) -> torch.Tensor:
     """(M, C) rows ``table[idx]``.  CPU tensors take the plain version, CUDA
-    tensors launch ``gather_rows_kernel``."""
+    tensors launch ``gather_rows_kernel`` (none for M = 0).  The checks read
+    only dtypes, shapes and strides, so the launch path costs about what one
+    PyTorch operator's does."""
     _check_table(table)
     _check_idx(idx, table)
     if not bounds_checked:
         check_index(idx, table.shape[0])
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return gather_rows_plain(table, idx)
-    M, C = idx.shape[0], table.shape[1]
-    out = torch.empty((M, C), dtype=torch.float32, device=table.device)
-    f = _cuda.fn("rows", "gather_rows_launch",
-                 [_cuda.P, _cuda.P, _cuda.I64, _cuda.I, _cuda.P, _cuda.P])
-    _cuda.check(f(table.data_ptr(), idx.data_ptr(), M, C, out.data_ptr(),
-                  _cuda.stream_ptr(table.device)), "gather_rows_kernel")
-    _cuda.COUNTS["gather"] += 1
+    (N, C), M = table.shape, idx.shape[0]
+    out = table.new_empty((M, C))
+    if M:
+        f = _cuda.fn("rows", "gather_rows_launch", _GATHER_ARGS)
+        _cuda.check(f(table.data_ptr(), idx.data_ptr(), N, M, C, out.data_ptr(),
+                      _cuda.stream_ptr(table.get_device())), "gather_rows_kernel")
+        _cuda.COUNTS["gather"] += 1
     return out
 
 

@@ -18,6 +18,8 @@ and the twins take any k up to 16.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pin_slam_torch.models.decoder import unpack
@@ -91,14 +93,15 @@ def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
     ``rows_of``: (tensor, expected leading dim) pairs."""
     if not (1 <= k <= MAX_K) or feats.dim() != 3 or feats.shape[1] != k:
         raise ValueError(f"feats {tuple(feats.shape)} for k={k} (k <= {MAX_K})")
+    dev = feats.get_device()               # an int: no torch.device built per tensor
     for t in (feats, params) + tensors:
-        if t.device != feats.device or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.get_device() != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("training kernels take contiguous float32 tensors on one device")
     for t, rows in rows_of:
         if t.shape[0] != rows:
             raise ValueError(f"row count mismatch: {tuple(t.shape)} vs {rows}")
     vd = vcols if weighted_first else vcols // k
-    if feats.device.type == "cuda":
+    if feats.is_cuda:
         n_par = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 1
         if feats.shape[2] != KERNEL_F + 1 or vd != KERNEL_VD or params.shape != (n_par,):
             raise NotImplementedError(
@@ -139,6 +142,30 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
     return out[-1], dfeats, out[:-1]
 
 
+EIK_SLOTS = 64     # decodes per chunk of csrc/eikonal.cu (256 threads, 4 lanes a decode)
+EIK_DMAX = 512     # decodes per block
+_EIK_ARGS = ([_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
+             + [_cuda.P] * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def eikonal_rows_per_block(n: int, k: int, weighted_first: bool, n_sms: int) -> int:
+    """Base rows R per block of the eikonal kernel.  A block runs its
+    R * (6 or 6k) decodes in chunks of ``EIK_SLOTS``; R minimises the chunks
+    the busiest SM runs, ceil(blocks / SMs) * chunks per block (the smallest
+    such R, for the most blocks)."""
+    dr = 6 * (1 if weighted_first else k)
+    best, best_r = None, 1
+    for r in range(1, EIK_DMAX // dr + 1):
+        blocks = -(-n // r)
+        cost = -(-blocks // n_sms) * -(-(r * dr) // EIK_SLOTS)
+        if best is None or cost < best:
+            best, best_r = cost, r
+        if blocks <= 1:
+            break
+    return best_r
+
+
 def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
                  scale: float, step: float):
     """feats (n,k,F+1) base rows; wst (6n,k) stencil IDW weights (stencil j
@@ -149,17 +176,20 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
            [(esc, n), (wst, 6 * n), (vst, 6 * n)], wst, vst, esc)
     if wst.shape[1] != k:
         raise ValueError(f"wst {tuple(wst.shape)} for k={k}")
-    if feats.device.type == "cpu":
+    if feats.is_cpu:
         return eikonal_iter_plain(feats, wst, vst, esc, params, weighted_first,
                                   scale, step)
-    dev = feats.device
-    dfeats, partial, out = _launch_outputs(n, k, dev)
-    f = _cuda.fn("eikonal", "eikonal_launch",
-                 [_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
-                 + [_cuda.P] * 4)
+    dev = feats.get_device()
+    R = eikonal_rows_per_block(n, k, bool(weighted_first), _cuda.sm_count(dev))
+    nblocks = -(-n // R)
+    E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2
+    nf = n * k * (KERNEL_F + 1)
+    buf = feats.new_empty((nf + (nblocks + 1) * E,))     # dfeats | out | block partials
+    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + E]
+    f = _cuda.fn("eikonal", "eikonal_launch", _EIK_ARGS)
     _cuda.check(f(feats.data_ptr(), wst.data_ptr(), vst.data_ptr(), esc.data_ptr(),
-                  params.data_ptr(), n, k, int(weighted_first), float(scale),
-                  float(1.0 / (2.0 * step)), dfeats.data_ptr(), partial.data_ptr(),
+                  params.data_ptr(), n, k, int(weighted_first), R, float(scale),
+                  float(1.0 / (2.0 * step)), dfeats.data_ptr(), out.data_ptr() + 4 * E,
                   out.data_ptr(), _cuda.stream_ptr(dev)), "eikonal_kernel")
     _cuda.COUNTS["eikonal"] += 1
     return out[-1], dfeats, out[:-1]

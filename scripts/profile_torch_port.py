@@ -76,8 +76,10 @@ def install_spans():
 
 
 def kernel_name(name):
-    """'void ns::foo<T>(float const*, ...)' -> 'foo'."""
-    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+    """'void ns::foo<T>(float const*, ...)' -> 'foo'; a name without that
+    shape (a copy, a memset) is returned as it is."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()
+    return head[-1].split("::")[-1] if head else name
 
 
 def gpu_work(events):

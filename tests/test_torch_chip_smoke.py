@@ -82,6 +82,50 @@ def test_gather_check_accepts_twin_and_fails_on_one_wrong_row():
         chip_smoke.gather_check(bad, table, idx, "cpu")
 
 
+@pytest.mark.parametrize("kind", ["train", "eikonal"])
+def test_identity_check_accepts_equal_and_fails_on_one_ulp(kind):
+    """The two-launch check of the eikonal kernel (and the scatter): equal
+    outputs pass, one value one ulp off in any output fails."""
+    plain, args = _case(kind, False)
+    out = plain(*args)
+    chip_smoke.identical_check(out, tuple(t.clone() for t in out), kind)
+    for i in range(3):
+        bad = [t.clone() for t in out]
+        flat = bad[i].view(-1)
+        flat[-1] = torch.nextafter(flat[-1], torch.tensor(float("inf")))
+        with pytest.raises(SystemExit, match="FAILED"):
+            chip_smoke.identical_check(out, tuple(bad), kind)
+
+
+@pytest.mark.parametrize("wf", [True, False], ids=["wf", "per_neighbor"])
+def test_dyadic_eikonal_inputs_make_preactivations_exact(wf):
+    """The edge cases' inputs: every hidden pre-activation of every stencil
+    decode is the same in float32 and float64, so no ReLU mask can flip
+    between the kernel and the float64 check."""
+    from pin_slam_torch.models.decoder import unpack
+
+    n, k = 37, 16
+    feats, wst, vst, _, params, _, _, _ = chip_smoke.synthetic_eik_args(
+        wf, n, k, 3, device="cpu", dyadic=True)
+
+    def pre(dt):
+        W1, b1, _, _ = unpack(params.to(dt), IN, H)
+        f, w3 = feats[..., :F].to(dt), wst.to(dt).reshape(6, n, k)
+        if wf:
+            x = torch.cat([torch.einsum("jnk,nkf->jnf", w3, f), vst.to(dt).reshape(6, n, 3)], -1)
+        else:
+            x = torch.cat([f[None].expand(6, n, k, F), vst.to(dt).reshape(6, n, k, 3)], -1)
+        return x @ W1 + b1
+
+    assert torch.equal(pre(torch.float32).double(), pre(torch.float64))
+
+
+def test_identity_check_tells_signed_zeros_apart():
+    chip_smoke.identical_check(torch.zeros(3), torch.zeros(3), "zeros")
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.identical_check(torch.zeros(3), -torch.zeros(3), "zeros")
+
+
 @pytest.mark.parametrize("skip", [True, False], ids=["skip_sentinel", "all_rows"])
 def test_scatter_check_accepts_twin_and_fails_on_one_wrong_row(skip):
     rows, table, idx, val, sentinel = _row_case()

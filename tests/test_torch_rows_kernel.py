@@ -36,6 +36,44 @@ def test_gather_twin_matches_jax_take(C):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("C", [1, 9, 24, 42])
+def test_gather_takes_misaligned_views_and_empty_indices(C, offset):
+    """A table that is a view off the start of its buffer (the kernel then
+    takes its scalar path) gathers like a fresh table, and M = 0 gives an
+    empty (0, C) result."""
+    tab, idx, _ = _inputs(9, N=301, C=C, M=500)
+    buf = torch.zeros(301 * C + offset)
+    buf[offset:] = torch.as_tensor(tab).reshape(-1)
+    view = buf[offset:].view(301, C)
+    ref = np.asarray(jax.jit(lambda t, i: jnp.take(t, i, axis=0))(tab, idx.astype(np.int32)))
+    np.testing.assert_array_equal(rows.gather_rows(view, torch.as_tensor(idx)).numpy(), ref)
+    empty = rows.gather_rows(view, torch.zeros(0, dtype=torch.int64))
+    assert empty.shape == (0, C) and empty.dtype == torch.float32
+
+
+def test_cuda_entry_points_resolve_once(monkeypatch):
+    """A wrapper's C entry point is looked up and typed on its first call
+    only; later calls reuse it."""
+    import types
+
+    from pin_slam_torch.ops import _cuda
+
+    looked_up = []
+
+    class FakeLib:
+        def __getattr__(self, symbol):
+            looked_up.append(symbol)
+            return types.SimpleNamespace()
+
+    monkeypatch.setattr(_cuda, "lib", lambda name: FakeLib())
+    monkeypatch.setattr(_cuda, "_FNS", {})
+    f1 = _cuda.fn("rows", "gather_rows_launch", rows._GATHER_ARGS)
+    f2 = _cuda.fn("rows", "gather_rows_launch", rows._GATHER_ARGS)
+    assert f1 is f2 and looked_up == ["gather_rows_launch"]
+    assert f1.argtypes == rows._GATHER_ARGS and f1.restype is _cuda.ctypes.c_int
+
+
 def test_scatter_twin_matches_jax_scatter_add():
     """Sum order differs between XLA's scatter and index_add: allclose at
     float32 rounding of a sum of up to ~1800 unit-scale terms."""

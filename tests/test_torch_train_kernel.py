@@ -95,9 +95,11 @@ def test_train_iter_twin_matches_pallas(wf):
     _check(out, *ref, B=B, k=k)
 
 
+@pytest.mark.parametrize("n", [64, 1, 37])
 @pytest.mark.parametrize("wf", [True, False])
-def test_eikonal_twin_matches_pallas(wf):
-    n, k, scale, step = 64, 6, 0.055, 0.06
+def test_eikonal_twin_matches_pallas(wf, n):
+    """n = 1 and 37 are ragged: the Pallas kernel pads them to its tiles."""
+    k, scale, step = 6, 0.055, 0.06
     rng = np.random.default_rng(5)
     feats, wst, vst, esc = _eik_inputs(rng, n, k, wf)
     W1, b1, W2, b2 = _decoder(rng)
@@ -110,6 +112,21 @@ def test_eikonal_twin_matches_pallas(wf):
                            torch.as_tensor(vst), torch.as_tensor(esc), _pack(W1, b1, W2, b2),
                            wf, scale, step)
     _check(out, *ref, B=n, k=k)
+
+
+@pytest.mark.parametrize("wf", [True, False])
+def test_eikonal_launch_configuration(wf):
+    """The eikonal kernel's rows per block: every k fits a block's decode
+    budget, every row is covered, and path B's shape (n = 1638, k = 6) spreads
+    over more blocks than the 26 of one thread per row on 64-thread blocks."""
+    for k in range(1, ttk.MAX_K + 1):
+        dr = 6 * (1 if wf else k)
+        for n in (1, 37, 1638, 5000):
+            R = ttk.eikonal_rows_per_block(n, k, wf, 132)
+            assert 1 <= R and R * dr <= ttk.EIK_DMAX
+            assert -(-n // R) * R >= n
+    R = ttk.eikonal_rows_per_block(1638, 6, wf, 132)
+    assert -(-1638 // R) > 26
 
 
 def _jax_ref_k8(kind, wf, arrays, W, scale, aux):
