@@ -27,16 +27,17 @@
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
    (integers and gathers exact; floats part by part within the stated
-   tolerances; the scatter and the eikonal kernel also bit-identical across
-   two launches) and timed beside its plain version and the one PyTorch
+   tolerances; the scatter, the train and the eikonal kernel also
+   bit-identical across two launches) and timed beside its plain version and the one PyTorch
    call that computes the same function where there is one, each two ways:
    ``ms``, CUDA events around one launch on an idle card (median of 25; the
    host's launch path included), and ``device_ms``, many launches queued
    behind ``torch.cuda._sleep`` between two events (the device alone).  The
    train and eikonal kernels also at k = 8 on random inputs, the row kernels
    also at the Pallas experiment's own shape.
-6. Edge cases on random inputs: the eikonal kernel at n in {1, 37, 1638} x
-   k in {1, 6, 16} x both modes (float64 check, two launches bit-identical),
+6. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
+   and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 16} x
+   both modes on dyadic inputs (float64 check, two launches bit-identical),
    the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
    and misaligned tables and on one of more than 2^31 floats (bit-exact).
 
@@ -569,7 +570,7 @@ def train_phase(label, args, kwargs, launches):
 
     feats, w, vin, label_t, wt, params, wf, scale, sigma = args
     B, k = w.shape
-    out_k = tk.train_iter(*args)
+    out_k = train_checked(args, f"train_iter kernel {label}")
     err, detail = _cmp(out_k, tk.train_iter_plain, args, f"train_iter kernel {label}")
     t = timings(lambda: tk.train_iter(*args), lambda: tk.train_iter_plain(*args))
     IN, H = tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
@@ -580,9 +581,42 @@ def train_phase(label, args, kwargs, launches):
            "replaces": "pin_slam_tpu/ops/train_kernel.py:247", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
            "shape": {"B": B, "k": k, "weighted_first": wf},
-           "check": CHECK_TEXT, "err_vs_f64": detail}
+           "launch": train_launch(B, k, wf),
+           "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
+
+
+def train_launch(B, k, wf):
+    """The train kernel's launch at (B, k, mode): rows per block, blocks,
+    threads per block, and the blocks per SM its registers allow."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    resident = tk._train_resident(0, bool(wf))
+    R = tk.train_rows_per_block(B, k, bool(wf), resident)
+    return {"rows_per_block": R, "blocks": -(-B // R), "threads": 256,
+            "blocks_per_sm": resident // _cuda_sms()}
+
+
+def train_checked(args, label):
+    """Two launches of the train kernel on ``args``; fails unless their
+    outputs are bit-identical.  Returns the first."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    return launched_twice(tk.train_iter, args, label)
+
+
+def launched_twice(fn, args, label):
+    """``fn(*args)`` twice; fails unless the two outputs are bit-identical.
+    Returns the first."""
+    import torch
+
+    out1 = fn(*args)
+    out2 = fn(*args)
+    if out1[1].is_cuda:
+        torch.cuda.synchronize()
+    identical_check(out1, out2, label)
+    return out1
 
 
 def eik_phase(label, args, kwargs, launches):
@@ -616,15 +650,29 @@ def _cuda_sms():
 def eik_checked(args, label):
     """Two launches of the eikonal kernel on ``args``; fails unless their
     outputs are bit-identical.  Returns the first."""
-    import torch
-
     from pin_slam_torch.ops import train_kernel as tk
 
-    out1 = tk.eikonal_iter(*args)
-    out2 = tk.eikonal_iter(*args)
-    torch.cuda.synchronize()
-    identical_check(out1, out2, label)
-    return out1
+    return launched_twice(tk.eikonal_iter, args, label)
+
+
+def train_edge_phase():
+    """The train kernel on dyadic inputs at B in {1, 37, 16384} x k in
+    {1, 6, 16} x both modes: two launches bit-identical, and part by part
+    against the plain version in float64 at the stated tolerances.  Not a
+    main-path shape, so kept out of the kernels line."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    errs, cases = [], 0
+    for wf in (True, False):
+        for k in (1, 6, 16):
+            for B in (1, 37, 16384):
+                label = f"train_iter kernel edge B={B} k={k} wf={int(wf)}"
+                args = synthetic_train_args(wf, B, k, 200 + 10 * B + k, dyadic=True)
+                err, _ = _cmp(train_checked(args, label), tk.train_iter_plain, args, label)
+                errs.append(err)
+                cases += 1
+    emit({"phase": "train_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),
+          "check": CHECK_TEXT + "; two launches bit-identical"})
 
 
 def eikonal_edge_phase():
@@ -799,13 +847,23 @@ def experiment_shape_rows():
     scatter_phase("experiment", (tab, idx, val), {}, 0)
 
 
-def synthetic_train_args(wf, B, k, seed, device="cuda"):
-    """Random inputs at the main path's widths (F=8, VD=3, H=64)."""
+def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False):
+    """Random inputs at the main path's widths (F=8, VD=3, H=64).
+    ``dyadic``: as for ``synthetic_eik_args``, features, IDW weights, offset
+    vectors and decoder are small integers over powers of two, so every
+    hidden pre-activation is exact in float32."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
+    if dyadic:
+        q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
+                                                  device=device).float() / den
+        params = torch.cat([q(-32, 32, 128, 11 * 64), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+                            q(-8, 8, 64, 1)])
+        return (q(-16, 16, 8, B, k, 9), q(1, 16, 64, B, k), q(-8, 8, 32, B, 3 if wf else 3 * k),
+                r(B) * 0.3, u(B) / B, params, wf, 0.055, 0.1)
     w = u(B, k)
     w = w / w.sum(1, keepdim=True)
     params = torch.cat([r(11 * 64) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
@@ -901,6 +959,7 @@ def main() -> int:
         train_phase(f"k8-wf{int(wf)}", synthetic_train_args(wf, 16384, 8, 1), {}, 0)
         eik_phase(f"k8-wf{int(wf)}", synthetic_eik_args(wf, 1638, 8, 2), {}, 0)
     experiment_shape_rows()
+    train_edge_phase()
     eikonal_edge_phase()
     gather_edge_phase()
 

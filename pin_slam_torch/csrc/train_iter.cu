@@ -9,18 +9,80 @@
 // per-(row, neighbour) feature gradients (certainty column = w) and the
 // decoder gradients.
 //
-// Bound on an H100: at B = 16384, k = 6 the launch moves ~5 MB (read feats,
-// weights, vectors; write dfeats) and does ~50-300 MFLOP of float32 FMAs, so
-// it is a few microseconds of either at the card's peak: launch- and
-// latency-bound.  Design: one thread per row (no k^2 block-diagonal decoder,
-// no ones-column packing, no tile padding: all TPU-specific), decoder in
-// shared memory, decodes recomputed in the backward pass, decoder gradients
-// by a fixed-order block reduction plus `reduce_partials` (no atomics).
-// k is a runtime value up to 16.
+// Bound on an H100: at the main path's B = 16384, k = 6 a launch moves
+// ~7.8 MB with weighted_first (read feats, weights, vectors; write dfeats:
+// 2.3 us at 3.35 TB/s, bytes-bound) and ~9 MB per neighbour, where its
+// 98304 decodes take 4608 float32 operations each (forward 11 x 64 FMAs,
+// their recomputation, the 8 x 64 input gradient and the 13 x 64
+// decoder-gradient sums): 0.45 GFLOP, 6.8 us at 67 TFLOP/s, operations.
+//
+// Design: parallel over decodes, not rows.  A decode is one row
+// (weighted_first) or one (row, neighbour).  A block of 256 threads owns R
+// consecutive rows and all their D = R or R * k decodes, and runs them in
+// passes of SLOTS = 16: LANES = 16 lanes share a decode, lane l owning the
+// hidden units l, l + 16, l + 32, l + 48.  A lane keeps its units' W1
+// columns, b1 and W2 in registers for the whole block (52 floats), so no
+// FMA reads the decoder from shared memory; a decode's 11 inputs are staged
+// in shared memory once per block, padded to 12 and read as three
+// broadcast float4s.  Sixteen lanes of four units, not eight of eight: a
+// lane also keeps its units' decoder-gradient sums in registers (52 more
+// floats), and eight units a lane would need ~210 registers of state alone.
+// Phases, separated by barriers:
+//   0. stage the rows' IDW weights and every decode's inputs x;
+//   1. forward: each decode's output o, summed over its lanes by xor
+//      shuffles, is kept in shared memory;
+//   2. one thread per row: the prediction (o, or sum_k w_k o_k), the BCE,
+//      the row's loss term and db2 term, and each decode's upstream
+//      gradient dO (overwriting o);
+//   3. backward: z is recomputed from the registers, then dh and the
+//      decode's 8 feature gradients dx, which a reduce-scatter over the 16
+//      lanes (xor 8, 4, 2: each step keeps half the values, 7 shuffles;
+//      then xor 1) leaves one per lane pair; the lane adds dW1[:, j], db1[j]
+//      and dW2[j] of its units in registers, decode after decode;
+//   4. feature gradients, written contiguously: w_k dx (weighted_first) or
+//      dx, and the certainty column w_k;
+//   5. the two slots of each warp are added by one xor shuffle, the eight
+//      warps' sums in warp order, the rows' loss and db2 terms by warp 0 in
+//      a fixed order; `reduce_partials` (train_common.cuh) then adds the
+//      blocks' partial rows in a fixed order.
+// No block-wide reduction per decode and no float atomics: every sum has a
+// fixed order, so two launches on the same inputs give the same bits.  The
+// wrapper picks R from B, k, the mode and the card's resident blocks
+// (ops/train_kernel.train_rows_per_block): at the main path's shape, 132
+// blocks of 125 rows, one wave.  Shared memory depends on D (dynamic, 67 KB
+// at D = 750).  The pre-activations are summed in the order of the first
+// port of this kernel (z = fma over the 11 inputs in order, then + b1), so
+// the float64 checks see the same ReLU masks.  Float32 on the CUDA cores,
+// as the port's precision policy asks; a 3xTF32 mma.sync split of the three
+// 11 x 64 products is a later option, against the same 6.8 us bound.
 
 #include "train_common.cuh"
 
 using namespace tk;
+
+namespace ti {
+
+constexpr int TB = 256;                   // threads per block
+constexpr int LANES = 16;                 // lanes per decode
+constexpr int SLOTS = TB / LANES;         // decodes per pass
+constexpr int UPL = H / LANES;            // hidden units per lane: LANES * t + lane
+constexpr int WARPS = TB / 32;
+constexpr int XP = 12;                    // staged input pitch: 11 inputs + a zero
+constexpr int DMAX = 1024;                // decodes per block
+constexpr int RED = IN + 2;               // per-unit sums: dW1[:, j], db1[j], dW2[j]
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(H % LANES == 0 && 32 % LANES == 0 && LANES >= F, "lane layout");
+static_assert(RED * H + 2 == E, "a partial row is the per-unit sums, db2 and the loss");
+
+// dynamic shared memory, in floats, for Dp staged decodes of R rows:
+// [xs (Dp, XP) | od (Dp)] (then the warps' gradient sums) | dxs (Dp, F) |
+// ws (R, k) | the rows' loss and db2 terms (R each)
+__host__ __device__ constexpr int head_floats(int Dp) {
+  return Dp * (XP + 1) > WARPS * RED * H ? Dp * (XP + 1) : WARPS * RED * H;
+}
+__host__ __device__ constexpr int smem_floats(int Dp, int R, int k) {
+  return head_floats(Dp) + Dp * F + R * k + 2 * R;
+}
 
 __device__ inline void bce(float pred, float label, float wt, float inv_sigma, float& pw,
                            float& dpred) {
@@ -32,103 +94,302 @@ __device__ inline void bce(float pred, float label, float wt, float inv_sigma, f
   dpred = (sz - tgt) * wt * inv_sigma;
 }
 
-template <bool WF>
-__global__ void __launch_bounds__(BLK) train_iter_kernel(
-    const float* __restrict__ feats, const float* __restrict__ w,
-    const float* __restrict__ vin, const float* __restrict__ label,
-    const float* __restrict__ wt, const float* __restrict__ params, int B, int k,
-    float scale, float inv_sigma, float* __restrict__ dfeats, float* __restrict__ partial) {
-  __shared__ Smem s;
-  load_params(s, params);
-  const long row = (long)blockIdx.x * BLK + threadIdx.x;
-  const bool act = row < B;
-  float acc[NE];
+__device__ __forceinline__ void load_x(const float* xs, float (&x)[XP]) {
+  const float4* p = reinterpret_cast<const float4*>(xs);
 #pragma unroll
-  for (int m = 0; m < NE; ++m) acc[m] = 0.f;
-
-  float wk[MAXK];
-  for (int kk = 0; kk < k; ++kk) wk[kk] = act ? w[row * k + kk] : 0.f;
-  const float* fr = feats + row * k * C;
-  const float lab = act ? label[row] : 0.f;
-  const float wtr = act ? wt[row] : 0.f;
-  float x[IN], dx[IN];
-
-  if (WF) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float a = 0.f;
-      if (act)
-        for (int kk = 0; kk < k; ++kk) a = fmaf(wk[kk], fr[kk * C + f], a);
-      x[f] = a;
-    }
-#pragma unroll
-    for (int v = 0; v < VD; ++v) x[F + v] = act ? vin[row * VD + v] : 0.f;
-    const float o = mlp_fwd(s, x);
-    float pw, dpred;
-    bce(o * scale, lab, wtr, inv_sigma, pw, dpred);
-    const float dO = act ? dpred * scale : 0.f;
-    mlp_bwd_step(s, x, dO, act ? pw : 0.f, dx);
-    if (act) {
-      for (int kk = 0; kk < k; ++kk) {
-        float* d = dfeats + (row * k + kk) * C;
-#pragma unroll
-        for (int f = 0; f < F; ++f) d[f] = wk[kk] * dx[f];
-        d[F] = wk[kk];
-      }
-    }
-    reduce_step(s, acc);
-  } else {
-    float o[MAXK];
-    float pred = 0.f;
-    for (int kk = 0; kk < k; ++kk) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) x[f] = act ? fr[kk * C + f] : 0.f;
-#pragma unroll
-      for (int v = 0; v < VD; ++v) x[F + v] = act ? vin[(row * k + kk) * VD + v] : 0.f;
-      o[kk] = mlp_fwd(s, x);
-      pred = fmaf(wk[kk], o[kk], pred);
-    }
-    float pw, dpred;
-    bce(pred * scale, lab, wtr, inv_sigma, pw, dpred);
-    for (int kk = 0; kk < k; ++kk) {
-      const float dO = act ? dpred * scale * wk[kk] : 0.f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) x[f] = act ? fr[kk * C + f] : 0.f;
-#pragma unroll
-      for (int v = 0; v < VD; ++v) x[F + v] = act ? vin[(row * k + kk) * VD + v] : 0.f;
-      mlp_bwd_step(s, x, dO, (act && kk == 0) ? pw : 0.f, dx);
-      if (act) {
-        float* d = dfeats + (row * k + kk) * C;
-#pragma unroll
-        for (int f = 0; f < F; ++f) d[f] = dx[f];
-        d[F] = wk[kk];
-      }
-      reduce_step(s, acc);
-    }
+  for (int q = 0; q < XP / 4; ++q) {
+    const float4 v = p[q];
+    x[4 * q] = v.x;
+    x[4 * q + 1] = v.y;
+    x[4 * q + 2] = v.z;
+    x[4 * q + 3] = v.w;
   }
-  store_partials(acc, partial);
 }
 
+// pre-activation of the lane's unit t: the inputs in order, then the bias
+__device__ __forceinline__ float preact(const float (&x)[XP], const float (&w1)[IN][UPL],
+                                        const float (&b1)[UPL], int t) {
+  float z = 0.f;
+#pragma unroll
+  for (int i = 0; i < IN; ++i) z = fmaf(x[i], w1[i][t], z);
+  return z + b1[t];
+}
+
+// Sums v[0..W) over the decode's lanes in a fixed order.  While W > 1 each
+// xor step M keeps half the values (the upper half where lane bit M is set)
+// and adds the partner's copy of them; once one value is left, the remaining
+// steps add whole sums (a + b on one lane, b + a on its partner: the same
+// bits).  Returns the feature index of v[0].
+template <int M, int W>
+__device__ __forceinline__ int reduce_scatter(float (&v)[F], int lane, int base) {
+  if constexpr (M == 0) {
+    return base;
+  } else if constexpr (W > 1) {
+    constexpr int HW = W / 2;
+    const bool hi = (lane & M) != 0;
+#pragma unroll
+    for (int i = 0; i < HW; ++i) {
+      const float send = hi ? v[i] : v[i + HW];
+      const float keep = hi ? v[i + HW] : v[i];
+      v[i] = keep + __shfl_xor_sync(FULL, send, M);
+    }
+    return reduce_scatter<M / 2, HW>(v, lane, hi ? base + HW : base);
+  } else {
+    v[0] += __shfl_xor_sync(FULL, v[0], M);
+    return reduce_scatter<M / 2, 1>(v, lane, base);
+  }
+}
+
+// the warp's slots added: xor LANES, 2 LANES, ... (one step at 16 lanes)
+__device__ __forceinline__ float slot_sum(float a) {
+#pragma unroll
+  for (int m = LANES; m < 32; m <<= 1) a += __shfl_xor_sync(FULL, a, m);
+  return a;
+}
+
+template <bool WF>
+__global__ void __launch_bounds__(TB) train_iter_kernel(
+    const float* __restrict__ feats, const float* __restrict__ w,
+    const float* __restrict__ vin, const float* __restrict__ label,
+    const float* __restrict__ wt, const float* __restrict__ params, int B, int k, int R,
+    float scale, float inv_sigma, float* __restrict__ dfeats, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int kd = WF ? 1 : k;              // decodes per row
+  const int Dp = (R * kd + SLOTS - 1) / SLOTS * SLOTS;
+  float* xs = sm;                         // (Dp, XP) inputs
+  float* od = xs + Dp * XP;               // (Dp,) outputs, then dO
+  float* red = sm;                        // (WARPS, RED, H) after the backward pass
+  float* dxs = sm + head_floats(Dp);      // (Dp, F) feature gradients
+  float* ws = dxs + Dp * F;               // (R, k) IDW weights
+  float* pwr = ws + R * k;                // (R,) loss terms
+  float* pdb = pwr + R;                   // (R,) db2 terms
+
+  const int tid = threadIdx.x;
+  const long row0 = (long)blockIdx.x * R;
+  const int rows = (int)min((long)R, (long)B - row0);
+  const int Dv = rows * kd;               // the block's decodes
+  const int s = tid / LANES, lane = tid % LANES;
+
+  float w1[IN][UPL], b1[UPL], w2[UPL];
+#pragma unroll
+  for (int t = 0; t < UPL; ++t) {
+    const int j = LANES * t + lane;
+#pragma unroll
+    for (int i = 0; i < IN; ++i) w1[i][t] = params[i * H + j];
+    b1[t] = params[IN * H + j];
+    w2[t] = params[IN * H + H + j];
+  }
+  const float b2 = params[IN * H + 2 * H];
+
+  // 0. the rows' weights, then every decode's inputs (zeros past Dv)
+  for (int e = tid; e < rows * k; e += TB) ws[e] = w[row0 * k + e];
+  if (WF) __syncthreads();
+  for (int e = tid; e < Dp * XP; e += TB) {
+    const int d = e / XP, i = e - d * XP;
+    float v = 0.f;
+    if (d < Dv && i < IN) {
+      if (WF) {
+        const long row = row0 + d;
+        if (i < F) {
+          const float* fr = feats + row * k * C + i;
+          const float* wr = ws + d * k;
+          for (int q = 0; q < k; ++q) v = fmaf(wr[q], fr[q * C], v);
+        } else {
+          v = vin[row * VD + (i - F)];
+        }
+      } else {
+        const long dg = row0 * k + d;     // (row, neighbour) in the batch
+        v = i < F ? feats[dg * C + i] : vin[dg * VD + (i - F)];
+      }
+    }
+    xs[e] = v;
+  }
+  __syncthreads();
+
+  const int npass = (Dv + SLOTS - 1) / SLOTS;
+  // 1. forward
+#pragma unroll 1
+  for (int c = 0; c < npass; ++c) {
+    const int d = c * SLOTS + s;
+    float x[XP];
+    load_x(xs + d * XP, x);
+    float o = 0.f;
+#pragma unroll
+    for (int t = 0; t < UPL; ++t) o = fmaf(fmaxf(preact(x, w1, b1, t), 0.f), w2[t], o);
+#pragma unroll
+    for (int m = LANES / 2; m >= 1; m >>= 1) o += __shfl_xor_sync(FULL, o, m);
+    if (lane == 0 && d < Dv) od[d] = o + b2;
+  }
+  __syncthreads();
+
+  // 2. per row: the loss term, the db2 term and each decode's dO
+  for (int r = tid; r < rows; r += TB) {
+    const long row = row0 + r;
+    const float* wr = ws + r * k;
+    float* o = od + r * kd;
+    float pred = 0.f;
+    if (WF)
+      pred = o[0];
+    else
+      for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
+    float pw, dpred;
+    bce(pred * scale, label[row], wt[row], inv_sigma, pw, dpred);
+    const float g = dpred * scale;
+    pwr[r] = pw;
+    if (WF) {
+      o[0] = g;
+      pdb[r] = g;
+    } else {
+      float a = 0.f;
+      for (int q = 0; q < k; ++q) {
+        const float dO = g * wr[q];
+        o[q] = dO;
+        a += dO;
+      }
+      pdb[r] = a;
+    }
+  }
+  __syncthreads();
+
+  // 3. backward; the lane's decoder-gradient sums stay in registers
+  float aw1[IN][UPL], ab1[UPL], aw2[UPL];
+#pragma unroll
+  for (int t = 0; t < UPL; ++t) {
+#pragma unroll
+    for (int i = 0; i < IN; ++i) aw1[i][t] = 0.f;
+    ab1[t] = 0.f;
+    aw2[t] = 0.f;
+  }
+#pragma unroll 1
+  for (int c = 0; c < npass; ++c) {
+    const int d = c * SLOTS + s;
+    const bool act = d < Dv;
+    const float dO = act ? od[d] : 0.f;   // past Dv: x = 0 and dO = 0 add nothing
+    float x[XP], dx[F];
+    load_x(xs + d * XP, x);
+#pragma unroll
+    for (int f = 0; f < F; ++f) dx[f] = 0.f;
+#pragma unroll
+    for (int t = 0; t < UPL; ++t) {
+      const float z = preact(x, w1, b1, t);
+      const float dh = z > 0.f ? dO * w2[t] : 0.f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) dx[f] = fmaf(dh, w1[f][t], dx[f]);
+#pragma unroll
+      for (int i = 0; i < IN; ++i) aw1[i][t] = fmaf(x[i], dh, aw1[i][t]);
+      ab1[t] += dh;
+      aw2[t] = fmaf(dO, fmaxf(z, 0.f), aw2[t]);
+    }
+    const int f = reduce_scatter<LANES / 2, F>(dx, lane, 0);
+    if (act && lane % (LANES / F) == 0) dxs[d * F + f] = dx[0];
+  }
+  __syncthreads();                        // xs and od are free: red reuses them
+
+  // 5a. each warp's sums, staged per hidden unit
+  const int warp = tid / 32;
+#pragma unroll
+  for (int t = 0; t < UPL; ++t) {
+    const int j = LANES * t + lane;
+    float* rw = red + warp * RED * H + j;
+#pragma unroll
+    for (int i = 0; i < IN; ++i) {
+      const float a = slot_sum(aw1[i][t]);
+      if (tid % 32 < LANES) rw[i * H] = a;
+    }
+    const float a1 = slot_sum(ab1[t]), a2 = slot_sum(aw2[t]);
+    if (tid % 32 < LANES) {
+      rw[IN * H] = a1;
+      rw[(IN + 1) * H] = a2;
+    }
+  }
+
+  // 4. feature gradients of the block's rows, contiguous
+  const int per_row = k * C;
+  float* dst = dfeats + row0 * per_row;
+  for (int e = tid; e < rows * per_row; e += TB) {
+    const int r = e / per_row, rem = e - r * per_row, q = rem / C, f = rem - q * C;
+    const float wq = ws[r * k + q];
+    dst[e] = f == F ? wq : (WF ? wq * dxs[r * F + f] : dxs[(r * k + q) * F + f]);
+  }
+  __syncthreads();
+
+  // 5b. the block's partial row: warps in order; the rows' terms by warp 0
+  float* pb = partial + (long)blockIdx.x * E;
+  for (int e = tid; e < RED * H; e += TB) {
+    float a = red[e];
+#pragma unroll
+    for (int g = 1; g < WARPS; ++g) a += red[g * RED * H + e];
+    pb[e] = a;
+  }
+  if (tid < 32) {
+    float l = 0.f, g = 0.f;
+    for (int r = tid; r < rows; r += 32) {
+      l += pwr[r];
+      g += pdb[r];
+    }
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      l += __shfl_xor_sync(FULL, l, m);
+      g += __shfl_xor_sync(FULL, g, m);
+    }
+    if (tid == 0) {
+      pb[IN * H + 2 * H] = g;
+      pb[E - 1] = l;
+    }
+  }
+}
+
+template <bool WF>
+int launch(const void* feats, const void* w, const void* vin, const void* label,
+           const void* wt, const void* params, int B, int k, int R, float scale,
+           float inv_sigma, void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  static bool opted_in = false;           // the dynamic shared memory above 48 KB
+  if (!opted_in) {
+    const int err = (int)cudaFuncSetAttribute(train_iter_kernel<WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              smem_floats(DMAX, DMAX, MAXK) * 4);
+    if (err) return err;
+    opted_in = true;
+  }
+  const int Dp = (R * (WF ? 1 : k) + SLOTS - 1) / SLOTS * SLOTS;
+  train_iter_kernel<WF><<<nblocks, TB, smem_floats(Dp, R, k) * 4, st>>>(
+      (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
+      (const float*)wt, (const float*)params, B, k, R, scale, inv_sigma, (float*)dfeats,
+      (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ti
+
+using namespace ti;
+
+// R rows per block (R * decodes per row <= DMAX); partial holds ceil(B / R)
+// rows of E.  B = 0 launches nothing (the caller zero-fills out).
 extern "C" int train_iter_launch(const void* feats, const void* w, const void* vin,
                                  const void* label, const void* wt, const void* params,
-                                 int B, int k, int weighted_first, float scale,
+                                 int B, int k, int weighted_first, int R, float scale,
                                  float inv_sigma, void* dfeats, void* partial, void* out,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = (B + BLK - 1) / BLK;
-  if (nblocks > 0) {
-    if (weighted_first)
-      train_iter_kernel<true><<<nblocks, BLK, 0, st>>>(
-          (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
-          (const float*)wt, (const float*)params, B, k, scale, inv_sigma, (float*)dfeats,
-          (float*)partial);
-    else
-      train_iter_kernel<false><<<nblocks, BLK, 0, st>>>(
-          (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
-          (const float*)wt, (const float*)params, B, k, scale, inv_sigma, (float*)dfeats,
-          (float*)partial);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
+  if (R < 1 || k < 1 || k > MAXK || R * (weighted_first ? 1 : k) > DMAX || B < 0)
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = (B + R - 1) / R;
+  if (nblocks == 0) return (int)cudaGetLastError();
+  const int err = weighted_first
+      ? launch<true>(feats, w, vin, label, wt, params, B, k, R, scale, inv_sigma, dfeats,
+                     partial, nblocks, st)
+      : launch<false>(feats, w, vin, label, wt, params, B, k, R, scale, inv_sigma, dfeats,
+                      partial, nblocks, st);
+  if (err) return err;
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
+}
+
+// blocks of the kernel an SM holds at once, as its registers allow
+extern "C" int train_iter_blocks_per_sm(int weighted_first) {
+  int n = 0;
+  const int err = weighted_first
+      ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, train_iter_kernel<true>, TB, 0)
+      : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, train_iter_kernel<false>, TB, 0);
+  return err ? -err : n;
 }

@@ -109,12 +109,44 @@ def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
                 f"H={KERNEL_H}; got feats {tuple(feats.shape)}, {params.shape[0]} decoder values")
 
 
-def _launch_outputs(rows, k, dev):
-    nblocks = (rows + 63) // 64
-    E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2
-    return (torch.empty((rows, k, KERNEL_F + 1), dtype=torch.float32, device=dev),
-            torch.empty((max(nblocks, 1), E), dtype=torch.float32, device=dev),
-            torch.empty((E,), dtype=torch.float32, device=dev))
+TRAIN_SLOTS = 16   # decodes per pass of csrc/train_iter.cu (256 threads, 16 lanes a decode)
+TRAIN_DMAX = 1024  # decodes per block
+TRAIN_BLOCK_PASSES = 2   # a block's fixed work (weights, staging, sums), in passes
+_TRAIN_ARGS = ([_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
+               + [_cuda.P] * 4)
+_E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2   # a block's partial row
+_TRAIN_RESIDENT = {}
+
+
+@functools.lru_cache(maxsize=None)
+def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) -> int:
+    """Rows R per block of the train kernel.  A block runs its R (or R * k)
+    decodes in passes of ``TRAIN_SLOTS``, plus a fixed ``TRAIN_BLOCK_PASSES``;
+    ``resident`` blocks run at once (SMs x blocks per SM).  R minimises the
+    busiest SM's work, ceil(blocks / resident) * (passes + fixed) (the
+    smallest such R, for the most blocks)."""
+    kd = 1 if weighted_first else k
+    best, best_r = None, 1
+    for r in range(1, TRAIN_DMAX // kd + 1):
+        blocks = -(-B // r)
+        cost = -(-blocks // resident) * (-(-(r * kd) // TRAIN_SLOTS) + TRAIN_BLOCK_PASSES)
+        if best is None or cost < best:
+            best, best_r = cost, r
+        if blocks <= 1:
+            break
+    return best_r
+
+
+def _train_resident(dev: int, weighted_first: bool) -> int:
+    """Blocks of the train kernel the card holds at once (cached)."""
+    key = (dev, weighted_first)
+    n = _TRAIN_RESIDENT.get(key)
+    if n is None:
+        per = _cuda.fn("train_iter", "train_iter_blocks_per_sm", [_cuda.I])(int(weighted_first))
+        if per < 1:
+            raise RuntimeError(f"occupancy query of train_iter_kernel failed ({per})")
+        n = _TRAIN_RESIDENT[key] = _cuda.sm_count(dev) * per
+    return n
 
 
 def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
@@ -125,19 +157,24 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
     B, k = w.shape
     _check(feats, params, k, weighted_first, vin.shape[1],
            [(t, B) for t in (feats, vin, label, wt)], w, vin, label, wt)
-    if feats.device.type == "cpu":
+    if feats.is_cpu:
         return train_iter_plain(feats, w, vin, label, wt, params, weighted_first,
                                 scale, sigma)
-    dev = feats.device
-    dfeats, partial, out = _launch_outputs(B, k, dev)
-    f = _cuda.fn("train_iter", "train_iter_launch",
-                 [_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
-                 + [_cuda.P] * 4)
+    dev = feats.get_device()
+    nf = B * k * (KERNEL_F + 1)
+    if B == 0:                                   # nothing to launch
+        out = feats.new_zeros((_E,))
+        return out[-1], feats.new_empty((0, k, KERNEL_F + 1)), out[:-1]
+    wf = bool(weighted_first)
+    R = train_rows_per_block(B, k, wf, _train_resident(dev, wf))
+    nblocks = -(-B // R)
+    buf = feats.new_empty((nf + (nblocks + 1) * _E,))     # dfeats | out | block partials
+    dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + _E]
+    f = _cuda.fn("train_iter", "train_iter_launch", _TRAIN_ARGS)
     _cuda.check(f(feats.data_ptr(), w.data_ptr(), vin.data_ptr(), label.data_ptr(),
-                  wt.data_ptr(), params.data_ptr(), B, k, int(weighted_first),
-                  float(scale), float(1.0 / sigma), dfeats.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev)),
-                "train_iter_kernel")
+                  wt.data_ptr(), params.data_ptr(), B, k, int(wf), R, float(scale),
+                  float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * _E,
+                  out.data_ptr(), _cuda.stream_ptr(dev)), "train_iter_kernel")
     _cuda.COUNTS["train_iter"] += 1
     return out[-1], dfeats, out[:-1]
 
@@ -182,14 +219,13 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
     dev = feats.get_device()
     R = eikonal_rows_per_block(n, k, bool(weighted_first), _cuda.sm_count(dev))
     nblocks = -(-n // R)
-    E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2
     nf = n * k * (KERNEL_F + 1)
-    buf = feats.new_empty((nf + (nblocks + 1) * E,))     # dfeats | out | block partials
-    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + E]
+    buf = feats.new_empty((nf + (nblocks + 1) * _E,))     # dfeats | out | block partials
+    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + _E]
     f = _cuda.fn("eikonal", "eikonal_launch", _EIK_ARGS)
     _cuda.check(f(feats.data_ptr(), wst.data_ptr(), vst.data_ptr(), esc.data_ptr(),
                   params.data_ptr(), n, k, int(weighted_first), R, float(scale),
-                  float(1.0 / (2.0 * step)), dfeats.data_ptr(), out.data_ptr() + 4 * E,
+                  float(1.0 / (2.0 * step)), dfeats.data_ptr(), out.data_ptr() + 4 * _E,
                   out.data_ptr(), _cuda.stream_ptr(dev)), "eikonal_kernel")
     _cuda.COUNTS["eikonal"] += 1
     return out[-1], dfeats, out[:-1]

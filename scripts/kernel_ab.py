@@ -1,5 +1,6 @@
-"""Times of the row gather and the eikonal kernel at the main path's shapes,
-on seeded random inputs, for the port in this checkout or in another one.
+"""Times of the row gather, the train and the eikonal kernel at the main
+path's shapes, on seeded random inputs, for the port in this checkout or in
+another one.
 
     python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -13,9 +14,10 @@ Prints one JSON line per shape, with ``ms`` (CUDA events around one launch
 on an idle card: the host's launch path included) and ``device_ms``
 (launches queued behind ``torch.cuda._sleep``: the device alone) of the
 kernel, and of ``torch.index_select`` for the gathers; every gather is
-checked bit-exact against ``table[idx]`` and every eikonal launch against
-its plain version in float64.  Then the card's name and power limit.
-Needs a CUDA device.
+checked bit-exact against ``table[idx]`` and every train and eikonal launch
+against its plain version in float64.  The train kernel runs at B = 16384,
+k = 6 in both modes (path A's and path B's shapes).  Then the card's name
+and power limit.  Needs a CUDA device.
 """
 
 import argparse
@@ -30,8 +32,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # gather and its pool-row gather at path A's and path B's capacities
 GATHERS = [("A-feat", (1 << 16) + 1, 9, 98304), ("B-feat", (1 << 18) + 1, 9, 98304),
            ("A-pool", (1 << 21) + 1, 24, 245760), ("B-pool", (1 << 23) + 1, 42, 245760)]
-# (label, weighted_first): n = 16384 // 10 base rows, k = 6, as on both paths
-EIKONALS = [("A", True), ("B", False)]
+# (label, weighted_first): B = 16384 rows (train) and n = 16384 // 10 base
+# rows (eikonal), k = 6, as on both paths
+TRAINS = EIKONALS = [("A", True), ("B", False)]
 
 
 def main():
@@ -71,6 +74,14 @@ def main():
         print(json.dumps({"checkout": label, "kernel": f"gather[{name}]", "N": N, "C": C,
                           "M": M, "bound_ms": b, **t}), flush=True)
         del table, idx, out
+    for name, wf in TRAINS:
+        a = cs.synthetic_train_args(wf, 16384, 6, 1)
+        out = tk.train_iter(*a)
+        err, _ = cs._cmp(out, tk.train_iter_plain, a, f"train_iter {name}")
+        t = cs.timings(lambda: tk.train_iter(*a), lambda: tk.train_iter_plain(*a))
+        print(json.dumps({"checkout": label, "kernel": f"train_iter[{name}]", "B": 16384,
+                          "k": 6, "weighted_first": wf, "max_abs_err_vs_plain": err, **t}),
+              flush=True)
     for name, wf in EIKONALS:
         a = cs.synthetic_eik_args(wf, 16384 // 10, 6, 2)
         out = tk.eikonal_iter(*a)

@@ -120,6 +120,47 @@ def test_dyadic_eikonal_inputs_make_preactivations_exact(wf):
     assert torch.equal(pre(torch.float32).double(), pre(torch.float64))
 
 
+@pytest.mark.parametrize("wf", [True, False], ids=["wf", "per_neighbor"])
+def test_dyadic_train_inputs_make_preactivations_exact(wf):
+    """The train edge cases' inputs: every hidden pre-activation of every
+    decode is the same in float32 and float64."""
+    from pin_slam_torch.models.decoder import unpack
+
+    B, k = 37, 16
+    feats, w, vin, _, _, params, _, _, _ = chip_smoke.synthetic_train_args(
+        wf, B, k, 3, device="cpu", dyadic=True)
+
+    def pre(dt):
+        W1, b1, _, _ = unpack(params.to(dt), IN, H)
+        f = feats[..., :F].to(dt)
+        if wf:
+            x = torch.cat([torch.einsum("bk,bkf->bf", w.to(dt), f), vin.to(dt)], -1)
+        else:
+            x = torch.cat([f, vin.to(dt).reshape(B, k, 3)], -1)
+        return x @ W1 + b1
+
+    assert torch.equal(pre(torch.float32).double(), pre(torch.float64))
+
+
+def test_train_identity_check_fails_on_one_ulp(monkeypatch):
+    """The train phase's two-launch check: a second launch one ulp off in any
+    output fails it, equal launches pass."""
+    plain, args = _case("train", True)
+    out = plain(*args)
+    for i in (None, 0, 1, 2):
+        bad = [t.clone() for t in out]
+        if i is not None:
+            flat = bad[i].view(-1)
+            flat[0] = torch.nextafter(flat[0], torch.tensor(float("inf")))
+        calls = iter([out, tuple(bad)])
+        monkeypatch.setattr(tk, "train_iter", lambda *a: next(calls))
+        if i is None:
+            assert chip_smoke.train_checked(args, "train") is out
+        else:
+            with pytest.raises(SystemExit, match="FAILED"):
+                chip_smoke.train_checked(args, "train")
+
+
 def test_identity_check_tells_signed_zeros_apart():
     chip_smoke.identical_check(torch.zeros(3), torch.zeros(3), "zeros")
     with pytest.raises(SystemExit, match="FAILED"):

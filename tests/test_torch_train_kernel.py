@@ -78,14 +78,16 @@ def _eik_inputs(rng, n, k, wf):
     return feats, wst, vst, esc
 
 
+@pytest.mark.parametrize("B,tiles", [(256, 4), (40, 5)])
 @pytest.mark.parametrize("wf", [True, False])
-def test_train_iter_twin_matches_pallas(wf):
-    B, k, sigma, scale = 256, 6, 0.1, 0.055
+def test_train_iter_twin_matches_pallas(wf, B, tiles):
+    """B = 40 on five tiles of 8 rows: the smallest tile the Pallas kernel takes."""
+    k, sigma, scale = 6, 0.1, 0.055
     rng = np.random.default_rng(3)
     feats, w, vec, label, wt = _train_inputs(rng, B, k, wf)
     W1, b1, W2, b2 = _decoder(rng)
     cfg = jtk.TrainKernelConfig(B=B, k=k, F=F, VD=VD, H=H, sigma=sigma, scale=scale,
-                                weighted_first=wf, tiles=4)
+                                weighted_first=wf, tiles=tiles)
     ref = jtk.fused_train_iter(cfg, *(jnp.asarray(a) for a in (feats, w, vec, label, wt)),
                                jnp.asarray(W1), jnp.asarray(b1), jnp.asarray(W2),
                                jnp.asarray(b2), interpret=True)
@@ -112,6 +114,23 @@ def test_eikonal_twin_matches_pallas(wf, n):
                            torch.as_tensor(vst), torch.as_tensor(esc), _pack(W1, b1, W2, b2),
                            wf, scale, step)
     _check(out, *ref, B=n, k=k)
+
+
+@pytest.mark.parametrize("wf", [True, False])
+def test_train_launch_configuration(wf):
+    """The train kernel's rows per block: every k fits a block's decode
+    budget, every row is covered, and path B's shape (B = 16384, k = 6)
+    launches more threads than its 16384 rows, on one block per SM or two."""
+    for resident in (132, 264):
+        for k in range(1, ttk.MAX_K + 1):
+            kd = 1 if wf else k
+            for B in (1, 37, 16384, 5000):
+                R = ttk.train_rows_per_block(B, k, wf, resident)
+                assert 1 <= R and R * kd <= ttk.TRAIN_DMAX
+                assert -(-B // R) * R >= B
+        R = ttk.train_rows_per_block(16384, 6, False, resident)
+        assert -(-16384 // R) * 256 > 16384
+        assert -(-16384 // R) <= resident          # one wave
 
 
 @pytest.mark.parametrize("wf", [True, False])
