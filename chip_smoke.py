@@ -594,7 +594,7 @@ def train_launch(B, k, wf):
 
     resident = tk._train_resident(0, bool(wf))
     R = tk.train_rows_per_block(B, k, bool(wf), resident)
-    return {"rows_per_block": R, "blocks": -(-B // R), "threads": 256,
+    return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.TRAIN_THREADS,
             "blocks_per_sm": resident // _cuda_sms()}
 
 
@@ -658,13 +658,22 @@ def eik_checked(args, label):
 def train_edge_phase():
     """The train kernel on dyadic inputs at B in {1, 37, 16384} x k in
     {1, 6, 16} x both modes: two launches bit-identical, and part by part
-    against the plain version in float64 at the stated tolerances.  Not a
-    main-path shape, so kept out of the kernels line."""
+    against the plain version in float64 at the stated tolerances; at B = 0
+    no launch and zero sums.  Not a main-path shape, so kept out of the
+    kernels line."""
+    from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
     errs, cases = [], 0
     for wf in (True, False):
         for k in (1, 6, 16):
+            args = synthetic_train_args(wf, 0, k, 0)
+            before = _cuda.COUNTS["train_iter"]
+            loss, dfeats, dparams = tk.train_iter(*args)
+            if (_cuda.COUNTS["train_iter"] != before or dfeats.shape != (0, k, 9)
+                    or float(loss) != 0.0 or bool(dparams.any())):
+                fail(f"train_iter kernel edge B=0 k={k} wf={int(wf)}: launched, or not zero")
+            cases += 1
             for B in (1, 37, 16384):
                 label = f"train_iter kernel edge B={B} k={k} wf={int(wf)}"
                 args = synthetic_train_args(wf, B, k, 200 + 10 * B + k, dyadic=True)

@@ -12,49 +12,60 @@
 // Bound on an H100: at the main path's B = 16384, k = 6 a launch moves
 // ~7.8 MB with weighted_first (read feats, weights, vectors; write dfeats:
 // 2.3 us at 3.35 TB/s, bytes-bound) and ~9 MB per neighbour, where its
-// 98304 decodes take 4608 float32 operations each (forward 11 x 64 FMAs,
-// their recomputation, the 8 x 64 input gradient and the 13 x 64
-// decoder-gradient sums): 0.45 GFLOP, 6.8 us at 67 TFLOP/s, operations.
+// 98304 decodes take 4608 float32 operations each (the forward's 11 x 64 + 64
+// FMAs, and as many for the input gradient and for the decoder-gradient
+// sums; the recomputed pre-activations not counted): 0.45 GFLOP, 6.8 us at
+// 67 TFLOP/s, operations.
 //
 // Design: parallel over decodes, not rows.  A decode is one row
-// (weighted_first) or one (row, neighbour).  A block of 256 threads owns R
-// consecutive rows and all their D = R or R * k decodes, and runs them in
-// passes of SLOTS = 16: LANES = 16 lanes share a decode, lane l owning the
-// hidden units l, l + 16, l + 32, l + 48.  A lane keeps its units' W1
-// columns, b1 and W2 in registers for the whole block (52 floats), so no
-// FMA reads the decoder from shared memory; a decode's 11 inputs are staged
-// in shared memory once per block, padded to 12 and read as three
-// broadcast float4s.  Sixteen lanes of four units, not eight of eight: a
-// lane also keeps its units' decoder-gradient sums in registers (52 more
-// floats), and eight units a lane would need ~210 registers of state alone.
+// (weighted_first) or one (row, neighbour).  A block of 128 threads owns R
+// consecutive rows and all their D = R or R * k decodes.  LANES = 16 lanes
+// share a decode, lane l owning the hidden units l, l + 16, l + 32, l + 48;
+// the block's 8 lane groups run two decodes each at a time, a pass of 16
+// decodes.  A lane keeps its units' W1 columns, b1 and W2 in registers for
+// the whole block (52 floats), so no FMA reads the decoder from shared
+// memory.  Sixteen lanes of four units, not eight of eight: a lane also keeps
+// its units' decoder-gradient sums in registers (52 more floats), and eight
+// units a lane would need ~210 registers of state alone.
 // Phases, separated by barriers:
-//   0. stage the rows' IDW weights and every decode's inputs x;
+//   0. one flat copy stages the block's feature rows, offset vectors and IDW
+//      weights in shared memory (32 loads in flight per thread); with
+//      weighted_first the blended inputs of every decode are then built
+//      once, padded to 12 floats (read as three broadcast float4s); per
+//      neighbour a decode reads its 11 inputs from the staged rows;
 //   1. forward: each decode's output o, summed over its lanes by xor
 //      shuffles, is kept in shared memory;
 //   2. one thread per row: the prediction (o, or sum_k w_k o_k), the BCE,
-//      the row's loss term and db2 term, and each decode's upstream
-//      gradient dO (overwriting o);
+//      the row's loss term and db2 term, each decode's upstream gradient dO
+//      (overwriting o) and the certainty column w_k;
 //   3. backward: z is recomputed from the registers, then dh and the
 //      decode's 8 feature gradients dx, which a reduce-scatter over the 16
 //      lanes (xor 8, 4, 2: each step keeps half the values, 7 shuffles;
-//      then xor 1) leaves one per lane pair; the lane adds dW1[:, j], db1[j]
-//      and dW2[j] of its units in registers, decode after decode;
-//   4. feature gradients, written contiguously: w_k dx (weighted_first) or
-//      dx, and the certainty column w_k;
-//   5. the two slots of each warp are added by one xor shuffle, the eight
+//      then xor 1) leaves one per lane pair, written to the staged tile
+//      (w_k dx for each neighbour with weighted_first); the lane adds
+//      dW1[:, j], db1[j] and dW2[j] of its units in registers, decode after
+//      decode;
+//   4. the rows' feature gradients, one contiguous copy of the tile;
+//   5. the two slots of each warp are added by one xor shuffle, the four
 //      warps' sums in warp order, the rows' loss and db2 terms by warp 0 in
 //      a fixed order; `reduce_partials` (train_common.cuh) then adds the
 //      blocks' partial rows in a fixed order.
 // No block-wide reduction per decode and no float atomics: every sum has a
-// fixed order, so two launches on the same inputs give the same bits.  The
-// wrapper picks R from B, k, the mode and the card's resident blocks
-// (ops/train_kernel.train_rows_per_block): at the main path's shape, 132
-// blocks of 125 rows, one wave.  Shared memory depends on D (dynamic, 67 KB
-// at D = 750).  The pre-activations are summed in the order of the first
-// port of this kernel (z = fma over the 11 inputs in order, then + b1), so
-// the float64 checks see the same ReLU masks.  Float32 on the CUDA cores,
-// as the port's precision policy asks; a 3xTF32 mma.sync split of the three
-// 11 x 64 products is a later option, against the same 6.8 us bound.
+// fixed order, so two launches on the same inputs give the same bits.
+// Registers: ~165 a thread, no spills (the -Xptxas -v report in
+// build/kernels/train_iter.log), so an SM holds three blocks (12 warps).
+// The wrapper picks R from B, k, the mode and the card's resident blocks
+// (ops/train_kernel.train_rows_per_block): at the main path's shape, R = 42,
+// 391 blocks, one wave.  128-thread blocks, not 256: three resident blocks
+// hide more latency than one of 256 threads (scripts/kernel_ab.py on the
+// H100).  Shared memory depends on R (dynamic; 26 KB at R = 42 per
+// neighbour).  The pre-activations are summed in the order of the first port
+// of this kernel (z = fma over the 11 inputs in order, then + b1), so the
+// float64 checks see the same ReLU masks.  Float32 on the CUDA cores, as the
+// port's precision policy asks: the passes are bound by instruction issue
+// (FMAs plus the recomputed pre-activations, shuffles and selects); a
+// 3xTF32 mma.sync split of the three 11 x 64 products is a later option,
+// against the same 6.8 us bound.
 
 #include "train_common.cuh"
 
@@ -62,27 +73,34 @@ using namespace tk;
 
 namespace ti {
 
-constexpr int TB = 256;                   // threads per block
+constexpr int TB = 128;                   // threads per block
 constexpr int LANES = 16;                 // lanes per decode
-constexpr int SLOTS = TB / LANES;         // decodes per pass
+constexpr int SLOTS = TB / LANES;         // lane groups
+constexpr int DPT = 2;                    // decodes a lane group runs together
+constexpr int PASS = SLOTS * DPT;         // decodes per pass
 constexpr int UPL = H / LANES;            // hidden units per lane: LANES * t + lane
 constexpr int WARPS = TB / 32;
 constexpr int XP = 12;                    // staged input pitch: 11 inputs + a zero
-constexpr int DMAX = 1024;                // decodes per block
+constexpr int DMAX = 1024;                // decodes (and rows x k) per block
+constexpr int SB = 32;                    // staging loads in flight per thread
 constexpr int RED = IN + 2;               // per-unit sums: dW1[:, j], db1[j], dW2[j]
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(H % LANES == 0 && 32 % LANES == 0 && LANES >= F, "lane layout");
 static_assert(RED * H + 2 == E, "a partial row is the per-unit sums, db2 and the loss");
 
-// dynamic shared memory, in floats, for Dp staged decodes of R rows:
-// [xs (Dp, XP) | od (Dp)] (then the warps' gradient sums) | dxs (Dp, F) |
-// ws (R, k) | the rows' loss and db2 terms (R each)
-__host__ __device__ constexpr int head_floats(int Dp) {
-  return Dp * (XP + 1) > WARPS * RED * H ? Dp * (XP + 1) : WARPS * RED * H;
+// dynamic shared memory, in floats, for Dp staged decodes of R rows with
+// kd decodes a row: [xs (Dp, XP), weighted_first only | od (Dp)] (then the
+// warps' gradient sums) | ts (R, k, C) | vs (R, kd * VD) | ws (R, k) | the
+// rows' loss and db2 terms (R each); a block of fewer rows packs ts, vs and
+// ws as tightly (one contiguous staging copy)
+__host__ __device__ constexpr int head_floats(int Dp, bool wf) {
+  return Dp * (wf ? XP + 1 : 1) > WARPS * RED * H ? Dp * (wf ? XP + 1 : 1) : WARPS * RED * H;
 }
-__host__ __device__ constexpr int smem_floats(int Dp, int R, int k) {
-  return head_floats(Dp) + Dp * F + R * k + 2 * R;
+__host__ __device__ constexpr int smem_floats(int Dp, int R, int k, bool wf) {
+  return head_floats(Dp, wf) + R * k * C + R * (wf ? 1 : k) * VD + R * k + 2 * R;
 }
+// the most any launch takes: R * k <= DMAX, R <= DMAX
+constexpr int SMEM_MAX = head_floats(DMAX, true) + DMAX * (C + VD + 1 + 2);
 
 __device__ inline void bce(float pred, float label, float wt, float inv_sigma, float& pw,
                            float& dpred) {
@@ -94,15 +112,28 @@ __device__ inline void bce(float pred, float label, float wt, float inv_sigma, f
   dpred = (sz - tgt) * wt * inv_sigma;
 }
 
-__device__ __forceinline__ void load_x(const float* xs, float (&x)[XP]) {
-  const float4* p = reinterpret_cast<const float4*>(xs);
+// decode d's inputs: weighted_first from xs (pitch XP, three broadcast
+// float4s), per neighbour from the staged feature rows and vectors (zeros
+// past the block's decodes)
+template <bool WF>
+__device__ __forceinline__ void load_x(const float* xs, const float* ts, const float* vs, int d,
+                                       bool act, float (&x)[XP]) {
+  if (WF) {
+    const float4* p = reinterpret_cast<const float4*>(xs + d * XP);
 #pragma unroll
-  for (int q = 0; q < XP / 4; ++q) {
-    const float4 v = p[q];
-    x[4 * q] = v.x;
-    x[4 * q + 1] = v.y;
-    x[4 * q + 2] = v.z;
-    x[4 * q + 3] = v.w;
+    for (int q = 0; q < XP / 4; ++q) {
+      const float4 v = p[q];
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < F; ++i) x[i] = act ? ts[d * C + i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < VD; ++i) x[F + i] = act ? vs[d * VD + i] : 0.f;
+    x[IN] = 0.f;
   }
 }
 
@@ -156,18 +187,18 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int kd = WF ? 1 : k;              // decodes per row
-  const int Dp = (R * kd + SLOTS - 1) / SLOTS * SLOTS;
-  float* xs = sm;                         // (Dp, XP) inputs
-  float* od = xs + Dp * XP;               // (Dp,) outputs, then dO
+  const int Dp = (R * kd + PASS - 1) / PASS * PASS;
+  float* xs = sm;                         // weighted_first: (Dp, XP) inputs
+  float* od = xs + (WF ? Dp * XP : 0);    // (Dp,) outputs, then dO
   float* red = sm;                        // (WARPS, RED, H) after the backward pass
-  float* dxs = sm + head_floats(Dp);      // (Dp, F) feature gradients
-  float* ws = dxs + Dp * F;               // (R, k) IDW weights
-  float* pwr = ws + R * k;                // (R,) loss terms
-  float* pdb = pwr + R;                   // (R,) db2 terms
-
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * R;
   const int rows = (int)min((long)R, (long)B - row0);
+  float* ts = sm + head_floats(Dp, WF);   // (rows, k, C) feature rows, then their gradients
+  float* vs = ts + rows * k * C;          // (rows, kd * VD) offset vectors
+  float* ws = vs + rows * kd * VD;        // (rows, k) IDW weights
+  float* pwr = ws + rows * k;             // (rows,) loss terms
+  float* pdb = pwr + rows;                // (rows,) db2 terms
   const int Dv = rows * kd;               // the block's decodes
   const int s = tid / LANES, lane = tid % LANES;
 
@@ -182,50 +213,77 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
   }
   const float b2 = params[IN * H + 2 * H];
 
-  // 0. the rows' weights, then every decode's inputs (zeros past Dv)
-  for (int e = tid; e < rows * k; e += TB) ws[e] = w[row0 * k + e];
-  if (WF) __syncthreads();
-  for (int e = tid; e < Dp * XP; e += TB) {
-    const int d = e / XP, i = e - d * XP;
-    float v = 0.f;
-    if (d < Dv && i < IN) {
-      if (WF) {
-        const long row = row0 + d;
-        if (i < F) {
-          const float* fr = feats + row * k * C + i;
-          const float* wr = ws + d * k;
-          for (int q = 0; q < k; ++q) v = fmaf(wr[q], fr[q * C], v);
-        } else {
-          v = vin[row * VD + (i - F)];
-        }
-      } else {
-        const long dg = row0 * k + d;     // (row, neighbour) in the batch
-        v = i < F ? feats[dg * C + i] : vin[dg * VD + (i - F)];
+  // 0. the rows' feature rows, offset vectors and weights, copied flat (SB
+  // loads in flight per thread); weighted_first then blends every decode's
+  // inputs into xs (zeros past Dv)
+  {
+    const int n1 = rows * k * C, n2 = n1 + rows * kd * VD, n3 = n2 + rows * k;
+    const float* f0 = feats + row0 * k * C;
+    const float* v0 = vin + row0 * kd * VD;
+    const float* w0 = w + row0 * k;
+    for (int e0 = tid; e0 < n3; e0 += SB * TB) {
+      float v[SB];
+#pragma unroll
+      for (int m = 0; m < SB; ++m) {
+        const int e = e0 + m * TB;
+        v[m] = e < n1 ? f0[e] : (e < n2 ? v0[e - n1] : (e < n3 ? w0[e - n2] : 0.f));
       }
+#pragma unroll
+      for (int m = 0; m < SB; ++m)        // ts, vs and ws are contiguous
+        if (e0 + m * TB < n3) ts[e0 + m * TB] = v[m];
     }
-    xs[e] = v;
   }
   __syncthreads();
+  if (WF) {                               // the blended inputs, in xs
+#pragma unroll 4
+    for (int e = tid; e < Dp * XP; e += TB) {
+      const int d = e / XP, i = e - d * XP;
+      float v = 0.f;
+      if (d < Dv && i < F) {
+        const float* fr = ts + d * k * C + i;
+        const float* wr = ws + d * k;
+#pragma unroll
+        for (int q = 0; q < MAXK; ++q)
+          if (q < k) v = fmaf(wr[q], fr[q * C], v);
+      } else if (d < Dv && i < IN) {
+        v = vs[d * VD + (i - F)];
+      }
+      xs[e] = v;
+    }
+    __syncthreads();
+  }
 
-  const int npass = (Dv + SLOTS - 1) / SLOTS;
+  // a slot's DPT decodes of pass c
+  const int npass = (Dv + PASS - 1) / PASS;
+  auto dec = [&](int c, int u) { return (c * DPT + u) * SLOTS + s; };
+
   // 1. forward
 #pragma unroll 1
   for (int c = 0; c < npass; ++c) {
-    const int d = c * SLOTS + s;
-    float x[XP];
-    load_x(xs + d * XP, x);
-    float o = 0.f;
+    float x[DPT][XP], o[DPT];
 #pragma unroll
-    for (int t = 0; t < UPL; ++t) o = fmaf(fmaxf(preact(x, w1, b1, t), 0.f), w2[t], o);
+    for (int u = 0; u < DPT; ++u) {
+      load_x<WF>(xs, ts, vs, dec(c, u), dec(c, u) < Dv, x[u]);
+      o[u] = 0.f;
+    }
 #pragma unroll
-    for (int m = LANES / 2; m >= 1; m >>= 1) o += __shfl_xor_sync(FULL, o, m);
-    if (lane == 0 && d < Dv) od[d] = o + b2;
+    for (int t = 0; t < UPL; ++t)
+#pragma unroll
+      for (int u = 0; u < DPT; ++u)
+        o[u] = fmaf(fmaxf(preact(x[u], w1, b1, t), 0.f), w2[t], o[u]);
+#pragma unroll
+    for (int m = LANES / 2; m >= 1; m >>= 1)
+#pragma unroll
+      for (int u = 0; u < DPT; ++u) o[u] += __shfl_xor_sync(FULL, o[u], m);
+#pragma unroll
+    for (int u = 0; u < DPT; ++u)
+      if (lane == 0 && dec(c, u) < Dv) od[dec(c, u)] = o[u] + b2;
   }
   __syncthreads();
 
-  // 2. per row: the loss term, the db2 term and each decode's dO
+  // 2. per row: the loss term, the db2 term, each decode's dO and the
+  // certainty column of the row's feature gradients
   for (int r = tid; r < rows; r += TB) {
-    const long row = row0 + r;
     const float* wr = ws + r * k;
     float* o = od + r * kd;
     float pred = 0.f;
@@ -234,7 +292,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
     else
       for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
     float pw, dpred;
-    bce(pred * scale, label[row], wt[row], inv_sigma, pw, dpred);
+    bce(pred * scale, label[row0 + r], wt[row0 + r], inv_sigma, pw, dpred);
     const float g = dpred * scale;
     pwr[r] = pw;
     if (WF) {
@@ -249,10 +307,12 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
       }
       pdb[r] = a;
     }
+    for (int q = 0; q < k; ++q) ts[(r * k + q) * C + F] = wr[q];
   }
   __syncthreads();
 
-  // 3. backward; the lane's decoder-gradient sums stay in registers
+  // 3. backward; the lane's decoder-gradient sums stay in registers, the
+  // feature gradients go to ts
   float aw1[IN][UPL], ab1[UPL], aw2[UPL];
 #pragma unroll
   for (int t = 0; t < UPL; ++t) {
@@ -263,30 +323,51 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
   }
 #pragma unroll 1
   for (int c = 0; c < npass; ++c) {
-    const int d = c * SLOTS + s;
-    const bool act = d < Dv;
-    const float dO = act ? od[d] : 0.f;   // past Dv: x = 0 and dO = 0 add nothing
-    float x[XP], dx[F];
-    load_x(xs + d * XP, x);
+    float x[DPT][XP], dx[DPT][F], dO[DPT];
 #pragma unroll
-    for (int f = 0; f < F; ++f) dx[f] = 0.f;
+    for (int u = 0; u < DPT; ++u) {
+      const int d = dec(c, u);
+      dO[u] = d < Dv ? od[d] : 0.f;       // past Dv: x = 0 and dO = 0 add nothing
+      load_x<WF>(xs, ts, vs, d, d < Dv, x[u]);
+#pragma unroll
+      for (int f = 0; f < F; ++f) dx[u][f] = 0.f;
+    }
 #pragma unroll
     for (int t = 0; t < UPL; ++t) {
-      const float z = preact(x, w1, b1, t);
-      const float dh = z > 0.f ? dO * w2[t] : 0.f;
 #pragma unroll
-      for (int f = 0; f < F; ++f) dx[f] = fmaf(dh, w1[f][t], dx[f]);
+      for (int u = 0; u < DPT; ++u) {
+        const float z = preact(x[u], w1, b1, t);
+        const float dh = z > 0.f ? dO[u] * w2[t] : 0.f;
 #pragma unroll
-      for (int i = 0; i < IN; ++i) aw1[i][t] = fmaf(x[i], dh, aw1[i][t]);
-      ab1[t] += dh;
-      aw2[t] = fmaf(dO, fmaxf(z, 0.f), aw2[t]);
+        for (int f = 0; f < F; ++f) dx[u][f] = fmaf(dh, w1[f][t], dx[u][f]);
+#pragma unroll
+        for (int i = 0; i < IN; ++i) aw1[i][t] = fmaf(x[u][i], dh, aw1[i][t]);
+        ab1[t] += dh;
+        aw2[t] = fmaf(dO[u], fmaxf(z, 0.f), aw2[t]);
+      }
     }
-    const int f = reduce_scatter<LANES / 2, F>(dx, lane, 0);
-    if (act && lane % (LANES / F) == 0) dxs[d * F + f] = dx[0];
+    int f[DPT];
+#pragma unroll
+    for (int u = 0; u < DPT; ++u) f[u] = reduce_scatter<LANES / 2, F>(dx[u], lane, 0);
+#pragma unroll
+    for (int u = 0; u < DPT; ++u) {
+      const int d = dec(c, u);
+      if (d < Dv && lane % (LANES / F) == 0) {
+        if (WF)
+          for (int q = 0; q < k; ++q) ts[(d * k + q) * C + f[u]] = ws[d * k + q] * dx[u][0];
+        else
+          ts[d * C + f[u]] = dx[u][0];
+      }
+    }
   }
   __syncthreads();                        // xs and od are free: red reuses them
 
-  // 5a. each warp's sums, staged per hidden unit
+  // 4. the rows' feature gradients, one contiguous copy
+  float* dst = dfeats + row0 * k * C;
+  for (int e = tid; e < rows * k * C; e += TB) dst[e] = ts[e];
+
+  // 5. each warp's sums staged per hidden unit (the warp's slots added by
+  // xor shuffles), then added in warp order; the rows' terms by warp 0
   const int warp = tid / 32;
 #pragma unroll
   for (int t = 0; t < UPL; ++t) {
@@ -303,18 +384,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
       rw[(IN + 1) * H] = a2;
     }
   }
-
-  // 4. feature gradients of the block's rows, contiguous
-  const int per_row = k * C;
-  float* dst = dfeats + row0 * per_row;
-  for (int e = tid; e < rows * per_row; e += TB) {
-    const int r = e / per_row, rem = e - r * per_row, q = rem / C, f = rem - q * C;
-    const float wq = ws[r * k + q];
-    dst[e] = f == F ? wq : (WF ? wq * dxs[r * F + f] : dxs[(r * k + q) * F + f]);
-  }
   __syncthreads();
-
-  // 5b. the block's partial row: warps in order; the rows' terms by warp 0
   float* pb = partial + (long)blockIdx.x * E;
   for (int e = tid; e < RED * H; e += TB) {
     float a = red[e];
@@ -348,12 +418,13 @@ int launch(const void* feats, const void* w, const void* vin, const void* label,
   if (!opted_in) {
     const int err = (int)cudaFuncSetAttribute(train_iter_kernel<WF>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              smem_floats(DMAX, DMAX, MAXK) * 4);
+                                              SMEM_MAX * 4);
     if (err) return err;
     opted_in = true;
   }
-  const int Dp = (R * (WF ? 1 : k) + SLOTS - 1) / SLOTS * SLOTS;
-  train_iter_kernel<WF><<<nblocks, TB, smem_floats(Dp, R, k) * 4, st>>>(
+  const int kd = WF ? 1 : k;
+  const int Dp = (R * kd + PASS - 1) / PASS * PASS;
+  train_iter_kernel<WF><<<nblocks, TB, smem_floats(Dp, R, k, WF) * 4, st>>>(
       (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
       (const float*)wt, (const float*)params, B, k, R, scale, inv_sigma, (float*)dfeats,
       (float*)partial);
@@ -364,15 +435,15 @@ int launch(const void* feats, const void* w, const void* vin, const void* label,
 
 using namespace ti;
 
-// R rows per block (R * decodes per row <= DMAX); partial holds ceil(B / R)
-// rows of E.  B = 0 launches nothing (the caller zero-fills out).
+// R rows per block (R * k <= DMAX); partial holds ceil(B / R) rows of E.
+// B = 0 launches nothing (the caller zero-fills out).
 extern "C" int train_iter_launch(const void* feats, const void* w, const void* vin,
                                  const void* label, const void* wt, const void* params,
                                  int B, int k, int weighted_first, int R, float scale,
                                  float inv_sigma, void* dfeats, void* partial, void* out,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R < 1 || k < 1 || k > MAXK || R * (weighted_first ? 1 : k) > DMAX || B < 0)
+  if (R < 1 || k < 1 || k > MAXK || R * k > DMAX || B < 0)
     return (int)cudaErrorInvalidValue;
   const int nblocks = (B + R - 1) / R;
   if (nblocks == 0) return (int)cudaGetLastError();

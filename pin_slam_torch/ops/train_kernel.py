@@ -109,9 +109,10 @@ def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
                 f"H={KERNEL_H}; got feats {tuple(feats.shape)}, {params.shape[0]} decoder values")
 
 
-TRAIN_SLOTS = 16   # decodes per pass of csrc/train_iter.cu (256 threads, 16 lanes a decode)
-TRAIN_DMAX = 1024  # decodes per block
-TRAIN_BLOCK_PASSES = 2   # a block's fixed work (weights, staging, sums), in passes
+TRAIN_THREADS = 128   # threads per block of csrc/train_iter.cu
+TRAIN_SLOTS = 16      # decodes per pass: 8 groups of 16 lanes, two decodes each
+TRAIN_DMAX = 1024     # decodes, and rows x k, per block
+TRAIN_BLOCK_PASSES = 8   # a block's fixed work (weights, staging, sums), in passes
 _TRAIN_ARGS = ([_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
                + [_cuda.P] * 4)
 _E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2   # a block's partial row
@@ -127,7 +128,7 @@ def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) ->
     smallest such R, for the most blocks)."""
     kd = 1 if weighted_first else k
     best, best_r = None, 1
-    for r in range(1, TRAIN_DMAX // kd + 1):
+    for r in range(1, TRAIN_DMAX // k + 1):
         blocks = -(-B // r)
         cost = -(-blocks // resident) * (-(-(r * kd) // TRAIN_SLOTS) + TRAIN_BLOCK_PASSES)
         if best is None or cost < best:
