@@ -120,8 +120,9 @@ def test_eikonal_twin_matches_pallas(wf, n):
 def test_train_launch_configuration(wf):
     """The train kernel's rows per block: every k fits a block's decode
     budget, every row is covered, and path B's shape (B = 16384, k = 6)
-    launches more threads than its 16384 rows, on one block per SM or two."""
-    for resident in (132, 264):
+    launches more threads than its 16384 rows in one wave, at one to three
+    blocks an SM."""
+    for resident in (132, 264, 396):
         for k in range(1, ttk.MAX_K + 1):
             for B in (1, 37, 16384, 5000):
                 R = ttk.train_rows_per_block(B, k, wf, resident)
