@@ -565,45 +565,50 @@ def decodes(wf, rows, k, per_row):
     return rows * per_row * (1 if wf else k)
 
 
+def decode_flops():
+    """Float32 operations one decode of a training kernel needs: the
+    forward (IN x H FMAs, H bias adds, H FMAs into the output), dh (H), the
+    input gradient of the F feature columns only (F x H FMAs: the offset
+    vectors take none), and the decoder-gradient sums (IN x H + H FMAs,
+    H adds)."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    F, IN, H = tk.KERNEL_F, tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
+    return (2 * IN * H + 3 * H) + H + 2 * F * H + (2 * IN * H + 3 * H)
+
+
 def train_phase(label, args, kwargs, launches):
     from pin_slam_torch.ops import train_kernel as tk
 
     feats, w, vin, label_t, wt, params, wf, scale, sigma = args
     B, k = w.shape
-    out_k = train_checked(args, f"train_iter kernel {label}")
+    out_k = launched_twice(tk.train_iter, args, f"train_iter kernel {label}")
     err, detail = _cmp(out_k, tk.train_iter_plain, args, f"train_iter kernel {label}")
     t = timings(lambda: tk.train_iter(*args), lambda: tk.train_iter_plain(*args))
-    IN, H = tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
-    flops = decodes(wf, B, k, 6 * IN * H + 6 * H) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
+    flops = decodes(wf, B, k, decode_flops()) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
     b, by = bound(nbytes(feats, w, vin, label_t, wt, params, out_k[1], out_k[2]) + 4, flops)
     row = {"name": f"train_iter[{label}]", "route": "cuda",
            "source": "pin_slam_torch/csrc/train_iter.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:247", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
            "shape": {"B": B, "k": k, "weighted_first": wf},
-           "launch": train_launch(B, k, wf),
+           "launch": train_launch(B, k, wf, feats.get_device()),
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
 
 
-def train_launch(B, k, wf):
-    """The train kernel's launch at (B, k, mode): rows per block, blocks,
-    threads per block, and the blocks per SM its registers allow."""
+def train_launch(B, k, wf, device):
+    """The train kernel's launch at (B, k, mode) on ``device``: rows per
+    block, blocks, threads per block, and the blocks per SM its registers
+    allow."""
+    from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
-    resident = tk._train_resident(0, bool(wf))
+    resident = tk.train_resident_blocks(device, bool(wf))
     R = tk.train_rows_per_block(B, k, bool(wf), resident)
     return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.TRAIN_THREADS,
-            "blocks_per_sm": resident // _cuda_sms()}
-
-
-def train_checked(args, label):
-    """Two launches of the train kernel on ``args``; fails unless their
-    outputs are bit-identical.  Returns the first."""
-    from pin_slam_torch.ops import train_kernel as tk
-
-    return launched_twice(tk.train_iter, args, label)
+            "blocks_per_sm": resident // _cuda.sm_count(device)}
 
 
 def launched_twice(fn, args, label):
@@ -624,13 +629,12 @@ def eik_phase(label, args, kwargs, launches):
 
     feats, wst, vst, esc, params, wf, scale, step = args
     n, k = feats.shape[0], feats.shape[1]
-    out_k = eik_checked(args, f"eikonal kernel {label}")
+    out_k = launched_twice(tk.eikonal_iter, args, f"eikonal kernel {label}")
     err, detail = _cmp(out_k, tk.eikonal_iter_plain, args, f"eikonal kernel {label}")
     t = timings(lambda: tk.eikonal_iter(*args), lambda: tk.eikonal_iter_plain(*args))
-    IN, H = tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
-    flops = decodes(wf, n, k, 6 * (6 * IN * H + 6 * H))
+    flops = decodes(wf, n, k, 6 * decode_flops())
     b, by = bound(nbytes(feats, wst, vst, esc, params, out_k[1], out_k[2]) + 4, flops)
-    R = tk.eikonal_rows_per_block(n, k, bool(wf), _cuda_sms())
+    R = tk.eikonal_rows_per_block(n, k, bool(wf), _cuda.sm_count(feats.get_device()))
     row = {"name": f"eikonal[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/eikonal.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:471", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
@@ -639,20 +643,6 @@ def eik_phase(label, args, kwargs, launches):
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
-
-
-def _cuda_sms():
-    from pin_slam_torch.ops import _cuda
-
-    return _cuda.sm_count(0)
-
-
-def eik_checked(args, label):
-    """Two launches of the eikonal kernel on ``args``; fails unless their
-    outputs are bit-identical.  Returns the first."""
-    from pin_slam_torch.ops import train_kernel as tk
-
-    return launched_twice(tk.eikonal_iter, args, label)
 
 
 def train_edge_phase():
@@ -677,7 +667,8 @@ def train_edge_phase():
             for B in (1, 37, 16384):
                 label = f"train_iter kernel edge B={B} k={k} wf={int(wf)}"
                 args = synthetic_train_args(wf, B, k, 200 + 10 * B + k, dyadic=True)
-                err, _ = _cmp(train_checked(args, label), tk.train_iter_plain, args, label)
+                err, _ = _cmp(launched_twice(tk.train_iter, args, label), tk.train_iter_plain,
+                              args, label)
                 errs.append(err)
                 cases += 1
     emit({"phase": "train_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),
@@ -697,7 +688,8 @@ def eikonal_edge_phase():
             for n in (1, 37, 1638):
                 label = f"eikonal kernel edge n={n} k={k} wf={int(wf)}"
                 args = synthetic_eik_args(wf, n, k, 100 + 10 * n + k, dyadic=True)
-                err, _ = _cmp(eik_checked(args, label), tk.eikonal_iter_plain, args, label)
+                err, _ = _cmp(launched_twice(tk.eikonal_iter, args, label),
+                              tk.eikonal_iter_plain, args, label)
                 errs.append(err)
                 cases += 1
     emit({"phase": "eikonal_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),

@@ -12,9 +12,11 @@
 // Bound on an H100: at the main path's B = 16384, k = 6 a launch moves
 // ~7.8 MB with weighted_first (read feats, weights, vectors; write dfeats:
 // 2.3 us at 3.35 TB/s, bytes-bound) and ~9 MB per neighbour, where its
-// 98304 decodes take 4608 float32 operations each (the forward's 11 x 64 + 64
-// FMAs, and as many for the input gradient and for the decoder-gradient
-// sums; the recomputed pre-activations not counted): 0.45 GFLOP, 6.8 us at
+// 98304 decodes take 4288 float32 operations each (the forward's 11 x 64 + 64
+// FMAs and 64 bias adds; dh, 64; the input gradient of the 8 feature columns
+// only, 8 x 64 FMAs, as the offset vectors take none; the decoder-gradient
+// sums, 11 x 64 + 64 FMAs and 64 adds; the recomputed pre-activations not
+// counted) and the blend 2 per (row, neighbour): 0.42 GFLOP, 6.3 us at
 // 67 TFLOP/s, operations.
 //
 // Design: parallel over decodes, not rows.  A decode is one row
@@ -65,13 +67,28 @@
 // port's precision policy asks: the passes are bound by instruction issue
 // (FMAs plus the recomputed pre-activations, shuffles and selects); a
 // 3xTF32 mma.sync split of the three 11 x 64 products is a later option,
-// against the same 6.8 us bound.
+// against the same 6.3 us bound.
+//
+// Built with -DTRAIN_STAMPS (scripts/train_phases.py), thread 0 of each of
+// the first STAMP_BLOCKS blocks reads clock64() at the kernel's start, after
+// each phase's barrier and at its end, and train_iter_stamps copies the
+// stamps out; without it STAMP is empty.
 
 #include "train_common.cuh"
 
 using namespace tk;
 
 namespace ti {
+
+#ifdef TRAIN_STAMPS
+constexpr int STAMP_BLOCKS = 4096;
+constexpr int NSTAMPS = 7;
+__device__ long long stamps[STAMP_BLOCKS][NSTAMPS];
+#define STAMP(n) \
+  if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS) stamps[blockIdx.x][n] = clock64()
+#else
+#define STAMP(n)
+#endif
 
 constexpr int TB = 128;                   // threads per block
 constexpr int LANES = 16;                 // lanes per decode
@@ -192,6 +209,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
   float* od = xs + (WF ? Dp * XP : 0);    // (Dp,) outputs, then dO
   float* red = sm;                        // (WARPS, RED, H) after the backward pass
   const int tid = threadIdx.x;
+  STAMP(0);
   const long row0 = (long)blockIdx.x * R;
   const int rows = (int)min((long)R, (long)B - row0);
   float* ts = sm + head_floats(Dp, WF);   // (rows, k, C) feature rows, then their gradients
@@ -234,6 +252,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
     }
   }
   __syncthreads();
+  STAMP(1);
   if (WF) {                               // the blended inputs, in xs
 #pragma unroll 4
     for (int e = tid; e < Dp * XP; e += TB) {
@@ -280,6 +299,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
       if (lane == 0 && dec(c, u) < Dv) od[dec(c, u)] = o[u] + b2;
   }
   __syncthreads();
+  STAMP(2);
 
   // 2. per row: the loss term, the db2 term, each decode's dO and the
   // certainty column of the row's feature gradients
@@ -310,6 +330,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
     for (int q = 0; q < k; ++q) ts[(r * k + q) * C + F] = wr[q];
   }
   __syncthreads();
+  STAMP(3);
 
   // 3. backward; the lane's decoder-gradient sums stay in registers, the
   // feature gradients go to ts
@@ -361,6 +382,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
     }
   }
   __syncthreads();                        // xs and od are free: red reuses them
+  STAMP(4);
 
   // 4. the rows' feature gradients, one contiguous copy
   float* dst = dfeats + row0 * k * C;
@@ -385,6 +407,7 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
     }
   }
   __syncthreads();
+  STAMP(5);
   float* pb = partial + (long)blockIdx.x * E;
   for (int e = tid; e < RED * H; e += TB) {
     float a = red[e];
@@ -408,6 +431,10 @@ __global__ void __launch_bounds__(TB) train_iter_kernel(
       pb[E - 1] = l;
     }
   }
+#ifdef TRAIN_STAMPS
+  __syncthreads();
+  STAMP(6);
+#endif
 }
 
 template <bool WF>
@@ -464,3 +491,18 @@ extern "C" int train_iter_blocks_per_sm(int weighted_first) {
       : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, train_iter_kernel<false>, TB, 0);
   return err ? -err : n;
 }
+
+// the block geometry the wrapper's choice of R assumes: threads per block,
+// decodes per pass, the most decodes (and rows x k) a block takes
+extern "C" void train_iter_geometry(int* out) {
+  out[0] = TB;
+  out[1] = PASS;
+  out[2] = DMAX;
+}
+
+#ifdef TRAIN_STAMPS
+// the stamps of the last launch, (STAMP_BLOCKS, NSTAMPS) int64, into host dst
+extern "C" int train_iter_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, stamps, sizeof(stamps));
+}
+#endif

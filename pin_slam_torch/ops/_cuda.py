@@ -56,44 +56,48 @@ def _nvcc() -> str:
                        "pin_slam_torch's kernels")
 
 
-def _lib_path(name: str) -> str:
-    return os.path.join(BUILD, f"lib{name}.so")
+def _lib_path(name: str, out_dir: str = BUILD) -> str:
+    return os.path.join(out_dir, f"lib{name}.so")
 
 
-def _stale(name: str) -> bool:
-    out = _lib_path(name)
+def _stale(name: str, out_dir: str = BUILD) -> bool:
+    out = _lib_path(name, out_dir)
     if not os.path.exists(out):
         return True
     deps = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(os.path.join(CSRC, "*.cuh"))
     return any(os.path.getmtime(d) > os.path.getmtime(out) for d in deps)
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named sources (default: all of csrc/*.cu) in parallel.
-    Returns {name: seconds}; raises with nvcc's output on failure.  The
-    compiler's register/spill report lands in build/kernels/<name>.log."""
+def build(names: Optional[Iterable[str]] = None, defines: Iterable[str] = (),
+          out_dir: str = BUILD) -> Dict[str, float]:
+    """Compile the named sources (default: all of csrc/*.cu) in parallel,
+    with ``-D`` each of ``defines``, into ``out_dir`` (default
+    build/kernels/).  Returns {name: seconds}; raises with nvcc's output on
+    failure.  The compiler's register/spill report lands in
+    ``out_dir``/<name>.log."""
     if names is None:
         names = sorted(os.path.splitext(os.path.basename(p))[0]
                        for p in glob.glob(os.path.join(CSRC, "*.cu")))
-    names = [n for n in names if _stale(n)]
-    os.makedirs(BUILD, exist_ok=True)
+    names = [n for n in names if _stale(n, out_dir)]
+    os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     procs, t0 = {}, time.perf_counter()
     for n in names:
-        tmp = os.path.join(BUILD, f"lib{n}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        tmp = os.path.join(out_dir, f"lib{n}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
     secs, errors = {}, []
     for n, (p, tmp) in procs.items():
         log, _ = p.communicate()
         secs[n] = time.perf_counter() - t0
-        with open(os.path.join(BUILD, f"{n}.log"), "w") as f:
+        with open(os.path.join(out_dir, f"{n}.log"), "w") as f:
             f.write(log)
         if p.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{log}")
         else:
-            os.replace(tmp, _lib_path(n))
+            os.replace(tmp, _lib_path(n, out_dir))
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
@@ -105,6 +109,16 @@ def lib(name: str) -> ctypes.CDLL:
         if _stale(name):
             build([name])
         _LIBS[name] = ctypes.CDLL(_lib_path(name))
+    return _LIBS[name]
+
+
+def use(name: str, out_dir: str) -> ctypes.CDLL:
+    """From now on in this process, launch csrc/<name>.cu's build in
+    ``out_dir`` (one made by ``build(..., out_dir=out_dir)``, e.g. with
+    instrumenting ``defines``) instead of build/kernels/'s."""
+    _LIBS[name] = ctypes.CDLL(_lib_path(name, out_dir))
+    for key in [key for key in _FNS if key[0] == name]:
+        del _FNS[key]
     return _LIBS[name]
 
 

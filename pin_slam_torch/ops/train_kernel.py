@@ -18,6 +18,7 @@ and the twins take any k up to 16.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -120,17 +121,17 @@ _TRAIN_RESIDENT = {}
 
 
 @functools.lru_cache(maxsize=None)
-def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) -> int:
-    """Rows R per block of the train kernel.  A block runs its R (or R * k)
-    decodes in passes of ``TRAIN_SLOTS``, plus a fixed ``TRAIN_BLOCK_PASSES``;
-    ``resident`` blocks run at once (SMs x blocks per SM).  R minimises the
-    busiest SM's work, ceil(blocks / resident) * (passes + fixed) (the
-    smallest such R, for the most blocks)."""
-    kd = 1 if weighted_first else k
+def _rows_per_block(n: int, decodes_per_row: int, max_rows: int, slots: int, resident: int,
+                    fixed: int = 0) -> int:
+    """Rows R per block of a kernel that runs a block's R * decodes_per_row
+    decodes in passes of ``slots``, plus ``fixed`` passes of its own work,
+    with ``resident`` blocks running at once.  R (at most ``max_rows``)
+    minimises the busiest resident slot's work, ceil(blocks / resident) *
+    (passes + fixed) (the smallest such R, for the most blocks)."""
     best, best_r = None, 1
-    for r in range(1, TRAIN_DMAX // k + 1):
-        blocks = -(-B // r)
-        cost = -(-blocks // resident) * (-(-(r * kd) // TRAIN_SLOTS) + TRAIN_BLOCK_PASSES)
+    for r in range(1, max_rows + 1):
+        blocks = -(-n // r)
+        cost = -(-blocks // resident) * (-(-(r * decodes_per_row) // slots) + fixed)
         if best is None or cost < best:
             best, best_r = cost, r
         if blocks <= 1:
@@ -138,15 +139,31 @@ def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) ->
     return best_r
 
 
-def _train_resident(dev: int, weighted_first: bool) -> int:
-    """Blocks of the train kernel the card holds at once (cached)."""
-    key = (dev, weighted_first)
+def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) -> int:
+    """Rows R per block of the train kernel: R (or R * k) decodes in passes
+    of ``TRAIN_SLOTS`` plus a fixed ``TRAIN_BLOCK_PASSES``, R * k staged rows
+    at most ``TRAIN_DMAX``; ``resident`` blocks run at once (SMs x blocks per
+    SM)."""
+    return _rows_per_block(B, 1 if weighted_first else k, TRAIN_DMAX // k, TRAIN_SLOTS,
+                           resident, TRAIN_BLOCK_PASSES)
+
+
+def train_resident_blocks(device: int, weighted_first: bool) -> int:
+    """Blocks of the train kernel that ``device`` holds at once, as the
+    build's registers allow (cached).  The first call also checks that the
+    build's block geometry is the one ``train_rows_per_block`` assumes."""
+    key = (device, weighted_first)
     n = _TRAIN_RESIDENT.get(key)
     if n is None:
+        geom = (ctypes.c_int * 3)()
+        _cuda.lib("train_iter").train_iter_geometry(geom)
+        if tuple(geom) != (TRAIN_THREADS, TRAIN_SLOTS, TRAIN_DMAX):
+            raise RuntimeError(f"csrc/train_iter.cu's block geometry {tuple(geom)} is not "
+                               f"({TRAIN_THREADS}, {TRAIN_SLOTS}, {TRAIN_DMAX})")
         per = _cuda.fn("train_iter", "train_iter_blocks_per_sm", [_cuda.I])(int(weighted_first))
         if per < 1:
             raise RuntimeError(f"occupancy query of train_iter_kernel failed ({per})")
-        n = _TRAIN_RESIDENT[key] = _cuda.sm_count(dev) * per
+        n = _TRAIN_RESIDENT[key] = _cuda.sm_count(device) * per
     return n
 
 
@@ -167,7 +184,7 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
         out = feats.new_zeros((_E,))
         return out[-1], feats.new_empty((0, k, KERNEL_F + 1)), out[:-1]
     wf = bool(weighted_first)
-    R = train_rows_per_block(B, k, wf, _train_resident(dev, wf))
+    R = train_rows_per_block(B, k, wf, train_resident_blocks(dev, wf))
     nblocks = -(-B // R)
     buf = feats.new_empty((nf + (nblocks + 1) * _E,))     # dfeats | out | block partials
     dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + _E]
@@ -186,22 +203,12 @@ _EIK_ARGS = ([_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda
              + [_cuda.P] * 4)
 
 
-@functools.lru_cache(maxsize=None)
 def eikonal_rows_per_block(n: int, k: int, weighted_first: bool, n_sms: int) -> int:
-    """Base rows R per block of the eikonal kernel.  A block runs its
-    R * (6 or 6k) decodes in chunks of ``EIK_SLOTS``; R minimises the chunks
-    the busiest SM runs, ceil(blocks / SMs) * chunks per block (the smallest
-    such R, for the most blocks)."""
+    """Base rows R per block of the eikonal kernel: R * (6 or 6k) decodes,
+    at most ``EIK_DMAX``, in chunks of ``EIK_SLOTS``, one block an SM at a
+    time."""
     dr = 6 * (1 if weighted_first else k)
-    best, best_r = None, 1
-    for r in range(1, EIK_DMAX // dr + 1):
-        blocks = -(-n // r)
-        cost = -(-blocks // n_sms) * -(-(r * dr) // EIK_SLOTS)
-        if best is None or cost < best:
-            best, best_r = cost, r
-        if blocks <= 1:
-            break
-    return best_r
+    return _rows_per_block(n, dr, EIK_DMAX // dr, EIK_SLOTS, n_sms)
 
 
 def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,

@@ -2,23 +2,21 @@
 
     python3 scripts/train_phases.py
 
-Builds an instrumented copy of ``pin_slam_torch/csrc/train_iter.cu`` into
-``build/phases``: thread 0 of every block reads ``clock64()`` at the kernel's
-start, after each of its top-level barriers and at its end.  Runs it at path
-A's and path B's shapes (B = 16384, k = 6, both modes, chip_smoke's seeded
-random inputs; rows per block chosen as the wrapper chooses them for the
-instrumented build's occupancy) and prints one JSON line per shape: the
-median and the largest cycles of each phase over the blocks, the block's
-total, the launch, and the instrumented build's registers.  Then the card's
-name and power limit.  The stamps cost a few registers, so the launch may
-differ from the plain build's; read the shares, not the totals.
+Builds ``pin_slam_torch/csrc/train_iter.cu`` with ``-DTRAIN_STAMPS`` into
+``build/phases`` (thread 0 of every block reads ``clock64()`` at the kernel's
+start, after each phase's barrier and at its end), makes it the build that
+``train_kernel.train_iter`` launches, and runs the wrapper at path A's and
+path B's shapes (B = 16384, k = 6, both modes, chip_smoke's seeded random
+inputs).  Prints one JSON line per shape: the median and the largest cycles
+of each phase over the blocks, the block's total, the launch, and the
+instrumented build's registers.  Then the card's name and power limit.  The
+stamps cost a few registers, so the launch may differ from the plain
+build's; read the shares, not the totals.
 """
 
-import ctypes
 import json
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -26,35 +24,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# the kernel's top-level barriers, in order (weighted_first's input blend
-# ends inside a branch, so it counts with the forward pass)
+# the phases between the kernel's stamps (weighted_first's input blend ends
+# inside a branch, so it counts with the forward pass)
 PHASES = ["staging", "forward (with weighted_first's input blend)", "per-row BCE", "backward",
           "feature-gradient copy and warp sums", "block sums"]
-MAX_BLOCKS = 4096
-
-
-def instrument(src: str) -> str:
-    a = src.index("__global__ void __launch_bounds__(TB) train_iter_kernel(")
-    b = src.index("template <bool WF>\nint launch(")
-    out, n = [], 0
-    for line in src[a:b].split("\n"):
-        out.append(line)
-        if line.startswith("  __syncthreads();"):
-            n += 1
-            out.append(f"  if (tid == 0) stamps[blockIdx.x][{n}] = clock64();")
-    if n != len(PHASES) - 1:
-        raise SystemExit(f"train_phases: {n} top-level barriers, expected {len(PHASES) - 1}")
-    body = "\n".join(out).replace(
-        "  const int tid = threadIdx.x;\n",
-        "  const int tid = threadIdx.x;\n  if (tid == 0) stamps[blockIdx.x][0] = clock64();\n", 1)
-    end = body.rindex("}\n")
-    body = (body[:end] + f"  __syncthreads();\n  if (tid == 0) stamps[blockIdx.x][{n + 1}] = "
-            "clock64();\n" + body[end:])
-    src = src[:a] + body + src[b:]
-    src = src.replace("namespace ti {\n",
-                      f"namespace ti {{\n__device__ long long stamps[{MAX_BLOCKS}][{n + 2}];\n", 1)
-    return src + ("\nextern \"C\" int train_iter_stamps(void* dst) {\n  return (int)"
-                  "cudaMemcpyFromSymbol(dst, ti::stamps, sizeof(ti::stamps));\n}\n")
+STAMP_BLOCKS = 4096   # blocks stamped (csrc/train_iter.cu)
 
 
 def main():
@@ -67,47 +41,30 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("train_phases: needs a CUDA device")
     out_dir = os.path.join(ROOT, "build", "phases")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "train_iter_phases.cu")
-    with open(os.path.join(_cuda.CSRC, "train_iter.cu")) as f:
-        text = instrument(f.read())
-    with open(src, "w") as f:
-        f.write(text)
-    so = os.path.join(out_dir, "libtrain_iter_phases.so")
-    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", _cuda.CSRC, "-o", so, src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise SystemExit(f"train_phases: nvcc failed:\n{res.stdout}{res.stderr}")
-    regs = re.findall(r"Used (\d+) registers", res.stdout + res.stderr)
-    lib = ctypes.CDLL(so)
-    launch = lib.train_iter_launch
-    launch.argtypes, launch.restype = tk._TRAIN_ARGS, ctypes.c_int
-    lib.train_iter_blocks_per_sm.argtypes = [ctypes.c_int]
-    lib.train_iter_stamps.argtypes = [ctypes.c_void_p]
-    n_st = len(PHASES) + 1
-    buf = np.zeros((MAX_BLOCKS, n_st), np.int64)
-    E = tk._E
+    _cuda.build(["train_iter"], defines=["TRAIN_STAMPS"], out_dir=out_dir)
+    with open(os.path.join(out_dir, "train_iter.log")) as f:
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", f.read())]
+    _cuda.use("train_iter", out_dir)
+    stamps = _cuda.fn("train_iter", "train_iter_stamps", [_cuda.P])
+    buf = np.zeros((STAMP_BLOCKS, len(PHASES) + 1), np.int64)
     for name, wf in (("A", True), ("B", False)):
         B, k = 16384, 6
-        feats, w, vin, label, wt, params, _, scale, sigma = cs.synthetic_train_args(wf, B, k, 1)
-        resident = _cuda.sm_count(0) * lib.train_iter_blocks_per_sm(int(wf))
+        args = cs.synthetic_train_args(wf, B, k, 1)
+        for _ in range(3):
+            tk.train_iter(*args)
+        torch.cuda.synchronize()
+        _cuda.check(stamps(buf.ctypes.data), "stamps copy")
+        resident = tk.train_resident_blocks(0, wf)
         R = tk.train_rows_per_block(B, k, wf, resident)
         nblocks = -(-B // R)
-        dfeats = torch.empty_like(feats)
-        scratch = torch.empty((nblocks + 1) * E, device="cuda")
-        for _ in range(3):
-            _cuda.check(launch(feats.data_ptr(), w.data_ptr(), vin.data_ptr(), label.data_ptr(),
-                               wt.data_ptr(), params.data_ptr(), B, k, int(wf), R, scale,
-                               1.0 / sigma, dfeats.data_ptr(), scratch.data_ptr() + 4 * E,
-                               scratch.data_ptr(), _cuda.stream_ptr(0)), "train_iter (phases)")
-        torch.cuda.synchronize()
-        _cuda.check(lib.train_iter_stamps(buf.ctypes.data), "stamps copy")
+        if nblocks > STAMP_BLOCKS:
+            raise SystemExit(f"train_phases: {nblocks} blocks, {STAMP_BLOCKS} stamped")
         d = np.diff(buf[:nblocks], axis=1)
         print(json.dumps({
             "shape": {"path": name, "B": B, "k": k, "weighted_first": wf},
             "launch": {"rows_per_block": R, "blocks": nblocks, "threads": tk.TRAIN_THREADS,
                        "resident_blocks": resident},
-            "registers": [int(r) for r in regs],
+            "registers": regs,
             "phase_cycles_median": dict(zip(PHASES, np.median(d, 0).tolist())),
             "phase_cycles_max": dict(zip(PHASES, d.max(0).tolist())),
             "block_cycles_median": float(np.median(buf[:nblocks, -1] - buf[:nblocks, 0]))}),

@@ -155,10 +155,10 @@ def test_train_identity_check_fails_on_one_ulp(monkeypatch):
         calls = iter([out, tuple(bad)])
         monkeypatch.setattr(tk, "train_iter", lambda *a: next(calls))
         if i is None:
-            assert chip_smoke.train_checked(args, "train") is out
+            assert chip_smoke.launched_twice(lambda *a: tk.train_iter(*a), args, "train") is out
         else:
             with pytest.raises(SystemExit, match="FAILED"):
-                chip_smoke.train_checked(args, "train")
+                chip_smoke.launched_twice(lambda *a: tk.train_iter(*a), args, "train")
 
 
 def test_identity_check_tells_signed_zeros_apart():

@@ -208,21 +208,3 @@ def test_twins_at_k8_match_jax_autodiff(kind, wf):
         ref = _jax_ref_k8(kind, wf, arrays, W, scale, 0.06)
     _check(out, *ref, B=B, k=k)
 
-
-def test_train_phases_script_stamps_every_phase():
-    """scripts/train_phases.py's instrumented copy of the train kernel stamps
-    the start, each top-level barrier and the end (it refuses a kernel whose
-    barriers no longer match its phase list)."""
-    import importlib.util
-    import os
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "train_phases", os.path.join(root, "scripts", "train_phases.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    with open(os.path.join(root, "pin_slam_torch", "csrc", "train_iter.cu")) as f:
-        out = mod.instrument(f.read())
-    n = len(mod.PHASES)
-    assert all(f"stamps[blockIdx.x][{i}] = clock64();" in out for i in range(n + 1))
-    assert "train_iter_stamps" in out
