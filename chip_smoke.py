@@ -625,6 +625,7 @@ def launched_twice(fn, args, label):
 
 
 def eik_phase(label, args, kwargs, launches):
+    from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
     feats, wst, vst, esc, params, wf, scale, step = args
