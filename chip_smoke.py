@@ -20,26 +20,36 @@
    pose-graph trajectory within the test's gates (endpoint < 0.3 m and no
    worse than odometry + 0.5 m, position RMSE < 0.15 m).
    Each path runs with every kernel launch counter at 0 just before it and
-   read just after; every kernel must have launched in it, losses must be
+   read just after; every kernel must have launched in it (the per-cell
+   rank kernel must not: the brick layout probes and ranks in the fused
+   ``rank_brick`` kernel, and never through its plain twin), losses must be
    finite, poses must stay near the scene's ground truth (A and B: every
    frame after the first must register).
 5. Kernel phases: every kernel is run on the card on the inputs the paths
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
-   (integers and gathers exact; floats part by part within the stated
-   tolerances; the scatter, the train and the eikonal kernel also
-   bit-identical across two launches) and timed beside its plain version and the one PyTorch
-   call that computes the same function where there is one, each two ways:
+   (integers, ranks and gathers exact; floats part by part within the stated
+   tolerances; the fused rank, the scatter, the train and the eikonal kernel
+   also bit-identical across two launches) and timed beside its plain
+   version and the one PyTorch call that computes the same function where
+   there is one (the fused rank also beside the unfused pipeline: the torch
+   brick gather, then the per-cell rank kernel), each two ways:
    ``ms``, CUDA events around one launch on an idle card (median of 25; the
    host's launch path included), and ``device_ms``, many launches queued
    behind ``torch.cuda._sleep`` between two events (the device alone).  The
    train and eikonal kernels also at k = 8 on random inputs, the row kernels
-   also at the Pallas experiment's own shape.
+   also at the Pallas experiment's own shape, the per-cell rank kernel
+   (on no path) at path B's near shape with K = 81 on random rows.
 6. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
    and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 16} x
    both modes on dyadic inputs (float64 check, two launches bit-identical),
    the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
-   and misaligned tables and on one of more than 2^31 floats (bit-exact).
+   and misaligned tables and on one of more than 2^31 floats (bit-exact),
+   the fused rank kernel at G in {0, 1, 37} x n in {1, 4, 5} x k in
+   {1, 6, 16} with both paths' candidate counts (Kc 64, 128) on a colliding
+   random table, with negative probes and probes at 1e6, and the per-cell
+   one at the same G, n, k with K 33 and 81 (exact, two launches
+   bit-identical).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -108,22 +118,25 @@ def smi_line() -> str:
 
 
 class Capture:
-    """Wraps the five kernel wrappers.  While a path's timed frames run it
-    only tallies launches per path and shape; while ``capturing`` (one extra,
-    untimed frame after them) it keeps a clone of each kernel's inputs per
-    path and shape instead."""
+    """Wraps the main path's kernel wrappers.  While a path's timed frames run
+    it only tallies launches per path and shape; while ``capturing`` (one
+    extra, untimed frame after them) it keeps a clone of each kernel's inputs
+    per path and shape instead.  It also counts calls of the fused rank
+    kernel's plain twin, which the main path on the card must not make."""
 
     def __init__(self):
         from pin_slam_torch.ops import rank_kernel, rows, train_kernel
 
         self.rk, self.tk, self.rows = rank_kernel, train_kernel, rows
-        self.orig = (rank_kernel.probe_rank, train_kernel.train_iter,
-                     train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_add_rows)
+        self.orig = (rank_kernel.probe_rank_brick, train_kernel.train_iter,
+                     train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_add_rows,
+                     rank_kernel.probe_rank_brick_plain)
         self.path = None
         self.capturing = False
         self.inputs = {}
         self.tally = {}
         self.rank_calls = 0
+        self.plain_rank_calls = 0
 
     def _keep(self, key, args, kwargs):
         import torch
@@ -142,15 +155,20 @@ class Capture:
             self.tally[key] = self.tally.get(key, 0) + 1
 
     def install(self):
-        probe_rank, train_iter, eikonal_iter, gather_rows, scatter_add_rows = self.orig
+        (probe_rank_brick, train_iter, eikonal_iter, gather_rows, scatter_add_rows,
+         rank_plain) = self.orig
 
         def rank(*a, **kw):
             # every frame probes the shared endpoint balls first, then the
             # free-space samples (pipeline._frame_update -> append_knn)
             kind = "near" if self.rank_calls % 2 == 0 else "far"
             self.rank_calls += 1
-            self._keep((self.path, "rank", kind), a, kw)
-            return probe_rank(*a, **kw)
+            self._keep((self.path, "rank_brick", kind), a, kw)
+            return probe_rank_brick(*a, **kw)
+
+        def plain(*a, **kw):
+            self.plain_rank_calls += 1
+            return rank_plain(*a, **kw)
 
         def train(*a, **kw):
             self._keep((self.path, "train_iter", "main"), a, kw)
@@ -170,12 +188,14 @@ class Capture:
             self._keep((self.path, "scatter", "main"), a, kw)
             return scatter_add_rows(*a, **kw)
 
-        (self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter,
-         self.rows.gather_rows, self.rows.scatter_add_rows) = rank, train, eik, gather, scatter
+        (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
+         self.rows.gather_rows, self.rows.scatter_add_rows,
+         self.rk.probe_rank_brick_plain) = rank, train, eik, gather, scatter, plain
 
     def uninstall(self):
-        (self.rk.probe_rank, self.tk.train_iter, self.tk.eikonal_iter,
-         self.rows.gather_rows, self.rows.scatter_add_rows) = self.orig
+        (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
+         self.rows.gather_rows, self.rows.scatter_add_rows,
+         self.rk.probe_rank_brick_plain) = self.orig
 
 
 # ----------------------------------------------------------------------
@@ -287,6 +307,7 @@ def run_path(name, cap):
     cfg = system.config
     n_rays, n_frames, mapping_bucket = p["n_rays"], len(frames), p["mapping_bucket"]
     cap.path = name
+    cap.plain_rank_calls = 0
     _cuda.reset_counts()
     infos, times = [], []
     for fr in frames:
@@ -370,7 +391,7 @@ def run_path(name, cap):
                  f"{end_err_odom:.3f} m)")
         if res["rmse_pgo_m"] >= 0.15:
             fail(f"path {name}: position RMSE {res['rmse_pgo_m']:.3f} m vs the ground truth")
-        need = {k: 1 for k in counts}
+        need = {k: 1 for k in counts if k != "rank"}
     else:
         if not all(res["reg_valid"]):
             fail(f"path {name}: a frame after the first did not register: {res['reg_valid']}")
@@ -378,11 +399,16 @@ def run_path(name, cap):
             fail(f"path {name}: pose error {res['max_pose_err_m']:.3f} m vs the scene's "
                  f"ground truth")
         iters = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
-        need = {"rank": n_frames, "train_iter": iters, "eikonal": iters,
+        need = {"rank_brick": n_frames, "train_iter": iters, "eikonal": iters,
                 "gather": iters + n_frames, "scatter": iters}
     for k, n in need.items():
         if counts[k] < n:
             fail(f"path {name}: kernel {k} launched {counts[k]} times, expected >= {n}")
+    # the brick layout probes and ranks in one kernel: no per-cell ranking,
+    # no plain brick gather
+    if counts["rank"] or cap.plain_rank_calls:
+        fail(f"path {name}: the brick probe went through the per-cell rank kernel "
+             f"({counts['rank']}) or the plain brick gather ({cap.plain_rank_calls})")
     del system
     torch.cuda.empty_cache()
     return res
@@ -487,32 +513,180 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def rank_phase(label, args, launches):
+def rank_check(out_k, out_p, label):
+    """Fails unless the rank kernel's (gidx, pos, valid) equal the plain
+    version's exactly."""
     import torch
 
+    for i, what in ((0, "gidx"), (2, "valid"), (1, "pos")):
+        a, b = out_k[i], out_p[i].to(out_k[i].dtype)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else -1
+            fail(f"rank kernel {label}: {what} differs from the plain version ({bad} values)")
+
+
+def rank_bound(G, n, K, k, probed):
+    """The ranking's least time: the 5 K candidate floats of each group read
+    once (the whole brick rows, or the gathered rows), the probe points
+    (``probed``: the brick layout), the queries, and the outputs (17 bytes a
+    neighbour); 9 operations per (query, candidate)."""
+    floats = 5 * G * K + (3 * G if probed else 0) + 3 * G * n
+    return bound(4 * floats + G * n * k * 17, G * n * K * 9)
+
+
+def rank_brick_phase(label, args, launches):
+    """The fused brick probe + rank on a captured input: exact against its
+    plain version (the torch brick gather, then the plain ranking), two
+    launches bit-identical; timed beside the plain version and the unfused
+    pipeline of the parent design, the torch brick gather followed by the
+    per-cell rank kernel (``unfused_*``)."""
     from pin_slam_torch.ops import rank_kernel as rk
 
-    rows_fm, queries, k, L, maxd2 = args
+    hash_rows, bricks, memb, probe, queries, k, L, maxd2, voxel, brick, Hb = args
     G, n = queries.shape[0], queries.shape[1]
-    K = rows_fm.shape[1] // 5
-    out_k = rk.probe_rank(rows_fm, queries, k, L, maxd2)
-    out_p = rk.probe_rank_plain(rows_fm, queries, k, L, maxd2)
-    torch.cuda.synchronize()
-    if not torch.equal(out_k[0], out_p[0].to(out_k[0].dtype)) or not torch.equal(out_k[2], out_p[2]):
-        bad = (out_k[0] != out_p[0].to(out_k[0].dtype)).sum().item()
-        fail(f"rank kernel {label}: integer outputs differ from the plain version ({bad} gidx)")
-    err = float((out_k[1] - out_p[1]).abs().max())
-    if err != 0.0:
-        fail(f"rank kernel {label}: positions differ (max {err})")
-    t = timings(lambda: rk.probe_rank(rows_fm, queries, k, L, maxd2),
-                lambda: rk.probe_rank_plain(rows_fm, queries, k, L, maxd2))
-    b, by = bound(nbytes(rows_fm, queries, *out_k), G * n * K * 9)
-    row = {"name": f"rank[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rank.cu",
+    Kb, nsub = bricks.shape[1], bricks.shape[0]
+    Kc = Kb * nsub
+    out_k = launched_twice(rk.probe_rank_brick, args, f"rank_brick kernel {label}")
+    rank_check(out_k, rk.probe_rank_brick_plain(*args), label)
+
+    def unfused():
+        rows_fm = rk.gather_brick_rows_fm(hash_rows, bricks, memb, probe, voxel, brick, Hb, L)
+        return rk.probe_rank(rows_fm, queries.contiguous(), k, L, maxd2)
+
+    rank_check(unfused(), out_k, f"{label} (unfused)")
+    t = timings(lambda: rk.probe_rank_brick(*args), lambda: rk.probe_rank_brick_plain(*args))
+    u = timings(unfused, None)
+    b, by = rank_bound(G, n, Kc, k, True)
+    row = {"name": f"rank_brick[{label}]", "route": "cuda",
+           "source": "pin_slam_torch/csrc/rank.cu",
            "replaces": "pin_slam_tpu/ops/rank_kernel.py:105", "launches": launches,
            "max_abs_err": 0.0, **t, "bound_ms": b, "bound_by": by,
-           "shape": {"G": G, "n": n, "K": K, "k": k}, "check": "gidx/valid/pos exact"}
+           "unfused_ms": u["ms"], "unfused_device_ms": u["device_ms"],
+           "shape": {"G": G, "n": n, "Kb": Kb, "nsub": nsub, "Kc": Kc, "k": k, "Hb": Hb},
+           "check": "gidx/valid/pos exact against the plain version; two launches "
+                    "bit-identical"}
     emit({"phase": "kernel", **row})
     return row
+
+
+def rank_table(Hb, L, seed):
+    """A random brick-layout (2, 2, 1) local hash: L points on a 1/8 m
+    lattice in [-8, 8)^3, a tenth of them duplicated (exact distance ties),
+    packed into Hb brick rows (many collisions).  Returns (MapConfig,
+    table, points)."""
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pts = torch.floor((torch.rand(L + 1, 3, generator=g, device="cuda") * 16 - 8) * 8) / 8
+    pts[1:L // 10] = pts[L // 2:L // 2 + L // 10 - 1]
+    mc = npts.MapConfig(capacity=1 << 20, local_capacity=L, hash_size=1 << 10,
+                        voxel_size=0.4, feature_dim=8, nn_k=6, max_valid_dist2=1.0,
+                        local_map_radius=10.0, travel_dist_window=50.0,
+                        local_hash_size=4 * Hb, brick=(2, 2, 1))
+    idx = torch.randint(0, 1 << 20, (L + 1,), generator=g, device="cuda")
+    table = npts._pack_hash_rows(mc, pts, torch.tensor(L, device="cuda"), idx)
+    return mc, table, pts
+
+
+def rank_probes(pts, G, seed):
+    """G probe points within 0.2 m of random map points; a quarter of them
+    moved 20 m towards negative coordinates, off the map, and the last eighth
+    at the dedup filler 1e6."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pick = torch.randint(0, pts.shape[0] - 1, (G,), generator=g, device="cuda")
+    probe = pts[pick] + (torch.rand(G, 3, generator=g, device="cuda") - 0.5) * 0.4
+    probe[: G // 4] -= 20.0
+    probe[G - G // 8:] = 1e6
+    return probe
+
+
+def rank_edge_phase():
+    """The fused kernel at G in {0, 1, 37} x n in {1, 4, 5} x k in {1, 6, 16}
+    on random tables with both paths' candidate counts (Kc 64 and 128: the
+    default and run_kitti.yaml templates on a (2, 2, 1) brick), negative
+    probes and probes at 1e6; the per-cell kernel at the same G, n, k on
+    random field-major rows with K 33 and 81.  Each exact against its plain
+    version and two launches bit-identical; G = 0 launches nothing.  Not a
+    main-path shape, so kept out of the kernels line."""
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.ops import rank_kernel as rk
+
+    cases = 0
+    mc, table, pts = rank_table(4096, 4096, 0)
+    for nei, alpha in ((2, 0.2), (2, 0.5)):
+        tmpl = npts.make_probe_template(mc, nei, alpha, device="cuda")
+        for G in (0, 1, 37):
+            probe = rank_probes(pts, G, 10 + G)
+            for n in (1, 4, 5):
+                q = probe[:, None, :] + torch.linspace(-0.3, 0.3, n, device="cuda")[None, :, None]
+                for k in (1, 6, 16):
+                    args = (table, tmpl.bricks, tmpl.memb, probe, q, k, mc.local_capacity,
+                            mc.max_valid_dist2, mc.voxel_size, mc.brick, mc.brick_rows)
+                    label = f"edge G={G} n={n} k={k} Kc={tmpl.memb.shape[1]}"
+                    before = _cuda.COUNTS["rank_brick"]
+                    out = launched_twice(rk.probe_rank_brick, args, label)
+                    if G == 0 and _cuda.COUNTS["rank_brick"] != before:
+                        fail(f"rank_brick kernel {label}: launched at G = 0")
+                    rank_check(out, rk.probe_rank_brick_plain(*args), label)
+                    cases += 1
+    for K in (33, 81):
+        for G in (0, 1, 37):
+            for n in (1, 4, 5):
+                for k in (1, 6, 16):
+                    rows, q = rank_cell_inputs(G, n, K, 4096, 20 + G + n)
+                    args = (rows, q, k, 4096, 1.0)
+                    label = f"per-cell edge G={G} n={n} k={k} K={K}"
+                    out = launched_twice(rk.probe_rank, args, label)
+                    rank_check(out, rk.probe_rank_plain(*args), label)
+                    cases += 1
+    emit({"phase": "rank_edges", "cases": cases,
+          "check": "gidx/valid/pos exact against the plain version; two launches "
+                   "bit-identical; no launch at G = 0"})
+
+
+def rank_cell_inputs(G, n, K, L, seed):
+    """Field-major candidate rows on a coarse lattice (exact distance ties),
+    a share of invalid local indices, a quarter of the balls with at most 3
+    valid candidates, and queries on the same lattice."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lat = lambda *s: torch.round((torch.rand(*s, generator=g, device="cuda") * 2 - 1) * 4) / 4
+    lidx = torch.randint(0, L + L // 3, (G, 1, K), generator=g, device="cuda").float()
+    lidx[: G // 4, :, 3:] = L
+    gidx = torch.randint(0, 1 << 22, (G, 1, K), generator=g, device="cuda").float()
+    rows = torch.cat([lat(G, 3, K), lidx, gidx], 1).reshape(G, 5 * K)
+    return rows, lat(G, n, 3)
+
+
+def rank_cells_phase():
+    """The per-cell layout's rank kernel (no main path uses it; the brick
+    layout is on in every path) on random field-major rows at path B's near
+    shape with the per-cell template of run_kitti.yaml (K = 81): exact
+    against its plain version, two launches bit-identical, timed.  Kept out
+    of the kernels line."""
+    from pin_slam_torch.ops import rank_kernel as rk
+
+    G, n, K, k, L = 65536, 5, 81, 6, 1 << 18
+    rows, q = rank_cell_inputs(G, n, K, L, 3)
+    args = (rows, q, k, L, 1.0)
+    out_k = launched_twice(rk.probe_rank, args, "rank kernel per-cell")
+    rank_check(out_k, rk.probe_rank_plain(*args), "per-cell")
+    t = timings(lambda: rk.probe_rank(*args), lambda: rk.probe_rank_plain(*args))
+    b, by = rank_bound(G, n, K, k, False)
+    emit({"phase": "rank_cells", "name": "rank[per-cell random]", "route": "cuda",
+          "source": "pin_slam_torch/csrc/rank.cu",
+          "replaces": "pin_slam_tpu/ops/rank_kernel.py:105", "launches": 0,
+          "max_abs_err": 0.0, **t, "bound_ms": b, "bound_by": by,
+          "shape": {"G": G, "n": n, "K": K, "k": k},
+          "check": "gidx/valid/pos exact; two launches bit-identical"})
 
 
 def _parts(out):
@@ -936,10 +1110,11 @@ def main() -> int:
     rows = []
     for path, res in results.items():
         for kind in ("far", "near"):
-            key = (path, "rank", kind)
+            key = (path, "rank_brick", kind)
             if key not in cap.inputs:
                 fail(f"path {path}: no {kind} rank launch captured")
-            rows.append(rank_phase(f"path{path}-{kind}", cap.inputs[key][0], cap.tally[key]))
+            rows.append(rank_brick_phase(f"path{path}-{kind}", cap.inputs[key][0],
+                                         cap.tally[key]))
         a, kw = cap.inputs[(path, "train_iter", "main")]
         rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
         a, kw = cap.inputs[(path, "eikonal", "main")]
@@ -950,7 +1125,7 @@ def main() -> int:
                                      cap.tally.get((path, "gather", kind), 0)))
         a, kw = cap.inputs[(path, "scatter", "main")]
         rows.append(scatter_phase(f"path{path}", a, kw, res["launches"]["scatter"]))
-        for kernel, kinds in (("rank", ("far", "near")), ("gather", ("pool", "feat")),
+        for kernel, kinds in (("rank_brick", ("far", "near")), ("gather", ("pool", "feat")),
                               ("scatter", ("main",))):
             if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
                 fail(f"path {path}: {kernel} launch tallies disagree with the counter")
@@ -961,6 +1136,8 @@ def main() -> int:
         train_phase(f"k8-wf{int(wf)}", synthetic_train_args(wf, 16384, 8, 1), {}, 0)
         eik_phase(f"k8-wf{int(wf)}", synthetic_eik_args(wf, 1638, 8, 2), {}, 0)
     experiment_shape_rows()
+    rank_cells_phase()
+    rank_edge_phase()
     train_edge_phase()
     eikonal_edge_phase()
     gather_edge_phase()

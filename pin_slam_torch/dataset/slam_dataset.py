@@ -1,8 +1,8 @@
 """Frame pipeline + host pose books, torch-port counterpart of
 ``pin_slam_tpu/dataset/slam_dataset.py``: KITTI frame discovery and
-preprocessing (range crop, bucket cap), the constant-velocity initial
-guess, odometry and pose-graph poses, travel distance, stop and lose-track
-detection."""
+preprocessing (range crop, adaptive or fixed, bucket cap), the
+constant-velocity initial guess, odometry and pose-graph poses, travel
+distance, stop and lose-track detection."""
 
 from __future__ import annotations
 
@@ -86,8 +86,16 @@ class SLAMDataset:
             points = np.asarray(self.scans[frame_id])[:, :3].astype(np.float32)
         else:
             points, _, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
+        # adaptive crop range (used for NCD): twice the scan's smaller
+        # horizontal half-extent, at most max_range
+        crop_max_range = cfg.max_range
+        if cfg.adaptive_range_on and points.shape[0] > 0:
+            pc_max, pc_min = points.max(axis=0), points.min(axis=0)
+            min_x_range = min(abs(pc_max[0]), abs(pc_min[0]))
+            min_y_range = min(abs(pc_max[1]), abs(pc_min[1]))
+            crop_max_range = min(cfg.max_range, 2.0 * max(min_x_range, min_y_range))
         d = np.linalg.norm(points, axis=1)
-        keep = ((d > cfg.min_range) & (d < cfg.max_range)
+        keep = ((d > cfg.min_range) & (d < crop_max_range)
                 & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
         points = points[keep]
         rng = np.random.default_rng(cfg.seed + frame_id)

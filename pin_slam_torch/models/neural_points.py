@@ -440,22 +440,30 @@ def brick_gather_fm(lm: LocalMap, mc: MapConfig, tmpl: ProbeTemplate,
     """Brick-layout probe gather -> field-major rows (G, 5*Kc), columns
     [x*Kc | y*Kc | z*Kc | lidx*Kc | gidx*Kc], candidate order c = s*Kb + kb;
     sub-cells outside the sphere template get the sentinel local index."""
-    bx, by, bz = mc.brick
-    nsub, Hb = mc.nsub, mc.brick_rows
-    g = grid_coords(probe_pts, mc.voxel_size)
+    return gather_brick_rows_fm(lm.hash_rows, tmpl.bricks, tmpl.memb, probe_pts,
+                                mc.voxel_size, mc.brick, mc.brick_rows, mc.local_capacity)
+
+
+def gather_brick_rows_fm(hash_rows: torch.Tensor, bricks: torch.Tensor, memb: torch.Tensor,
+                         probe_pts: torch.Tensor, voxel_size: float, brick, Hb: int,
+                         L: int) -> torch.Tensor:
+    """``brick_gather_fm`` on its arrays: the packed table ((Hb+1)*nsub, 5),
+    the template's parity tables ``bricks`` (nsub, Kb, 3) and ``memb``
+    (nsub, Kb*nsub), the local capacity L."""
+    bx, by, bz = brick
+    nsub = bx * by * bz
+    g = grid_coords(probe_pts, voxel_size)
     bvec = torch.tensor([bx, by, bz], dtype=g.dtype, device=g.device)
     bco = _floor_div(g, bvec)
     p = (g - bco * bvec).to(torch.int64)
     bidx = p[:, 0] * (by * bz) + p[:, 1] * bz + p[:, 2]
-    boffs = tmpl.bricks[bidx]                                # (G,Kb,3)
+    boffs = bricks[bidx]                                     # (G,Kb,3)
     hb = spatial_hash(bco[:, None, :] + boffs, Hb)           # (G,Kb)
     G, Kb = hb.shape
-    raw = lm.hash_rows.view(Hb + 1, nsub * BRICK_SUB_DIM)[hb]
+    raw = hash_rows.view(Hb + 1, nsub * BRICK_SUB_DIM)[hb]
     fields = raw.view(G, Kb, nsub, BRICK_SUB_DIM).permute(3, 0, 2, 1).reshape(
         BRICK_SUB_DIM, G, nsub * Kb).clone()
-    memb = tmpl.memb[bidx]
-    fields[3] = torch.where(memb > 0.5, fields[3],
-                            torch.full_like(fields[3], float(mc.local_capacity)))
+    fields[3] = torch.where(memb[bidx] > 0.5, fields[3], torch.full_like(fields[3], float(L)))
     return fields.permute(1, 0, 2).reshape(G, BRICK_SUB_DIM * nsub * Kb)
 
 

@@ -32,8 +32,8 @@ BUILD = os.path.join(ROOT, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-COUNTS: Dict[str, int] = {"rank": 0, "train_iter": 0, "eikonal": 0, "gather": 0,
-                          "scatter": 0}
+COUNTS: Dict[str, int] = {"rank_brick": 0, "rank": 0, "train_iter": 0, "eikonal": 0,
+                          "gather": 0, "scatter": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _SMS: Dict[int, int] = {}

@@ -139,19 +139,21 @@ def idw_blend(points: torch.Tensor, nbr_pos: torch.Tensor, valid: torch.Tensor,
 def _probe_rank(lm: npts.LocalMap, mc: npts.MapConfig, offsets, probe_pts: torch.Tensor,
                 query_pts: torch.Tensor, k: int):
     """Probe the local hash around ``probe_pts`` and rank each group's shared
-    candidate set by every ``query_pts`` row's exact distance (the rank
-    kernel).  probe_pts (G,3); query_pts (G,n,3).  Returns (gidx (G,n,k)
+    candidate set by every ``query_pts`` row's exact distance.  probe_pts
+    (G,3); query_pts (G,n,3).  On the brick layout the probe and the ranking
+    are one kernel (``rank_kernel.probe_rank_brick``); the per-cell layout
+    gathers the rows in torch, then ranks them.  Returns (gidx (G,n,k)
     int32, pos (G,n,k,3), valid (G,n,k))."""
-    brick_mode = isinstance(offsets, npts.ProbeTemplate) and mc.nsub > 1
+    if isinstance(offsets, npts.ProbeTemplate) and mc.nsub > 1:
+        return rank_kernel.probe_rank_brick(
+            lm.hash_rows, offsets.bricks, offsets.memb, probe_pts, query_pts, k,
+            mc.local_capacity, mc.max_valid_dist2, mc.voxel_size, mc.brick, mc.brick_rows)
     cells_t = offsets.cells if isinstance(offsets, npts.ProbeTemplate) else offsets
     G = query_pts.shape[0]
-    if brick_mode:
-        rows_fm = npts.brick_gather_fm(lm, mc, offsets, probe_pts)
-    else:
-        grid = grid_coords(probe_pts, mc.voxel_size)
-        cells = grid[:, None, :] + cells_t[None, :, :].to(grid.dtype)
-        rows = lm.hash_rows[npts.subcell_hash(mc, cells)]          # (G,K,·)
-        rows_fm = rows[..., :5].transpose(1, 2).reshape(G, -1)
+    grid = grid_coords(probe_pts, mc.voxel_size)
+    cells = grid[:, None, :] + cells_t[None, :, :].to(grid.dtype)
+    rows = lm.hash_rows[npts.subcell_hash(mc, cells)]              # (G,K,·)
+    rows_fm = rows[..., :5].transpose(1, 2).reshape(G, -1)
     return rank_kernel.probe_rank(rows_fm.contiguous(), query_pts.contiguous(), k,
                                   mc.local_capacity, mc.max_valid_dist2)
 

@@ -1,8 +1,9 @@
 """Times of the row gather, the train and the eikonal kernel at the main
-path's shapes, on seeded random inputs, for the port in this checkout or in
+path's shapes, on seeded random inputs, and of the append kNN's probe and
+ranking on the paths' own inputs, for the port in this checkout or in
 another one.
 
-    python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
+    python3 scripts/kernel_ab.py [--root DIR] [--label NAME] [--kernels gather,train,eikonal,rank]
 
 ``--root`` names another checkout (for example an unpacked ``git archive``
 of the parent commit): its ``pin_slam_torch`` is imported and its kernels are
@@ -16,8 +17,13 @@ on an idle card: the host's launch path included) and ``device_ms``
 kernel, and of ``torch.index_select`` for the gathers; every gather is
 checked bit-exact against ``table[idx]`` and every train and eikonal launch
 against its plain version in float64.  The train kernel runs at B = 16384,
-k = 6 in both modes (path A's and path B's shapes).  Then the card's name
-and power limit.  Needs a CUDA device.
+k = 6 in both modes (path A's and path B's shapes).  The rank rows time
+``mapper._probe_rank`` (whatever that checkout runs for the brick layout:
+one fused kernel, or the torch brick gather followed by the rank kernel) on
+the near and far inputs of the second frame of chip_smoke's paths A, B and
+C, each checked exact against the torch brick gather followed by the plain
+ranking, beside the bound.  Then the card's name and power limit.  Needs a
+CUDA device.
 """
 
 import argparse
@@ -35,13 +41,73 @@ GATHERS = [("A-feat", (1 << 16) + 1, 9, 98304), ("B-feat", (1 << 18) + 1, 9, 983
 # (label, weighted_first): B = 16384 rows (train) and n = 16384 // 10 base
 # rows (eikonal), k = 6, as on both paths
 TRAINS = EIKONALS = [("A", True), ("B", False)]
+RANK_PATHS = ("A", "B", "C")
+
+
+def rank_inputs(cs, path):
+    """{"near": args, "far": args} of ``mapper._probe_rank`` in the second
+    frame of chip_smoke's path (the local map reduced to its hash table)."""
+    import types
+
+    import torch
+
+    from pin_slam_torch.slam import mapper as mp
+
+    system, frames, _ = cs.make_path(path, 2)
+    system.process_frame(frames[0])
+    calls, orig = [], mp._probe_rank
+
+    def grab(lm, *a):
+        calls.append((types.SimpleNamespace(hash_rows=lm.hash_rows.clone()),)
+                     + tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+        return orig(lm, *a)
+
+    mp._probe_rank = grab
+    try:
+        system.process_frame(frames[1])
+    finally:
+        mp._probe_rank = orig
+    return dict(zip(("near", "far"), calls[:2]))
+
+
+def time_rank(cs, label):
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.ops import _cuda, rank_kernel
+    from pin_slam_torch.slam import mapper as mp
+
+    for path in RANK_PATHS:
+        for kind, args in rank_inputs(cs, path).items():
+            lm, mc, tmpl, probe, q, k = args
+            before = dict(_cuda.COUNTS)
+            out = mp._probe_rank(*args)
+            launched = {key: n - before.get(key, 0) for key, n in _cuda.COUNTS.items()
+                        if n != before.get(key, 0)}
+            ref = rank_kernel.probe_rank_plain(npts.brick_gather_fm(lm, mc, tmpl, probe),
+                                               q.contiguous(), k, mc.local_capacity,
+                                               mc.max_valid_dist2)
+            torch.cuda.synchronize()
+            cs.rank_check(out, ref, f"{path}-{kind}")
+            t = cs.timings(lambda: mp._probe_rank(*args), None)
+            G, n, Kc = q.shape[0], q.shape[1], tmpl.memb.shape[1]
+            b, by = cs.rank_bound(G, n, Kc, k, True)
+            print(json.dumps({"checkout": label, "kernel": f"probe_rank[{path}-{kind}]",
+                              "G": G, "n": n, "Kc": Kc, "k": k, "launches_per_call": launched,
+                              "bound_ms": b, "bound_by": by, "ms": t["ms"],
+                              "device_ms": t["device_ms"],
+                              **{x: t[x] for x in t if x.startswith("device_ms_holds")}}),
+                  flush=True)
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kernels", default="gather,train,eikonal,rank")
     args = ap.parse_args()
+    which = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke_timers",
@@ -61,7 +127,7 @@ def main():
     _cuda.build()
     label = args.label or root
     g = torch.Generator(device="cuda").manual_seed(0)
-    for name, N, C, M in GATHERS:
+    for name, N, C, M in GATHERS if "gather" in which else ():
         table = torch.randn(N, C, generator=g, device="cuda")
         idx = torch.randint(0, N, (M,), generator=g, device="cuda")
         out = rows.gather_rows(table, idx)
@@ -74,7 +140,7 @@ def main():
         print(json.dumps({"checkout": label, "kernel": f"gather[{name}]", "N": N, "C": C,
                           "M": M, "bound_ms": b, **t}), flush=True)
         del table, idx, out
-    for name, wf in TRAINS:
+    for name, wf in TRAINS if "train" in which else ():
         a = cs.synthetic_train_args(wf, 16384, 6, 1)
         out = tk.train_iter(*a)
         err, _ = cs._cmp(out, tk.train_iter_plain, a, f"train_iter {name}")
@@ -82,7 +148,7 @@ def main():
         print(json.dumps({"checkout": label, "kernel": f"train_iter[{name}]", "B": 16384,
                           "k": 6, "weighted_first": wf, "max_abs_err_vs_plain": err, **t}),
               flush=True)
-    for name, wf in EIKONALS:
+    for name, wf in EIKONALS if "eikonal" in which else ():
         a = cs.synthetic_eik_args(wf, 16384 // 10, 6, 2)
         out = tk.eikonal_iter(*a)
         err, _ = cs._cmp(out, tk.eikonal_iter_plain, a, f"eikonal {name}")
@@ -91,6 +157,8 @@ def main():
                           "k": 6, "weighted_first": wf, "max_abs_err_vs_plain": err, **t}),
               flush=True)
     torch.cuda.empty_cache()
+    if "rank" in which:
+        time_rank(cs, label)
     print(cs.smi_line(), flush=True)
 
 

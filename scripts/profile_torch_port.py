@@ -46,8 +46,8 @@ SPANS = [
     ("pin_slam_torch.slam.mapper", "pool_refresh_cache"),
 ]
 # the __global__ functions of pin_slam_torch/csrc
-PORT_KERNELS = ("rank_kernel", "train_iter_kernel", "eikonal_kernel", "reduce_partials",
-                "gather_rows_kernel", "scatter_rows_kernel")
+PORT_KERNELS = ("rank_brick_kernel", "rank_kernel", "train_iter_kernel", "eikonal_kernel",
+                "reduce_partials", "gather_rows_kernel", "scatter_rows_kernel")
 
 
 def install_spans():

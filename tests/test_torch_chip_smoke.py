@@ -180,3 +180,81 @@ def test_scatter_check_accepts_twin_and_fails_on_one_wrong_row(skip):
     bad[row, 2] += 300 * 2.0 ** -23 * (abs(float(bad[row, 2])) + 1.0)
     with pytest.raises(SystemExit, match="FAILED"):
         chip_smoke.scatter_check(bad, table, idx, val, skip_row)
+
+
+def _rank_brick_args():
+    """probe_rank_brick's arguments on a small random brick-layout table."""
+    from pin_slam_torch.models import neural_points as npts
+
+    g = torch.Generator().manual_seed(4)
+    L, Hb, G, n = 512, 256, 40, 4
+    pts = torch.floor((torch.rand(L + 1, 3, generator=g) * 8 - 4) * 8) / 8
+    mc = npts.MapConfig(capacity=1 << 12, local_capacity=L, hash_size=1 << 10,
+                        voxel_size=0.4, feature_dim=8, nn_k=6, max_valid_dist2=1.0,
+                        local_map_radius=10.0, travel_dist_window=50.0,
+                        local_hash_size=4 * Hb, brick=(2, 2, 1))
+    table = npts._pack_hash_rows(mc, pts, torch.tensor(L), torch.arange(L + 1))
+    tmpl = npts.make_probe_template(mc, 2, 0.2)
+    probe = pts[:G] + 0.05
+    q = probe[:, None, :] + torch.rand(G, n, 3, generator=g) * 0.4 - 0.2
+    return mc, tmpl, (table, tmpl.bricks, tmpl.memb, probe, q, 6, L, mc.max_valid_dist2,
+                      mc.voxel_size, mc.brick, mc.brick_rows)
+
+
+@pytest.mark.parametrize("part", [0, 1, 2], ids=["gidx", "pos", "valid"])
+def test_rank_check_accepts_twin_and_fails_on_one_value(part):
+    from pin_slam_torch.ops import rank_kernel as rk
+
+    _, _, args = _rank_brick_args()
+    out = rk.probe_rank_brick_plain(*args)
+    assert out[2].any() and not out[2].all()
+    chip_smoke.rank_check(rk.probe_rank_brick(*args), out, "cpu")
+    bad = [t.clone() for t in out]
+    if part == 0:
+        bad[0][3, 1, 2] += 1
+    elif part == 1:
+        bad[1][5, 0, 4, 1] = torch.nextafter(bad[1][5, 0, 4, 1], torch.tensor(float("inf")))
+    else:
+        bad[2][7, 2, 0] = ~bad[2][7, 2, 0]
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.rank_check(tuple(bad), out, "cpu")
+
+
+def test_capture_tallies_and_keeps_the_fused_rank_inputs():
+    """The capture wraps probe_rank_brick (what the mapper's brick path
+    calls): calls alternate near / far, are tallied while the path is timed
+    and cloned while capturing; calls of its plain twin are counted apart;
+    uninstall puts every wrapper back."""
+    from pin_slam_torch.ops import rank_kernel as rk
+    from pin_slam_torch.slam import mapper as mp
+
+    mc, tmpl, args = _rank_brick_args()
+    orig = (rk.probe_rank_brick, rk.probe_rank_brick_plain)
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "X"
+        lm = type("LM", (), {"hash_rows": args[0]})()
+        out = mp._probe_rank(lm, mc, tmpl, args[3], args[4], 6)
+        rk.probe_rank_brick(*args)
+        cap.capturing = True
+        rk.probe_rank_brick(*args)
+    finally:
+        cap.uninstall()
+    assert (rk.probe_rank_brick, rk.probe_rank_brick_plain) == orig
+    assert cap.tally == {("X", "rank_brick", "near"): 1, ("X", "rank_brick", "far"): 1}
+    kept, _ = cap.inputs[("X", "rank_brick", "near")]
+    assert kept[0] is not args[0] and torch.equal(kept[0], args[0]) and kept[5:] == list(args[5:])
+    # on the CPU each wrapper call ran the plain twin once
+    assert cap.plain_rank_calls == 3
+    chip_smoke.rank_check(out, rk.probe_rank_brick_plain(*args), "cpu")
+
+
+def test_rank_bound_counts_the_brick_rows_once():
+    """B's far shape: G = 98304 groups of 32 brick rows of 4 x 5 floats, n = 4,
+    k = 6; bytes bound it at 3.35 TB/s."""
+    G, n, Kc, k = 98304, 4, 128, 6
+    b, by = chip_smoke.rank_bound(G, n, Kc, k, True)
+    nbytes = 4 * (5 * G * Kc + 3 * G + 3 * G * n) + 17 * G * n * k
+    assert by == "bytes" and b == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert chip_smoke.rank_bound(G, n, Kc, k, False)[0] < b
