@@ -23,8 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
-BUILDS = {"w2": ["RANK_WARPS=2"], "w4": [], "w8": ["RANK_WARPS=8"],
-          "halves": ["RANK_HALVES"]}
+BUILDS = {"w2": ["RANK_WARPS=2"], "w4": [], "w8": ["RANK_WARPS=8"]}
 
 
 def main():
