@@ -6,38 +6,33 @@
 // neural_points.py), which the JAX `_probe_rank` calls before the kernel.
 //
 // Semantics.  For each of G probe groups, n queries share one ball of Kc
-// candidates [x, y, z, lidx, gidx].  A candidate is valid iff lidx < L and
-// d2 <= max_valid_dist2; invalid ones rank at 9e3.  The k nearest are the
-// first k of the order (d2m, column): k argmin passes with first-occurrence
-// tie-break and chosen columns masked away (an exhausted ball re-picks
-// untouched invalid columns in column order).
+// candidates, field-major [x|y|z|lidx|gidx] (Kc columns each).  A candidate
+// is valid iff lidx < L and d2 <= max_valid_dist2; invalid ones rank at 9e3.
+// The k nearest are the first k of the order (d2m, column): k argmin passes
+// with first-occurrence tie-break and chosen columns masked away (an
+// exhausted ball re-picks untouched invalid columns in column order).
 //
 // Two entry points share one device routine, `rank_group`:
 //  - rank_brick_kernel (the main path): the warp computes the probe's grid
 //    coordinate floor(p * float32(1/voxel)) (no FMA contraction), its brick
-//    coordinate by floor division and parity bidx, hashes the parity's Kb
-//    brick offsets (uint32 wrap-around multiply-add, then % Hb; the
-//    template's padding offsets 1 << 20 hash to real rows and only `memb`
-//    masks them) and copies the Kb whole brick rows (nsub * 5 floats each)
-//    into shared memory.  Candidate c = s * Kb + kb is sub-cell s of brick
-//    kb, the column order of the unfused pipeline's field-major rows, which
-//    are never materialised; its lidx counts as L where memb <= 0.5.
+//    coordinate by floor division and parity bidx; lane kb hashes the
+//    parity's brick offset kb (uint32 wrap-around multiply-add, then % Hb;
+//    the template's padding offsets 1 << 20 hash to real rows and only
+//    `memb` masks them), loads that whole brick row (nsub * 5 floats, as
+//    float4s where rows are 16-byte aligned) and writes it to shared memory
+//    field-major in the candidate order c = s * Kb + kb (lanes write
+//    consecutive addresses: no bank conflicts), with lidx set to L where
+//    memb <= 0.5.  `rows_fm` is never materialised.
 //  - rank_kernel (the per-cell layout): the warp copies the group's
-//    field-major row [x*Kc | y*Kc | z*Kc | lidx*Kc | gidx*Kc].
+//    (5 * Kc) field-major row to shared memory.
 //
 // Bound on an H100: memory.  A group reads Kb brick rows (Kc * 5 floats, the
 // bytes the unfused pipeline's rows_fm holds), its probe and n queries, and
 // writes n * k * 17 bytes; d2 for n * Kc pairs is ~9 operations each.
-// What held the first port of this kernel back was one thread per query
-// with a k-slot list in local memory, candidates re-read from global memory
-// by every query, and five torch passes over rows_fm before it.  Design:
+// What held the first port of this kernel back: one thread per query with a
+// k-slot list in local memory, candidates re-read from global memory by
+// every query, and five torch passes over rows_fm before it.  Design:
 //  - one warp per group (grid-stride, the grid from the build's occupancy);
-//  - staging: the warp reads the brick rows with coalesced float4 loads,
-//    five lanes a row (a warp instruction touches ~7 rows; one lane a row
-//    touches 32 rows an instruction, which costs more L1 wavefronts), and
-//    stores them row by row into shared memory with an odd row stride
-//    (5 * nsub + 1 floats for even nsub), so that lane l reading column
-//    l + 32 j of a 32-brick ball hits 32 different banks;
 //  - each lane keeps its ceil(Kc / 32) columns' xyz and lidx validity in
 //    registers (CPL is a template parameter, so nothing is indexed at run
 //    time) for all n queries;
@@ -46,13 +41,19 @@
 //    order), then the lowest column holding that minimum; the owner lane
 //    masks the chosen column to 0xffffffff, above every unmasked key;
 //  - when max_valid_dist2 < 9e3 every valid key lies below every invalid
-//    one, so once the valid candidates are used up the remaining picks are
-//    the untouched invalid columns in column order: the valid-column
-//    ballots (taken once a query to count them) give those without argmin
-//    rounds (sparse balls, the free-space probes);
+//    one, so once a query's valid candidates are used up its remaining
+//    picks are the untouched invalid columns in column order, which the
+//    valid-column ballots (taken once a query) give without argmin rounds:
+//    the sparse balls of the free-space probes skip most rounds;
 //  - lane r keeps round r's column and writes its gidx / pos / valid.
 // The template tables (P * Kb * 3 ints, P * Kc floats) are read through the
 // read-only cache; they are a few KB and stay in L1.
+// Measured on the paths' inputs (scripts/rank_variants.py): the argmin
+// rounds are about 40 % of a near call (k = 1 instead of 6 takes that off),
+// the staging with one query about 45 % of a far call; 2, 4 or 8 warps a
+// block time the same; two queries at a time on half-warps, and staging
+// by coalesced five-lanes-a-row loads into rows of odd stride, were both
+// slower.  See PERF.md.
 //
 // d2 is written with __fmul_rn/__fadd_rn in the JAX package's order
 // ((dx*dx + dy*dy) + dz*dz): nvcc would otherwise contract it into FMAs,
@@ -76,52 +77,29 @@ struct RankOut {
   unsigned char* valid;       // (G, n, k)
 };
 
-// Where column c's five fields lie in the warp's shared memory: at
-// base(c) + f * fs().
-struct FieldMajor {           // the per-cell rows: [f * Kc + c]
-  int Kc;
-  __device__ int base(int c) const { return c; }
-  __device__ int fs() const { return Kc; }
-};
-struct BrickRows {            // brick kb's row at kb * rs, sub-cell s at + 5 s
-  int Kb, rs;
-  __device__ int base(int c) const {
-    const int s = c / Kb;
-    return (c - s * Kb) * rs + 5 * s;
-  }
-  __device__ int fs() const { return 1; }
-};
-
 __device__ __forceinline__ float dist2_rn(float x, float y, float z, float qx, float qy,
                                           float qz) {
   const float dx = __fsub_rn(x, qx), dy = __fsub_rn(y, qy), dz = __fsub_rn(z, qz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// Rank group g's candidates, staged in `cand` (layout `lay`), for each of
-// its n queries.  `memb` (brick layout; else null) masks non-member
-// sub-cells: their lidx is set to L in shared memory first.
-template <int CPL, typename Layout>
-__device__ __forceinline__ void rank_group(float* cand, Layout lay, const float* memb, long g,
-                                          const RankOut& a, int lane) {
-  const int Kc = a.Kc, fs = lay.fs();
+// Rank group g's candidates, staged field-major in `cand` (5 * Kc floats of
+// this warp's shared memory), for each of its n queries.
+template <int CPL>
+__device__ __forceinline__ void rank_group(const float* cand, long g, const RankOut& a,
+                                           int lane) {
+  const int Kc = a.Kc;
   float cx[CPL], cy[CPL], cz[CPL];
   bool lv[CPL];
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int c = lane + 32 * j;
-    lv[j] = false;
-    cx[j] = cy[j] = cz[j] = 0.f;
-    if (c < Kc) {
-      const int b = lay.base(c);
-      cx[j] = cand[b];
-      cy[j] = cand[b + fs];
-      cz[j] = cand[b + 2 * fs];
-      if (memb != nullptr && !(__ldg(memb + c) > 0.5f)) cand[b + 3 * fs] = a.L_f;
-      lv[j] = cand[b + 3 * fs] < a.L_f;
-    }
+    const bool in = c < Kc;
+    cx[j] = in ? cand[c] : 0.f;
+    cy[j] = in ? cand[Kc + c] : 0.f;
+    cz[j] = in ? cand[2 * Kc + c] : 0.f;
+    lv[j] = in && cand[3 * Kc + c] < a.L_f;
   }
-  __syncwarp();                              // the masked lidx, read by the output lanes
   // valid keys lie below every invalid one (9e3) when maxd2 < 9e3: then
   // the rounds after the last valid candidate pick the untouched invalid
   // columns in column order, which the valid ballots give without rounds
@@ -145,7 +123,7 @@ __device__ __forceinline__ void rank_group(float* cand, Layout lay, const float*
       int t = lane - kv;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
-        const int left = Kc - 32 * j;
+        const int left = Kc - 32 * j;        // the invalid columns of this j
         unsigned inv = ~vb[j] & (left >= 32 ? 0xffffffffu : left > 0 ? (1u << left) - 1 : 0u);
         const int cnt = __popc(inv);
         if (t >= 0 && t < cnt) {
@@ -172,12 +150,11 @@ __device__ __forceinline__ void rank_group(float* cand, Layout lay, const float*
       if (lane == r) mine = c;
     }
     if (lane < a.k) {
-      const int b = lay.base((int)mine);
-      const float x = cand[b], y = cand[b + fs], z = cand[b + 2 * fs];
+      const float x = cand[mine], y = cand[Kc + mine], z = cand[2 * Kc + mine];
       const float d2 = dist2_rn(x, y, z, qx, qy, qz);
-      const bool v = cand[b + 3 * fs] < a.L_f && d2 <= a.maxd2;
+      const bool v = cand[3 * Kc + mine] < a.L_f && d2 <= a.maxd2;
       const long o = (g * a.n + qi) * a.k + lane;
-      a.gidx[o] = v ? (int)lrintf(cand[b + 4 * fs]) : -1;
+      a.gidx[o] = v ? (int)lrintf(cand[4 * Kc + mine]) : -1;
       a.pos[o * 3 + 0] = x;
       a.pos[o * 3 + 1] = y;
       a.pos[o * 3 + 2] = z;
@@ -198,7 +175,7 @@ __global__ void __launch_bounds__(32 * RANK_WARPS)
     const float* r = rows + g * W;
     for (int i = lane; i < W; i += 32) cand[i] = __ldg(r + i);
     __syncwarp();
-    rank_group<CPL>(cand, FieldMajor{a.Kc}, nullptr, g, a, lane);
+    rank_group<CPL>(cand, g, a, lane);
     __syncwarp();                            // before the next group overwrites cand
   }
 }
@@ -218,19 +195,16 @@ __device__ __forceinline__ int floor_div(int a, int b) {     // b > 0
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// The shared-memory row stride of a brick row of R floats: odd.
-__host__ __device__ __forceinline__ int brick_rs(int R) { return R | 1; }
-
-// VEC4: the table's rows are read as float4s (5 * nsub a multiple of 4 and
-// the table 16-byte aligned), else as floats.
-template <int CPL, bool VEC4>
+// NSUB: sub-cells a brick, known at compile time (rows read as float4s:
+// the table must be 16-byte aligned and 5 * NSUB a multiple of 4), or 0
+// for any brick (scalar loads).
+template <int CPL, int NSUB>
 __global__ void __launch_bounds__(32 * RANK_WARPS)
     rank_brick_kernel(const float* __restrict__ table, BrickGeom b, RankOut a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Kb = b.Kb, R = 5 * b.nsub, rs = brick_rs(R);
-  float* cand = smem + warp * Kb * (rs + 1);
-  unsigned* hrow = reinterpret_cast<unsigned*>(cand + Kb * rs);
+  const int Kc = a.Kc, Kb = b.Kb, nsub = NSUB ? NSUB : b.nsub, R = 5 * nsub;
+  float* cand = smem + warp * 5 * Kc;
   for (long g = (long)blockIdx.x * RANK_WARPS + warp; g < a.G;
        g += (long)gridDim.x * RANK_WARPS) {
     const float* p = b.probe + g * b.probe_stride;
@@ -244,49 +218,55 @@ __global__ void __launch_bounds__(32 * RANK_WARPS)
     }
     const int bidx = par[0] * (b.by * b.bz) + par[1] * b.bz + par[2];
     const int* boff = b.bricks + (long)bidx * Kb * 3;
+    const float* mb = b.memb + (long)bidx * Kc;
+    // lane kb hashes brick kb and copies its whole row: sub-cell s, field
+    // f goes to cand[f * Kc + s * Kb + kb] (conflict-free across lanes)
     for (int kb = lane; kb < Kb; kb += 32) {
       const unsigned x = (unsigned)bc[0] + (unsigned)__ldg(boff + 3 * kb);
       const unsigned y = (unsigned)bc[1] + (unsigned)__ldg(boff + 3 * kb + 1);
       const unsigned z = (unsigned)bc[2] + (unsigned)__ldg(boff + 3 * kb + 2);
-      hrow[kb] = (x * 73856093u + y * 19349669u + z * 83492791u) % b.Hb;
+      const float* row = table + (size_t)((x * 73856093u + y * 19349669u + z * 83492791u) % b.Hb) * R;
+      if constexpr (NSUB != 0) {
+        float v[5 * NSUB];
+#pragma unroll
+        for (int j4 = 0; j4 < 5 * NSUB / 4; ++j4) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(row) + j4);
+          v[4 * j4] = t.x; v[4 * j4 + 1] = t.y; v[4 * j4 + 2] = t.z; v[4 * j4 + 3] = t.w;
+        }
+#pragma unroll
+        for (int s = 0; s < NSUB; ++s) {
+          const int col = s * Kb + kb;
+#pragma unroll
+          for (int f = 0; f < 5; ++f)
+            cand[f * Kc + col] = (f == 3 && !(__ldg(mb + col) > 0.5f)) ? a.L_f : v[5 * s + f];
+        }
+      } else {
+        for (int s = 0; s < nsub; ++s) {
+          const int col = s * Kb + kb;
+          for (int f = 0; f < 5; ++f)
+            cand[f * Kc + col] =
+                (f == 3 && !(__ldg(mb + col) > 0.5f)) ? a.L_f : __ldg(row + 5 * s + f);
+        }
+      }
     }
     __syncwarp();
-    if (VEC4) {
-      const int R4 = R / 4;
-      for (int i = lane; i < Kb * R4; i += 32) {
-        const int kb = i / R4, j4 = i - kb * R4;
-        const float4 v =
-            __ldg(reinterpret_cast<const float4*>(table + (size_t)hrow[kb] * R) + j4);
-        float* dst = cand + kb * rs + 4 * j4;
-        dst[0] = v.x;
-        dst[1] = v.y;
-        dst[2] = v.z;
-        dst[3] = v.w;
-      }
-    } else {
-      for (int i = lane; i < Kb * R; i += 32) {
-        const int kb = i / R, f = i - kb * R;
-        cand[kb * rs + f] = __ldg(table + (size_t)hrow[kb] * R + f);
-      }
-    }
-    __syncwarp();
-    rank_group<CPL>(cand, BrickRows{Kb, rs}, b.memb + (long)bidx * a.Kc, g, a, lane);
+    rank_group<CPL>(cand, g, a, lane);
     __syncwarp();                            // before the next group overwrites cand
   }
 }
 
 // Launch over min(ceil(G / RANK_WARPS), resident blocks) blocks: the
 // resident count comes from the occupancy of the instantiation at the
-// largest shared memory its CPL allows (cached per kernel family ID and CPL).
+// largest shared memory its CPL allows (cached per instantiation).
 template <int ID, typename K, typename... Args>
 static int launch(K kern, int cpl, long G, size_t smem, cudaStream_t st, Args... args) {
-  static int cap[RANK_MAX_CPL + 1] = {0};
+  static int cap[RANK_MAX_CPL + 1] = {0};     // per kernel family ID and CPL
   if (cap[cpl] == 0) {
     int dev = 0, sms = 0, per = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, 32 * RANK_WARPS,
-                                                  RANK_WARPS * 6 * 32 * cpl * sizeof(float));
+                                                  RANK_WARPS * 5 * 32 * cpl * sizeof(float));
     cap[cpl] = (sms > 0 ? sms : 1) * (per > 0 ? per : 1);
   }
   const long need = (G + RANK_WARPS - 1) / RANK_WARPS;
@@ -325,15 +305,15 @@ extern "C" int rank_brick_launch(const void* table, const void* bricks, const vo
   const BrickGeom b = {(const int*)bricks, (const float*)memb, (const float*)probe,
                        probe_stride, Kb, nsub, bx, by, bz, (unsigned)Hb, inv_voxel};
   const int cpl = (Kc + 31) / 32;
-  const size_t smem = (size_t)RANK_WARPS * Kb * (brick_rs(5 * nsub) + 1) * sizeof(float);
-  const bool vec4 = (5 * nsub) % 4 == 0 && (uintptr_t)table % 16 == 0;
+  const size_t smem = (size_t)RANK_WARPS * 5 * Kc * sizeof(float);
+  const bool vec4 = nsub == 4 && (uintptr_t)table % 16 == 0;
   if (G <= 0 || n <= 0) return 0;
   switch (cpl) {
-#define X(C)                                                                                \
-  case C:                                                                                   \
-    return vec4 ? launch<1>(rank_brick_kernel<C, true>, C, G, smem, (cudaStream_t)stream,  \
-                            (const float*)table, b, a)                                      \
-                : launch<2>(rank_brick_kernel<C, false>, C, G, smem, (cudaStream_t)stream, \
+#define X(C)                                                                               \
+  case C:                                                                                  \
+    return vec4 ? launch<1>(rank_brick_kernel<C, 4>, C, G, smem, (cudaStream_t)stream,    \
+                            (const float*)table, b, a)                                     \
+                : launch<2>(rank_brick_kernel<C, 0>, C, G, smem, (cudaStream_t)stream,    \
                             (const float*)table, b, a);
     RANK_CASES(X)
 #undef X
