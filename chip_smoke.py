@@ -569,11 +569,10 @@ def rank_brick_phase(label, args, launches):
     return row
 
 
-def rank_table(Hb, L, seed):
-    """A random brick-layout (2, 2, 1) local hash: L points on a 1/8 m
-    lattice in [-8, 8)^3, a tenth of them duplicated (exact distance ties),
-    packed into Hb brick rows (many collisions).  Returns (MapConfig,
-    table, points)."""
+def rank_table(Hb, L, seed, brick=(2, 2, 1)):
+    """A random brick-layout local hash: L points on a 1/8 m lattice in
+    [-8, 8)^3, a tenth of them duplicated (exact distance ties), packed into
+    Hb brick rows (many collisions).  Returns (MapConfig, table, points)."""
     import torch
 
     from pin_slam_torch.models import neural_points as npts
@@ -584,7 +583,7 @@ def rank_table(Hb, L, seed):
     mc = npts.MapConfig(capacity=1 << 20, local_capacity=L, hash_size=1 << 10,
                         voxel_size=0.4, feature_dim=8, nn_k=6, max_valid_dist2=1.0,
                         local_map_radius=10.0, travel_dist_window=50.0,
-                        local_hash_size=4 * Hb, brick=(2, 2, 1))
+                        local_hash_size=Hb * brick[0] * brick[1] * brick[2], brick=brick)
     idx = torch.randint(0, 1 << 20, (L + 1,), generator=g, device="cuda")
     table = npts._pack_hash_rows(mc, pts, torch.tensor(L, device="cuda"), idx)
     return mc, table, pts
@@ -608,10 +607,13 @@ def rank_edge_phase():
     """The fused kernel at G in {0, 1, 37} x n in {1, 4, 5} x k in {1, 6, 16}
     on random tables with both paths' candidate counts (Kc 64 and 128: the
     default and run_kitti.yaml templates on a (2, 2, 1) brick), negative
-    probes and probes at 1e6; the per-cell kernel at the same G, n, k on
-    random field-major rows with K 33 and 81.  Each exact against its plain
-    version and two launches bit-identical; G = 0 launches nothing.  Not a
-    main-path shape, so kept out of the kernels line."""
+    probes and probes at 1e6, and its scalar-load instantiation (on a table
+    view 4 bytes off alignment, and on a (2, 1, 1) brick, whose 40-byte rows
+    are no float4 rows) at G 37, n 1 / 5, k 6; the per-cell kernel at the
+    same G, n, k as the first on random field-major rows with K 33 and 81.
+    Each exact against its plain version and two launches bit-identical;
+    G = 0 launches nothing.  Not a main-path shape, so kept out of the
+    kernels line."""
     import torch
 
     from pin_slam_torch.models import neural_points as npts
@@ -636,6 +638,21 @@ def rank_edge_phase():
                         fail(f"rank_brick kernel {label}: launched at G = 0")
                     rank_check(out, rk.probe_rank_brick_plain(*args), label)
                     cases += 1
+    off = torch.empty(table.numel() + 1, device="cuda")[1:].view_as(table)
+    off.copy_(table)
+    mc2, table2, pts2 = rank_table(4096, 4096, 1, brick=(2, 1, 1))
+    for name, (m, tab, p) in {"off4": (mc, off, pts), "brick211": (mc2, table2, pts2)}.items():
+        for nei, alpha in ((2, 0.2), (2, 0.5)):
+            tmpl = npts.make_probe_template(m, nei, alpha, device="cuda")
+            probe = rank_probes(p, 37, 5)
+            for n in (1, 5):
+                q = probe[:, None, :] + torch.linspace(-0.3, 0.3, n, device="cuda")[None, :, None]
+                args = (tab, tmpl.bricks, tmpl.memb, probe, q, 6, m.local_capacity,
+                        m.max_valid_dist2, m.voxel_size, m.brick, m.brick_rows)
+                label = f"edge {name} n={n} Kc={tmpl.memb.shape[1]}"
+                rank_check(launched_twice(rk.probe_rank_brick, args, label),
+                           rk.probe_rank_brick_plain(*args), label)
+                cases += 1
     for K in (33, 81):
         for G in (0, 1, 37):
             for n in (1, 4, 5):

@@ -51,9 +51,9 @@
 // Measured on the paths' inputs (scripts/rank_variants.py): the argmin
 // rounds are about 40 % of a near call (k = 1 instead of 6 takes that off),
 // the staging with one query about 45 % of a far call; 2, 4 or 8 warps a
-// block time the same; two queries at a time on half-warps, and staging
-// by coalesced five-lanes-a-row loads into rows of odd stride, were both
-// slower.  See PERF.md.
+// block time the same; two queries at a time on half-warps, and staging by
+// coalesced loads (five lanes a row) into shared rows of odd stride, were
+// both slower (PERF.md, PR 6).
 //
 // d2 is written with __fmul_rn/__fadd_rn in the JAX package's order
 // ((dx*dx + dy*dy) + dz*dz): nvcc would otherwise contract it into FMAs,
@@ -62,9 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef RANK_WARPS
-#define RANK_WARPS 4          // groups in flight per block (4 warps)
-#endif
+#define RANK_WARPS 4          // groups in flight per block (2 and 8 time the same)
 #define RANK_MAX_CPL 8        // columns per lane: Kc <= 256
 
 struct RankOut {

@@ -7,11 +7,9 @@ chip_smoke's paths (as ``scripts/kernel_ab.py`` does) and times
 ``rank_kernel.probe_rank_brick`` on them (``device_ms``: launches queued
 behind ``torch.cuda._sleep``, the device alone) as the path calls it, with
 k = 1 (one argmin round a query instead of k), and with the first query of
-each group only (n = 1: the staging of the brick rows and one query), for
-builds of ``csrc/rank.cu`` with 2, 4 (the default) and 8 warps a block
-(``-DRANK_WARPS``, into ``build/rank_w<N>``).  Every variant is checked
-exact against its plain version.  Prints one JSON line per path, call and
-build, then the card's name and power limit.
+each group only (n = 1: the staging of the brick rows and one query).
+Every variant is checked exact against its plain version.  Prints one JSON
+line per path and call, then the card's name and power limit.
 """
 
 import argparse
@@ -22,8 +20,6 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
-
-BUILDS = {"w2": ["RANK_WARPS=2"], "w4": [], "w8": ["RANK_WARPS=8"]}
 
 
 def main():
@@ -41,9 +37,6 @@ def main():
     from pin_slam_torch.ops import rank_kernel as rk
 
     _cuda.build()
-    builds = {b: os.path.join(ROOT, "build", f"rank_{b}") for b in BUILDS}
-    for b, out_dir in builds.items():
-        _cuda.build(["rank"], defines=BUILDS[b], out_dir=out_dir)
     for path in args.paths.split(","):
         for kind, (lm, mc, tmpl, probe, q, k) in kernel_ab.rank_inputs(cs, path).items():
             base = (lm.hash_rows, tmpl.bricks, tmpl.memb, probe)
@@ -51,15 +44,13 @@ def main():
                     mc.brick_rows)
             cases = {"as called": base + (q, k) + tail, "k=1": base + (q, 1) + tail,
                      "n=1": base + (q[:, :1].contiguous(), k) + tail}
-            for b, out_dir in builds.items():
-                _cuda.use("rank", out_dir)
-                row = {"path": path, "call": kind, "G": q.shape[0], "n": q.shape[1],
-                       "Kc": tmpl.memb.shape[1], "k": k, "build": b}
-                for name, a in cases.items():
-                    cs.rank_check(rk.probe_rank_brick(*a), rk.probe_rank_brick_plain(*a),
-                                  f"{path}-{kind} {name} {b}")
-                    row[f"device_ms[{name}]"] = cs.device_ms(lambda: rk.probe_rank_brick(*a))[0]
-                print(json.dumps(row), flush=True)
+            row = {"path": path, "call": kind, "G": q.shape[0], "n": q.shape[1],
+                   "Kc": tmpl.memb.shape[1], "k": k}
+            for name, a in cases.items():
+                cs.rank_check(rk.probe_rank_brick(*a), rk.probe_rank_brick_plain(*a),
+                              f"{path}-{kind} {name}")
+                row[f"device_ms[{name}]"] = cs.device_ms(lambda: rk.probe_rank_brick(*a))[0]
+            print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
     print(cs.smi_line(), flush=True)
 
