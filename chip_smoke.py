@@ -32,8 +32,7 @@
    tolerances; the fused rank, the scatter, the train and the eikonal kernel
    also bit-identical across two launches) and timed beside its plain
    version and the one PyTorch call that computes the same function where
-   there is one (the fused rank also beside the unfused pipeline: the torch
-   brick gather, then the per-cell rank kernel), each two ways:
+   there is one, each two ways:
    ``ms``, CUDA events around one launch on an idle card (median of 25; the
    host's launch path included), and ``device_ms``, many launches queued
    behind ``torch.cuda._sleep`` between two events (the device alone).  The
@@ -525,44 +524,63 @@ def rank_check(out_k, out_p, label):
             fail(f"rank kernel {label}: {what} differs from the plain version ({bad} values)")
 
 
-def rank_bound(G, n, K, k, probed):
-    """The ranking's least time: the 5 K candidate floats of each group read
-    once (the whole brick rows, or the gathered rows), the probe points
-    (``probed``: the brick layout), the queries, and the outputs (17 bytes a
-    neighbour); 9 operations per (query, candidate)."""
-    floats = 5 * G * K + (3 * G if probed else 0) + 3 * G * n
-    return bound(4 * floats + G * n * k * 17, G * n * K * 9)
+def rank_bound(G, n, K, k, cand_floats=None):
+    """The ranking's least time: the candidate floats read once (by default
+    the 5 K of each group's gathered field-major row), the queries and the
+    outputs (17 bytes a neighbour); 9 operations per (query, candidate)."""
+    cand = 5 * G * K if cand_floats is None else cand_floats
+    return bound(4 * (cand + 3 * G * n) + G * n * k * 17, G * n * K * 9)
+
+
+def rank_brick_bounds(args):
+    """(bound_ms, bound_by, rows_fm_bound_ms, distinct rows) of the fused
+    brick probe + rank on its inputs.  The function must read each distinct
+    table row that its groups hash to once (neighbouring groups share bricks:
+    their re-reads are cache traffic, not memory traffic), the probe points,
+    the template and the queries, and write the outputs.  ``rows_fm_bound_ms``
+    charges every group its own Kb rows instead, as the unfused pipeline's
+    field-major rows held them: the rank rows' earlier bound, kept for
+    comparison."""
+    import torch
+
+    from pin_slam_torch.ops.hash3d import grid_coords, spatial_hash
+
+    _, bricks, memb, probe, queries, k, _, _, voxel, brick, Hb = args
+    G, n = queries.shape[0], queries.shape[1]
+    nsub, Kb = bricks.shape[0], bricks.shape[1]
+    bvec = torch.tensor(brick, dtype=torch.int32, device=probe.device)
+    gc = grid_coords(probe, voxel)
+    bc = torch.div(gc, bvec, rounding_mode="floor")
+    par = (gc - bc * bvec).long()
+    bidx = (par[:, 0] * brick[1] + par[:, 1]) * brick[2] + par[:, 2]
+    distinct = int(torch.unique(spatial_hash(bc[:, None, :] + bricks[bidx], Hb)).numel())
+    fixed = 3 * G + bricks.numel() + memb.numel()
+    b, by = rank_bound(G, n, Kb * nsub, k, 5 * nsub * distinct + fixed)
+    rows_fm_b, _ = rank_bound(G, n, Kb * nsub, k, 5 * G * Kb * nsub + 3 * G)
+    return b, by, rows_fm_b, distinct
 
 
 def rank_brick_phase(label, args, launches):
     """The fused brick probe + rank on a captured input: exact against its
     plain version (the torch brick gather, then the plain ranking), two
-    launches bit-identical; timed beside the plain version and the unfused
-    pipeline of the parent design, the torch brick gather followed by the
-    per-cell rank kernel (``unfused_*``)."""
+    launches bit-identical, timed beside the plain version."""
     from pin_slam_torch.ops import rank_kernel as rk
 
-    hash_rows, bricks, memb, probe, queries, k, L, maxd2, voxel, brick, Hb = args
+    bricks, queries, k, Hb = args[1], args[4], args[5], args[10]
     G, n = queries.shape[0], queries.shape[1]
     Kb, nsub = bricks.shape[1], bricks.shape[0]
     Kc = Kb * nsub
     out_k = launched_twice(rk.probe_rank_brick, args, f"rank_brick kernel {label}")
     rank_check(out_k, rk.probe_rank_brick_plain(*args), label)
-
-    def unfused():
-        rows_fm = rk.gather_brick_rows_fm(hash_rows, bricks, memb, probe, voxel, brick, Hb, L)
-        return rk.probe_rank(rows_fm, queries.contiguous(), k, L, maxd2)
-
-    rank_check(unfused(), out_k, f"{label} (unfused)")
     t = timings(lambda: rk.probe_rank_brick(*args), lambda: rk.probe_rank_brick_plain(*args))
-    u = timings(unfused, None)
-    b, by = rank_bound(G, n, Kc, k, True)
+    b, by, rows_fm_b, distinct = rank_brick_bounds(args)
     row = {"name": f"rank_brick[{label}]", "route": "cuda",
            "source": "pin_slam_torch/csrc/rank.cu",
            "replaces": "pin_slam_tpu/ops/rank_kernel.py:105", "launches": launches,
            "max_abs_err": 0.0, **t, "bound_ms": b, "bound_by": by,
-           "unfused_ms": u["ms"], "unfused_device_ms": u["device_ms"],
-           "shape": {"G": G, "n": n, "Kb": Kb, "nsub": nsub, "Kc": Kc, "k": k, "Hb": Hb},
+           "rows_fm_bound_ms": rows_fm_b,
+           "shape": {"G": G, "n": n, "Kb": Kb, "nsub": nsub, "Kc": Kc, "k": k, "Hb": Hb,
+                     "distinct_rows": distinct},
            "check": "gidx/valid/pos exact against the plain version; two launches "
                     "bit-identical"}
     emit({"phase": "kernel", **row})
@@ -697,7 +715,7 @@ def rank_cells_phase():
     out_k = launched_twice(rk.probe_rank, args, "rank kernel per-cell")
     rank_check(out_k, rk.probe_rank_plain(*args), "per-cell")
     t = timings(lambda: rk.probe_rank(*args), lambda: rk.probe_rank_plain(*args))
-    b, by = rank_bound(G, n, K, k, False)
+    b, by = rank_bound(G, n, K, k)
     emit({"phase": "rank_cells", "name": "rank[per-cell random]", "route": "cuda",
           "source": "pin_slam_torch/csrc/rank.cu",
           "replaces": "pin_slam_tpu/ops/rank_kernel.py:105", "launches": 0,

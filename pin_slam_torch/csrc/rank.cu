@@ -26,9 +26,10 @@
 //  - rank_kernel (the per-cell layout): the warp copies the group's
 //    (5 * Kc) field-major row to shared memory.
 //
-// Bound on an H100: memory.  A group reads Kb brick rows (Kc * 5 floats, the
-// bytes the unfused pipeline's rows_fm holds), its probe and n queries, and
-// writes n * k * 17 bytes; d2 for n * Kc pairs is ~9 operations each.
+// Bound on an H100: memory.  The call must read each distinct brick row its
+// groups hash to once (neighbouring groups share most of their Kb rows, so
+// the re-reads can come from L2), each probe and its n queries, and write
+// n * k * 17 bytes a group; d2 for n * Kc pairs is ~9 operations each.
 // What held the first port of this kernel back: one thread per query with a
 // k-slot list in local memory, candidates re-read from global memory by
 // every query, and five torch passes over rows_fm before it.  Design:
@@ -48,12 +49,11 @@
 //  - lane r keeps round r's column and writes its gidx / pos / valid.
 // The template tables (P * Kb * 3 ints, P * Kc floats) are read through the
 // read-only cache; they are a few KB and stay in L1.
-// Measured on the paths' inputs (scripts/rank_variants.py): the argmin
-// rounds are about 40 % of a near call (k = 1 instead of 6 takes that off),
-// the staging with one query about 45 % of a far call; 2, 4 or 8 warps a
-// block time the same; two queries at a time on half-warps, and staging by
-// coalesced loads (five lanes a row) into shared rows of odd stride, were
-// both slower (PERF.md, PR 6).
+// Measured on the paths' inputs (PERF.md): the argmin rounds are about 40 %
+// of a near call (k = 1 instead of 6 takes that off), the staging with one
+// query about 45 % of a far call; 2, 4 or 8 warps a block time the same; two
+// queries at a time on half-warps, and staging by coalesced loads (five
+// lanes a row) into shared rows of odd stride, were both slower.
 //
 // d2 is written with __fmul_rn/__fadd_rn in the JAX package's order
 // ((dx*dx + dy*dy) + dz*dz): nvcc would otherwise contract it into FMAs,

@@ -22,8 +22,11 @@ k = 6 in both modes (path A's and path B's shapes).  The rank rows time
 one fused kernel, or the torch brick gather followed by the rank kernel) on
 the near and far inputs of the second frame of chip_smoke's paths A, B and
 C, each checked exact against the torch brick gather followed by the plain
-ranking, beside the bound.  Then the card's name and power limit.  Needs a
-CUDA device.
+ranking, beside the bound; their ``kernels_ms`` is the device time of the
+kernels and copies one call launches, summed from torch.profiler's device
+events (the device time of a pipeline whose host syncs keep ``device_ms``
+from hiding the host).  Then the card's name and power limit.  Needs a CUDA
+device.
 """
 
 import argparse
@@ -70,6 +73,25 @@ def rank_inputs(cs, path):
     return dict(zip(("near", "far"), calls[:2]))
 
 
+def kernels_ms(fn, reps=20):
+    """Device time of the kernels and copies one call of ``fn`` launches,
+    summed over torch.profiler's device events (gaps between them left out):
+    the mean of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False))
+    return us / 1e3 / reps
+
+
 def time_rank(cs, label):
     import torch
 
@@ -91,11 +113,14 @@ def time_rank(cs, label):
             cs.rank_check(out, ref, f"{path}-{kind}")
             t = cs.timings(lambda: mp._probe_rank(*args), None)
             G, n, Kc = q.shape[0], q.shape[1], tmpl.memb.shape[1]
-            b, by = cs.rank_bound(G, n, Kc, k, True)
+            b, by, rows_fm_b, _ = cs.rank_brick_bounds(
+                (lm.hash_rows, tmpl.bricks, tmpl.memb, probe, q, k, mc.local_capacity,
+                 mc.max_valid_dist2, mc.voxel_size, mc.brick, mc.brick_rows))
             print(json.dumps({"checkout": label, "kernel": f"probe_rank[{path}-{kind}]",
                               "G": G, "n": n, "Kc": Kc, "k": k, "launches_per_call": launched,
-                              "bound_ms": b, "bound_by": by, "ms": t["ms"],
-                              "device_ms": t["device_ms"],
+                              "bound_ms": b, "bound_by": by, "rows_fm_bound_ms": rows_fm_b,
+                              "ms": t["ms"], "device_ms": t["device_ms"],
+                              "kernels_ms": kernels_ms(lambda: mp._probe_rank(*args)),
                               **{x: t[x] for x in t if x.startswith("device_ms_holds")}}),
                   flush=True)
         torch.cuda.empty_cache()

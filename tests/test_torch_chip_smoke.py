@@ -251,10 +251,26 @@ def test_capture_tallies_and_keeps_the_fused_rank_inputs():
 
 
 def test_rank_bound_counts_the_brick_rows_once():
-    """B's far shape: G = 98304 groups of 32 brick rows of 4 x 5 floats, n = 4,
-    k = 6; bytes bound it at 3.35 TB/s."""
-    G, n, Kc, k = 98304, 4, 128, 6
-    b, by = chip_smoke.rank_bound(G, n, Kc, k, True)
-    nbytes = 4 * (5 * G * Kc + 3 * G + 3 * G * n) + 17 * G * n * k
+    """The fused rank's bound reads each distinct table row that its groups
+    hash to once (counted here from the plain gather of a table whose x
+    fields hold their brick row's index), the probes, the template and the
+    queries, and writes 17 bytes a neighbour, at 3.35 TB/s; its
+    ``rows_fm_bound_ms`` charges every group its own Kc columns, as the
+    bound of gathered rows does."""
+    from pin_slam_torch.models import neural_points as npts
+
+    mc, _, args = _rank_brick_args()
+    table, bricks, memb, probe, q, k = args[:6]
+    G, n, nsub, Kb = q.shape[0], q.shape[1], bricks.shape[0], bricks.shape[1]
+    tagged = table.clone()
+    tagged[:, 0] = torch.arange(table.shape[0] // nsub).repeat_interleave(nsub).float()
+    rows_fm = npts.gather_brick_rows_fm(tagged, bricks, memb, probe, mc.voxel_size, mc.brick,
+                                        mc.brick_rows, mc.local_capacity)
+    distinct = torch.unique(rows_fm[:, :Kb * nsub]).numel()
+    b, by, rows_fm_b, counted = chip_smoke.rank_brick_bounds(args)
+    assert counted == distinct < G * Kb
+    nbytes = (4 * (5 * nsub * distinct + 3 * G + bricks.numel() + memb.numel() + 3 * G * n)
+              + 17 * G * n * k)
     assert by == "bytes" and b == pytest.approx(nbytes / 3.35e12 * 1e3)
-    assert chip_smoke.rank_bound(G, n, Kc, k, False)[0] < b
+    gathered, _ = chip_smoke.rank_bound(G, n, Kb * nsub, k)
+    assert rows_fm_b == pytest.approx(gathered + 12 * G / 3.35e12 * 1e3) and b < rows_fm_b
