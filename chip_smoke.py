@@ -29,8 +29,11 @@
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
    (integers, ranks and gathers exact; floats part by part within the stated
-   tolerances; the fused rank, the scatter, the train and the eikonal kernel
-   also bit-identical across two launches) and timed beside its plain
+   tolerances; the scatter, in its zero-base form that the path calls and
+   in its table form, with the bits of the in-order sum
+   ``rows.scatter_add_rows_ordered`` and within a float64 bound; the fused
+   rank, the scatter, the train and the eikonal kernel also bit-identical
+   across two launches) and timed beside its plain
    version and the one PyTorch call that computes the same function where
    there is one, each two ways:
    ``ms``, CUDA events around one launch on an idle card (median of 25; the
@@ -48,7 +51,9 @@
    {1, 6, 16} with both paths' candidate counts (Kc 64, 128) on a colliding
    random table, with negative probes and probes at 1e6, and the per-cell
    one at the same G, n, k with K 33 and 81 (exact, two launches
-   bit-identical).
+   bit-identical), both scatter forms at C in {1, 8, 9, 24} x N in
+   {1, 33, 4099} x M in {0, 1, 5000}, with and without a skipped row (the
+   in-order sum's bits, two launches bit-identical).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -128,8 +133,8 @@ class Capture:
 
         self.rk, self.tk, self.rows = rank_kernel, train_kernel, rows
         self.orig = (rank_kernel.probe_rank_brick, train_kernel.train_iter,
-                     train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_add_rows,
-                     rank_kernel.probe_rank_brick_plain)
+                     train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_sum_rows,
+                     rank_kernel.probe_rank_brick_plain, rows.scatter_plans)
         self.path = None
         self.capturing = False
         self.inputs = {}
@@ -154,8 +159,8 @@ class Capture:
             self.tally[key] = self.tally.get(key, 0) + 1
 
     def install(self):
-        (probe_rank_brick, train_iter, eikonal_iter, gather_rows, scatter_add_rows,
-         rank_plain) = self.orig
+        (probe_rank_brick, train_iter, eikonal_iter, gather_rows, scatter_sum_rows,
+         rank_plain, scatter_plans) = self.orig
 
         def rank(*a, **kw):
             # every frame probes the shared endpoint balls first, then the
@@ -184,17 +189,23 @@ class Capture:
             return gather_rows(*a, **kw)
 
         def scatter(*a, **kw):
+            # the training loop's scatter into a zero table, once per iteration
             self._keep((self.path, "scatter", "main"), a, kw)
-            return scatter_add_rows(*a, **kw)
+            return scatter_sum_rows(*a, **kw)
+
+        def plans(*a, **kw):
+            # every iteration's scatter plan, once per training call
+            self._keep((self.path, "plans", "frame"), a, kw)
+            return scatter_plans(*a, **kw)
 
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
-         self.rows.gather_rows, self.rows.scatter_add_rows,
-         self.rk.probe_rank_brick_plain) = rank, train, eik, gather, scatter, plain
+         self.rows.gather_rows, self.rows.scatter_sum_rows, self.rk.probe_rank_brick_plain,
+         self.rows.scatter_plans) = rank, train, eik, gather, scatter, plain, plans
 
     def uninstall(self):
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
-         self.rows.gather_rows, self.rows.scatter_add_rows,
-         self.rk.probe_rank_brick_plain) = self.orig
+         self.rows.gather_rows, self.rows.scatter_sum_rows, self.rk.probe_rank_brick_plain,
+         self.rows.scatter_plans) = self.orig
 
 
 # ----------------------------------------------------------------------
@@ -997,50 +1008,145 @@ def scatter_check(out, table, idx, val, skip_row):
     n = torch.bincount(i, minlength=table.shape[0]).double()[:, None]
     err = (out.double() - exact).abs()
     lim = (n + 1.0) * SCATTER_ULP * mag
-    ratio = float((err / torch.clamp(lim, min=1e-300)).max())
+    ratio = float((err / torch.clamp(lim, min=1e-300)).max()) if err.numel() else 0.0
     if bool((err > lim).any()):
         bad = int((err > lim).any(1).sum())
         fail(f"scatter: {bad} rows beyond n * 2^-24 * sum|terms| of the float64 sum "
              f"(max err {float(err.max()):.3e})")
-    return float(err.max()), ratio
+    return float(err.max()) if err.numel() else 0.0, ratio
 
 
-def scatter_phase(label, args, kwargs, launches):
-    """The row scatter on a captured input: against the float64 sum (see
-    SCATTER_ULP) and bit-identical across two launches; timed as the kernel
-    alone (plan given, as on the main path), the plain version, and
-    ``Tensor.index_add``.  The plan (sort + bincount) is timed apart."""
+def ordered_check(out, ref, label):
+    """Fails unless a scatter's result has the bits of
+    ``rows.scatter_add_rows_ordered`` (a sequential in-order index_add's)."""
+    import torch
+
+    a, b = (t.contiguous().view(torch.int32) for t in (out, ref))
+    if out.shape != ref.shape or out.dtype != ref.dtype or not torch.equal(a, b):
+        bad = int((a != b).sum()) if out.shape == ref.shape else -1
+        fail(f"scatter kernel {label}: {bad} elements differ from the in-order sum's bits")
+
+
+def scatter_forms(n_rows, idx, val, plan, skip, table, label):
+    """Both forms of the scatter kernel on one input, the zero-base form and
+    the table form onto ``table``: each twice (bit-identical), each with the
+    bits of ``scatter_add_rows_ordered`` and within the float64 bound.
+    Returns (zero-base output, max error vs float64, max error/bound)."""
     import torch
 
     from pin_slam_torch.ops import rows
 
-    table, idx, val = args[:3]
-    plan, skip = kwargs.get("plan"), kwargs.get("skip_row")
+    zeros = torch.zeros_like(table)
+    errs, ratios = [], []
+    for form, base, fn in (
+            ("zero-base", zeros,
+             lambda: rows.scatter_sum_rows(n_rows, idx, val, plan=plan, skip_row=skip)),
+            ("table", table,
+             lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip))):
+        out, again = fn(), fn()
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        identical_check(out, again, f"scatter kernel {form} {label}")
+        ordered_check(out, rows.scatter_add_rows_ordered(base, idx, val, skip),
+                      f"{form} {label}")
+        err, ratio = scatter_check(out, base, idx, val, skip)
+        errs.append(err)
+        ratios.append(ratio)
+        if form == "zero-base":
+            out_z = out
+    return out_z, max(errs), max(ratios)
+
+
+def scatter_bounds(n_rows, C, idx, skip):
+    """(bound_ms, bound_by, table_bound_ms) of a scatter.  The zero-base
+    form must read the value rows that are not skipped and their entries of
+    the int32 ``order``, the int32 offsets (N + 1), and write the (N, C)
+    sums; one add per value element read.  ``table_bound_ms`` is the table
+    form as PRs 2-6 counted it: the table, the int64 indices and every value
+    read, the table written, M * C adds."""
+    M = idx.shape[0]
+    m = M - (int((idx == skip).sum()) if skip is not None else 0)
+    b, by = bound(4 * (m * C + m + n_rows + 1 + n_rows * C), m * C)
+    tb, _ = bound(4 * (2 * n_rows * C + M * C) + 8 * M, M * C)
+    return b, by, tb
+
+
+def scatter_phase(label, n_rows, idx, val, plan, skip, launches, frame_idx=None, seed=0):
+    """The row scatter on one input: both forms checked (``scatter_forms``:
+    the table form onto a seeded random table); timed, the zero-base form
+    (the main path's call, plan given), the plain version and
+    ``Tensor.index_add`` on a zero table, and the table form's kernel.  The
+    plan is timed apart: one iteration's (``plan_ms``) and, where
+    ``frame_idx`` holds a training call's (T, M) indices, the call's
+    (``frame_plan_ms``, as the mapper builds it once a frame)."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    N, C, M = n_rows, val.shape[1], idx.shape[0]
     if plan is None:
-        plan = rows.scatter_plans(idx, table.shape[0])
-    N, C, M = table.shape[0], table.shape[1], idx.shape[0]
-    out_k = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
-    out_k2 = rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip)
-    torch.cuda.synchronize()
-    identical_check(out_k, out_k2, f"scatter kernel {label}")
-    err64, ratio = scatter_check(out_k, table, idx, val, skip)
-    out_p = rows.scatter_add_rows_plain(table, idx, val, skip)
-    t = timings(lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip),
-                lambda: rows.scatter_add_rows_plain(table, idx, val, skip),
-                lambda: table.index_add(0, idx, val))
-    plan_ms = time_ms(lambda: rows.scatter_plans(idx, N))
-    b, by = bound(nbytes(table, idx, val, out_k), M * C)
+        plan = rows.scatter_plans(idx, N)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn(N, C, generator=g, device="cuda")
+    zeros = torch.zeros_like(table)
+    out_z, err64, ratio = scatter_forms(N, idx, val, plan, skip, table, label)
+    out_p = rows.scatter_add_rows_plain(zeros, idx, val, skip)
+    t = timings(lambda: rows.scatter_sum_rows(N, idx, val, plan=plan, skip_row=skip),
+                lambda: rows.scatter_add_rows_plain(zeros, idx, val, skip),
+                lambda: zeros.index_add(0, idx, val))
+    tt = timings(lambda: rows.scatter_add_rows(table, idx, val, plan=plan, skip_row=skip), None)
+    b, by, tb = scatter_bounds(N, C, idx, skip)
     row = {"name": f"scatter[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
            "replaces": "experiments/profile_pallas_gather.py:66", "launches": launches,
-           "max_abs_err": float((out_k - out_p).abs().max()), **t,
-           "bound_ms": b, "bound_by": by,
+           "max_abs_err": float((out_z - out_p).abs().max()) if out_z.numel() else 0.0, **t,
+           "bound_ms": b, "bound_by": by, "table_bound_ms": tb,
+           "table_ms": tt["ms"], "table_device_ms": tt["device_ms"],
            "shape": {"N": N, "C": C, "M": M, "skip_row": skip,
-                     "skip_row_terms": int((idx == skip).sum()) if skip is not None else 0},
-           "plan_ms": plan_ms, "err_vs_f64": err64, "err_over_bound": ratio,
-           "check": "bit-identical across two launches; each element within "
-                    "(n+1) * 2^-24 * (|table| + sum|terms|) of the float64 sum"}
+                     "skip_row_terms": int((idx == skip).sum()) if skip is not None else 0,
+                     "max_segment": int(torch.bincount(idx[idx != skip] if skip is not None
+                                                       else idx, minlength=N).max())},
+           "plan_ms": time_ms(lambda: rows.scatter_plans(idx, N)),
+           "frame_plan_ms": (time_ms(lambda: rows.scatter_plans(frame_idx, N))
+                             if frame_idx is not None else None),
+           "frame_plan_shape": list(frame_idx.shape) if frame_idx is not None else None,
+           "err_vs_f64": err64, "err_over_bound": ratio,
+           "check": "zero-base and table forms each bit-identical to scatter_add_rows_ordered "
+                    "(a sequential in-order index_add's bits) and across two launches; each "
+                    "element within (n+1) * 2^-24 * (|base| + sum|terms|) of the float64 sum"}
     emit({"phase": "kernel", **row})
     return row
+
+
+def scatter_edge_phase():
+    """Both scatter forms at C in {1, 8, 9, 24} (the generic kernel, the
+    experiment's and the main path's widths) x N in {1, 33, 4099} x M in
+    {0, 1, 5000}, with and without a skipped row: a tenth of the indices on
+    one row (a segment of ~500 that crosses staging rounds), another row fed
+    only -0.0 terms (+0.0 in the zero-base form); each bit-identical to
+    ``scatter_add_rows_ordered`` and across two launches.  Kept out of the
+    kernels line."""
+    import torch
+
+    from pin_slam_torch.ops import rows
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = 0
+    for C in (1, 8, 9, 24):
+        for N in (1, 33, 4099):
+            for M in (0, 1, 5000):
+                idx = torch.randint(0, N, (M,), generator=g, device="cuda")
+                idx[torch.rand(M, generator=g, device="cuda") < 0.1] = N // 2
+                val = torch.randn(M, C, generator=g, device="cuda")
+                val[idx == N - 1] = -0.0
+                table = torch.randn(N, C, generator=g, device="cuda")
+                plan = rows.scatter_plans(idx, N)
+                for skip in (None, N // 2):
+                    scatter_forms(N, idx, val, plan, skip, table,
+                                  f"edge C={C} N={N} M={M} skip={skip}")
+                    cases += 1
+    emit({"phase": "scatter_edges", "cases": cases,
+          "check": "zero-base and table forms each bit-identical to scatter_add_rows_ordered "
+                   "and across two launches"})
 
 
 def experiment_shape_rows():
@@ -1055,7 +1161,7 @@ def experiment_shape_rows():
     idx = torch.randint(0, L, (M,), generator=g, device="cuda")
     val = torch.randn(M, F, generator=g, device="cuda")
     gather_phase("experiment", (tab, idx), {}, 0)
-    scatter_phase("experiment", (tab, idx, val), {}, 0)
+    scatter_phase("experiment", L, idx, val, None, None, 0)
 
 
 def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False):
@@ -1158,8 +1264,10 @@ def main() -> int:
             a, kw = cap.inputs[(path, "gather", kind)]
             rows.append(gather_phase(f"path{path}-{kind}", a, kw,
                                      cap.tally.get((path, "gather", kind), 0)))
-        a, kw = cap.inputs[(path, "scatter", "main")]
-        rows.append(scatter_phase(f"path{path}", a, kw, res["launches"]["scatter"]))
+        (n_rows, idx, val), kw = cap.inputs[(path, "scatter", "main")]
+        (frame_idx, _), _ = cap.inputs[(path, "plans", "frame")]
+        rows.append(scatter_phase(f"path{path}", n_rows, idx, val, kw.get("plan"),
+                                  kw.get("skip_row"), res["launches"]["scatter"], frame_idx))
         for kernel, kinds in (("rank_brick", ("far", "near")), ("gather", ("pool", "feat")),
                               ("scatter", ("main",))):
             if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
@@ -1176,6 +1284,7 @@ def main() -> int:
     train_edge_phase()
     eikonal_edge_phase()
     gather_edge_phase()
+    scatter_edge_phase()
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": rows})

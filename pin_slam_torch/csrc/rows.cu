@@ -8,8 +8,9 @@
 // (pin_slam_tpu/slam/mapper.py:1220, 1351, 1356-1367).
 //
 // Bound on an H100: bytes.  A gather reads each selected row once and writes
-// it once (no arithmetic); a scatter reads the table, the values and the
-// indices once and writes the table once, with one add per value element.
+// it once (no arithmetic); a scatter reads the values that are not skipped,
+// their entries of `order` and the offsets once and writes the sums once
+// (the table form also reads the table), with one add per value element.
 //
 // gather: a warp copies a tile of 32 rows.  Lane l reads the index of tile
 // row l once.  The tile's 32 * C output floats are contiguous, so the warp
@@ -29,13 +30,30 @@
 //
 // scatter: no float atomics.  The caller sorts the indices by destination
 // (stable, so equal destinations keep their original order) and passes the
-// permutation `order` and the segment offsets `offsets` (N+1): segment r is
-// order[offsets[r] .. offsets[r+1]).  One thread per (destination row,
-// column) adds its segment's values in that order onto the table's value, so
-// every launch gives the same bits, and they are the bits of a sequential
-// in-order index_add.  Destination `skip_row` (the training loop's sentinel
-// row, one very long segment whose gradient is never read) keeps the table's
-// value; -1 skips nothing.
+// permutation `order` and the segment offsets `offsets` (N+1), both int32:
+// segment r is order[offsets[r] .. offsets[r+1]).  Each row's sum starts
+// from its base (the table's row, or +0.0f in the zero-base form, which
+// reads no table: 0 + (-0.0) is +0.0, the bits of a zero table) and adds
+// the segment's values in that order with __fadd_rn, so every launch gives
+// the same bits, and they are the bits of a sequential in-order index_add.
+// Destination `skip_row` (the training loop's sentinel row, one very long
+// segment whose gradient is never read) keeps its base; -1 skips nothing.
+//
+// A warp owns a tile of 32 destination rows; lane l keeps row l's C sums in
+// registers.  The tile's contributions are one contiguous run of `order`
+// (offsets[r0] .. offsets[r0+32]), less the skipped row's segment, so the
+// warp stages them SU * 32 at a time: coalesced int32 loads of `order`, then
+// the val rows gathered as in gather_rows_kernel (row-contiguous loads, the
+// source row taken by a shuffle) into shared memory, each lane with SU * C
+// loads in flight whatever its own segment's length.  Lane l then adds the
+// staged rows of its segment, in order, from shared memory (stride C, odd
+// for C = 9: no bank conflicts).  The bounds are read once (coalesced, the
+// next row's by a shuffle); the tile's sums leave through shared memory as
+// 32 * C contiguous floats, and the table form reads its tile the same way.
+// C is a template parameter for the main path's width (9) and the Pallas
+// experiment's (8); any other C takes a generic kernel, a thread per
+// element.  The grid is the SM count times the kernel's occupancy, or fewer
+// blocks where the tiles run out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,20 +110,28 @@ __global__ void __launch_bounds__(GB) gather_rows_kernel(const float* __restrict
   }
 }
 
-template <int CW, int V, typename Off>
-static int launch_gather(const void* table, const void* idx, int64_t M, int C, void* out,
-                         cudaStream_t st) {
-  const auto kern = gather_rows_kernel<CW, V, Off>;
-  static int cap = 0;                     // resident blocks on the card, per instantiation
+// blocks of `block` threads of `kern` that the card holds at once, queried
+// on the first launch of each instantiation (`cap` is its own static)
+template <typename Kern>
+static int resident_blocks(Kern kern, int block, int& cap) {
   if (cap == 0) {
     int dev = 0, sms = 0, per = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, GB, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, block, 0);
     cap = (sms > 0 ? sms : 1) * (per > 0 ? per : 1);
   }
-  const int64_t need = (M + GB - 1) / GB;
-  kern<<<(unsigned)(need < cap ? need : cap), GB, 0, st>>>(
+  return cap;
+}
+
+static unsigned grid_of(int64_t need, int cap) { return (unsigned)(need < cap ? need : cap); }
+
+template <int CW, int V, typename Off>
+static int launch_gather(const void* table, const void* idx, int64_t M, int C, void* out,
+                         cudaStream_t st) {
+  const auto kern = gather_rows_kernel<CW, V, Off>;
+  static int cap = 0;
+  kern<<<grid_of((M + GB - 1) / GB, resident_blocks(kern, GB, cap)), GB, 0, st>>>(
       (const float*)table, (const int64_t*)idx, (Off)M, C, (float*)out);
   return (int)cudaGetLastError();
 }
@@ -128,30 +154,185 @@ static int dispatch_gather(const void* table, const void* idx, int64_t M, int C,
   }
 }
 
-__global__ void scatter_rows_kernel(const float* __restrict__ table,
-                                    const float* __restrict__ val,
-                                    const int64_t* __restrict__ order,
-                                    const int64_t* __restrict__ offsets, int64_t N, int C,
-                                    int64_t skip_row, float* __restrict__ out) {
+#ifndef SCATTER_SU
+#define SCATTER_SU 2
+#endif
+#ifndef SCATTER_BLOCK
+#define SCATTER_BLOCK 256
+#endif
+constexpr int SB = SCATTER_BLOCK;         // scatter block: SB / 32 warps, a 32-row tile each
+constexpr int SU = SCATTER_SU;            // contributions a lane stages per round
+
+// CW floats a row; ZERO: the zero-base form (`table` is not read)
+template <int CW, bool ZERO>
+__global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restrict__ table,
+                                                          const float* __restrict__ val,
+                                                          const int* __restrict__ order,
+                                                          const int* __restrict__ offsets,
+                                                          int64_t N, int64_t skip_row,
+                                                          float* __restrict__ out) {
+  constexpr int C = CW;
+  constexpr unsigned FULL = 0xffffffffu;
+#ifdef SCATTER_LANE_ROWS
+  __shared__ float stage[SB / 32][32 * C];                // the tile
+#else
+  __shared__ float stage[SB / 32][32 * SU * C];           // >= 32 * C: the tile too
+#endif
+  const int lane = threadIdx.x & 31;
+  float* __restrict__ sw = stage[threadIdx.x >> 5];
+  const int64_t step = (int64_t)gridDim.x * SB;
+  for (int64_t r0 = (int64_t)blockIdx.x * SB + (threadIdx.x & ~31); r0 < N; r0 += step) {
+    const int rows = N - r0 < 32 ? (int)(N - r0) : 32;     // warp-uniform
+    // segment bounds: lane l's row is r0 + l; lanes past the tile are empty
+    const int hi = offsets[r0 + rows];
+    int beg = lane < rows ? offsets[r0 + lane] : hi;
+    int end = __shfl_down_sync(FULL, beg, 1);
+    if (lane + 1 >= rows) end = hi;
+    const int lo = __shfl_sync(FULL, beg, 0);
+    // the skipped row's segment [s0, s1) is cut out of the tile's run
+    int s0 = hi, s1 = hi;
+    const int64_t sl = skip_row - r0;
+    if (sl >= 0 && sl < rows) {                           // warp-uniform
+      s0 = __shfl_sync(FULL, beg, (int)sl);
+      s1 = __shfl_sync(FULL, end, (int)sl);
+      if (lane == sl) end = beg;
+    }
+    const int cut = s0 - lo, gap = s1 - s0, n = (hi - lo) - gap;
+    // the lane's segment as positions q of the staged run (q = p - lo, less
+    // the gap right of the skipped row)
+    const int qb = beg - lo - (beg >= s1 ? gap : 0), qe = qb + (end - beg);
+
+    float acc[C];
+    if constexpr (ZERO) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    } else {
+      const float* __restrict__ tt = table + r0 * C;
+#pragma unroll
+      for (int it = 0; it < C; ++it) {
+        const int e = lane + 32 * it;
+        if (e < rows * C) sw[e] = tt[e];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = sw[lane * C + c];
+      __syncwarp();
+    }
+
+#ifdef SCATTER_LANE_ROWS
+    // variant: each lane loads its own segment's rows, SU at a time, with
+    // the next SU entries of `order` in flight beside this batch's values
+    int oc[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
+    for (int j = beg; j < end; j += SU) {
+      int on[SU];
+      float v[SU][C];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) on[u] = j + SU + u < end ? order[j + SU + u] : -1;
+#pragma unroll
+      for (int u = 0; u < SU; ++u)
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[u][c] = oc[u] >= 0 ? val[(int64_t)oc[u] * C + c] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        if (oc[u] >= 0)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[u][c]);
+        oc[u] = on[u];
+      }
+    }
+#else
+    for (int q0 = 0; q0 < n; q0 += 32 * SU) {            // warp-uniform
+      int o[SU];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int q = q0 + lane + 32 * u;
+        o[u] = q < n ? order[lo + q + (q >= cut ? gap : 0)] : 0;
+      }
+      const int nv = n - q0 < 32 * SU ? n - q0 : 32 * SU;
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+#pragma unroll
+        for (int it = 0; it < C; ++it) {
+          const int e = lane + 32 * it;
+          const int r = e / C;                            // < 32: e < 32 * C
+          const int s = __shfl_sync(FULL, o[u], r);
+          if (32 * u + r < nv) sw[32 * C * u + e] = val[(int64_t)s * C + (e - r * C)];
+        }
+      }
+      __syncwarp();
+      const int jb = qb > q0 ? qb : q0, je = qe < q0 + 32 * SU ? qe : q0 + 32 * SU;
+      for (int j = jb; j < je; ++j) {
+        const float* __restrict__ v = sw + (j - q0) * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[c]);
+      }
+      __syncwarp();
+    }
+#endif
+
+#pragma unroll
+    for (int c = 0; c < C; ++c) sw[lane * C + c] = acc[c];
+    __syncwarp();
+    float* __restrict__ to = out + r0 * C;
+#pragma unroll
+    for (int it = 0; it < C; ++it) {
+      const int e = lane + 32 * it;
+      if (e < rows * C) to[e] = sw[e];
+    }
+    __syncwarp();
+  }
+}
+
+// any other width: a thread per (row, column), the row's segment in order
+template <bool ZERO>
+__global__ void scatter_rows_generic(const float* __restrict__ table,
+                                     const float* __restrict__ val,
+                                     const int* __restrict__ order,
+                                     const int* __restrict__ offsets, int64_t N, int C,
+                                     int64_t skip_row, float* __restrict__ out) {
   const int64_t total = N * C;
   for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = t / C;
-    int64_t c = t - r * C;
-    float acc = table[t];
+    const int64_t r = t / C;
+    const int c = (int)(t - r * C);
+    float acc = ZERO ? 0.0f : table[t];
     if (r != skip_row) {
-      int64_t e = offsets[r + 1];
-      for (int64_t j = offsets[r]; j < e; ++j)
-        acc = __fadd_rn(acc, val[order[j] * C + c]);
+      const int e = offsets[r + 1];
+      for (int j = offsets[r]; j < e; ++j)
+        acc = __fadd_rn(acc, val[(int64_t)order[j] * C + c]);
     }
     out[t] = acc;
   }
 }
 
-static unsigned grid_for(int64_t total, int block) {
-  int64_t g = (total + block - 1) / block;
-  const int64_t cap = 132 * 64;          // enough blocks to fill 132 SMs many times over
-  return (unsigned)(g < cap ? g : cap);
+template <int CW, bool ZERO>
+static void launch_scatter(const float* table, const float* val, const int* order,
+                           const int* offsets, int64_t N, int64_t skip_row, float* out,
+                           cudaStream_t st) {
+  const auto kern = scatter_rows_kernel<CW, ZERO>;
+  static int cap = 0;
+  kern<<<grid_of((N + SB - 1) / SB, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
+      table, val, order, offsets, N, skip_row, out);
+}
+
+template <bool ZERO>
+static void dispatch_scatter(const float* table, const float* val, const int* order,
+                             const int* offsets, int64_t N, int C, int64_t skip_row,
+                             float* out, cudaStream_t st) {
+  switch (C) {
+    case 9:
+      return launch_scatter<9, ZERO>(table, val, order, offsets, N, skip_row, out, st);
+    case 8:
+      return launch_scatter<8, ZERO>(table, val, order, offsets, N, skip_row, out, st);
+    default: {
+      const auto kern = scatter_rows_generic<ZERO>;
+      static int cap = 0;
+      kern<<<grid_of((N * C + 255) / 256, resident_blocks(kern, 256, cap)), 256, 0, st>>>(
+          table, val, order, offsets, N, C, skip_row, out);
+    }
+  }
 }
 
 // rows idx (M,) of the (N, C) table into out (M, C); the caller has checked
@@ -168,14 +349,22 @@ extern "C" int gather_rows_launch(const void* table, const void* idx, int64_t N,
                 : dispatch_gather<int64_t>(table, idx, M, C, out, st);
 }
 
+// the in-order row sums of val (M, C) at the plan's destinations into out
+// (N, C), from table's rows or, where table is null, from +0.0f; the caller
+// has checked the plan (int32, built from indices in [0, N))
 extern "C" int scatter_rows_launch(const void* table, const void* val, const void* order,
                                    const void* offsets, int64_t N, int C, int64_t skip_row,
                                    void* out, void* stream) {
   if (N > 0 && C > 0) {
-    int block = 256;
-    scatter_rows_kernel<<<grid_for(N * C, block), block, 0, (cudaStream_t)stream>>>(
-        (const float*)table, (const float*)val, (const int64_t*)order,
-        (const int64_t*)offsets, N, C, skip_row, (float*)out);
+    const float* t = (const float*)table;
+    const float* v = (const float*)val;
+    const int* o = (const int*)order;
+    const int* f = (const int*)offsets;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (t == nullptr)
+      dispatch_scatter<true>(t, v, o, f, N, C, skip_row, (float*)out, st);
+    else
+      dispatch_scatter<false>(t, v, o, f, N, C, skip_row, (float*)out, st);
   }
   return (int)cudaGetLastError();
 }

@@ -10,11 +10,15 @@ per-iteration feature-row gather and its row-gradient scatter
 
 The scatter adds without float atomics: ``scatter_plans`` sorts each
 iteration's destination indices once (stable, so equal destinations keep
-their original order) and counts the segment of every destination row; the
-kernel then sums each row's contributions in that order.  Launches are
-bit-identical to one another and to a sequential in-order ``index_add``.
-The plans of all iterations of a frame are built in one call, outside the
-kernel, because the training loop knows every iteration's indices up front.
+their original order) and counts the segment of every destination row, in
+int32; the kernel then sums each row's contributions in that order.
+Launches are bit-identical to one another and to a sequential in-order
+``index_add``.  The plans of all iterations of a frame are built in one
+call, outside the kernel, because the training loop knows every iteration's
+indices up front.  The training loop sums into a zero table
+(``scatter_sum_rows``, which reads none); ``scatter_add_rows`` is the Pallas
+function's own form, ``tab.at[idx].add(val)``.  ``scatter_add_rows_ordered``
+computes the same bits in plain PyTorch on any device, the card included.
 
 Indices are int64 and are range-checked by the wrappers (one host
 synchronisation per check); an out-of-range index raises, it is never
@@ -35,8 +39,8 @@ class ScatterPlan(NamedTuple):
     """Destination-sorted order of a scatter's indices: segment r (the
     contributions to row r) is ``order[offsets[r]:offsets[r + 1]]``.  Leading
     dimensions, when present, index the iterations (``scatter_plans``)."""
-    order: torch.Tensor      # (..., M) int64
-    offsets: torch.Tensor    # (..., N + 1) int64
+    order: torch.Tensor      # (..., M) int32
+    offsets: torch.Tensor    # (..., N + 1) int32
 
 
 def plan_at(plans: ScatterPlan, t: int) -> ScatterPlan:
@@ -97,20 +101,27 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+_I32_MAX = 2 ** 31 - 1
+
+
 def scatter_plans(idx: torch.Tensor, n_rows: int) -> ScatterPlan:
     """Plans of a scatter into ``n_rows`` rows for ``idx`` (M,) or for each
-    row of ``idx`` (T, M): one stable sort of destination keys shifted by
-    ``t * n_rows`` and one integer ``bincount`` (both deterministic)."""
+    row of ``idx`` (T, M): one stable sort of int32 destination keys shifted
+    by ``t * n_rows`` and one integer ``bincount`` (both deterministic), in
+    int32.  Raises where T * (n_rows + 1) or T * M does not fit int32."""
     check_index(idx, n_rows)
     dev = idx.device
-    idx2 = idx.reshape(-1, idx.shape[-1])
-    T, M = idx2.shape
-    it = torch.arange(T, dtype=torch.int64, device=dev)[:, None]
-    key = (idx2 + it * n_rows).reshape(-1)
-    order = torch.sort(key, stable=True).indices.view(T, M) - it * M
+    T, M = (1, idx.shape[0]) if idx.dim() == 1 else idx.shape
+    idx2 = idx.reshape(T, M)
+    if T * (n_rows + 1) > _I32_MAX or T * M > _I32_MAX:
+        raise ValueError(f"scatter plans of {T} x {M} indices into {n_rows} rows do not fit "
+                         f"int32")
+    it = torch.arange(T, dtype=torch.int32, device=dev)[:, None]
+    key = (idx2.to(torch.int32) + it * n_rows).reshape(-1)
+    order = torch.sort(key, stable=True).indices.to(torch.int32).view(T, M) - it * M
     counts = torch.bincount(key, minlength=T * n_rows).view(T, n_rows)
-    offsets = torch.zeros((T, n_rows + 1), dtype=torch.int64, device=dev)
-    offsets[:, 1:] = torch.cumsum(counts, 1)
+    offsets = torch.zeros((T, n_rows + 1), dtype=torch.int32, device=dev)
+    offsets[:, 1:] = torch.cumsum(counts, 1, dtype=torch.int32)
     if idx.dim() == 1:
         return ScatterPlan(order=order[0], offsets=offsets[0])
     return ScatterPlan(order=order, offsets=offsets)
@@ -126,6 +137,76 @@ def scatter_add_rows_plain(table: torch.Tensor, idx: torch.Tensor, val: torch.Te
     return table.index_add(0, idx, val)
 
 
+def scatter_add_rows_ordered(table: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                             skip_row: Optional[int] = None) -> torch.Tensor:
+    """``scatter_add_rows_plain``'s bits on any device: level p adds every
+    row's p-th contribution (in index order) to the row's running sum, one
+    float32 add per element, for as many levels as the longest segment that
+    is not skipped.  Each element is the same chain of float32 additions as a
+    sequential in-order ``index_add``, so the card's result is the CPU's.
+    The reference of the scatter kernel's bits on the card."""
+    keep = torch.ones_like(idx, dtype=torch.bool) if skip_row is None else idx != skip_row
+    pos = torch.nonzero(keep).reshape(-1)
+    dest = idx[pos]
+    order = pos[torch.sort(dest, stable=True).indices]
+    counts = torch.bincount(dest, minlength=table.shape[0])
+    starts = torch.cumsum(counts, 0) - counts
+    out = table.clone()
+    for p in range(int(counts.max()) if dest.numel() else 0):
+        rows = torch.nonzero(counts > p).reshape(-1)
+        out[rows] = out[rows] + val[order[starts[rows] + p]]
+    return out
+
+
+def _check_scatter(N: int, C: int, idx: torch.Tensor, val: torch.Tensor,
+                   plan: Optional[ScatterPlan], skip_row: Optional[int],
+                   device: torch.device) -> None:
+    if idx.dtype != torch.int64:
+        raise TypeError(f"row indices must be int64, got {idx.dtype}")
+    if idx.dim() != 1 or not idx.is_contiguous() or idx.device != device:
+        raise ValueError(f"row indices must be a contiguous (M,) tensor on {device}, got "
+                         f"{tuple(idx.shape)} on {idx.device}")
+    if val.shape != (idx.shape[0], C) or val.dtype != torch.float32 \
+            or not val.is_contiguous() or val.device != device:
+        raise ValueError(f"values must be a contiguous float32 ({idx.shape[0]}, {C}) tensor "
+                         f"on {device}, got {tuple(val.shape)} {val.dtype}")
+    if skip_row is not None and not 0 <= skip_row < N:
+        raise IndexError(f"skip_row {skip_row} outside [0, {N})")
+    if plan is not None and (plan.order.shape != idx.shape
+                             or plan.offsets.shape != (N + 1,)
+                             or plan.order.dtype != torch.int32
+                             or plan.offsets.dtype != torch.int32
+                             or not plan.order.is_contiguous()
+                             or not plan.offsets.is_contiguous()
+                             or plan.order.device != device
+                             or plan.offsets.device != device):
+        raise ValueError(f"plan of order {tuple(plan.order.shape)} {plan.order.dtype} / "
+                         f"offsets {tuple(plan.offsets.shape)} {plan.offsets.dtype} does not "
+                         f"fit idx {tuple(idx.shape)} and {N} rows (contiguous int32 on "
+                         f"{device})")
+
+
+_SCATTER_ARGS = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I, _cuda.I64,
+                 _cuda.P, _cuda.P]
+
+
+def _launch_scatter(table: Optional[torch.Tensor], N: int, idx: torch.Tensor,
+                    val: torch.Tensor, plan: Optional[ScatterPlan],
+                    skip_row: Optional[int]) -> torch.Tensor:
+    """One launch of ``scatter_rows_kernel``: onto ``table``, or from zeros
+    where it is None."""
+    if plan is None:
+        plan = scatter_plans(idx, N)
+    out = val.new_empty((N, val.shape[1]))
+    f = _cuda.fn("rows", "scatter_rows_launch", _SCATTER_ARGS)
+    _cuda.check(f(None if table is None else table.data_ptr(), val.data_ptr(),
+                  plan.order.data_ptr(), plan.offsets.data_ptr(), N, val.shape[1],
+                  -1 if skip_row is None else int(skip_row), out.data_ptr(),
+                  _cuda.stream_ptr(val.device)), "scatter_rows_kernel")
+    _cuda.COUNTS["scatter"] += 1
+    return out
+
+
 def scatter_add_rows(table: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                      plan: Optional[ScatterPlan] = None,
                      skip_row: Optional[int] = None) -> torch.Tensor:
@@ -134,31 +215,27 @@ def scatter_add_rows(table: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     ``scatter_plans`` plan of ``idx`` (built here when absent).  CPU tensors
     take the plain version, CUDA tensors launch ``scatter_rows_kernel``."""
     _check_table(table)
-    _check_idx(idx, table)
     N, C = table.shape
-    if val.shape != (idx.shape[0], C) or val.dtype != torch.float32 \
-            or not val.is_contiguous() or val.device != table.device:
-        raise ValueError(f"values must be a contiguous float32 ({idx.shape[0]}, {C}) tensor "
-                         f"on the table's device, got {tuple(val.shape)} {val.dtype}")
-    if skip_row is not None and not 0 <= skip_row < N:
-        raise IndexError(f"skip_row {skip_row} outside [0, {N})")
-    if plan is not None and (plan.order.shape != idx.shape
-                             or plan.offsets.shape != (N + 1,)):
-        raise ValueError(f"plan of order {tuple(plan.order.shape)} / offsets "
-                         f"{tuple(plan.offsets.shape)} does not fit idx {tuple(idx.shape)} "
-                         f"and {N} rows")
+    _check_scatter(N, C, idx, val, plan, skip_row, table.device)
     if table.device.type == "cpu":
         if plan is None:
             check_index(idx, N)
         return scatter_add_rows_plain(table, idx, val, skip_row)
-    if plan is None:
-        plan = scatter_plans(idx, N)
-    out = torch.empty_like(table)
-    f = _cuda.fn("rows", "scatter_rows_launch",
-                 [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I, _cuda.I64,
-                  _cuda.P, _cuda.P])
-    _cuda.check(f(table.data_ptr(), val.data_ptr(), plan.order.data_ptr(),
-                  plan.offsets.data_ptr(), N, C, -1 if skip_row is None else int(skip_row),
-                  out.data_ptr(), _cuda.stream_ptr(table.device)), "scatter_rows_kernel")
-    _cuda.COUNTS["scatter"] += 1
-    return out
+    return _launch_scatter(table, N, idx, val, plan, skip_row)
+
+
+def scatter_sum_rows(n_rows: int, idx: torch.Tensor, val: torch.Tensor,
+                     plan: Optional[ScatterPlan] = None,
+                     skip_row: Optional[int] = None) -> torch.Tensor:
+    """The (n_rows, C) table of the rows of ``val`` summed at ``idx``, each
+    row in index order from +0.0: ``scatter_add_rows`` onto a zero table, bit
+    for bit, with no table made or read.  Row ``skip_row`` (if given) is 0.
+    CPU tensors take the plain version, CUDA tensors launch
+    ``scatter_rows_kernel``'s zero-base form."""
+    _check_scatter(n_rows, val.shape[-1], idx, val, plan, skip_row, val.device)
+    if val.device.type == "cpu":
+        if plan is None:
+            check_index(idx, n_rows)
+        return scatter_add_rows_plain(val.new_zeros((n_rows, val.shape[1])), idx, val,
+                                      skip_row)
+    return _launch_scatter(None, n_rows, idx, val, plan, skip_row)

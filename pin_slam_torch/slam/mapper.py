@@ -459,8 +459,8 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
 
     The pool rows and each iteration's feature rows come from the row-gather
     kernel; the feature gradients go back through the deterministic row
-    scatter, whose destination-sorted plans are built once for all T
-    iterations.  Every invalid neighbour points at the sentinel row L: the
+    scatter, summed from zero without a table (``scatter_sum_rows``), whose
+    destination-sorted plans are built once for all T iterations.  Every invalid neighbour points at the sentinel row L: the
     scatter skips it (its gradient and certainty are never read: feats[L] is
     zeroed after every Adam step and attr[L] reset at the end).
 
@@ -544,7 +544,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
             loss = loss + el
             gp = gp + gpe
             val_cat = torch.cat([val_cat, dfe_e.reshape(-1, F + 1)])
-        gfeat = rowk.scatter_add_rows(torch.zeros_like(feats), idx_it[t], val_cat,
+        gfeat = rowk.scatter_sum_rows(L + 1, idx_it[t], val_cat,
                                       plan=rowk.plan_at(plans, t), skip_row=L)
         cert_acc = cert_acc + gfeat[:, F]
         gfeat[:, F] = 0.0

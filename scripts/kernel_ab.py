@@ -1,9 +1,10 @@
-"""Times of the row gather, the train and the eikonal kernel at the main
-path's shapes, on seeded random inputs, and of the append kNN's probe and
-ranking on the paths' own inputs, for the port in this checkout or in
-another one.
+"""Times of the row gather, the train and the eikonal kernel and the
+training loop's row scatter at the main path's shapes, on seeded random
+inputs, and of the append kNN's probe and ranking on the paths' own inputs,
+for the port in this checkout or in another one.
 
-    python3 scripts/kernel_ab.py [--root DIR] [--label NAME] [--kernels gather,train,eikonal,rank]
+    python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
+        [--kernels gather,train,eikonal,rank,scatter] [--defines NAME[,NAME=VALUE]]
 
 ``--root`` names another checkout (for example an unpacked ``git archive``
 of the parent commit): its ``pin_slam_torch`` is imported and its kernels are
@@ -25,8 +26,17 @@ C, each checked exact against the torch brick gather followed by the plain
 ranking, beside the bound; their ``kernels_ms`` is the device time of the
 kernels and copies one call launches, summed from torch.profiler's device
 events (the device time of a pipeline whose host syncs keep ``device_ms``
-from hiding the host).  Then the card's name and power limit.  Needs a CUDA
-device.
+from hiding the host).  The scatter rows time the training loop's
+per-iteration scatter step as that checkout's mapper makes it (the zero-base
+``scatter_sum_rows``, or, in a checkout without it, ``torch.zeros`` and
+``scatter_add_rows``) at path A's and B's shapes (N = 2^16+1 or 2^18+1 rows,
+C = 9, M = 108132 indices, a share on the sentinel row N - 1 as on the
+paths), and the frame's plan build at (15, 108132), each as ``ms``,
+``device_ms`` and ``kernels_ms``; the step's output is held to the float64
+bound and printed as a sha256 digest, so that two checkouts' bits can be
+compared.  ``--defines`` builds that checkout's kernels with ``-D`` each
+(a kernel variant) into their own directory and times those.  Then the
+card's name and power limit.  Needs a CUDA device.
 """
 
 import argparse
@@ -45,6 +55,14 @@ GATHERS = [("A-feat", (1 << 16) + 1, 9, 98304), ("B-feat", (1 << 18) + 1, 9, 983
 # rows (eikonal), k = 6, as on both paths
 TRAINS = EIKONALS = [("A", True), ("B", False)]
 RANK_PATHS = ("A", "B", "C")
+# (label, rows N): the training loop's feature table (local capacity + the
+# sentinel row) at path A's and path B's capacities; M = B*k + n_grad*k
+# destination indices an iteration, T iterations a frame, C = F + 1 columns
+SCATTERS = [("A", (1 << 16) + 1), ("B", (1 << 18) + 1)]
+SCATTER_M, SCATTER_T, SCATTER_C = 108132, 15, 9
+# share of the indices on the sentinel row (invalid neighbours): path B's
+# captured iteration in chip_smoke (my chip run, PR 7)
+SENTINEL_SHARE = 0.0
 
 
 def rank_inputs(cs, path):
@@ -126,11 +144,62 @@ def time_rank(cs, label):
         torch.cuda.empty_cache()
 
 
+def time_scatter(cs, label):
+    import hashlib
+
+    import torch
+
+    from pin_slam_torch.ops import _cuda, rows
+
+    zero_base = hasattr(rows, "scatter_sum_rows")
+    for name, N in SCATTERS:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        L, M, C = N - 1, SCATTER_M, SCATTER_C
+        idx = torch.randint(0, L, (SCATTER_T, M), generator=g, device="cuda")
+        idx[torch.rand(SCATTER_T, M, generator=g, device="cuda") < SENTINEL_SHARE] = L
+        val = torch.randn(M, C, generator=g, device="cuda")
+        plans = rows.scatter_plans(idx, N)
+        plan, idx0 = rows.plan_at(plans, 0), idx[0]
+        if zero_base:
+            step = lambda: rows.scatter_sum_rows(N, idx0, val, plan=plan, skip_row=L)
+        else:
+            step = lambda: rows.scatter_add_rows(torch.zeros(N, C, device="cuda"), idx0, val,
+                                                 plan=plan, skip_row=L)
+        before = dict(_cuda.COUNTS)
+        out = step()
+        launched = {key: n - before.get(key, 0) for key, n in _cuda.COUNTS.items()
+                    if n != before.get(key, 0)}
+        torch.cuda.synchronize()
+        err, _ = cs.scatter_check(out, torch.zeros_like(out), idx0, val, L)
+        b, by, tb = cs.scatter_bounds(N, C, idx0, L)
+        t = cs.timings(step, None)
+        plan_fn = lambda: rows.scatter_plans(idx, N)
+        pt = cs.timings(plan_fn, None)
+        print(json.dumps({
+            "checkout": label, "kernel": f"scatter_step[{name}]", "N": N, "C": C, "M": M,
+            "sentinel_terms": int((idx0 == L).sum()),
+            "step": "scatter_sum_rows" if zero_base else "torch.zeros + scatter_add_rows",
+            "launches_per_call": launched, "bound_ms": b, "bound_by": by,
+            "table_bound_ms": tb, "ms": t["ms"], "device_ms": t["device_ms"],
+            "kernels_ms": kernels_ms(step),
+            **{x: t[x] for x in t if x.startswith("device_ms_holds")},
+            "err_vs_f64": err,
+            "sha256": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()}), flush=True)
+        print(json.dumps({
+            "checkout": label, "kernel": f"scatter_plans[{name}]", "T": SCATTER_T, "M": M,
+            "N": N, "dtype": str(plans.order.dtype), "ms": pt["ms"],
+            "device_ms": pt["device_ms"], "kernels_ms": kernels_ms(plan_fn),
+            **{x: pt[x] for x in pt if x.startswith("device_ms_holds")}}), flush=True)
+        del idx, val, plans, plan, out
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--kernels", default="gather,train,eikonal,rank")
+    ap.add_argument("--kernels", default="gather,train,eikonal,rank,scatter")
+    ap.add_argument("--defines", default="")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -149,7 +218,15 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__)))) != root:
         raise SystemExit(f"kernel_ab: imported pin_slam_torch from {_cuda.__file__}, not {root}")
-    _cuda.build()
+    if args.defines:
+        defines = args.defines.split(",")
+        out_dir = os.path.join(root, "build", "kernels-" + "-".join(defines))
+        _cuda.build(defines=defines, out_dir=out_dir)
+        for name in sorted(os.path.splitext(f)[0] for f in os.listdir(_cuda.CSRC)
+                           if f.endswith(".cu")):
+            _cuda.use(name, out_dir)
+    else:
+        _cuda.build()
     label = args.label or root
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, N, C, M in GATHERS if "gather" in which else ():
@@ -184,6 +261,8 @@ def main():
     torch.cuda.empty_cache()
     if "rank" in which:
         time_rank(cs, label)
+    if "scatter" in which:
+        time_scatter(cs, label)
     print(cs.smi_line(), flush=True)
 
 

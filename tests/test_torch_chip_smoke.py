@@ -274,3 +274,73 @@ def test_rank_bound_counts_the_brick_rows_once():
     assert by == "bytes" and b == pytest.approx(nbytes / 3.35e12 * 1e3)
     gathered, _ = chip_smoke.rank_bound(G, n, Kb * nsub, k)
     assert rows_fm_b == pytest.approx(gathered + 12 * G / 3.35e12 * 1e3) and b < rows_fm_b
+
+
+@pytest.mark.parametrize("form", ["zero_base", "table"])
+def test_ordered_check_accepts_the_in_order_sum_and_fails_on_one_ulp(form):
+    """The scatter phases' bit check: both forms (their plain versions on
+    the CPU) pass against scatter_add_rows_ordered; one element one ulp off
+    fails it."""
+    rows, table, idx, val, sentinel = _row_case()
+    base = torch.zeros_like(table) if form == "zero_base" else table
+    out, err, ratio = chip_smoke.scatter_forms(table.shape[0], idx, val, None, sentinel, table,
+                                               "cpu")
+    assert torch.equal(out, rows.scatter_add_rows_plain(torch.zeros_like(table), idx, val,
+                                                        sentinel))
+    assert ratio <= 1.0
+    ref = rows.scatter_add_rows_ordered(base, idx, val, sentinel)
+    got = rows.scatter_add_rows_plain(base, idx, val, sentinel)
+    chip_smoke.ordered_check(got, ref, form)
+    bad = got.clone()
+    bad[int(idx[1]), 4] = torch.nextafter(bad[int(idx[1]), 4], torch.tensor(float("inf")))
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.ordered_check(bad, ref, form)
+
+
+def test_ordered_check_tells_signed_zeros_apart():
+    chip_smoke.ordered_check(torch.zeros(3, 2), torch.zeros(3, 2), "zeros")
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.ordered_check(torch.zeros(3, 2), -torch.zeros(3, 2), "zeros")
+
+
+def test_scatter_bounds_count_what_each_form_reads():
+    """The zero-base bound reads the value rows and int32 order entries that
+    are not skipped, the int32 offsets and writes the sums; the table bound
+    is the count PRs 2-6 used: table, int64 indices and every value read,
+    the table written.  At path A's shape with no sentinel terms: ~6.95 MB
+    and ~9.47 MB at 3.35 TB/s."""
+    N, C, M = (1 << 16) + 1, 9, 108132
+    idx = torch.zeros(M, dtype=torch.int64)
+    idx[:1000] = N - 1
+    b, by, tb = chip_smoke.scatter_bounds(N, C, idx, None)
+    assert by == "bytes"
+    assert b == pytest.approx(4 * (M * C + M + N + 1 + N * C) / 3.35e12 * 1e3)
+    assert tb == pytest.approx((4 * (2 * N * C + M * C) + 8 * M) / 3.35e12 * 1e3)
+    assert 6.9e6 < 4 * (M * C + M + N + 1 + N * C) < 7.0e6
+    skipped, _, tb2 = chip_smoke.scatter_bounds(N, C, idx, N - 1)
+    assert skipped == pytest.approx(b - 4 * 1000 * (C + 1) / 3.35e12 * 1e3) and tb2 == tb
+
+
+def test_capture_keeps_the_zero_base_scatter_and_the_frame_plans():
+    """The capture wraps what the mapper calls (scatter_sum_rows once an
+    iteration, scatter_plans once a training call), tallies and clones, and
+    uninstall puts both back."""
+    rows, table, idx, val, sentinel = _row_case()
+    orig = (rows.scatter_sum_rows, rows.scatter_plans)
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "X"
+        plan = rows.scatter_plans(idx, table.shape[0])
+        rows.scatter_sum_rows(table.shape[0], idx, val, plan=plan, skip_row=sentinel)
+        cap.capturing = True
+        out = rows.scatter_sum_rows(table.shape[0], idx, val, plan=plan, skip_row=sentinel)
+    finally:
+        cap.uninstall()
+    assert (rows.scatter_sum_rows, rows.scatter_plans) == orig
+    assert cap.tally == {("X", "plans", "frame"): 1, ("X", "scatter", "main"): 1}
+    (n, i, v), kw = cap.inputs[("X", "scatter", "main")]
+    assert n == table.shape[0] and i is not idx and torch.equal(i, idx)
+    assert kw["skip_row"] == sentinel and torch.equal(kw["plan"].order, plan.order)
+    assert torch.equal(out, rows.scatter_add_rows_plain(torch.zeros_like(table), idx, val,
+                                                        sentinel))

@@ -173,3 +173,124 @@ def test_wrappers_raise_on_bad_dtypes_and_shapes():
         rows.scatter_add_rows(t, i, v, skip_row=t.shape[0])
     with pytest.raises(ValueError, match="plan"):
         rows.scatter_add_rows(t, i, v, plan=rows.scatter_plans(i[:-1], t.shape[0]))
+
+
+def _loop_sum(base, idx, val, skip_row=None):
+    """The explicit sequential in-order float32 scatter-add."""
+    ref = base.copy()
+    for m in range(len(idx)):
+        if idx[m] != skip_row:
+            ref[idx[m]] = (ref[idx[m]] + val[m]).astype(np.float32)
+    return ref
+
+
+def _ordered_case(case):
+    """(base, idx, val, skip_row) of a reference case: a sentinel row with a
+    long skipped segment, rows with no contribution, one row with 60, and a
+    row fed only -0.0 terms."""
+    rng = np.random.default_rng(21)
+    N, C, M = 40, 5, 400
+    idx = rng.integers(0, N // 2, size=M).astype(np.int64)     # rows N/2.. stay empty
+    idx[rng.permutation(M)[:60]] = 7                            # a 60-term segment
+    idx[rng.random(M) < 0.2] = N - 1                            # the sentinel
+    val = rng.standard_normal((M, C)).astype(np.float32)
+    idx[::37] = 3
+    val[idx == 3] = -0.0
+    base = (np.zeros((N, C), np.float32) if case == "zero_base"
+            else rng.standard_normal((N, C)).astype(np.float32))
+    return base, idx, val, (N - 1 if case == "skip" else None)
+
+
+def _bits(a):
+    return np.asarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["skip", "all_rows", "zero_base"])
+def test_ordered_reference_has_the_sequential_bits(case):
+    """scatter_add_rows_ordered (level by level, the card's reference) has
+    the bits of the plain version and of the explicit in-order float32 loop:
+    skipped sentinel, empty rows, a 60-term segment, -0.0 terms (+0.0 on a
+    zero base)."""
+    base, idx, val, skip = _ordered_case(case)
+    assert np.bincount(idx, minlength=base.shape[0])[7] >= 50
+    t, i, v = (torch.as_tensor(a) for a in (base, idx, val))
+    out = rows.scatter_add_rows_ordered(t, i, v, skip)
+    np.testing.assert_array_equal(_bits(out), _bits(_loop_sum(base, idx, val, skip)))
+    np.testing.assert_array_equal(_bits(out), _bits(rows.scatter_add_rows_plain(t, i, v, skip)))
+    if case == "zero_base":
+        assert not torch.signbit(out[3]).any()                  # 0 + (-0.0) is +0.0
+    if skip is not None:
+        assert torch.equal(out[skip], t[skip])
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skip_sentinel", "all_rows"])
+def test_scatter_sum_rows_is_the_scatter_onto_zeros(skip):
+    """The zero-base entry equals scatter_add_rows_plain onto a zero table
+    bit for bit (signed zeros included), with a plan or without, and reads
+    no table."""
+    _, idx, val, _ = _ordered_case("zero_base")
+    N = 40
+    skip_row = N - 1 if skip else None
+    i, v = torch.as_tensor(idx), torch.as_tensor(val)
+    ref = rows.scatter_add_rows_plain(torch.zeros(N, 5), i, v, skip_row)
+    for plan in (None, rows.scatter_plans(i, N)):
+        out = rows.scatter_sum_rows(N, i, v, plan=plan, skip_row=skip_row)
+        assert out.shape == (N, 5) and out.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(out), _bits(ref))
+    assert not torch.signbit(out[3]).any()
+
+
+def test_scatter_plans_are_int32_with_the_int64_values():
+    """The plans are int32 and hold the values the int64 plans held: the
+    stable argsort and the cumulative segment counts."""
+    rng = np.random.default_rng(4)
+    N, T, M = 37, 3, 200
+    idx = rng.integers(0, N, size=(T, M)).astype(np.int64)
+    plans = rows.scatter_plans(torch.as_tensor(idx), N)
+    assert plans.order.dtype == plans.offsets.dtype == torch.int32
+    for t in range(T):
+        p = rows.plan_at(plans, t)
+        np.testing.assert_array_equal(p.order.numpy().astype(np.int64),
+                                      np.argsort(idx[t], kind="stable"))
+        np.testing.assert_array_equal(
+            p.offsets.numpy().astype(np.int64),
+            np.concatenate([[0], np.cumsum(np.bincount(idx[t], minlength=N))]))
+
+
+def test_scatter_plans_raise_past_int32_and_take_no_indices():
+    """A plan that int32 cannot hold raises (nothing is truncated); M = 0
+    gives empty plans, and both forms then return their base."""
+    with pytest.raises(ValueError, match="int32"):
+        rows.scatter_plans(torch.zeros((3, 5), dtype=torch.int64), 2 ** 30)
+    with pytest.raises(ValueError, match="int32"):
+        rows.scatter_plans(torch.zeros((2, 5), dtype=torch.int64), 2 ** 31 - 1)
+    empty = torch.zeros(0, dtype=torch.int64)
+    p = rows.scatter_plans(empty, 6)
+    assert p.order.shape == (0,) and torch.equal(p.offsets, torch.zeros(7, dtype=torch.int32))
+    assert rows.scatter_plans(empty.view(2, 0), 6).offsets.shape == (2, 7)
+    v = torch.zeros(0, 4)
+    assert torch.equal(rows.scatter_sum_rows(6, empty, v, plan=p), torch.zeros(6, 4))
+    t = torch.randn(6, 4)
+    assert torch.equal(rows.scatter_add_rows(t, empty, v, plan=p), t)
+
+
+def test_scatter_sum_rows_raises_on_bad_inputs():
+    _, idx, val, _ = _ordered_case("zero_base")
+    i, v = torch.as_tensor(idx), torch.as_tensor(val)
+    plan = rows.scatter_plans(i, 40)
+    with pytest.raises(TypeError):
+        rows.scatter_sum_rows(40, i.to(torch.int32), v)
+    with pytest.raises(ValueError):
+        rows.scatter_sum_rows(40, i, v.double())
+    with pytest.raises(ValueError):
+        rows.scatter_sum_rows(40, i, v[:-1])
+    with pytest.raises(IndexError):
+        rows.scatter_sum_rows(40, i, v, skip_row=40)
+    with pytest.raises(IndexError):
+        rows.scatter_sum_rows(20, i, v)
+    int64_plan = rows.ScatterPlan(order=plan.order.long(), offsets=plan.offsets.long())
+    for bad in (int64_plan, rows.scatter_plans(i, 41)):
+        with pytest.raises(ValueError, match="plan"):
+            rows.scatter_sum_rows(40, i, v, plan=bad)
+        with pytest.raises(ValueError, match="plan"):
+            rows.scatter_add_rows(torch.zeros(40, 5), i, v, plan=bad)
