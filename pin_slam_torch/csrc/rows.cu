@@ -180,27 +180,24 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
 #endif
   const int lane = threadIdx.x & 31;
   float* __restrict__ sw = stage[threadIdx.x >> 5];
-  const int64_t step = (int64_t)gridDim.x * SB;
-  for (int64_t r0 = (int64_t)blockIdx.x * SB + (threadIdx.x & ~31); r0 < N; r0 += step) {
+  const int64_t warps = (int64_t)gridDim.x * (SB / 32);
+#ifdef SCATTER_BLOCKED
+  const int64_t first = (int64_t)blockIdx.x * (SB / 32) + (threadIdx.x >> 5);
+#else
+  // consecutive tiles go to different blocks: the rows that receive terms
+  // are the local map's first ones, and so spread over the SMs
+  const int64_t first = (int64_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+#endif
+  for (int64_t r0 = first * 32; r0 < N; r0 += warps * 32) {
     const int rows = N - r0 < 32 ? (int)(N - r0) : 32;     // warp-uniform
-    // segment bounds: lane l's row is r0 + l; lanes past the tile are empty
+    // segment bounds: lane l's row is r0 + l; lanes past the tile and the
+    // skipped row are empty
     const int hi = offsets[r0 + rows];
-    int beg = lane < rows ? offsets[r0 + lane] : hi;
+    const int beg = lane < rows ? offsets[r0 + lane] : hi;
     int end = __shfl_down_sync(FULL, beg, 1);
     if (lane + 1 >= rows) end = hi;
-    const int lo = __shfl_sync(FULL, beg, 0);
-    // the skipped row's segment [s0, s1) is cut out of the tile's run
-    int s0 = hi, s1 = hi;
-    const int64_t sl = skip_row - r0;
-    if (sl >= 0 && sl < rows) {                           // warp-uniform
-      s0 = __shfl_sync(FULL, beg, (int)sl);
-      s1 = __shfl_sync(FULL, end, (int)sl);
-      if (lane == sl) end = beg;
-    }
-    const int cut = s0 - lo, gap = s1 - s0, n = (hi - lo) - gap;
-    // the lane's segment as positions q of the staged run (q = p - lo, less
-    // the gap right of the skipped row)
-    const int qb = beg - lo - (beg >= s1 ? gap : 0), qe = qb + (end - beg);
+    if (r0 + lane == skip_row) end = beg;
+    const int len = end - beg;
 
     float acc[C];
     if constexpr (ZERO) {
@@ -219,58 +216,58 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
       __syncwarp();
     }
 
-#ifdef SCATTER_LANE_ROWS
-    // variant: each lane loads its own segment's rows, SU at a time, with
-    // the next SU entries of `order` in flight beside this batch's values
+    // level k .. k + SU - 1 of every lane's segment a round, with the next
+    // round's entries of `order` in flight beside this round's values
+    const int most = __reduce_max_sync(FULL, len);
     int oc[SU];
 #pragma unroll
-    for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
-    for (int j = beg; j < end; j += SU) {
+    for (int u = 0; u < SU; ++u) oc[u] = u < len ? order[beg + u] : -1;
+    for (int k = 0; k < most; k += SU) {                  // warp-uniform
       int on[SU];
-      float v[SU][C];
 #pragma unroll
-      for (int u = 0; u < SU; ++u) on[u] = j + SU + u < end ? order[j + SU + u] : -1;
+      for (int u = 0; u < SU; ++u) on[u] = k + SU + u < len ? order[beg + k + SU + u] : -1;
+#ifdef SCATTER_LANE_ROWS
+      // variant: each lane loads its own rows
+      float v[SU][C];
 #pragma unroll
       for (int u = 0; u < SU; ++u)
 #pragma unroll
         for (int c = 0; c < C; ++c) v[u][c] = oc[u] >= 0 ? val[(int64_t)oc[u] * C + c] : 0.0f;
 #pragma unroll
-      for (int u = 0; u < SU; ++u) {
+      for (int u = 0; u < SU; ++u)
         if (oc[u] >= 0)
 #pragma unroll
           for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[u][c]);
-        oc[u] = on[u];
-      }
-    }
 #else
-    for (int q0 = 0; q0 < n; q0 += 32 * SU) {            // warp-uniform
-      int o[SU];
-#pragma unroll
-      for (int u = 0; u < SU; ++u) {
-        const int q = q0 + lane + 32 * u;
-        o[u] = q < n ? order[lo + q + (q >= cut ? gap : 0)] : 0;
-      }
-      const int nv = n - q0 < 32 * SU ? n - q0 : 32 * SU;
+      // the warp gathers the round's 32 * SU rows together: row-contiguous
+      // loads, all in flight before the first store, lane l's u-th row at
+      // stage[u][l * C ..]
+      float v[SU][C];
 #pragma unroll
       for (int u = 0; u < SU; ++u) {
 #pragma unroll
         for (int it = 0; it < C; ++it) {
           const int e = lane + 32 * it;
           const int r = e / C;                            // < 32: e < 32 * C
-          const int s = __shfl_sync(FULL, o[u], r);
-          if (32 * u + r < nv) sw[32 * C * u + e] = val[(int64_t)s * C + (e - r * C)];
+          const int s = __shfl_sync(FULL, oc[u], r);
+          v[u][it] = s >= 0 ? val[(int64_t)s * C + (e - r * C)] : 0.0f;
         }
       }
-      __syncwarp();
-      const int jb = qb > q0 ? qb : q0, je = qe < q0 + 32 * SU ? qe : q0 + 32 * SU;
-      for (int j = jb; j < je; ++j) {
-        const float* __restrict__ v = sw + (j - q0) * C;
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[c]);
-      }
+      for (int u = 0; u < SU; ++u)
+#pragma unroll
+        for (int it = 0; it < C; ++it) sw[32 * C * u + lane + 32 * it] = v[u][it];
       __syncwarp();
-    }
+#pragma unroll
+      for (int u = 0; u < SU; ++u)
+        if (oc[u] >= 0)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], sw[32 * C * u + lane * C + c]);
+      __syncwarp();
 #endif
+#pragma unroll
+      for (int u = 0; u < SU; ++u) oc[u] = on[u];
+    }
 
 #pragma unroll
     for (int c = 0; c < C; ++c) sw[lane * C + c] = acc[c];

@@ -25,10 +25,9 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-VARIANTS = ("tile64=SCATTER_SU=2,tile128=SCATTER_SU=4,"
-            "lane2=SCATTER_LANE_ROWS+SCATTER_SU=2,lane4=SCATTER_LANE_ROWS+SCATTER_SU=4,"
-            "lane8=SCATTER_LANE_ROWS+SCATTER_SU=8,"
-            "lane4_b128=SCATTER_LANE_ROWS+SCATTER_SU=4+SCATTER_BLOCK=128")
+VARIANTS = ("coop2=SCATTER_SU=2,coop4=SCATTER_SU=4,coop4_blocked=SCATTER_SU=4+SCATTER_BLOCKED,"
+            "coop4_b128=SCATTER_SU=4+SCATTER_BLOCK=128,coop8_b128=SCATTER_SU=8+SCATTER_BLOCK=128,"
+            "lane8=SCATTER_LANE_ROWS+SCATTER_SU=8")
 
 
 def input_stats(n_rows, idx, skip):
