@@ -282,6 +282,44 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
   }
 }
 
+// variant: a thread per (row, column) element, SU of its segment's terms a
+// round, the next round's entries of `order` in flight beside this round's
+template <int CW, bool ZERO>
+__global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restrict__ table,
+                                                           const float* __restrict__ val,
+                                                           const int* __restrict__ order,
+                                                           const int* __restrict__ offsets,
+                                                           int64_t N, int64_t skip_row,
+                                                           float* __restrict__ out) {
+  constexpr int C = CW;
+  const int64_t total = N * C;
+  for (int64_t t = (int64_t)blockIdx.x * SB + threadIdx.x; t < total;
+       t += (int64_t)gridDim.x * SB) {
+    const int64_t r = t / C;
+    const int c = (int)(t - r * C);
+    float acc = ZERO ? 0.0f : table[t];
+    const int beg = offsets[r];
+    const int end = r == skip_row ? beg : offsets[r + 1];
+    int oc[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
+    for (int j = beg; j < end; j += SU) {
+      int on[SU];
+      float v[SU];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) on[u] = j + SU + u < end ? order[j + SU + u] : -1;
+#pragma unroll
+      for (int u = 0; u < SU; ++u) v[u] = oc[u] >= 0 ? val[(int64_t)oc[u] * C + c] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        if (oc[u] >= 0) acc = __fadd_rn(acc, v[u]);
+        oc[u] = on[u];
+      }
+    }
+    out[t] = acc;
+  }
+}
+
 // any other width: a thread per (row, column), the row's segment in order
 template <bool ZERO>
 __global__ void scatter_rows_generic(const float* __restrict__ table,
@@ -308,10 +346,17 @@ template <int CW, bool ZERO>
 static void launch_scatter(const float* table, const float* val, const int* order,
                            const int* offsets, int64_t N, int64_t skip_row, float* out,
                            cudaStream_t st) {
+#ifdef SCATTER_ELEMS
+  const auto kern = scatter_elems_kernel<CW, ZERO>;
+  static int cap = 0;
+  kern<<<grid_of((N * CW + SB - 1) / SB, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
+      table, val, order, offsets, N, skip_row, out);
+#else
   const auto kern = scatter_rows_kernel<CW, ZERO>;
   static int cap = 0;
   kern<<<grid_of((N + SB - 1) / SB, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
       table, val, order, offsets, N, skip_row, out);
+#endif
 }
 
 template <bool ZERO>
