@@ -301,6 +301,7 @@ __global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restri
     const int beg = offsets[r];
     const int end = r == skip_row ? beg : offsets[r + 1];
     int oc[SU];
+    if (beg < end) {
 #pragma unroll
     for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
     for (int j = beg; j < end; j += SU) {
@@ -315,6 +316,7 @@ __global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restri
         if (oc[u] >= 0) acc = __fadd_rn(acc, v[u]);
         oc[u] = on[u];
       }
+    }
     }
     out[t] = acc;
   }

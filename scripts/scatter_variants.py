@@ -25,11 +25,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-VARIANTS = ("lane8=SCATTER_LANE_ROWS+SCATTER_SU=8,lane8_b128=SCATTER_LANE_ROWS+SCATTER_SU=8+SCATTER_BLOCK=128,"
-            "lane4_b128=SCATTER_LANE_ROWS+SCATTER_SU=4+SCATTER_BLOCK=128,"
-            "elem1=SCATTER_ELEMS+SCATTER_SU=1,elem4=SCATTER_ELEMS+SCATTER_SU=4,"
+VARIANTS = ("lane8=SCATTER_LANE_ROWS+SCATTER_SU=8,elem4=SCATTER_ELEMS+SCATTER_SU=4,"
             "elem8=SCATTER_ELEMS+SCATTER_SU=8,elem16=SCATTER_ELEMS+SCATTER_SU=16,"
-            "elem8_b128=SCATTER_ELEMS+SCATTER_SU=8+SCATTER_BLOCK=128")
+            "elem32=SCATTER_ELEMS+SCATTER_SU=32,elem8_b128=SCATTER_ELEMS+SCATTER_SU=8+SCATTER_BLOCK=128,"
+            "elem16_b512=SCATTER_ELEMS+SCATTER_SU=16+SCATTER_BLOCK=512")
 
 
 def input_stats(n_rows, idx, skip):
