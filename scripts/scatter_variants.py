@@ -11,7 +11,9 @@ chip_smoke's scatter rows do.  Each variant is built into
 ``build/variants/<name>`` and swapped in with ``_cuda.use``; every variant's
 launch is checked bit-identical to ``rows.scatter_add_rows_ordered`` and
 timed with chip_smoke's timers (``ms``: one launch on an idle card;
-``device_ms``: launches queued behind a sleep), the variants in turns for
+``device_ms``: launches queued behind a sleep; ``no_terms_device_ms``: the
+same table with no terms, the bounds read and the sums written), the
+variants in turns for
 ``--rounds`` rounds (the order reversed every other round).  First one line
 per path with its input's contributions per 32-row tile and per row.  Then
 the card's name and power limit.  Needs a CUDA device.
@@ -26,9 +28,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 VARIANTS = ("lane8=SCATTER_LANE_ROWS+SCATTER_SU=8,elem4=SCATTER_ELEMS+SCATTER_SU=4,"
-            "elem8=SCATTER_ELEMS+SCATTER_SU=8,elem16=SCATTER_ELEMS+SCATTER_SU=16,"
-            "elem32=SCATTER_ELEMS+SCATTER_SU=32,elem8_b128=SCATTER_ELEMS+SCATTER_SU=8+SCATTER_BLOCK=128,"
-            "elem16_b512=SCATTER_ELEMS+SCATTER_SU=16+SCATTER_BLOCK=512")
+            "elem4_e2=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=2,"
+            "elem4_e4=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=4,"
+            "elem2_e4=SCATTER_ELEMS+SCATTER_SU=2+SCATTER_E=4,"
+            "elem4_e8=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=8")
 
 
 def input_stats(n_rows, idx, skip):
@@ -88,8 +91,14 @@ def main():
                 torch.cuda.synchronize()
                 cs.ordered_check(out, ref, f"variant {name} path {path}")
                 t = cs.timings(fn, None)
+                # the same table with no terms: the bounds read and the sums written
+                none = rows.ScatterPlan(order=plan.order[:0],
+                                        offsets=torch.zeros_like(plan.offsets))
+                te = cs.timings(lambda: rows.scatter_sum_rows(n_rows, idx[:0], val[:0],
+                                                              plan=none), None)
                 print(json.dumps({"round": rnd, "variant": name, "path": path,
-                                  "ms": t["ms"], "device_ms": t["device_ms"]}), flush=True)
+                                  "ms": t["ms"], "device_ms": t["device_ms"],
+                                  "no_terms_device_ms": te["device_ms"]}), flush=True)
     print(cs.smi_line(), flush=True)
 
 
