@@ -173,21 +173,11 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
                                                           float* __restrict__ out) {
   constexpr int C = CW;
   constexpr unsigned FULL = 0xffffffffu;
-#ifdef SCATTER_LANE_ROWS
-  __shared__ float stage[SB / 32][32 * C];                // the tile
-#else
-  __shared__ float stage[SB / 32][32 * SU * C];           // >= 32 * C: the tile too
-#endif
   const int lane = threadIdx.x & 31;
-  float* __restrict__ sw = stage[threadIdx.x >> 5];
   const int64_t warps = (int64_t)gridDim.x * (SB / 32);
-#ifdef SCATTER_BLOCKED
-  const int64_t first = (int64_t)blockIdx.x * (SB / 32) + (threadIdx.x >> 5);
-#else
   // consecutive tiles go to different blocks: the rows that receive terms
   // are the local map's first ones, and so spread over the SMs
   const int64_t first = (int64_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-#endif
   for (int64_t r0 = first * 32; r0 < N; r0 += warps * 32) {
     const int rows = N - r0 < 32 ? (int)(N - r0) : 32;     // warp-uniform
     // segment bounds: lane l's row is r0 + l; lanes past the tile and the
@@ -199,25 +189,18 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
     if (r0 + lane == skip_row) end = beg;
     const int len = end - beg;
 
+    // lane l sums the tile's elements e = l + 32 * it (row e / C, column
+    // e % C): the output tile is contiguous, so its loads and stores coalesce
+    float* __restrict__ to = out + r0 * C;
     float acc[C];
-    if constexpr (ZERO) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-    } else {
-      const float* __restrict__ tt = table + r0 * C;
-#pragma unroll
-      for (int it = 0; it < C; ++it) {
-        const int e = lane + 32 * it;
-        if (e < rows * C) sw[e] = tt[e];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = sw[lane * C + c];
-      __syncwarp();
+    for (int it = 0; it < C; ++it) {
+      const int e = lane + 32 * it;
+      acc[it] = ZERO || e >= rows * C ? 0.0f : table[r0 * C + e];
     }
-
-    // level k .. k + SU - 1 of every lane's segment a round, with the next
-    // round's entries of `order` in flight beside this round's values
+    // level k .. k + SU - 1 of every row's segment a round: the row's lane
+    // reads the entries of `order` (the next round's in flight beside this
+    // round's values) and the lanes of its elements take them by a shuffle
     const int most = __reduce_max_sync(FULL, len);
     int oc[SU];
 #pragma unroll
@@ -226,59 +209,35 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
       int on[SU];
 #pragma unroll
       for (int u = 0; u < SU; ++u) on[u] = k + SU + u < len ? order[beg + k + SU + u] : -1;
-#ifdef SCATTER_LANE_ROWS
-      // variant: each lane loads its own rows
+      // all SU * C loads in flight before the first add; bit it of has[u]:
+      // element it has a term at level k + u
       float v[SU][C];
-#pragma unroll
-      for (int u = 0; u < SU; ++u)
-#pragma unroll
-        for (int c = 0; c < C; ++c) v[u][c] = oc[u] >= 0 ? val[(int64_t)oc[u] * C + c] : 0.0f;
-#pragma unroll
-      for (int u = 0; u < SU; ++u)
-        if (oc[u] >= 0)
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[u][c]);
-#else
-      // the warp gathers the round's 32 * SU rows together: row-contiguous
-      // loads, all in flight before the first store, lane l's u-th row at
-      // stage[u][l * C ..]
-      float v[SU][C];
+      unsigned has[SU];
 #pragma unroll
       for (int u = 0; u < SU; ++u) {
+        has[u] = 0;
 #pragma unroll
         for (int it = 0; it < C; ++it) {
           const int e = lane + 32 * it;
           const int r = e / C;                            // < 32: e < 32 * C
           const int s = __shfl_sync(FULL, oc[u], r);
           v[u][it] = s >= 0 ? val[(int64_t)s * C + (e - r * C)] : 0.0f;
+          has[u] |= (unsigned)(s >= 0) << it;
         }
       }
 #pragma unroll
       for (int u = 0; u < SU; ++u)
 #pragma unroll
-        for (int it = 0; it < C; ++it) sw[32 * C * u + lane + 32 * it] = v[u][it];
-      __syncwarp();
-#pragma unroll
-      for (int u = 0; u < SU; ++u)
-        if (oc[u] >= 0)
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], sw[32 * C * u + lane * C + c]);
-      __syncwarp();
-#endif
+        for (int it = 0; it < C; ++it)
+          if (has[u] >> it & 1u) acc[it] = __fadd_rn(acc[it], v[u][it]);
 #pragma unroll
       for (int u = 0; u < SU; ++u) oc[u] = on[u];
     }
-
-#pragma unroll
-    for (int c = 0; c < C; ++c) sw[lane * C + c] = acc[c];
-    __syncwarp();
-    float* __restrict__ to = out + r0 * C;
 #pragma unroll
     for (int it = 0; it < C; ++it) {
       const int e = lane + 32 * it;
-      if (e < rows * C) to[e] = sw[e];
+      if (e < rows * C) to[e] = acc[it];
     }
-    __syncwarp();
   }
 }
 

@@ -27,11 +27,9 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-VARIANTS = ("lane8=SCATTER_LANE_ROWS+SCATTER_SU=8,elem4=SCATTER_ELEMS+SCATTER_SU=4,"
-            "elem4_e2=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=2,"
-            "elem4_e4=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=4,"
-            "elem2_e4=SCATTER_ELEMS+SCATTER_SU=2+SCATTER_E=4,"
-            "elem4_e8=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_E=8")
+VARIANTS = ("elem4=SCATTER_ELEMS+SCATTER_SU=4,tile2=SCATTER_SU=2,tile4=SCATTER_SU=4,"
+            "tile8=SCATTER_SU=8,tile4_b128=SCATTER_SU=4+SCATTER_BLOCK=128,"
+            "tile8_b128=SCATTER_SU=8+SCATTER_BLOCK=128")
 
 
 def input_stats(n_rows, idx, skip):
