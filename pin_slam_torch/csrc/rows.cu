@@ -241,61 +241,43 @@ __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restric
   }
 }
 
-#ifndef SCATTER_E
-#define SCATTER_E 1
-#endif
-constexpr int SE = SCATTER_E;             // elements a thread, a chunk of the table apart
-
 // variant: a thread per (row, column) element, SU of its segment's terms a
-// round, the next round's entries of `order` in flight beside this round's;
-// a thread takes SE elements, each in its own SE-th of the table, their
-// bounds read together
-template <int CW, bool ZERO>
+// round, the next round's entries of `order` in flight beside this round's.
+// Off: the offset type (int where the table and the values stay below 2^31
+// floats, int64_t otherwise)
+template <int CW, bool ZERO, typename Off>
 __global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restrict__ table,
                                                            const float* __restrict__ val,
                                                            const int* __restrict__ order,
                                                            const int* __restrict__ offsets,
-                                                           int64_t N, int64_t skip_row,
+                                                           Off total, Off skip_row,
                                                            float* __restrict__ out) {
   constexpr int C = CW;
-  const int64_t total = N * C;
-  const int64_t chunk = (total + SE - 1) / SE;
-  for (int64_t t0 = (int64_t)blockIdx.x * SB + threadIdx.x; t0 < chunk;
-       t0 += (int64_t)gridDim.x * SB) {
-    int beg[SE], end[SE];
+  for (Off t = (Off)blockIdx.x * SB + threadIdx.x; t < total; t += (Off)gridDim.x * SB) {
+    const Off r = t / C;
+    const int c = (int)(t - r * C);
+    float acc = ZERO ? 0.0f : table[t];
+    const int beg = offsets[r];
+    const int end = r == skip_row ? beg : offsets[r + 1];
+    if (beg < end) {
+      int oc[SU];
 #pragma unroll
-    for (int e = 0; e < SE; ++e) {
-      const int64_t t = t0 + e * chunk, r = t / C;
-      beg[e] = t < total ? offsets[r] : 0;
-      end[e] = t < total && r != skip_row ? offsets[r + 1] : beg[e];
-    }
+      for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
+      for (int j = beg; j < end; j += SU) {
+        int on[SU];
+        float v[SU];
 #pragma unroll
-    for (int e = 0; e < SE; ++e) {
-      const int64_t t = t0 + e * chunk;
-      if (t >= total) break;
-      const int c = (int)(t % C);
-      float acc = ZERO ? 0.0f : table[t];
-      if (beg[e] < end[e]) {
-        const int b = beg[e], n = end[e];
-        int oc[SU];
+        for (int u = 0; u < SU; ++u) on[u] = j + SU + u < end ? order[j + SU + u] : -1;
 #pragma unroll
-        for (int u = 0; u < SU; ++u) oc[u] = b + u < n ? order[b + u] : -1;
-        for (int j = b; j < n; j += SU) {
-          int on[SU];
-          float v[SU];
+        for (int u = 0; u < SU; ++u) v[u] = oc[u] >= 0 ? val[(Off)oc[u] * C + c] : 0.0f;
 #pragma unroll
-          for (int u = 0; u < SU; ++u) on[u] = j + SU + u < n ? order[j + SU + u] : -1;
-#pragma unroll
-          for (int u = 0; u < SU; ++u) v[u] = oc[u] >= 0 ? val[(int64_t)oc[u] * C + c] : 0.0f;
-#pragma unroll
-          for (int u = 0; u < SU; ++u) {
-            if (oc[u] >= 0) acc = __fadd_rn(acc, v[u]);
-            oc[u] = on[u];
-          }
+        for (int u = 0; u < SU; ++u) {
+          if (oc[u] >= 0) acc = __fadd_rn(acc, v[u]);
+          oc[u] = on[u];
         }
       }
-      out[t] = acc;
     }
+    out[t] = acc;
   }
 }
 
@@ -326,10 +308,20 @@ static void launch_scatter(const float* table, const float* val, const int* orde
                            const int* offsets, int64_t N, int64_t skip_row, float* out,
                            cudaStream_t st) {
 #ifdef SCATTER_ELEMS
-  const auto kern = scatter_elems_kernel<CW, ZERO>;
+#ifdef SCATTER_WIDE
+  using Off = int64_t;
+#else
+  using Off = int;                        // the variant runs only where N * C and M * C fit
+#endif
+  const auto kern = scatter_elems_kernel<CW, ZERO, Off>;
   static int cap = 0;
-  kern<<<grid_of((N * CW + SB * SE - 1) / (SB * SE), resident_blocks(kern, SB, cap)), SB, 0, st>>>(
-      table, val, order, offsets, N, skip_row, out);
+  const int64_t need = (N * CW + SB - 1) / SB;
+#ifdef SCATTER_FULLGRID
+  kern<<<(unsigned)need, SB, 0, st>>>(
+#else
+  kern<<<grid_of(need, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
+#endif
+      table, val, order, offsets, (Off)(N * CW), (Off)skip_row, out);
 #else
   const auto kern = scatter_rows_kernel<CW, ZERO>;
   static int cap = 0;

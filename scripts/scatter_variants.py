@@ -27,9 +27,11 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-VARIANTS = ("elem4=SCATTER_ELEMS+SCATTER_SU=4,tile2=SCATTER_SU=2,tile4=SCATTER_SU=4,"
-            "tile8=SCATTER_SU=8,tile4_b128=SCATTER_SU=4+SCATTER_BLOCK=128,"
-            "tile8_b128=SCATTER_SU=8+SCATTER_BLOCK=128")
+VARIANTS = ("tile4=SCATTER_SU=4,elem4_i64=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_WIDE,"
+            "elem4=SCATTER_ELEMS+SCATTER_SU=4,elem4_full=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_FULLGRID,"
+            "elem4_b128=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_BLOCK=128,"
+            "elem4_b512=SCATTER_ELEMS+SCATTER_SU=4+SCATTER_BLOCK=512,"
+            "elem3=SCATTER_ELEMS+SCATTER_SU=3,elem6=SCATTER_ELEMS+SCATTER_SU=6")
 
 
 def input_stats(n_rows, idx, skip):
