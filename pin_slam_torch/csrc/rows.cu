@@ -39,21 +39,23 @@
 // Destination `skip_row` (the training loop's sentinel row, one very long
 // segment whose gradient is never read) keeps its base; -1 skips nothing.
 //
-// A warp owns a tile of 32 destination rows; lane l keeps row l's C sums in
-// registers.  The tile's contributions are one contiguous run of `order`
-// (offsets[r0] .. offsets[r0+32]), less the skipped row's segment, so the
-// warp stages them SU * 32 at a time: coalesced int32 loads of `order`, then
-// the val rows gathered as in gather_rows_kernel (row-contiguous loads, the
-// source row taken by a shuffle) into shared memory, each lane with SU * C
-// loads in flight whatever its own segment's length.  Lane l then adds the
-// staged rows of its segment, in order, from shared memory (stride C, odd
-// for C = 9: no bank conflicts).  The bounds are read once (coalesced, the
-// next row's by a shuffle); the tile's sums leave through shared memory as
-// 32 * C contiguous floats, and the table form reads its tile the same way.
-// C is a template parameter for the main path's width (9) and the Pallas
-// experiment's (8); any other C takes a generic kernel, a thread per
-// element.  The grid is the SM count times the kernel's occupancy, or fewer
-// blocks where the tiles run out.
+// A thread owns one (row, column) element of the output: C threads a row,
+// so a warp's loads of a value row, and its stores, are contiguous.  Its
+// row's bounds are two loads; a thread whose row has no terms writes its
+// base and is done, which is most of the table on the main path (the local
+// map's rows that receive terms are a few tens of thousands of 2^16 or
+// 2^18).  A thread with terms walks its segment SU terms a round: SU loads
+// of `order`, then the SU values, all in flight together, with the next
+// round's entries of `order` loaded beside this round's values; the adds
+// follow in order.  Offsets are 32-bit where the table and the values stay below 2^31 floats,
+// 64-bit otherwise.  C is a template parameter for the main path's width
+// (9) and the Pallas experiment's (8), so the division by C is by a
+// constant; any other C takes the same kernel with C at run time.  The grid
+// is the SM count times the kernel's occupancy, or fewer blocks where the
+// elements run out.  (Measured against a warp a 32-row tile, with lane l
+// owning row l or the tile's contiguous elements, and the terms gathered a
+// level of every row at a time: slower on the paths' inputs, where a few
+// tiles hold all the terms.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,105 +156,19 @@ static int dispatch_gather(const void* table, const void* idx, int64_t M, int C,
   }
 }
 
-#ifndef SCATTER_SU
-#define SCATTER_SU 2
-#endif
-#ifndef SCATTER_BLOCK
-#define SCATTER_BLOCK 256
-#endif
-constexpr int SB = SCATTER_BLOCK;         // scatter block: SB / 32 warps, a 32-row tile each
-constexpr int SU = SCATTER_SU;            // contributions a lane stages per round
+constexpr int SB = 256;                   // scatter block
+constexpr int SU = 4;                     // terms a thread loads a round
 
-// CW floats a row; ZERO: the zero-base form (`table` is not read)
-template <int CW, bool ZERO>
+// CW floats a row (CW == 0: c_rt floats); ZERO: the zero-base form (`table`
+// is not read).  Off: the offset type (int or int64_t).
+template <int CW, bool ZERO, typename Off>
 __global__ void __launch_bounds__(SB) scatter_rows_kernel(const float* __restrict__ table,
                                                           const float* __restrict__ val,
                                                           const int* __restrict__ order,
                                                           const int* __restrict__ offsets,
-                                                          int64_t N, int64_t skip_row,
+                                                          Off total, int c_rt, Off skip_row,
                                                           float* __restrict__ out) {
-  constexpr int C = CW;
-  constexpr unsigned FULL = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * (SB / 32);
-  // consecutive tiles go to different blocks: the rows that receive terms
-  // are the local map's first ones, and so spread over the SMs
-  const int64_t first = (int64_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  for (int64_t r0 = first * 32; r0 < N; r0 += warps * 32) {
-    const int rows = N - r0 < 32 ? (int)(N - r0) : 32;     // warp-uniform
-    // segment bounds: lane l's row is r0 + l; lanes past the tile and the
-    // skipped row are empty
-    const int hi = offsets[r0 + rows];
-    const int beg = lane < rows ? offsets[r0 + lane] : hi;
-    int end = __shfl_down_sync(FULL, beg, 1);
-    if (lane + 1 >= rows) end = hi;
-    if (r0 + lane == skip_row) end = beg;
-    const int len = end - beg;
-
-    // lane l sums the tile's elements e = l + 32 * it (row e / C, column
-    // e % C): the output tile is contiguous, so its loads and stores coalesce
-    float* __restrict__ to = out + r0 * C;
-    float acc[C];
-#pragma unroll
-    for (int it = 0; it < C; ++it) {
-      const int e = lane + 32 * it;
-      acc[it] = ZERO || e >= rows * C ? 0.0f : table[r0 * C + e];
-    }
-    // level k .. k + SU - 1 of every row's segment a round: the row's lane
-    // reads the entries of `order` (the next round's in flight beside this
-    // round's values) and the lanes of its elements take them by a shuffle
-    const int most = __reduce_max_sync(FULL, len);
-    int oc[SU];
-#pragma unroll
-    for (int u = 0; u < SU; ++u) oc[u] = u < len ? order[beg + u] : -1;
-    for (int k = 0; k < most; k += SU) {                  // warp-uniform
-      int on[SU];
-#pragma unroll
-      for (int u = 0; u < SU; ++u) on[u] = k + SU + u < len ? order[beg + k + SU + u] : -1;
-      // all SU * C loads in flight before the first add; bit it of has[u]:
-      // element it has a term at level k + u
-      float v[SU][C];
-      unsigned has[SU];
-#pragma unroll
-      for (int u = 0; u < SU; ++u) {
-        has[u] = 0;
-#pragma unroll
-        for (int it = 0; it < C; ++it) {
-          const int e = lane + 32 * it;
-          const int r = e / C;                            // < 32: e < 32 * C
-          const int s = __shfl_sync(FULL, oc[u], r);
-          v[u][it] = s >= 0 ? val[(int64_t)s * C + (e - r * C)] : 0.0f;
-          has[u] |= (unsigned)(s >= 0) << it;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < SU; ++u)
-#pragma unroll
-        for (int it = 0; it < C; ++it)
-          if (has[u] >> it & 1u) acc[it] = __fadd_rn(acc[it], v[u][it]);
-#pragma unroll
-      for (int u = 0; u < SU; ++u) oc[u] = on[u];
-    }
-#pragma unroll
-    for (int it = 0; it < C; ++it) {
-      const int e = lane + 32 * it;
-      if (e < rows * C) to[e] = acc[it];
-    }
-  }
-}
-
-// variant: a thread per (row, column) element, SU of its segment's terms a
-// round, the next round's entries of `order` in flight beside this round's.
-// Off: the offset type (int where the table and the values stay below 2^31
-// floats, int64_t otherwise)
-template <int CW, bool ZERO, typename Off>
-__global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restrict__ table,
-                                                           const float* __restrict__ val,
-                                                           const int* __restrict__ order,
-                                                           const int* __restrict__ offsets,
-                                                           Off total, Off skip_row,
-                                                           float* __restrict__ out) {
-  constexpr int C = CW;
+  const int C = CW > 0 ? CW : c_rt;
   for (Off t = (Off)blockIdx.x * SB + threadIdx.x; t < total; t += (Off)gridDim.x * SB) {
     const Off r = t / C;
     const int c = (int)(t - r * C);
@@ -260,7 +176,7 @@ __global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restri
     const int beg = offsets[r];
     const int end = r == skip_row ? beg : offsets[r + 1];
     if (beg < end) {
-      int oc[SU];
+      int oc[SU];                                       // this round's rows of val, or -1
 #pragma unroll
       for (int u = 0; u < SU; ++u) oc[u] = beg + u < end ? order[beg + u] : -1;
       for (int j = beg; j < end; j += SU) {
@@ -281,103 +197,52 @@ __global__ void __launch_bounds__(SB) scatter_elems_kernel(const float* __restri
   }
 }
 
-// any other width: a thread per (row, column), the row's segment in order
-template <bool ZERO>
-__global__ void scatter_rows_generic(const float* __restrict__ table,
-                                     const float* __restrict__ val,
-                                     const int* __restrict__ order,
-                                     const int* __restrict__ offsets, int64_t N, int C,
-                                     int64_t skip_row, float* __restrict__ out) {
-  const int64_t total = N * C;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = t / C;
-    const int c = (int)(t - r * C);
-    float acc = ZERO ? 0.0f : table[t];
-    if (r != skip_row) {
-      const int e = offsets[r + 1];
-      for (int j = offsets[r]; j < e; ++j)
-        acc = __fadd_rn(acc, val[(int64_t)order[j] * C + c]);
-    }
-    out[t] = acc;
-  }
-}
-
-template <int CW, bool ZERO>
+template <int CW, bool ZERO, typename Off>
 static void launch_scatter(const float* table, const float* val, const int* order,
-                           const int* offsets, int64_t N, int64_t skip_row, float* out,
+                           const int* offsets, int64_t N, int C, int64_t skip_row, float* out,
                            cudaStream_t st) {
-#ifdef SCATTER_ELEMS
-#ifdef SCATTER_WIDE
-  using Off = int64_t;
-#else
-  using Off = int;                        // the variant runs only where N * C and M * C fit
-#endif
-  const auto kern = scatter_elems_kernel<CW, ZERO, Off>;
+  const auto kern = scatter_rows_kernel<CW, ZERO, Off>;
   static int cap = 0;
-  const int64_t need = (N * CW + SB - 1) / SB;
-#ifdef SCATTER_FULLGRID
-  kern<<<(unsigned)need, SB, 0, st>>>(
-#else
-  kern<<<grid_of(need, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
-#endif
-      table, val, order, offsets, (Off)(N * CW), (Off)skip_row, out);
-#else
-  const auto kern = scatter_rows_kernel<CW, ZERO>;
-  static int cap = 0;
-  kern<<<grid_of((N + SB - 1) / SB, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
-      table, val, order, offsets, N, skip_row, out);
-#endif
+  kern<<<grid_of((N * C + SB - 1) / SB, resident_blocks(kern, SB, cap)), SB, 0, st>>>(
+      table, val, order, offsets, (Off)(N * C), C, (Off)skip_row, out);
 }
 
-template <bool ZERO>
+template <bool ZERO, typename Off>
 static void dispatch_scatter(const float* table, const float* val, const int* order,
                              const int* offsets, int64_t N, int C, int64_t skip_row,
                              float* out, cudaStream_t st) {
   switch (C) {
     case 9:
-      return launch_scatter<9, ZERO>(table, val, order, offsets, N, skip_row, out, st);
+      return launch_scatter<9, ZERO, Off>(table, val, order, offsets, N, C, skip_row, out, st);
     case 8:
-      return launch_scatter<8, ZERO>(table, val, order, offsets, N, skip_row, out, st);
-    default: {
-      const auto kern = scatter_rows_generic<ZERO>;
-      static int cap = 0;
-      kern<<<grid_of((N * C + 255) / 256, resident_blocks(kern, 256, cap)), 256, 0, st>>>(
-          table, val, order, offsets, N, C, skip_row, out);
-    }
+      return launch_scatter<8, ZERO, Off>(table, val, order, offsets, N, C, skip_row, out, st);
+    default:
+      return launch_scatter<0, ZERO, Off>(table, val, order, offsets, N, C, skip_row, out, st);
   }
-}
-
-// rows idx (M,) of the (N, C) table into out (M, C); the caller has checked
-// every index against N
-extern "C" int gather_rows_launch(const void* table, const void* idx, int64_t N, int64_t M,
-                                  int C, void* out, void* stream) {
-  if (M <= 0 || C <= 0) return (int)cudaGetLastError();
-  const int64_t lim = (int64_t)1 << 31;
-  // 32-bit offsets: table offsets stay below N * C, output offsets and the
-  // tile loop's counter below (M + the grid's rows) * C
-  const bool narrow = N * C < lim && (M + ((int64_t)1 << 22)) * C < lim;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return narrow ? dispatch_gather<int>(table, idx, M, C, out, st)
-                : dispatch_gather<int64_t>(table, idx, M, C, out, st);
 }
 
 // the in-order row sums of val (M, C) at the plan's destinations into out
 // (N, C), from table's rows or, where table is null, from +0.0f; the caller
 // has checked the plan (int32, built from indices in [0, N))
 extern "C" int scatter_rows_launch(const void* table, const void* val, const void* order,
-                                   const void* offsets, int64_t N, int C, int64_t skip_row,
-                                   void* out, void* stream) {
+                                   const void* offsets, int64_t N, int C, int64_t M,
+                                   int64_t skip_row, void* out, void* stream) {
   if (N > 0 && C > 0) {
     const float* t = (const float*)table;
     const float* v = (const float*)val;
     const int* o = (const int*)order;
     const int* f = (const int*)offsets;
     const cudaStream_t st = (cudaStream_t)stream;
+    // 32-bit offsets: the element loop's counter stays below N * C plus the
+    // grid's threads, the value offsets below M * C
+    const int64_t lim = (int64_t)1 << 31;
+    const bool narrow = (N + ((int64_t)1 << 22)) * C < lim && M * C < lim;
     if (t == nullptr)
-      dispatch_scatter<true>(t, v, o, f, N, C, skip_row, (float*)out, st);
+      narrow ? dispatch_scatter<true, int>(t, v, o, f, N, C, skip_row, (float*)out, st)
+             : dispatch_scatter<true, int64_t>(t, v, o, f, N, C, skip_row, (float*)out, st);
     else
-      dispatch_scatter<false>(t, v, o, f, N, C, skip_row, (float*)out, st);
+      narrow ? dispatch_scatter<false, int>(t, v, o, f, N, C, skip_row, (float*)out, st)
+             : dispatch_scatter<false, int64_t>(t, v, o, f, N, C, skip_row, (float*)out, st);
   }
   return (int)cudaGetLastError();
 }

@@ -187,7 +187,7 @@ def _check_scatter(N: int, C: int, idx: torch.Tensor, val: torch.Tensor,
 
 
 _SCATTER_ARGS = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I, _cuda.I64,
-                 _cuda.P, _cuda.P]
+                 _cuda.I64, _cuda.P, _cuda.P]
 
 
 def _launch_scatter(table: Optional[torch.Tensor], N: int, idx: torch.Tensor,
@@ -201,7 +201,7 @@ def _launch_scatter(table: Optional[torch.Tensor], N: int, idx: torch.Tensor,
     f = _cuda.fn("rows", "scatter_rows_launch", _SCATTER_ARGS)
     _cuda.check(f(None if table is None else table.data_ptr(), val.data_ptr(),
                   plan.order.data_ptr(), plan.offsets.data_ptr(), N, val.shape[1],
-                  -1 if skip_row is None else int(skip_row), out.data_ptr(),
+                  val.shape[0], -1 if skip_row is None else int(skip_row), out.data_ptr(),
                   _cuda.stream_ptr(val.device)), "scatter_rows_kernel")
     _cuda.COUNTS["scatter"] += 1
     return out

@@ -30,8 +30,8 @@ from hiding the host).  The scatter rows time the training loop's
 per-iteration scatter step as that checkout's mapper makes it (the zero-base
 ``scatter_sum_rows``, or, in a checkout without it, ``torch.zeros`` and
 ``scatter_add_rows``) at path A's and B's shapes (N = 2^16+1 or 2^18+1 rows,
-C = 9, M = 108132 indices, a share on the sentinel row N - 1 as on the
-paths), and the frame's plan build at (15, 108132), each as ``ms``,
+C = 9, M = 108132 indices on the first rows and a share on the sentinel row
+N - 1, as on the paths), and the frame's plan build at (15, 108132), each as ``ms``,
 ``device_ms`` and ``kernels_ms``; the step's output is held to the float64
 bound and printed as a sha256 digest, so that two checkouts' bits can be
 compared.  ``--defines`` builds that checkout's kernels with ``-D`` each
@@ -55,14 +55,16 @@ GATHERS = [("A-feat", (1 << 16) + 1, 9, 98304), ("B-feat", (1 << 18) + 1, 9, 983
 # rows (eikonal), k = 6, as on both paths
 TRAINS = EIKONALS = [("A", True), ("B", False)]
 RANK_PATHS = ("A", "B", "C")
-# (label, rows N): the training loop's feature table (local capacity + the
-# sentinel row) at path A's and path B's capacities; M = B*k + n_grad*k
-# destination indices an iteration, T iterations a frame, C = F + 1 columns
-SCATTERS = [("A", (1 << 16) + 1), ("B", (1 << 18) + 1)]
+# (label, rows N, rows with terms, sentinel share): the training loop's
+# feature table (local capacity + the sentinel row N - 1) at path A's and
+# path B's capacities.  The terms fall on the local map's first rows, drawn
+# here uniformly from the first R rows (chip_smoke's captured iteration, my
+# chip run, PR 7: 22,666 rows of path A and 15,121 of path B receive terms),
+# and a share of them on the sentinel (A 22,217 and B 8,690 of 108,132).
+# M = B*k + n_grad*k destination indices an iteration, T iterations a
+# frame, C = F + 1 columns.
+SCATTERS = [("A", (1 << 16) + 1, 24576, 0.205), ("B", (1 << 18) + 1, 16384, 0.080)]
 SCATTER_M, SCATTER_T, SCATTER_C = 108132, 15, 9
-# share of the indices on the sentinel row (invalid neighbours): path B's
-# captured iteration in chip_smoke (my chip run, PR 7)
-SENTINEL_SHARE = 0.0
 
 
 def rank_inputs(cs, path):
@@ -152,11 +154,11 @@ def time_scatter(cs, label):
     from pin_slam_torch.ops import _cuda, rows
 
     zero_base = hasattr(rows, "scatter_sum_rows")
-    for name, N in SCATTERS:
+    for name, N, R, share in SCATTERS:
         g = torch.Generator(device="cuda").manual_seed(7)
         L, M, C = N - 1, SCATTER_M, SCATTER_C
-        idx = torch.randint(0, L, (SCATTER_T, M), generator=g, device="cuda")
-        idx[torch.rand(SCATTER_T, M, generator=g, device="cuda") < SENTINEL_SHARE] = L
+        idx = torch.randint(0, R, (SCATTER_T, M), generator=g, device="cuda")
+        idx[torch.rand(SCATTER_T, M, generator=g, device="cuda") < share] = L
         val = torch.randn(M, C, generator=g, device="cuda")
         plans = rows.scatter_plans(idx, N)
         plan, idx0 = rows.plan_at(plans, 0), idx[0]
