@@ -221,6 +221,20 @@ static void dispatch_scatter(const float* table, const float* val, const int* or
   }
 }
 
+// rows idx (M,) of the (N, C) table into out (M, C); the caller has checked
+// every index against N
+extern "C" int gather_rows_launch(const void* table, const void* idx, int64_t N, int64_t M,
+                                  int C, void* out, void* stream) {
+  if (M <= 0 || C <= 0) return (int)cudaGetLastError();
+  const int64_t lim = (int64_t)1 << 31;
+  // 32-bit offsets: table offsets stay below N * C, output offsets and the
+  // tile loop's counter below (M + the grid's rows) * C
+  const bool narrow = N * C < lim && (M + ((int64_t)1 << 22)) * C < lim;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return narrow ? dispatch_gather<int>(table, idx, M, C, out, st)
+                : dispatch_gather<int64_t>(table, idx, M, C, out, st);
+}
+
 // the in-order row sums of val (M, C) at the plan's destinations into out
 // (N, C), from table's rows or, where table is null, from +0.0f; the caller
 // has checked the plan (int32, built from indices in [0, N))
