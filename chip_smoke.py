@@ -1008,12 +1008,12 @@ def scatter_check(out, table, idx, val, skip_row):
     n = torch.bincount(i, minlength=table.shape[0]).double()[:, None]
     err = (out.double() - exact).abs()
     lim = (n + 1.0) * SCATTER_ULP * mag
-    ratio = float((err / torch.clamp(lim, min=1e-300)).max()) if err.numel() else 0.0
+    ratio = float((err / torch.clamp(lim, min=1e-300)).max())
     if bool((err > lim).any()):
         bad = int((err > lim).any(1).sum())
         fail(f"scatter: {bad} rows beyond n * 2^-24 * sum|terms| of the float64 sum "
              f"(max err {float(err.max()):.3e})")
-    return float(err.max()) if err.numel() else 0.0, ratio
+    return float(err.max()), ratio
 
 
 def ordered_check(out, ref, label):
@@ -1062,8 +1062,8 @@ def scatter_bounds(n_rows, C, idx, skip):
     form must read the value rows that are not skipped and their entries of
     the int32 ``order``, the int32 offsets (N + 1), and write the (N, C)
     sums; one add per value element read.  ``table_bound_ms`` is the table
-    form as PRs 2-6 counted it: the table, the int64 indices and every value
-    read, the table written, M * C adds."""
+    form as the int64-plan kernel counted it: the table, the int64 indices
+    and every value read, the table written, M * C adds."""
     M = idx.shape[0]
     m = M - (int((idx == skip).sum()) if skip is not None else 0)
     b, by = bound(4 * (m * C + m + n_rows + 1 + n_rows * C), m * C)
@@ -1071,7 +1071,7 @@ def scatter_bounds(n_rows, C, idx, skip):
     return b, by, tb
 
 
-def scatter_phase(label, n_rows, idx, val, plan, skip, launches, frame_idx=None, seed=0):
+def scatter_phase(label, n_rows, idx, val, plan, skip, launches, frame_idx=None):
     """The row scatter on one input: both forms checked (``scatter_forms``:
     the table form onto a seeded random table); timed, the zero-base form
     (the main path's call, plan given), the plain version and
@@ -1086,7 +1086,7 @@ def scatter_phase(label, n_rows, idx, val, plan, skip, launches, frame_idx=None,
     N, C, M = n_rows, val.shape[1], idx.shape[0]
     if plan is None:
         plan = rows.scatter_plans(idx, N)
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(0)
     table = torch.randn(N, C, generator=g, device="cuda")
     zeros = torch.zeros_like(table)
     out_z, err64, ratio = scatter_forms(N, idx, val, plan, skip, table, label)
@@ -1098,7 +1098,7 @@ def scatter_phase(label, n_rows, idx, val, plan, skip, launches, frame_idx=None,
     b, by, tb = scatter_bounds(N, C, idx, skip)
     row = {"name": f"scatter[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/rows.cu",
            "replaces": "experiments/profile_pallas_gather.py:66", "launches": launches,
-           "max_abs_err": float((out_z - out_p).abs().max()) if out_z.numel() else 0.0, **t,
+           "max_abs_err": float((out_z - out_p).abs().max()), **t,
            "bound_ms": b, "bound_by": by, "table_bound_ms": tb,
            "table_ms": tt["ms"], "table_device_ms": tt["device_ms"],
            "shape": {"N": N, "C": C, "M": M, "skip_row": skip,
@@ -1121,7 +1121,7 @@ def scatter_edge_phase():
     """Both scatter forms at C in {1, 8, 9, 24} (the generic kernel, the
     experiment's and the main path's widths) x N in {1, 33, 4099} x M in
     {0, 1, 5000}, with and without a skipped row: a tenth of the indices on
-    one row (a segment of ~500 that crosses staging rounds), another row fed
+    one row (a segment of ~500 terms, many rounds), another row fed
     only -0.0 terms (+0.0 in the zero-base form); each bit-identical to
     ``scatter_add_rows_ordered`` and across two launches.  Kept out of the
     kernels line."""

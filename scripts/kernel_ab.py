@@ -4,7 +4,7 @@ inputs, and of the append kNN's probe and ranking on the paths' own inputs,
 for the port in this checkout or in another one.
 
     python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
-        [--kernels gather,train,eikonal,rank,scatter] [--defines NAME[,NAME=VALUE]]
+        [--kernels gather,train,eikonal,rank,scatter]
 
 ``--root`` names another checkout (for example an unpacked ``git archive``
 of the parent commit): its ``pin_slam_torch`` is imported and its kernels are
@@ -34,9 +34,7 @@ C = 9, M = 108132 indices on the first rows and a share on the sentinel row
 N - 1, as on the paths), and the frame's plan build at (15, 108132), each as ``ms``,
 ``device_ms`` and ``kernels_ms``; the step's output is held to the float64
 bound and printed as a sha256 digest, so that two checkouts' bits can be
-compared.  ``--defines`` builds that checkout's kernels with ``-D`` each
-(a kernel variant) into their own directory and times those.  Then the
-card's name and power limit.  Needs a CUDA device.
+compared.  Then the card's name and power limit.  Needs a CUDA device.
 """
 
 import argparse
@@ -58,9 +56,9 @@ RANK_PATHS = ("A", "B", "C")
 # (label, rows N, rows with terms, sentinel share): the training loop's
 # feature table (local capacity + the sentinel row N - 1) at path A's and
 # path B's capacities.  The terms fall on the local map's first rows, drawn
-# here uniformly from the first R rows (chip_smoke's captured iteration, my
-# chip run, PR 7: 22,666 rows of path A and 15,121 of path B receive terms),
-# and a share of them on the sentinel (A 22,217 and B 8,690 of 108,132).
+# here uniformly from the first R rows (in chip_smoke's captured iteration on
+# an H100, 22,666 rows of path A and 15,121 of path B receive terms), and a
+# share of them on the sentinel (there A 22,217 and B 8,690 of 108,132).
 # M = B*k + n_grad*k destination indices an iteration, T iterations a
 # frame, C = F + 1 columns.
 SCATTERS = [("A", (1 << 16) + 1, 24576, 0.205), ("B", (1 << 18) + 1, 16384, 0.080)]
@@ -201,7 +199,6 @@ def main():
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernels", default="gather,train,eikonal,rank,scatter")
-    ap.add_argument("--defines", default="")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -220,15 +217,7 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__)))) != root:
         raise SystemExit(f"kernel_ab: imported pin_slam_torch from {_cuda.__file__}, not {root}")
-    if args.defines:
-        defines = args.defines.split(",")
-        out_dir = os.path.join(root, "build", "kernels-" + "-".join(defines))
-        _cuda.build(defines=defines, out_dir=out_dir)
-        for name in sorted(os.path.splitext(f)[0] for f in os.listdir(_cuda.CSRC)
-                           if f.endswith(".cu")):
-            _cuda.use(name, out_dir)
-    else:
-        _cuda.build()
+    _cuda.build()
     label = args.label or root
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, N, C, M in GATHERS if "gather" in which else ():

@@ -306,7 +306,7 @@ def test_ordered_check_tells_signed_zeros_apart():
 def test_scatter_bounds_count_what_each_form_reads():
     """The zero-base bound reads the value rows and int32 order entries that
     are not skipped, the int32 offsets and writes the sums; the table bound
-    is the count PRs 2-6 used: table, int64 indices and every value read,
+    is the int64-plan kernel's count: table, int64 indices and every value read,
     the table written.  At path A's shape with no sentinel terms: ~6.95 MB
     and ~9.47 MB at 3.35 TB/s."""
     N, C, M = (1 << 16) + 1, 9, 108132
