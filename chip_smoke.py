@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, three paths, kernel phases
+    python3 chip_smoke.py            # what the checks run: build, three paths, meshes, kernels
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -54,6 +54,21 @@
    bit-identical), both scatter forms at C in {1, 8, 9, 24} x N in
    {1, 33, 4099} x M in {0, 1, 5000}, with and without a skipped row (the
    in-order sum's bits, two launches bit-identical).
+
+7. End of run, after paths A and C (each after its capture frame):
+   ``SlamSystem.save_artifacts`` with save_map, save_mesh and save_merged_pc
+   on, into a temporary run directory under ``build/``, then
+   ``write_results``.  The ``mesh_A`` / ``mesh_C`` line reports the map's
+   count before and after ``finalize_map`` and its time, the chunks and grid
+   points of the whole-map mesher and its grid query's time (synchronised)
+   and points/s, each chunk's extraction time in numpy and, where the host
+   extension builds from ``native/pin_native.cpp`` into ``build/native``,
+   natively (else ``"native": "unavailable"``), the mesh's size, F-score and
+   Chamfer-L1 against the scene's surfaces, the trajectory's ATE and peak
+   memory.  Gates: the grid query runs on the card; a non-empty mesh of
+   finite vertices whose xy extent covers 0.8 of the map's; ``pin_map.npz``
+   reloads to the finalised map and decoder; every artifact is written;
+   native and numpy extraction agree within tests/test_native.py's bounds.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -217,13 +232,13 @@ class Capture:
 # passes (PGO off); C is the loop-closure slice (run_kitti.yaml with PGO on)
 PATHS = {
     "A": dict(profile=None, caps=(1 << 18, 1 << 16, 1 << 21, 1 << 21), n_rays=1 << 15,
-              n_frames=12, mapping_bucket=0, dedup_budget=0.625),
+              n_frames=12, mapping_bucket=0, dedup_budget=0.625, mesh=True),
     "B": dict(profile="config/lidar_slam/run_kitti.yaml",
               caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 17,
               n_frames=8, mapping_bucket=1 << 16, dedup_budget=0.5),
     "C": dict(profile="config/lidar_slam/run_kitti.yaml",
               caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 14,
-              n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True),
+              n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True, mesh=True),
 }
 # path C's overrides: those of the JAX package's square-loop test
 # (tests/test_full_slam.py), which let a loop close on an 8 m square
@@ -298,7 +313,9 @@ def _stage_ms(stage):
     return {k: float(stage[:, i + 1].mean() * 1e3) for i, k in enumerate(keys)}
 
 
-def run_path(name, cap):
+def run_path(name, cap, mesh=False):
+    """One path's timed frames, its capture frame, and with ``mesh`` (paths
+    marked so) the end-of-run phase on its final map."""
     import torch
 
     from pin_slam_torch.ops import _cuda
@@ -419,8 +436,196 @@ def run_path(name, cap):
     if counts["rank"] or cap.plain_rank_calls:
         fail(f"path {name}: the brick probe went through the per-cell rank kernel "
              f"({counts['rank']}) or the plain brick gather ({cap.plain_rank_calls})")
+    if mesh and p.get("mesh"):
+        mesh_phase(name, system)
     del system
     torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# end of run: finalisation, saved map, whole-map mesh, evaluation
+# ----------------------------------------------------------------------
+
+# numpy and native extraction on one SDF grid (tests/test_native.py's bounds)
+NATIVE_VERTS, NATIVE_FACES, NATIVE_CHAMFER = 2, 4, 1e-5
+
+
+def build_native():
+    """Build the optional host extension into build/native; (status, reason)."""
+    from pin_slam_torch.utils import native
+
+    try:
+        native.build()
+    except RuntimeError as e:
+        return "unavailable", str(e)[-300:]
+    return "built", None
+
+
+def _chamfer(a, b):
+    from scipy.spatial import cKDTree
+
+    return float(0.5 * (cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean()))
+
+
+def mesh_phase(name, system):
+    """``SlamSystem.save_artifacts`` on the path's final map (after its
+    capture frame) with save_map, save_mesh and save_merged_pc on, into a
+    temporary run directory under build/, then ``write_results``.  Times
+    ``finalize_map`` and the grid queries (synchronised) and each chunk's
+    extraction in numpy and, where the extension is built, natively (held
+    to NATIVE_*); gates the mesh (non-empty, finite, xy extent >= 0.8 of
+    the map's), the saved map's reload, and reports the mesh against the
+    scene's surfaces and the trajectory against its ground truth."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pin_slam_torch.eval.mesh import eval_mesh
+    from pin_slam_torch.eval.traj import absolute_error
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.ops import marching_cubes as mcubes
+    from pin_slam_torch.slam.mesher import Mesher
+    from pin_slam_torch.utils import synthetic as syn
+    from pin_slam_torch.utils.experiment import load_implicit_map
+
+    cfg, ds = system.config, system.dataset
+    cfg.save_map = cfg.save_mesh = cfg.save_merged_pc = True
+    if not PATHS[name].get("pgo"):
+        # the corridor's frames come from chip_smoke, not the dataset: give
+        # the dataset the scene's poses for write_results' evaluation
+        n = len(ds.odom_poses)
+        ds.gt_poses = np.tile(np.eye(4), (n, 1, 1))
+        for i in range(n):
+            ds.gt_poses[i, :3, :3], ds.gt_poses[i, :3, 3] = syn.sensor_pose(i)
+        ds.gt_pose_provided = True
+        world = syn.make_world(np.random.default_rng(0))[0]
+    else:
+        world = syn.square_world(np.random.default_rng(SQUARE_SEED))[0]
+    native_status, native_reason = build_native()
+
+    t = {"finalize_ms": 0.0, "query_ms": 0.0, "points": 0, "chunks": 0, "buckets": 0,
+         "numpy_ms": 0.0, "native_ms": 0.0}
+    parity = {"max_vert_diff": 0, "max_face_diff": 0, "max_chamfer": 0.0}
+    orig_fin, orig_q, orig_mt = npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra
+    before = int(system.state.count)
+
+    def fin(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_fin(*a, **kw)
+        torch.cuda.synchronize()
+        t["finalize_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def query(self, lm, *a):
+        if lm.attr_rows.device.type != "cuda":
+            fail(f"mesh {name}: the grid query ran on {lm.attr_rows.device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_q(self, lm, *a)          # ends with its copy to the host
+        t["query_ms"] += (time.perf_counter() - t0) * 1e3
+        t["points"] += len(a[-1])
+        t["chunks"] += 1
+        t["buckets"] += -(-len(a[-1]) // self.cfg.query_bucket)
+        return out
+
+    def extract(sdf, mask=None, **kw):
+        t0 = time.perf_counter()
+        v, f = orig_mt(sdf, mask, use_native=False, **kw)
+        t["numpy_ms"] += (time.perf_counter() - t0) * 1e3
+        if native_status != "built":
+            return v, f
+        t0 = time.perf_counter()
+        vn, fn = orig_mt(sdf, mask, use_native=True, **kw)
+        t["native_ms"] += (time.perf_counter() - t0) * 1e3
+        parity["max_vert_diff"] = max(parity["max_vert_diff"], abs(len(vn) - len(v)))
+        parity["max_face_diff"] = max(parity["max_face_diff"], abs(len(fn) - len(f)))
+        if len(v) and len(vn):
+            parity["max_chamfer"] = max(parity["max_chamfer"], _chamfer(vn, v))
+        return vn, fn
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    run_dir = tempfile.mkdtemp(prefix=f"mesh_{name}_", dir=os.path.join(ROOT, "build"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra = fin, query, extract
+    try:
+        t0 = time.perf_counter()
+        system.save_artifacts(run_dir)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        metrics = ds.write_results(run_dir)
+    finally:
+        npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra = (
+            orig_fin, orig_q, orig_mt)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = int(system.state.count)
+    files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                   for d, _, names in os.walk(run_dir) for f in names)
+
+    verts, faces = getattr(system, "_mesh_cache", (np.zeros((0, 3)), np.zeros((0, 3))))
+    pts = system.state.positions[:after].cpu().numpy()
+    span_pts = pts[:, :2].max(0) - pts[:, :2].min(0)
+    span_mesh = (verts[:, :2].max(0) - verts[:, :2].min(0)) if len(verts) else np.zeros(2)
+    state2, dec2 = load_implicit_map(os.path.join(run_dir, "map", "pin_map.npz"), system.mc,
+                                     system.device)
+    reload_ok = (int(state2.count) == after
+                 and torch.equal(dec2.pack(), system.decoder.pack())
+                 and torch.equal(state2.attr_rows[:after, :10], system.state.attr_rows[:after, :10]))
+    # the scene's surfaces within the sensor's reach of the trajectory
+    traj = np.stack(ds.odom_poses)[:, :3, 3]
+    near = np.zeros(len(world), bool)
+    for c in traj[::4]:
+        near |= np.linalg.norm(world - c, axis=1) < cfg.max_range
+    ev = eval_mesh(verts, faces, world[near], threshold=2 * cfg.mc_res_m) if len(verts) else {}
+    res = {
+        "phase": f"mesh_{name}", "mc_res_m": cfg.mc_res_m, "mesh_min_nn": cfg.mesh_min_nn,
+        "query_bucket": cfg.mesh_query_bucket, "device": str(system.device),
+        "map_points_before": before, "map_points_after": after,
+        "finalize_ms": t["finalize_ms"], "chunks": t["chunks"], "query_buckets": t["buckets"],
+        "grid_points": t["points"],
+        "grid_query_ms": t["query_ms"],
+        "grid_points_per_s": t["points"] / max(t["query_ms"], 1e-9) * 1e3,
+        "extract_numpy_ms": t["numpy_ms"],
+        "native": native_status, "native_reason": native_reason,
+        "extract_native_ms": t["native_ms"] if native_status == "built" else None,
+        "native_vs_numpy": parity if native_status == "built" else None,
+        "save_artifacts_s": save_s, "vertices": int(len(verts)), "faces": int(len(faces)),
+        "mesh_xy_span_m": span_mesh.tolist(), "map_xy_span_m": span_pts.tolist(),
+        "fscore": ev.get("fscore"), "fscore_threshold_m": 2 * cfg.mc_res_m,
+        "chamfer_l1_m": ev.get("chamfer_l1"), "precision": ev.get("precision"),
+        "recall": ev.get("recall"), "gt_points": int(near.sum()),
+        "ate_rmse_m": metrics.get("ate_rmse_m"), "ate_rot_deg": metrics.get("ate_rot_deg"),
+        "ate_rmse_unaligned_m": absolute_error(ds.gt_poses, np.stack(ds.odom_poses),
+                                               align=False)[0],
+        "map_reloads": reload_ok, "files": files,
+        "max_memory_allocated_gb": peak_gb,
+    }
+    emit(res)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if not len(verts) or not len(faces):
+        fail(f"mesh {name}: empty mesh")
+    if not np.isfinite(verts).all():
+        fail(f"mesh {name}: non-finite vertices")
+    if not (span_mesh >= 0.8 * span_pts).all():
+        fail(f"mesh {name}: mesh xy span {span_mesh} m < 0.8 of the map's {span_pts} m")
+    if not reload_ok:
+        fail(f"mesh {name}: pin_map.npz does not reload to the finalised map and decoder")
+    if after <= 0 or after > before:
+        fail(f"mesh {name}: finalize_map left {after} of {before} points")
+    if native_status == "built" and (parity["max_vert_diff"] > NATIVE_VERTS
+                                     or parity["max_face_diff"] > NATIVE_FACES
+                                     or parity["max_chamfer"] >= NATIVE_CHAMFER):
+        fail(f"mesh {name}: native and numpy extraction disagree: {parity}")
+    missing = {"map/pin_map.npz", "map/neural_points.ply", "mesh/mesh.ply",
+               "odom_poses_kitti.txt", "odom_poses_tum.txt", "pose_eval.csv",
+               "time_table.npy"} - set(files)
+    if ds.total_pc_count > 0:
+        missing |= {"map/merged_point_cloud.ply"} - set(files)
+    if missing:
+        fail(f"mesh {name}: artifacts missing: {sorted(missing)}")
     return res
 
 
@@ -1244,7 +1449,7 @@ def main() -> int:
     cap = Capture()
     cap.install()
     try:
-        results = {name: run_path(name, cap) for name in PATHS}
+        results = {name: run_path(name, cap, mesh=True) for name in PATHS}
     finally:
         cap.uninstall()
 

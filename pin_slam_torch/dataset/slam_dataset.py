@@ -2,10 +2,13 @@
 ``pin_slam_tpu/dataset/slam_dataset.py``: KITTI frame discovery and
 preprocessing (range crop, adaptive or fixed, bucket cap), the
 constant-velocity initial guess, odometry and pose-graph poses, travel
-distance, stop and lose-track detection."""
+distance, stop and lose-track detection, and the end-of-run results: the
+trajectory with its evaluation against ground truth, and the merged point
+cloud."""
 
 from __future__ import annotations
 
+import csv
 import os
 from typing import List, Optional
 
@@ -77,15 +80,21 @@ class SLAMDataset:
     def __len__(self):
         return self.total_pc_count
 
+    def read_frame(self, frame_id: int):
+        """(points (N,3) float32, intensity (N,1) or None) of a frame."""
+        if self.scans is not None:
+            scan = np.asarray(self.scans[frame_id])
+            return (scan[:, :3].astype(np.float32),
+                    scan[:, 3:4].astype(np.float32) if scan.shape[1] > 3 else None)
+        points, colors, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
+        return points, colors
+
     def preprocess_frame(self, frame_id: int) -> Frame:
         """Read + range/z crop + random cap at the frame bucket, padded."""
         cfg = self.config
         if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
             raise not_ported("KITTI intrinsic correction")
-        if self.scans is not None:
-            points = np.asarray(self.scans[frame_id])[:, :3].astype(np.float32)
-        else:
-            points, _, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
+        points, _ = self.read_frame(frame_id)
         # adaptive crop range (used for NCD): twice the scan's smaller
         # horizontal half-extent, at most max_range
         crop_max_range = cfg.max_range
@@ -154,12 +163,74 @@ class SLAMDataset:
         self.pgo_poses = [pgo_poses[i].copy() for i in range(len(pgo_poses))]
         self.last_pose = self.pgo_poses[-1].copy()
 
-    def write_results(self, run_path: str) -> None:
+    def write_results(self, run_path: str) -> dict:
         """The trajectory (pose-graph poses when PGO is on, else odometry) in
-        KITTI format, and the stage time table."""
+        KITTI and TUM formats, the stage time table, the trajectory plots,
+        and with ground truth the ATE / drift metrics (``pose_eval.csv``),
+        which it returns ({} without ground truth)."""
+        from pin_slam_torch.eval.traj import absolute_error, plot_trajectories, relative_error
+
         os.makedirs(run_path, exist_ok=True)
-        poses = self.pgo_poses if self.config.pgo_on else self.odom_poses
-        pio.write_kitti_poses(os.path.join(run_path, "odom_poses_kitti.txt"),
-                              np.asarray(poses))
+        poses = np.asarray(self.pgo_poses if self.config.pgo_on else self.odom_poses)
+        pio.write_kitti_poses(os.path.join(run_path, "odom_poses_kitti.txt"), poses)
+        pio.write_tum_poses(os.path.join(run_path, "odom_poses_tum.txt"), poses)
         if self.time_table:
             np.save(os.path.join(run_path, "time_table.npy"), np.asarray(self.time_table))
+        metrics = {}
+        if self.gt_pose_provided and len(poses) > 1:
+            gt = self.gt_poses[: len(poses)]
+            ate_rmse, ate_rot = absolute_error(gt, poses, align=self.config.eval_traj_align)
+            drift, drift_rot = relative_error(gt, poses)
+            metrics = {"ate_rmse_m": ate_rmse, "ate_rot_deg": ate_rot,
+                       "drift_percent": drift, "drift_deg_per_m": drift_rot}
+            with open(os.path.join(run_path, "pose_eval.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(list(metrics.keys()))
+                w.writerow([f"{v:.6f}" for v in metrics.values()])
+            plot_trajectories(run_path, poses, gt)
+        elif len(poses) > 1:
+            plot_trajectories(run_path, poses)
+        return metrics
+
+    def write_merged_point_cloud(self, run_path: str, vox_down_m: float = 0.1,
+                                 frame_stride: int = 2,
+                                 max_points_per_frame: int = 30000) -> str:
+        """Every ``frame_stride``-th frame, range-cropped and capped, through the
+        final poses into one cloud with the first point of each
+        ``vox_down_m`` voxel, intensity as grey (``map/merged_point_cloud.ply``)."""
+        cfg = self.config
+        poses = self.pgo_poses if cfg.pgo_on else self.odom_poses
+        rng = np.random.default_rng(cfg.seed)
+        worlds, cols = [], []
+        for i in range(0, min(len(poses), self.total_pc_count), max(frame_stride, 1)):
+            points, colors = self.read_frame(i)
+            d = np.linalg.norm(points, axis=1)
+            keep = (d > cfg.min_range) & (d < cfg.max_range)
+            points = points[keep]
+            colors = colors[keep] if colors is not None else None
+            if points.shape[0] > max_points_per_frame:
+                sel = rng.choice(points.shape[0], max_points_per_frame, replace=False)
+                points = points[sel]
+                colors = colors[sel] if colors is not None else None
+            T = poses[i]
+            worlds.append(points @ T[:3, :3].T + T[:3, 3])
+            cols.append(colors)
+        pts = np.zeros((0, 3), np.float32)
+        col = None
+        if worlds:
+            world = np.concatenate(worlds)
+            keys = np.floor(world / vox_down_m).astype(np.int64)
+            # the first point of every voxel, in order of first appearance
+            _, first = np.unique(keys, axis=0, return_index=True)
+            first = np.sort(first)
+            pts = world[first].astype(np.float32)
+            if first.size and cols[0] is not None:
+                col = np.concatenate(cols)[first].astype(np.float32)
+                if col.shape[1] == 1:                  # intensity -> grey RGB
+                    col = np.repeat(col, 3, axis=1)
+                if col.max(initial=0) > 1.0:
+                    col = col / 255.0
+        out = os.path.join(run_path, "map", "merged_point_cloud.ply")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        pio.write_ply(out, pts, colors=col)
+        return out

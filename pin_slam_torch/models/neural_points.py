@@ -1,9 +1,10 @@
 """Neural point map, torch counterpart of ``pin_slam_tpu/models/neural_points.py``
-(main-path and loop-closure subset): a fixed-capacity structure-of-arrays
-point buffer whose last row is a sentinel, a global voxel hash, the
-per-frame local map with its packed local hash, kNN probes, IDW feature
-interpolation, and the elastic deformation and rehash after a pose-graph
-optimisation.
+(main-path, loop-closure and end-of-run subset): a fixed-capacity
+structure-of-arrays point buffer whose last row is a sentinel, a global
+voxel hash, the per-frame local map with its packed local hash, kNN probes,
+IDW feature interpolation, the elastic deformation and rehash after a
+pose-graph optimisation, and at the end of a run the map's finalisation and
+the read-only whole-map views the mesher queries.
 
 The row layouts are the JAX package's, so the two can be compared row for
 row.  Where the JAX package returns new arrays (XLA donation), the port
@@ -382,6 +383,37 @@ def build_local_map(state: MapState, mc: MapConfig, origin: torch.Tensor,
                     hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad))
 
 
+def build_query_view(state: MapState, mc: MapConfig, origin: torch.Tensor,
+                     radius: float) -> LocalMap:
+    """Read-only local map over every point within ``radius`` of ``origin``:
+    no travel window and no contiguous spans (members may lie anywhere in
+    the index range); on overflow the oldest ``local_capacity`` are kept.
+    For whole-map queries (chunked meshing), never for training:
+    ``assign_local_to_global`` needs the spans ``build_local_map`` makes."""
+    dev = state.attr_rows.device
+    cap, L = mc.capacity, mc.local_capacity
+    dist2 = sqnorm3(state.attr_rows[:cap, C_POS] - origin)
+    rows = torch.arange(cap, dtype=torch.int64, device=dev)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    mask = (rows < state.count) & (dist2 < r * r)
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    mask = mask & (rank < L)
+
+    idx_pad = torch.cat([nonzero_static(mask, L, cap),
+                         torch.full((1,), cap, dtype=torch.int64, device=dev)])
+    count = torch.sum(mask)
+    attr_rows = state.attr_rows[idx_pad]
+    attr_rows[L] = attr_sentinel_row(dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return LocalMap(indices=idx_pad, attr_rows=attr_rows,
+                    geo_features=state.geo_features[idx_pad], count=count,
+                    member_mask=torch.cat([mask, torch.zeros((1,), dtype=torch.bool,
+                                                             device=dev)]),
+                    lo1=zero, lo2=zero.clone(),
+                    origin=origin.to(torch.float32).clone(),
+                    hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad))
+
+
 def assign_local_to_global(state: MapState, lm: LocalMap, mc: MapConfig,
                            travel_dist: Optional[torch.Tensor] = None) -> MapState:
     """Write trained local features + certainty/ts bookkeeping back into the
@@ -582,6 +614,43 @@ def recreate_hash(state: MapState, mc: MapConfig, cur_ts: int,
     state.hash_table = scatter_set_last(table, slot,
                                         torch.where(keep, idx, torch.full_like(idx, cap)))
     return state
+
+
+def finalize_map(state: MapState, mc: MapConfig, travel_dist: torch.Tensor, cur_ts: int,
+                 prune_certainty_thre: float,
+                 downsample_table_size: int = 1 << 21) -> MapState:
+    """End-of-run map finalisation: merge duplicate neural points (one per
+    voxel, the one whose timestamp is closest to ``cur_ts``), prune the
+    inactive low-certainty ones, compact the survivors to the front of the
+    buffer in index order and rebuild the hash over them.  Returns a new
+    state; ``state`` is not modified."""
+    dev = state.attr_rows.device
+    cap = mc.capacity
+    rows = torch.arange(cap + 1, dtype=torch.int64, device=dev)
+    active = rows < state.count
+    ts_diff = torch.abs(_ts_used(state, mc) - int(cur_ts)).to(torch.float32)
+    keep_voxel = voxel_down_sample_min_value_mask(state.attr_rows[:, C_POS], active,
+                                                  mc.voxel_size, ts_diff,
+                                                  downsample_table_size)
+    diff_travel = torch.abs(travel_dist[int(cur_ts)] - state.attr_rows[:, C_TRU])
+    prune = (diff_travel > mc.travel_dist_window) \
+        & (state.attr_rows[:, C_CERT] < prune_certainty_thre)
+    keep = active & keep_voxel & ~prune
+
+    perm = nonzero_static(keep, cap + 1, cap)
+    count = torch.sum(keep)
+    in_count = rows < count
+    attr_rows = torch.where(in_count[:, None], state.attr_rows[perm],
+                            attr_sentinel_row(dev)[None, :])
+    geo_features = torch.where(in_count[:, None], state.geo_features[perm],
+                               torch.zeros((), dtype=torch.float32, device=dev))
+    h = spatial_hash(grid_coords(attr_rows[:, C_POS], mc.voxel_size), mc.hash_size)
+    slot = torch.where(in_count, h, torch.full_like(h, mc.hash_size))
+    table = torch.full((mc.hash_size + 1,), cap, dtype=torch.int64, device=dev)
+    hash_table = scatter_set_last(table, slot,
+                                  torch.where(in_count, rows, torch.full_like(rows, cap)))
+    return MapState(attr_rows=attr_rows, geo_features=geo_features, count=count,
+                    hash_table=hash_table)
 
 
 # ----------------------------------------------------------------------

@@ -27,6 +27,11 @@ health-gate decisions on the host.  Every random draw comes from one
 ``RandomSource`` (a ``torch.Generator`` on the device); tests substitute the
 JAX package's draws.
 
+At the end of a run (``run`` -> ``save_artifacts``) the map is finalised
+(merged and pruned) and, as the configuration asks, saved (``pin_map.npz``,
+``neural_points.ply``), the merged point cloud written, and the whole map
+meshed chunk by chunk on the device (``mesh/mesh.ply``).
+
 Options this slice does not port raise ``NotImplementedError`` pointing at
 ROADMAP.md; none is ignored silently.
 """
@@ -40,9 +45,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pin_slam_torch.dataset import io as pio
 from pin_slam_torch.dataset.slam_dataset import Frame, SLAMDataset
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder
+from pin_slam_torch.ops.marching_cubes import vertex_normals
 from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
 from pin_slam_torch.ops.scatter import nonzero_static
 from pin_slam_torch.ops.transforms import np_se3_inverse
@@ -51,6 +58,8 @@ from pin_slam_torch.slam import loop_detector as ld
 from pin_slam_torch.slam import mapper as mp
 from pin_slam_torch.slam import pgo as pgo_mod
 from pin_slam_torch.slam import tracker as trk
+from pin_slam_torch.slam.mesher import Mesher, MesherConfig, split_chunks
+from pin_slam_torch.utils.experiment import save_implicit_map
 from pin_slam_torch.utils.platform import not_ported, resolve_device
 
 TS_CAPACITY = 1 << 16
@@ -60,8 +69,12 @@ def check_ported(cfg) -> None:
     """Raise for every option this slice of the port does not cover."""
     unported = [
         ("ba_freq_frame > 0", cfg.ba_freq_frame > 0),
-        ("dp_devices > 1", cfg.dp_devices > 1), ("map_shards > 1", cfg.map_shards > 1),
-        ("semantic_on", cfg.semantic_on), ("color_on", cfg.color_on or cfg.color_map_on),
+        ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
+         cfg.dp_devices > 1),
+        ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
+        ("semantic_on (the head and vertex painting, ROADMAP A 11)", cfg.semantic_on),
+        ("color_on (the head and vertex painting, ROADMAP A 11)",
+         cfg.color_on or cfg.color_map_on),
         ("estimate_normal", cfg.estimate_normal),
         ("dynamic_filter_on", cfg.dynamic_filter_on),
         ("pos_encoding_band > 0", cfg.pos_encoding_band > 0),
@@ -158,6 +171,7 @@ class SlamSystem:
         self.lm_origin64 = np.zeros(3)
         self.frame_id = 0
         self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
+        self.metrics = {}          # the trajectory's, set by run()
         self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
         self._stop_count = 0
 
@@ -533,13 +547,99 @@ class SlamSystem:
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
 
-    def run(self, num_frames: Optional[int] = None) -> list:
-        """Process the dataset's frames; writes the trajectory (pose-graph
-        poses with ``pgo_on``)."""
+    def save_artifacts(self, run_path: str) -> None:
+        """End-of-run artifacts: the final pose graph and loop plot, the
+        finalised map (merge + prune, compacted), the time table, and as the
+        configuration asks the implicit map, the neural-point and merged
+        clouds, and the whole-map mesh.  Finalisation compacts ``self.state``:
+        call this after the last frame."""
         cfg = self.config
-        for name in ("save_map", "save_mesh", "save_merged_pc"):
-            if getattr(cfg, name):
-                raise not_ported(f"{name} (map/mesh artifacts)")
+        os.makedirs(os.path.join(run_path, "map"), exist_ok=True)
+        if self.pgm is not None and self.pgm.pgo_count > 0:
+            self.pgm.write_g2o(os.path.join(run_path, "final_pose_graph.g2o"))
+            self.pgm.plot_loops(os.path.join(run_path, "loop_plot.png"))
+
+        with torch.no_grad():
+            self.state = npts.finalize_map(
+                self.state, self.mc, self._travel, max(self.frame_id - 1, 0),
+                prune_certainty_thre=float(cfg.max_prune_certainty),
+                downsample_table_size=cfg.downsample_hash_size)
+        if self.stage_times:
+            tt = np.asarray(self.stage_times)
+            np.save(os.path.join(run_path, "time_table.npy"), tt)
+            _plot_stage_times(os.path.join(run_path, "time_details.png"), tt)
+
+        count = int(self.state.count)
+        pts = self.state.positions[:count].cpu().numpy()
+        if cfg.save_map:
+            save_implicit_map(os.path.join(run_path, "map", "pin_map.npz"), self.state,
+                              self.decoder)
+        if cfg.save_merged_pc or cfg.save_map:
+            pio.write_ply(os.path.join(run_path, "map", "neural_points.ply"), pts,
+                          extra={"certainty": self.state.attr_rows[:count, npts.C_CERT]
+                                 .cpu().numpy()})
+        if cfg.save_merged_pc and self.dataset.total_pc_count > 0:
+            self.dataset.write_merged_point_cloud(run_path, vox_down_m=3 * cfg.vox_down_m)
+        if cfg.save_mesh and count > 0:
+            verts, faces = self.mesh_map(pts)
+            if len(verts):
+                os.makedirs(os.path.join(run_path, "mesh"), exist_ok=True)
+                pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
+                              normals=vertex_normals(verts, faces), faces=faces)
+                self._mesh_cache = (verts, faces)
+        if not cfg.silence:
+            print(f"[pipeline] {not_ported('viewer.html export (ROADMAP A 11)')}", flush=True)
+
+    def mesh_map(self, pts: np.ndarray):
+        """The whole map's mesh from read-only radius views
+        (``build_query_view``), one for each chunk of the map's extent.  The
+        chunk size halves from 60 m until every chunk's view (a sphere of
+        the chunk's half-diagonal plus the kNN reach) holds at most 0.7 of
+        ``local_capacity`` points: a saturated view drops points and leaves
+        holes."""
+        cfg, mc = self.config, self.mc
+        mesher = Mesher(MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
+                                     min_cluster_vertices=cfg.min_cluster_vertices,
+                                     query_bucket=cfg.mesh_query_bucket),
+                        mc, self.offsets)
+        margin = float(np.sqrt(mc.max_valid_dist2)) + 1.0
+        chunk_m = 60.0
+        while chunk_m > 4.0:
+            chunks = split_chunks(pts, chunk_m=chunk_m, pad=1.0)
+            biggest = 0
+            for a, b in chunks:
+                center = (a + b) / 2.0
+                radius = float(np.linalg.norm((b - a) / 2.0)) + margin
+                biggest = max(biggest, int((np.linalg.norm(pts - center, axis=1)
+                                            < radius).sum()))
+            if biggest <= 0.7 * mc.local_capacity:
+                break
+            chunk_m /= 2.0
+        all_v, all_f, off = [], [], 0
+        for amin, amax in chunks:
+            center = ((amin + amax) / 2).astype(np.float32)
+            radius = float(np.linalg.norm((amax - amin) / 2)) + margin
+            with torch.no_grad():
+                view = npts.build_query_view(self.state, mc, self._f32_dev(center),
+                                             np.float32(radius))
+            if int(view.count) >= mc.local_capacity and not cfg.silence:
+                print(f"[pipeline] save_mesh: chunk at {center} overflows local "
+                      f"capacity {mc.local_capacity}; reduce chunk_m")
+            v, f = mesher.recon_aabb_mesh(view, self.decoder, self.sdf_scale, amin, amax)
+            if v.shape[0] == 0:
+                continue
+            all_v.append(v)
+            all_f.append(f + off)
+            off += v.shape[0]
+        if not all_v:
+            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
+        return np.concatenate(all_v), np.concatenate(all_f)
+
+    def run(self, num_frames: Optional[int] = None) -> list:
+        """Process the dataset's frames, then write the results (trajectory,
+        with ground truth its metrics, kept in ``self.metrics``) and the
+        end-of-run artifacts; returns each frame's info dict."""
+        cfg = self.config
         n = len(self.dataset) if num_frames is None else min(num_frames, len(self.dataset))
         end = cfg.end_frame if cfg.end_frame > 0 else n
         infos = []
@@ -547,6 +647,29 @@ class SlamSystem:
             infos.append(self.process_frame(self.dataset.preprocess_frame(i)))
             if not cfg.silence:
                 print(f"frame {i}: {infos[-1]}", flush=True)
-        self.dataset.write_results(cfg.run_path or os.path.join(cfg.output_root,
-                                                                cfg.name or "run"))
+        run_path = cfg.run_path or os.path.join(cfg.output_root, cfg.name or "run")
+        self.metrics = self.dataset.write_results(run_path)
+        self.save_artifacts(run_path)
         return infos
+
+
+def _plot_stage_times(path: str, tt: np.ndarray) -> None:
+    """Stacked per-frame stage times with the 10 Hz line (skipped without
+    matplotlib)."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:
+        return
+    labels = ["preprocess", "odometry", "map update", "map optimization", "loop & pgo"]
+    fig, ax = plt.subplots(figsize=(8, 4))
+    ax.stackplot(np.arange(tt.shape[0]), (tt * 1e3).T, labels=labels)
+    ax.axhline(100.0, color="k", ls="--", lw=1, label="100 ms (10 Hz)")
+    ax.set_xlabel("frame")
+    ax.set_ylabel("time (ms)")
+    ax.legend(loc="upper left", fontsize=8)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)

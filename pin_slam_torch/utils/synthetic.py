@@ -2,7 +2,8 @@
 corridor world, a smooth sensor trajectory, and an occlusion-aware scan
 simulator (a copy of the JAX package's bench scene, ``bench.py``, so the port
 and the JAX package can be driven with identical frames); and the square-loop
-scene of the JAX package's loop-closure test, in memory."""
+scene of the JAX package's loop-closure test, in memory, and its
+surfaces (``square_world``)."""
 
 import numpy as np
 
@@ -99,16 +100,9 @@ def lidar_scan(rng, world, origin, R, n_pts, max_range=20.0,
     return pts[sub].astype(np.float32)
 
 
-def make_square_scene(rng, side=8.0, step=0.8):
-    """The square-loop scene of the JAX package's loop-closure test
-    (``tests/test_full_slam.py``), in memory: a rounded square path of side
-    ``side`` in a cluttered 30 x 30 m room, driven once around and along the
-    first leg again (a genuine revisit), with occlusion-aware, backface-culled
-    scans.  Draws from ``rng`` in the same order as the on-disk version (the
-    intensity column included), so a seed gives the same frames.
-
-    Returns (scans: list of (N, 4) float32 [x, y, z, intensity] in the sensor
-    frame, poses (n, 4, 4) float64 world <- sensor)."""
+def square_world(rng, side=8.0):
+    """The square-loop scene's surfaces: (points (N,3), outward normals (N,3)),
+    drawn first from ``rng`` by ``make_square_scene``."""
     world, normals = [], []
     g = rng.uniform([-15, -15, 0], [15, 15, 0], size=(20000, 3))
     g[:, 2] = -1.5 + 0.02 * rng.standard_normal(20000)
@@ -135,8 +129,21 @@ def make_square_scene(rng, side=8.0, step=0.8):
         world.append(np.column_stack([cx + radius * np.cos(ang), cy + radius * np.sin(ang),
                                       rng.uniform(-1.5, 1.5, 4000)]))
         normals.append(np.column_stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)]))
-    world = np.concatenate(world).astype(np.float32)
-    normals = np.concatenate(normals).astype(np.float32)
+    return (np.concatenate(world).astype(np.float32),
+            np.concatenate(normals).astype(np.float32))
+
+
+def make_square_scene(rng, side=8.0, step=0.8):
+    """The square-loop scene of the JAX package's loop-closure test
+    (``tests/test_full_slam.py``), in memory: a rounded square path of side
+    ``side`` in a cluttered 30 x 30 m room, driven once around and along the
+    first leg again (a genuine revisit), with occlusion-aware, backface-culled
+    scans.  Draws from ``rng`` in the same order as the on-disk version (the
+    intensity column included), so a seed gives the same frames.
+
+    Returns (scans: list of (N, 4) float32 [x, y, z, intensity] in the sensor
+    frame, poses (n, 4, 4) float64 world <- sensor)."""
+    world, normals = square_world(rng, side)
 
     # rounded-square centreline parameterised by arc length, so the path
     # closes exactly; the corner radius keeps the turn rate near 5 deg/frame
