@@ -68,7 +68,14 @@
    memory.  Gates: the grid query runs on the card; a non-empty mesh of
    finite vertices whose xy extent covers 0.8 of the map's; ``pin_map.npz``
    reloads to the finalised map and decoder; every artifact is written;
-   native and numpy extraction agree within tests/test_native.py's bounds.
+   no chunk's view overflows the local capacity; native and numpy
+   extraction agree within tests/test_native.py's bounds.  On path C the
+   mesher runs once more with views of 2^13 rows (its ``multi_chunk``
+   entry), so that the map needs several chunks and views: gated on more
+   than one chunk, no view overflowing, the xy extent, and a Chamfer
+   distance to the one-chunk mesh of at most MULTI_CHAMFER_FRAC x
+   mc_res_m; and a whole-map view of 2^13 rows, which overflows (the oldest
+   kept), must equal the same view built on the CPU.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -238,7 +245,8 @@ PATHS = {
               n_frames=8, mapping_bucket=1 << 16, dedup_budget=0.5),
     "C": dict(profile="config/lidar_slam/run_kitti.yaml",
               caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 14,
-              n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True, mesh=True),
+              n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True, mesh=True,
+              multi_chunk_L=1 << 13),
 }
 # path C's overrides: those of the JAX package's square-loop test
 # (tests/test_full_slam.py), which let a loop close on an 8 m square
@@ -462,6 +470,50 @@ def build_native():
     return "built", None
 
 
+# the multi-chunk mesh against the one-chunk mesh of the same map: the same
+# SDF (each view holds every point its grid points reach) up to rounding
+MULTI_CHAMFER_FRAC = 0.1
+
+
+def _xy_span(verts):
+    return (verts[:, :2].max(0) - verts[:, :2].min(0)) if len(verts) else np.zeros(2)
+
+
+def multi_chunk_mesh(system, pts, L):
+    """The whole-map mesher once more on the finalised map, with views of
+    ``L`` rows instead of the map's local capacity, so that the map needs
+    several chunks (``split_chunks`` halving, one ``build_query_view`` each);
+    and one view of ``L`` rows over the whole map, which overflows (the
+    oldest ``L`` kept), built on the card and on the CPU."""
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+
+    mc0 = system.mc
+    system.mc = dataclasses.replace(mc0, local_capacity=L)
+    try:
+        verts, faces, counts = system.mesh_map(pts)
+        centre = torch.as_tensor(pts.mean(0), dtype=torch.float32)
+        radius = np.float32(1e4)
+        with torch.no_grad():
+            card = npts.build_query_view(system.state, system.mc, centre.to(system.device),
+                                         radius)
+            cpu_state = dataclasses.replace(
+                system.state, **{f.name: getattr(system.state, f.name).cpu()
+                                 for f in dataclasses.fields(system.state)})
+            host = npts.build_query_view(cpu_state, system.mc, centre, radius)
+    finally:
+        system.mc = mc0
+    same = int(host.count) == L < len(pts) and all(
+        torch.equal(getattr(card, f).cpu(), getattr(host, f))
+        for f in ("indices", "count", "member_mask", "hash_rows", "attr_rows", "geo_features"))
+    return {"local_capacity": L, "chunks": len(counts), "view_counts": counts,
+            "max_view_count": max(counts, default=0), "vertices": int(len(verts)),
+            "faces": int(len(faces)), "finite": bool(np.isfinite(verts).all()),
+            "mesh_xy_span_m": _xy_span(verts).tolist(), "verts": verts,
+            "overflow_view_count": int(card.count), "overflow_view_equal_cpu": same}
+
+
 def _chamfer(a, b):
     from scipy.spatial import cKDTree
 
@@ -505,8 +557,12 @@ def mesh_phase(name, system):
         world = syn.square_world(np.random.default_rng(SQUARE_SEED))[0]
     native_status, native_reason = build_native()
 
-    t = {"finalize_ms": 0.0, "query_ms": 0.0, "points": 0, "chunks": 0, "buckets": 0,
-         "numpy_ms": 0.0, "native_ms": 0.0}
+    t = {"finalize_ms": 0.0}
+
+    def zero_counts():
+        t.update(query_ms=0.0, points=0, buckets=0, numpy_ms=0.0, native_ms=0.0)
+
+    zero_counts()
     parity = {"max_vert_diff": 0, "max_face_diff": 0, "max_chamfer": 0.0}
     orig_fin, orig_q, orig_mt = npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra
     before = int(system.state.count)
@@ -527,7 +583,6 @@ def mesh_phase(name, system):
         out = orig_q(self, lm, *a)          # ends with its copy to the host
         t["query_ms"] += (time.perf_counter() - t0) * 1e3
         t["points"] += len(a[-1])
-        t["chunks"] += 1
         t["buckets"] += -(-len(a[-1]) // self.cfg.query_bucket)
         return out
 
@@ -553,22 +608,36 @@ def mesh_phase(name, system):
     npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra = fin, query, extract
     try:
         t0 = time.perf_counter()
-        system.save_artifacts(run_dir)
+        mesh = system.save_artifacts(run_dir)
         torch.cuda.synchronize()
         save_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        main = dict(t)
         metrics = ds.write_results(run_dir)
+        after = int(system.state.count)
+        pts = system.state.positions[:after].cpu().numpy()
+        multi = None
+        if PATHS[name].get("multi_chunk_L"):
+            zero_counts()
+            multi = multi_chunk_mesh(system, pts, PATHS[name]["multi_chunk_L"])
+            multi.update(grid_points=t["points"], query_buckets=t["buckets"],
+                         grid_query_ms=t["query_ms"],
+                         grid_points_per_s=t["points"] / max(t["query_ms"], 1e-9) * 1e3,
+                         extract_numpy_ms=t["numpy_ms"])
     finally:
         npts.finalize_map, Mesher.query_sdf_grid, mcubes.marching_tetrahedra = (
             orig_fin, orig_q, orig_mt)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    after = int(system.state.count)
     files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
                    for d, _, names in os.walk(run_dir) for f in names)
 
-    verts, faces = getattr(system, "_mesh_cache", (np.zeros((0, 3)), np.zeros((0, 3))))
-    pts = system.state.positions[:after].cpu().numpy()
+    empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64), [])
+    verts, faces, view_counts = mesh if mesh is not None else empty
     span_pts = pts[:, :2].max(0) - pts[:, :2].min(0)
-    span_mesh = (verts[:, :2].max(0) - verts[:, :2].min(0)) if len(verts) else np.zeros(2)
+    span_mesh = _xy_span(verts)
+    if multi is not None:
+        mverts = multi.pop("verts")
+        multi["chamfer_to_one_chunk_m"] = (_chamfer(mverts, verts)
+                                           if len(verts) and len(mverts) else None)
     state2, dec2 = load_implicit_map(os.path.join(run_dir, "map", "pin_map.npz"), system.mc,
                                      system.device)
     reload_ok = (int(state2.count) == after
@@ -584,13 +653,14 @@ def mesh_phase(name, system):
         "phase": f"mesh_{name}", "mc_res_m": cfg.mc_res_m, "mesh_min_nn": cfg.mesh_min_nn,
         "query_bucket": cfg.mesh_query_bucket, "device": str(system.device),
         "map_points_before": before, "map_points_after": after,
-        "finalize_ms": t["finalize_ms"], "chunks": t["chunks"], "query_buckets": t["buckets"],
-        "grid_points": t["points"],
-        "grid_query_ms": t["query_ms"],
-        "grid_points_per_s": t["points"] / max(t["query_ms"], 1e-9) * 1e3,
-        "extract_numpy_ms": t["numpy_ms"],
+        "finalize_ms": t["finalize_ms"], "chunks": len(view_counts),
+        "view_counts": view_counts, "local_capacity": system.mc.local_capacity,
+        "query_buckets": main["buckets"], "grid_points": main["points"],
+        "grid_query_ms": main["query_ms"],
+        "grid_points_per_s": main["points"] / max(main["query_ms"], 1e-9) * 1e3,
+        "extract_numpy_ms": main["numpy_ms"],
         "native": native_status, "native_reason": native_reason,
-        "extract_native_ms": t["native_ms"] if native_status == "built" else None,
+        "extract_native_ms": main["native_ms"] if native_status == "built" else None,
         "native_vs_numpy": parity if native_status == "built" else None,
         "save_artifacts_s": save_s, "vertices": int(len(verts)), "faces": int(len(faces)),
         "mesh_xy_span_m": span_mesh.tolist(), "map_xy_span_m": span_pts.tolist(),
@@ -601,7 +671,7 @@ def mesh_phase(name, system):
         "ate_rmse_unaligned_m": absolute_error(ds.gt_poses, np.stack(ds.odom_poses),
                                                align=False)[0],
         "map_reloads": reload_ok, "files": files,
-        "max_memory_allocated_gb": peak_gb,
+        "max_memory_allocated_gb": peak_gb, "multi_chunk": multi,
     }
     emit(res)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -611,6 +681,20 @@ def mesh_phase(name, system):
         fail(f"mesh {name}: non-finite vertices")
     if not (span_mesh >= 0.8 * span_pts).all():
         fail(f"mesh {name}: mesh xy span {span_mesh} m < 0.8 of the map's {span_pts} m")
+    if max(view_counts, default=0) >= system.mc.local_capacity:
+        fail(f"mesh {name}: a chunk's view overflows {system.mc.local_capacity}: {view_counts}")
+    if multi is not None:
+        if multi["chunks"] < 2 or multi["max_view_count"] >= multi["local_capacity"]:
+            fail(f"mesh {name}: the multi-chunk mesh took {multi['chunks']} chunks, views "
+                 f"up to {multi['max_view_count']} of {multi['local_capacity']}")
+        if not (np.array(multi["mesh_xy_span_m"]) >= 0.8 * span_pts).all():
+            fail(f"mesh {name}: multi-chunk mesh xy span {multi['mesh_xy_span_m']} m "
+                 f"< 0.8 of the map's {span_pts} m")
+        ch = multi["chamfer_to_one_chunk_m"]
+        if not multi["finite"] or ch is None or ch > MULTI_CHAMFER_FRAC * cfg.mc_res_m:
+            fail(f"mesh {name}: the multi-chunk mesh differs from the one-chunk mesh: {multi}")
+        if not multi["overflow_view_equal_cpu"]:
+            fail(f"mesh {name}: an overflowing view on the card differs from the CPU's")
     if not reload_ok:
         fail(f"mesh {name}: pin_map.npz does not reload to the finalised map and decoder")
     if after <= 0 or after > before:

@@ -36,15 +36,6 @@ class MesherConfig:
     semantic_on: bool = False
     color_on: bool = False
 
-    @staticmethod
-    def from_config(cfg) -> "MesherConfig":
-        return MesherConfig(
-            mc_res_m=cfg.mc_res_m, pad_voxel=cfg.pad_voxel,
-            skip_top_voxel=cfg.skip_top_voxel, mc_mask_on=cfg.mc_mask_on,
-            mesh_min_nn=cfg.mesh_min_nn, min_cluster_vertices=cfg.min_cluster_vertices,
-            query_bucket=cfg.mesh_query_bucket, semantic_on=cfg.semantic_on,
-            color_on=cfg.color_on)
-
 
 def grid_query(lm: npts.LocalMap, mc: npts.MapConfig, decoder: Decoder, sdf_scale: float,
                offsets: torch.Tensor, pts: torch.Tensor):
@@ -117,11 +108,14 @@ class Mesher:
     def recon_aabb_collections_mesh(self, lm, decoder: Decoder, sdf_scale: float,
                                     aabbs: List[Tuple[np.ndarray, np.ndarray]]
                                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Chunked reconstruction over a list of boxes, one mesh."""
+        """Chunked reconstruction over a list of boxes, one mesh.  ``lm`` is
+        one view for every box, or a function ``(amin, amax) -> view`` that
+        gives each box its own, built when the box is meshed."""
         all_v, all_f = [], []
         off = 0
         for amin, amax in aabbs:
-            v, f = self.recon_aabb_mesh(lm, decoder, sdf_scale, amin, amax)
+            view = lm(amin, amax) if callable(lm) else lm
+            v, f = self.recon_aabb_mesh(view, decoder, sdf_scale, amin, amax)
             if v.shape[0] == 0:
                 continue
             all_v.append(v)

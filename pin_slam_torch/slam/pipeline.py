@@ -171,6 +171,7 @@ class SlamSystem:
         self.lm_origin64 = np.zeros(3)
         self.frame_id = 0
         self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
+        self.map_counts = []       # the map's count after each frame, device scalars
         self.metrics = {}          # the trajectory's, set by run()
         self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
         self._stop_count = 0
@@ -421,6 +422,8 @@ class SlamSystem:
         self.dataset.time_table.append(self.stage_times[-1])
         if self.pgm is not None:
             info["pgo_s"] = pgo_pre + pgo_post
+        # kept on the device (no host sync a frame); read once at save time
+        self.map_counts.append(self.state.count)
         self.frame_id += 1
         return info
 
@@ -547,12 +550,14 @@ class SlamSystem:
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
 
-    def save_artifacts(self, run_path: str) -> None:
+    def save_artifacts(self, run_path: str):
         """End-of-run artifacts: the final pose graph and loop plot, the
-        finalised map (merge + prune, compacted), the time table, and as the
-        configuration asks the implicit map, the neural-point and merged
-        clouds, and the whole-map mesh.  Finalisation compacts ``self.state``:
-        call this after the last frame."""
+        finalised map (merge + prune, compacted), the time table and the
+        map's size per frame, and as the configuration asks the implicit
+        map, the neural-point and merged clouds, and the whole-map mesh.
+        Returns ``mesh_map``'s (vertices, faces, view counts) with
+        ``save_mesh``, else None.  Finalisation compacts ``self.state``: call
+        this after the last frame."""
         cfg = self.config
         os.makedirs(os.path.join(run_path, "map"), exist_ok=True)
         if self.pgm is not None and self.pgm.pgo_count > 0:
@@ -564,6 +569,12 @@ class SlamSystem:
                 self.state, self.mc, self._travel, max(self.frame_id - 1, 0),
                 prune_certainty_thre=float(cfg.max_prune_certainty),
                 downsample_table_size=cfg.downsample_hash_size)
+        if self.map_counts:
+            # one read of the per-frame counts; MB as the JAX package writes them
+            counts = torch.stack(self.map_counts).cpu().numpy()
+            point_dim = cfg.feature_dim + 3 + 4
+            np.save(os.path.join(run_path, "memory_footprint.npy"),
+                    counts * point_dim * 4 / 2**20)
         if self.stage_times:
             tt = np.asarray(self.stage_times)
             np.save(os.path.join(run_path, "time_table.npy"), tt)
@@ -580,15 +591,17 @@ class SlamSystem:
                                  .cpu().numpy()})
         if cfg.save_merged_pc and self.dataset.total_pc_count > 0:
             self.dataset.write_merged_point_cloud(run_path, vox_down_m=3 * cfg.vox_down_m)
+        mesh = None
         if cfg.save_mesh and count > 0:
-            verts, faces = self.mesh_map(pts)
+            mesh = self.mesh_map(pts)
+            verts, faces, _ = mesh
             if len(verts):
                 os.makedirs(os.path.join(run_path, "mesh"), exist_ok=True)
                 pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
                               normals=vertex_normals(verts, faces), faces=faces)
-                self._mesh_cache = (verts, faces)
         if not cfg.silence:
             print(f"[pipeline] {not_ported('viewer.html export (ROADMAP A 11)')}", flush=True)
+        return mesh
 
     def mesh_map(self, pts: np.ndarray):
         """The whole map's mesh from read-only radius views
@@ -596,7 +609,7 @@ class SlamSystem:
         chunk size halves from 60 m until every chunk's view (a sphere of
         the chunk's half-diagonal plus the kNN reach) holds at most 0.7 of
         ``local_capacity`` points: a saturated view drops points and leaves
-        holes."""
+        holes.  Returns (vertices, faces, each chunk's view count)."""
         cfg, mc = self.config, self.mc
         mesher = Mesher(MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
                                      min_cluster_vertices=cfg.min_cluster_vertices,
@@ -615,25 +628,23 @@ class SlamSystem:
             if biggest <= 0.7 * mc.local_capacity:
                 break
             chunk_m /= 2.0
-        all_v, all_f, off = [], [], 0
-        for amin, amax in chunks:
+        view_counts = []
+
+        def view(amin, amax):
             center = ((amin + amax) / 2).astype(np.float32)
             radius = float(np.linalg.norm((amax - amin) / 2)) + margin
             with torch.no_grad():
-                view = npts.build_query_view(self.state, mc, self._f32_dev(center),
-                                             np.float32(radius))
-            if int(view.count) >= mc.local_capacity and not cfg.silence:
+                v = npts.build_query_view(self.state, mc, self._f32_dev(center),
+                                          np.float32(radius))
+            view_counts.append(int(v.count))
+            if view_counts[-1] >= mc.local_capacity and not cfg.silence:
                 print(f"[pipeline] save_mesh: chunk at {center} overflows local "
                       f"capacity {mc.local_capacity}; reduce chunk_m")
-            v, f = mesher.recon_aabb_mesh(view, self.decoder, self.sdf_scale, amin, amax)
-            if v.shape[0] == 0:
-                continue
-            all_v.append(v)
-            all_f.append(f + off)
-            off += v.shape[0]
-        if not all_v:
-            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
-        return np.concatenate(all_v), np.concatenate(all_f)
+            return v
+
+        verts, faces = mesher.recon_aabb_collections_mesh(view, self.decoder,
+                                                          self.sdf_scale, chunks)
+        return verts, faces, view_counts
 
     def run(self, num_frames: Optional[int] = None) -> list:
         """Process the dataset's frames, then write the results (trajectory,

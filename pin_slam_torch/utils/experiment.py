@@ -15,6 +15,7 @@ import torch
 
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder, decoder_from_jax
+from pin_slam_torch.utils.platform import resolve_device
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -49,7 +50,9 @@ def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
 def load_implicit_map(path: str, mc: npts.MapConfig,
                       device=None) -> Tuple[npts.MapState, Decoder]:
     """A saved map -> (a fresh MapState holding its rows with the hash
-    rebuilt, the geometry decoder), on ``device``."""
+    rebuilt, the geometry decoder), on ``device``: the GPU unless the CPU
+    is asked for (raises without one)."""
+    device = resolve_device(device)
     blob = dict(np.load(path, allow_pickle=False))
     n = blob["positions"].shape[0]
     if n > mc.capacity:

@@ -8,9 +8,9 @@ back to numpy/scipy when it is absent.  It is host code, not a GPU kernel.
 It goes through the CPython C API and needs no pybind11.
 
 The loader looks for ``pin_native*.so`` in ``native/`` (where
-``cd native && python setup.py build_ext --inplace`` puts it), under
-``native/build/``, and in ``build/native/``, where :func:`build` compiles it
-with the host C++ compiler.
+``cd native && python setup.py build_ext --inplace`` puts it) and in
+``build/native/``, where :func:`build` puts it.  :func:`build` runs that same
+``native/setup.py``, so the extension has one build recipe.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import glob
 import importlib.util
 import os
 import subprocess
+import sys
 import sysconfig
 from typing import Optional, Tuple
 
@@ -27,19 +28,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(ROOT, "native", "pin_native.cpp")
 BUILD_DIR = os.path.join(ROOT, "build", "native")
-# the flags of native/setup.py
-CXXFLAGS = ("-O3", "-std=c++17", "-march=native", "-shared", "-fPIC")
 
 _mod = None
 _tried = False
 
 
 def _candidates():
-    nat = os.path.join(ROOT, "native")
-    for pattern in (os.path.join(nat, "pin_native*.so"),
-                    os.path.join(nat, "build", "**", "pin_native*.so"),
-                    os.path.join(BUILD_DIR, "pin_native*.so")):
-        yield from sorted(glob.glob(pattern, recursive=True))
+    for d in (os.path.join(ROOT, "native"), BUILD_DIR):
+        yield from sorted(glob.glob(os.path.join(d, "pin_native*.so")))
 
 
 def _load_file(path: str):
@@ -64,9 +60,10 @@ def available() -> bool:
     return _load() is not None
 
 
-def build(out_dir: str = BUILD_DIR, cxx: str = "c++", timeout: float = 300.0) -> str:
-    """Compile ``native/pin_native.cpp`` into ``out_dir`` and load it in
-    place of any extension loaded before.
+def build(out_dir: str = BUILD_DIR, timeout: float = 300.0) -> str:
+    """Build the extension with ``native/setup.py build_ext`` into
+    ``out_dir`` (objects under ``out_dir/tmp``; nothing is written into
+    ``native/``) and load it in place of any extension loaded before.
 
     Returns the path of the shared object.  Raises RuntimeError (with the
     compiler's message) when the compiler or the Python headers are missing."""
@@ -74,15 +71,18 @@ def build(out_dir: str = BUILD_DIR, cxx: str = "c++", timeout: float = 300.0) ->
     include = sysconfig.get_paths()["include"]
     if not os.path.isfile(os.path.join(include, "Python.h")):
         raise RuntimeError(f"no Python.h under {include}")
-    os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, "pin_native" + sysconfig.get_config_var("EXT_SUFFIX"))
+    out_dir = os.path.abspath(out_dir)
+    cmd = [sys.executable, "setup.py", "-q", "build_ext", "--build-lib", out_dir,
+           "--build-temp", os.path.join(out_dir, "tmp")]
     try:
-        res = subprocess.run([cxx, *CXXFLAGS, f"-I{include}", SOURCE, "-o", out],
-                             capture_output=True, text=True, timeout=timeout)
+        res = subprocess.run(cmd, cwd=os.path.dirname(SOURCE), capture_output=True,
+                             text=True, timeout=timeout)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"{cxx} failed to run: {e!r}") from e
+        raise RuntimeError(f"setup.py build_ext failed to run: {e!r}") from e
     if res.returncode != 0:
-        raise RuntimeError(f"{cxx} exited {res.returncode}: {res.stderr[-2000:]}")
+        raise RuntimeError(f"setup.py build_ext exited {res.returncode}: "
+                           f"{(res.stdout + res.stderr)[-2000:]}")
+    out = os.path.join(out_dir, "pin_native" + sysconfig.get_config_var("EXT_SUFFIX"))
     mod = _load_file(out)
     if mod is None:
         raise RuntimeError(f"built {out} but it does not load")

@@ -33,13 +33,6 @@ from pin_slam_tpu.utils import experiment as jexp
 torch.set_num_threads(1)
 EVAL_RTOL = 1e-12
 
-# what the JAX package's run() writes (write_results + save_artifacts) with
-# ground truth, PGO off and the three save options on, but its viewer.html
-RUN_ARTIFACTS = {
-    "odom_poses_kitti.txt", "odom_poses_tum.txt", "pose_eval.csv", "time_table.npy",
-    "map/pin_map.npz", "map/neural_points.ply", "map/merged_point_cloud.ply",
-    "mesh/mesh.ply"}
-PLOTS = {"traj_plot_2d.png", "traj_plot_3d.png", "time_details.png"}
 
 
 def _poses(n, seed):
@@ -158,7 +151,7 @@ def test_saved_map_loads_in_both_packages(writer, saved_maps):
     path = str(saved_maps["dir"] / f"{writer}.npz")
     js, jp, jsem, jcol = jexp.load_implicit_map(path, saved_maps["jmc"])
     assert jsem is None and jcol is None
-    ts_, dec = texp.load_implicit_map(path, saved_maps["tmc"])
+    ts_, dec = texp.load_implicit_map(path, saved_maps["tmc"], "cpu")
     assert int(ts_.count) == int(js.count) == int(saved_maps["js"].count)
     for f in ("attr_rows", "geo_features", "hash_table"):
         np.testing.assert_array_equal(np_(getattr(ts_, f)), np_(getattr(js, f)), err_msg=f)
@@ -307,27 +300,37 @@ def _listing(root):
 
 
 def test_run_writes_every_artifact(tmp_path):
-    """A short run with save_map, save_mesh and save_merged_pc: every file
-    the JAX package's run() writes but its viewer.html, a non-empty mesh
-    with normals, and a saved map that reloads to the finalised state."""
+    """A short run with save_map, save_mesh and save_merged_pc writes the
+    files the JAX package's run() writes on the same sequence and
+    configuration, but its viewer.html: a non-empty mesh with normals, a
+    saved map that reloads to the finalised state, and the map's size per
+    frame."""
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem
+    from pin_slam_tpu.config import Config as JConfig
+    from pin_slam_tpu.slam.pipeline import SlamSystem as JSlamSystem
 
     root = str(tmp_path / "seq")
     _sequence(root, 4)
+    jrun = str(tmp_path / "jax_run")
+    jsystem = JSlamSystem(_run_config(JConfig, root, jrun))
+    jsystem.tc = dataclasses.replace(jsystem.tc, min_valid_ratio=0.1)
+    jsystem.run()
+    expected = _listing(jrun) - {"viewer.html"}
+    assert {"map/pin_map.npz", "mesh/mesh.ply", "memory_footprint.npy"} <= expected
+
     run_path = str(tmp_path / "run")
     system = SlamSystem(_run_config(Config, root, run_path), device="cpu")
     system.tc = dataclasses.replace(system.tc, min_valid_ratio=0.1)
     infos = system.run()
     assert len(infos) == 4 and system.metrics["ate_rmse_m"] < 0.2
-    files = _listing(run_path)
-    assert RUN_ARTIFACTS <= files and files - RUN_ARTIFACTS <= PLOTS, files
+    assert _listing(run_path) == expected
     mesh = tio.read_ply(os.path.join(run_path, "mesh", "mesh.ply"))
     assert len(mesh["x"]) > 100 and len(mesh["faces"]) > 100
     assert {"nx", "ny", "nz"} <= mesh.keys()
     assert np.isfinite(np.stack([mesh["x"], mesh["y"], mesh["z"]])).all()
     state, dec = texp.load_implicit_map(os.path.join(run_path, "map", "pin_map.npz"),
-                                        system.mc)
+                                        system.mc, "cpu")
     n = int(system.state.count)
     assert int(state.count) == n > 0
     np.testing.assert_array_equal(np_(state.attr_rows[:n, :10]),
@@ -335,6 +338,24 @@ def test_run_writes_every_artifact(tmp_path):
     np.testing.assert_array_equal(np_(dec.pack()), np_(system.decoder.pack()))
     ply = tio.read_ply(os.path.join(run_path, "map", "neural_points.ply"))
     assert len(ply["x"]) == n and "certainty" in ply
+    # the map's size per frame, in MB as the JAX package writes it
+    mem = np.load(os.path.join(run_path, "memory_footprint.npy"))
+    jmem = np.load(os.path.join(jrun, "memory_footprint.npy"))
+    assert mem.dtype == jmem.dtype and mem.shape == jmem.shape == (4,)
+    point_mb = (system.config.feature_dim + 7) * 4 / 2**20
+    np.testing.assert_array_equal(mem, np.array([int(c) for c in system.map_counts]) * point_mb)
+    assert (np.diff(mem) >= 0).all() and mem[0] > 0
+
+
+def test_load_implicit_map_on_the_gpu_unless_asked(saved_maps, monkeypatch):
+    """No device means the GPU: without CUDA the loader raises instead of
+    building the map on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        texp.load_implicit_map(str(saved_maps["dir"] / "port.npz"), saved_maps["tmc"])
+    state, _ = texp.load_implicit_map(str(saved_maps["dir"] / "port.npz"), saved_maps["tmc"],
+                                      "cpu")
+    assert state.attr_rows.device.type == "cpu"
 
 
 @pytest.mark.parametrize("option, value, label", [
@@ -455,8 +476,8 @@ def test_mesh_covers_full_extent_past_local_capacity(tmp_path, rng):
     system.run()
     count = int(system.state.count)
     assert count > cfg.local_map_capacity
-    assert os.path.isfile(os.path.join(cfg.output_root, cfg.name, "mesh", "mesh.ply"))
-    verts, _ = system._mesh_cache
+    d = tio.read_ply(os.path.join(cfg.output_root, cfg.name, "mesh", "mesh.ply"))
+    verts = np.stack([d["x"], d["y"], d["z"]], axis=1)
     pts = np_(system.state.positions[:count])
     span_mesh = verts[:, 0].max() - verts[:, 0].min()
     span_pts = pts[:, 0].max() - pts[:, 0].min()
@@ -468,10 +489,9 @@ def test_mesh_covers_full_extent_past_local_capacity(tmp_path, rng):
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fault", ["cpu_device", "empty_mesh"])
-def test_chip_smoke_mesh_phase_fails_its_gates(fault, tmp_path, monkeypatch):
-    """The phase refuses a grid query that is not on the card, and an empty
-    mesh (with the device gate passed over by collecting failures)."""
+def _smoke_system(tmp_path, monkeypatch):
+    """chip_smoke imported, with the CUDA calls of its mesh phase stubbed,
+    and a two-frame map of a small sequence on the CPU."""
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -493,15 +513,48 @@ def test_chip_smoke_mesh_phase_fails_its_gates(fault, tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "build_native", lambda: ("unavailable", "not built"))
     os.makedirs(tmp_path / "build")
+    return chip_smoke, system
+
+
+@pytest.mark.parametrize("fault", ["cpu_device", "empty_mesh", "overflowing_chunks"])
+def test_chip_smoke_mesh_phase_fails_its_gates(fault, tmp_path, monkeypatch):
+    """The phase refuses a grid query that is not on the card, an empty
+    mesh, and multi-chunk views that overflow (the device gate passed over
+    by collecting failures)."""
+    chip_smoke, system = _smoke_system(tmp_path, monkeypatch)
     if fault == "cpu_device":
         with pytest.raises(SystemExit, match="grid query ran on cpu"):
             chip_smoke.mesh_phase("A", system)
         return
     failures = []
     monkeypatch.setattr(chip_smoke, "fail", failures.append)
+    if fault == "overflowing_chunks":
+        # 1024 rows cannot hold the densest 4 m chunk's view of this map
+        monkeypatch.setitem(chip_smoke.PATHS["C"], "multi_chunk_L", 1 << 10)
+        res = chip_smoke.mesh_phase("C", system)
+        assert any("multi-chunk mesh took" in m for m in failures), failures
+        assert res["multi_chunk"]["max_view_count"] == 1 << 10
+        return
     monkeypatch.setattr(system, "mesh_map", lambda pts: (np.zeros((0, 3), np.float32),
-                                                         np.zeros((0, 3), np.int64)))
+                                                         np.zeros((0, 3), np.int64), [1]))
     res = chip_smoke.mesh_phase("A", system)
     assert any("empty mesh" in m for m in failures), failures
     assert res["vertices"] == 0 and res["map_reloads"] and res["native"] == "unavailable"
     assert 0 < res["map_points_after"] <= res["map_points_before"]
+    assert res["multi_chunk"] is None
+
+
+def test_chip_smoke_multi_chunk_mesh(tmp_path, monkeypatch):
+    """Views of 4096 rows split this 5 k-point map into many chunks, none
+    overflowing; the mesh matches the one-chunk mesh, and a whole-map view
+    of 4096 rows overflows to the oldest 4096 points."""
+    chip_smoke, system = _smoke_system(tmp_path, monkeypatch)
+    verts, _, counts = system.save_artifacts(str(tmp_path / "run"))
+    n = int(system.state.count)
+    assert counts == [n] and n > 1 << 12
+    m = chip_smoke.multi_chunk_mesh(system, np_(system.state.positions[:n]), 1 << 12)
+    assert m["chunks"] > 1 and m["max_view_count"] < 1 << 12 == m["local_capacity"]
+    assert m["vertices"] >= len(verts) > 0 and m["finite"]
+    assert chip_smoke._chamfer(m["verts"], verts) <= chip_smoke.MULTI_CHAMFER_FRAC * 0.5
+    assert m["overflow_view_count"] == 1 << 12 and m["overflow_view_equal_cpu"]
+    assert system.mc.local_capacity == 1 << 13

@@ -335,10 +335,20 @@ def test_recon_aabb_mesh_matches(wf, monkeypatch):
     vt2, ft2 = tmesh.recon_aabb_mesh(tv, m["dec"], 1.0, amin, amax)
     np.testing.assert_array_equal(vt2, vj)
     np.testing.assert_array_equal(ft2, fj)
-    # the collection of one box is the box
-    v3, f3 = tmesh.recon_aabb_collections_mesh(tv, m["dec"], 1.0, [(amin, amax)])
-    np.testing.assert_array_equal(v3, vj)
-    np.testing.assert_array_equal(f3, fj)
+    # the collection of one box is the box, with one view or a view per box
+    boxes = []
+    for lm in (tv, lambda a, b: boxes.append((a, b)) or tv):
+        v3, f3 = tmesh.recon_aabb_collections_mesh(lm, m["dec"], 1.0, [(amin, amax)])
+        np.testing.assert_array_equal(v3, vj)
+        np.testing.assert_array_equal(f3, fj)
+    assert len(boxes) == 1 and boxes[0][0] is amin
+    # two boxes, a view built for each: JAX's collection, faces offset alike
+    two = [(amin, np.array([0.5, 3.0, 1.0])), (np.array([-0.5, -3.0, -1.0]), amax)]
+    vj2, fj2, _, _ = jmesh.recon_aabb_collections_mesh(jv, m["p"], 1.0, two)
+    v4, f4 = tmesh.recon_aabb_collections_mesh(lambda a, b: tv, m["dec"], 1.0, two)
+    assert len(vj2) > len(vj) and f4.max() == len(v4) - 1
+    np.testing.assert_array_equal(v4, vj2)
+    np.testing.assert_array_equal(f4, fj2)
 
 
 def test_sdf_slice_matches():
