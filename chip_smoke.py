@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, three paths, meshes, kernels
+    python3 chip_smoke.py            # what the checks run: build, four paths, meshes, CLI, kernels
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -25,7 +25,28 @@
    ``rank_brick`` kernel, and never through its plain twin), losses must be
    finite, poses must stay near the scene's ground truth (A and B: every
    frame after the first must register).
-5. Kernel phases: every kernel is run on the card on the inputs the paths
+5. Path D: ``config/lidar_slam/run_ncd_128.yaml`` as shipped (deskew,
+   adaptive range, mid timestamps, per-neighbour decoding, bundle
+   adjustment every 20 frames over a 50-frame window, PGO with map context)
+   at its own capacities (map 2^21, local 2^18, frame bucket 2^17, pool
+   10^7) with path C's square-loop overrides, through ``SlamSystem.run()``
+   over all 96 frames of the square-loop scene re-rendered as rolling
+   128-beam sweeps and written under build/ in the NCD-128 layout (PLY with
+   per-point time), reached by ``set_dataset_path(cfg, "ncd128", seq)``.
+   Bundle adjustment runs at frames 39, 59 and 79.  Gates: every frame
+   after the first registers; max position error < 0.5 m; each BA's loss
+   finite and its last value not above its first; the first BA, rerun from
+   a snapshot of its inputs, gives bit-identical features and xi; the row
+   gather and scatter launch 60 times in each BA; from frame 2 on, the
+   deskewed points' mean distance to their true mid-sweep coordinates is at
+   most half the raw points'; every kernel launched.
+6. ``cli_kitti``: ``pin_slam_torch.cli.main`` in-process on 8 corridor
+   frames written under build/ in the KITTI layout (camera-frame poses,
+   calib.txt), with a copy of ``run_kitti.yaml`` changed only in
+   ``pc_path`` and ``output_root``.  Gates: return code 0, 8 frames in
+   summary.json, a run()'s artifacts, the ground truth through calib.txt
+   within 1e-9 m of the scene's, finite poses, every kernel launched.
+7. Kernel phases: every kernel is run on the card on the inputs the paths
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
    (integers, ranks and gathers exact; floats part by part within the stated
@@ -42,7 +63,10 @@
    train and eikonal kernels also at k = 8 on random inputs, the row kernels
    also at the Pallas experiment's own shape, the per-cell rank kernel
    (on no path) at path B's near shape with K = 81 on random rows.
-6. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
+   The row gather and scatter also at bundle adjustment's shapes on path D
+   (its first call's inputs): the feature gather forward and the in-order
+   scatter of its gradient.
+8. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
    and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 16} x
    both modes on dyadic inputs (float64 check, two launches bit-identical),
    the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
@@ -55,7 +79,7 @@
    {1, 33, 4099} x M in {0, 1, 5000}, with and without a skipped row (the
    in-order sum's bits, two launches bit-identical).
 
-7. End of run, after paths A and C (each after its capture frame):
+9. End of run, after paths A and C (each after its capture frame):
    ``SlamSystem.save_artifacts`` with save_map, save_mesh and save_merged_pc
    on, into a temporary run directory under ``build/``, then
    ``write_results``.  The ``mesh_A`` / ``mesh_C`` line reports the map's
@@ -147,7 +171,10 @@ class Capture:
     """Wraps the main path's kernel wrappers.  While a path's timed frames run
     it only tallies launches per path and shape; while ``capturing`` (one
     extra, untimed frame after them) it keeps a clone of each kernel's inputs
-    per path and shape instead.  It also counts calls of the fused rank
+    per path and shape instead; while ``store`` it does both (path D keeps
+    the inputs of its last frame and of its first bundle adjustment so).
+    The row kernels' launches made inside bundle adjustment (``in_ba``) are
+    kept apart, as kind ``ba``.  It also counts calls of the fused rank
     kernel's plain twin, which the main path on the card must not make."""
 
     def __init__(self):
@@ -159,6 +186,8 @@ class Capture:
                      rank_kernel.probe_rank_brick_plain, rows.scatter_plans)
         self.path = None
         self.capturing = False
+        self.store = False
+        self.in_ba = False
         self.inputs = {}
         self.tally = {}
         self.rank_calls = 0
@@ -174,10 +203,10 @@ class Capture:
                 return type(a)(*(clone(x) for x in a))
             return a
 
-        if self.capturing:
+        if self.capturing or self.store:
             self.inputs[key] = ([clone(a) for a in args],
                                 {k: clone(v) for k, v in kwargs.items()})
-        else:
+        if not self.capturing:
             self.tally[key] = self.tally.get(key, 0) + 1
 
     def install(self):
@@ -206,18 +235,22 @@ class Capture:
 
         def gather(*a, **kw):
             # the pool rows once per training call, the feature rows
-            # (F + 1 = 9 columns) once per iteration
-            self._keep((self.path, "gather", "feat" if a[0].shape[1] == 9 else "pool"), a, kw)
+            # (F + 1 = 9 columns) once per iteration; bundle adjustment's
+            # feature rows (F = 8 columns) once per iteration
+            kind = "ba" if self.in_ba else "feat" if a[0].shape[1] == 9 else "pool"
+            self._keep((self.path, "gather", kind), a, kw)
             return gather_rows(*a, **kw)
 
         def scatter(*a, **kw):
-            # the training loop's scatter into a zero table, once per iteration
-            self._keep((self.path, "scatter", "main"), a, kw)
+            # the training loop's scatter into a zero table, once per
+            # iteration; bundle adjustment's feature gradient, once per iteration
+            self._keep((self.path, "scatter", "ba" if self.in_ba else "main"), a, kw)
             return scatter_sum_rows(*a, **kw)
 
         def plans(*a, **kw):
-            # every iteration's scatter plan, once per training call
-            self._keep((self.path, "plans", "frame"), a, kw)
+            # every iteration's scatter plan, once per training call; one
+            # plan per bundle-adjustment iteration
+            self._keep((self.path, "plans", "ba" if self.in_ba else "frame"), a, kw)
             return scatter_plans(*a, **kw)
 
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
@@ -448,6 +481,353 @@ def run_path(name, cap, mesh=False):
         mesh_phase(name, system)
     del system
     torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# path D: the NCD-128 profile from disk, with deskew and bundle adjustment
+# ----------------------------------------------------------------------
+
+PATH_D = dict(profile="config/lidar_slam/run_ncd_128.yaml", dataset="ncd128", seq="square",
+              n_az=1024, n_el=128)
+BA_FRAMES = [39, 59, 79]          # ba_freq_frame 20 past ba_frame // 2 = 25
+
+
+def write_path_d_data():
+    """The square-loop scene (seed 7) re-rendered as rolling 128-beam sweeps
+    and written under build/ in the NCD-128 layout.  Returns (dataset root,
+    the sweeps' times and true mid-sweep coordinates, the setup's seconds)."""
+    import shutil
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "path_d")
+    shutil.rmtree(root, ignore_errors=True)
+    scans, times, truth, poses = syn.make_square_sweeps(
+        np.random.default_rng(SQUARE_SEED), n_az=PATH_D["n_az"], n_el=PATH_D["n_el"],
+        workers=os.cpu_count() or 1)
+    syn.write_ncd_sequence(os.path.join(root, "data"), PATH_D["seq"], scans, times, poses)
+    return root, truth, [s.shape[0] for s in scans], time.perf_counter() - t0
+
+
+def _clone(x):
+    import copy
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x)
+    return x
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def run_path_d(cap):
+    """Path D: ``run_ncd_128.yaml`` as shipped (deskew, adaptive range, mid
+    timestamps, per-neighbour decoding, bundle adjustment every 20 frames,
+    PGO with map context) at its own capacities, with path C's square-loop
+    overrides, through ``SlamSystem.run()`` over every frame of the
+    NCD-layout sequence written under build/.  Each frame is timed
+    (synchronised); each bundle adjustment's loop is timed and its row-kernel
+    launches counted, and the first one is rerun from a snapshot of its
+    inputs (features and xi must be bit-identical); deskewing is measured
+    against the sweeps' true mid-sweep coordinates."""
+    import glob
+
+    import torch
+
+    from pin_slam_torch.config import Config
+    from pin_slam_torch.dataset import io as pio
+    from pin_slam_torch.dataset.indexing import set_dataset_path
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.ops.transforms import deskew_points
+    from pin_slam_torch.slam import mapper as mp
+    from pin_slam_torch.slam.pipeline import SlamSystem
+
+    root, truth, n_points, setup_s = write_path_d_data()
+    cfg = Config()
+    cfg.load(os.path.join(ROOT, PATH_D["profile"]))
+    cfg.pc_path = os.path.join(root, "data")
+    set_dataset_path(cfg, PATH_D["dataset"], PATH_D["seq"])
+    cfg.run_path = os.path.join(root, "run")
+    cfg.silence = True
+    cfg.pgo_freq = SQUARE_PGO_FREQ
+    cfg.min_loop_travel_dist_ratio = 1.0
+    cfg.reg_iter_n = 100
+    cfg._derive()
+    torch.cuda.reset_peak_memory_stats()
+    system = SlamSystem(cfg, sync_stages=True)
+    system.tc = dataclasses.replace(system.tc, min_valid_ratio=0.1)
+    system.tc_loop = dataclasses.replace(system.tc_loop, min_valid_ratio=0.08)
+    ds = system.dataset
+    n_frames = len(ds)
+
+    rel_at, times, ba_calls = {}, [], []
+    orig_pre, orig_proc, orig_ba = ds.preprocess_frame, system.process_frame, \
+        mp.bundle_adjustment_loop
+
+    def pre(i):
+        rel_at[i] = ds.last_odom_tran.copy() if ds.processed_frame > 0 else None
+        return orig_pre(i)
+
+    def proc(frame):
+        cap.store = system.frame_id == n_frames - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return orig_proc(frame)
+        finally:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            cap.store = False
+
+    def ba(*a, **kw):
+        first = not ba_calls
+        snap = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()}) if first else None
+        torch.cuda.synchronize()
+        c0 = dict(_cuda.COUNTS)
+        t0 = time.perf_counter()
+        cap.in_ba, cap.store = True, first
+        try:
+            out = orig_ba(*a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            cap.in_ba, cap.store = False, False
+        ba_calls.append({"loop_ms": (time.perf_counter() - t0) * 1e3,
+                         "gather_launches": _cuda.COUNTS["gather"] - c0["gather"],
+                         "scatter_launches": _cuda.COUNTS["scatter"] - c0["scatter"],
+                         "snap": snap, "out": (out[0].clone(), out[1].clone()) if first
+                         else None})
+        return out
+
+    cap.path = "D"
+    cap.plain_rank_calls = 0
+    _cuda.reset_counts()
+    ds.preprocess_frame, system.process_frame, mp.bundle_adjustment_loop = pre, proc, ba
+    try:
+        t_run = time.perf_counter()
+        infos = system.run()
+        run_s = time.perf_counter() - t_run
+    finally:
+        ds.preprocess_frame, mp.bundle_adjustment_loop = orig_pre, orig_ba
+        system.process_frame = orig_proc
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the first bundle adjustment again, from its snapshot: the same bits
+    repeat_ok = None
+    if ba_calls:
+        a, kw = ba_calls[0]["snap"]
+        feats2, xi2, _ = orig_ba(*a, **kw)
+        torch.cuda.synchronize()
+        f1, x1 = ba_calls[0]["out"]
+        repeat_ok = _bits_equal(feats2, f1) and _bits_equal(xi2, x1)
+        del a, kw, feats2, xi2
+        for c in ba_calls:
+            c.pop("snap"), c.pop("out")
+
+    # deskewing: each frame's points through deskew_points with the motion
+    # the dataset used for it, against the sweep's true mid-sweep coordinates
+    files, dev = ds.pc_filenames, system.device
+    desk, raw = [], []
+    for i in range(2, n_frames):
+        pts, _, ts = pio.read_point_cloud(files[i])
+        p = torch.as_tensor(pts, device=dev)
+        d = deskew_points(p, torch.as_tensor(ts.astype(np.float32), device=dev),
+                          torch.as_tensor(rel_at[i], dtype=torch.float32, device=dev))
+        tr = torch.as_tensor(truth[i], dtype=torch.float64, device=dev)
+        desk.append(float(torch.linalg.norm(d.double() - tr, dim=1).mean()))
+        raw.append(float(torch.linalg.norm(p.double() - tr, dim=1).mean()))
+
+    poses = np.stack(ds.pgo_poses)
+    gt = ds.gt_poses[:len(poses)]
+    err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+    odom_err = np.linalg.norm(np.stack(ds.odom_poses)[:, :3, 3] - gt[:, :3, 3], axis=1)
+    ba_infos = [dict(frame=i, **x["ba"]) for i, x in enumerate(infos) if x.get("ba")]
+    for info, call in zip(ba_infos, ba_calls):
+        info.update(call)
+    stage = np.asarray(system.stage_times[1:n_frames])
+    loop_edges = [(e.i, e.j) for e in system.pgm.edges if abs(e.j - e.i) > 1]
+    res = {
+        "phase": "path_D", "profile": PATH_D["profile"], "dataset": PATH_D["dataset"],
+        "layout": "NCD-128 PLY (x, y, z, intensity, time) + poses.txt, read from disk",
+        "weighted_first": cfg.weighted_first, "deskew": cfg.deskew, "frames": n_frames,
+        "points_per_frame": [min(n_points), max(n_points)], "beams": PATH_D["n_el"],
+        "columns": PATH_D["n_az"], "setup_s": setup_s,
+        "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
+                       "frame_bucket": cfg.frame_bucket, "pool": cfg.pool_capacity},
+        "run_s": run_s,
+        # the last frame also clones the kernels' inputs: not timed
+        "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:-1])),
+        "frame0_s": times[0],
+        "stage_ms_mean_after_frame0": _stage_ms(stage),
+        "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+        "ba": ba_infos, "ba_repeat_bit_identical": repeat_ok,
+        "deskew_mean_err_m": float(np.mean(desk)), "raw_mean_err_m": float(np.mean(raw)),
+        "deskew_err_per_frame_m": desk, "raw_err_per_frame_m": raw,
+        "closure_frames": [i for i, x in enumerate(infos) if x.get("pgo_applied")],
+        "loop_factors": loop_edges, "after_pgo": system.after_pgo,
+        "max_pose_err_m": float(err.max()), "max_odom_err_m": float(odom_err.max()),
+        "rmse_m": float(np.sqrt(np.mean(err ** 2))), "metrics": system.metrics,
+        "map_points": int(system.state.count), "launches": counts,
+        "artifacts": sorted(os.path.relpath(f, cfg.run_path)
+                            for f in glob.glob(os.path.join(cfg.run_path, "**"), recursive=True)
+                            if os.path.isfile(f)),
+        "max_memory_allocated_gb": peak_gb,
+    }
+    emit(res)
+    if not all(res["reg_valid"]):
+        bad = [i + 1 for i, v in enumerate(res["reg_valid"]) if not v]
+        fail(f"path D: frames {bad} did not register")
+    if res["max_pose_err_m"] >= 0.5:
+        fail(f"path D: pose error {res['max_pose_err_m']:.3f} m vs the scene's ground truth")
+    if [b["frame"] for b in ba_infos] != BA_FRAMES or len(ba_calls) != len(BA_FRAMES):
+        fail(f"path D: bundle adjustment ran at {[b['frame'] for b in ba_infos]}, "
+             f"expected {BA_FRAMES}")
+    for b in ba_infos:
+        if not b["loss_finite"] or b["loss_last"] > b["loss_first"]:
+            fail(f"path D: bundle adjustment at frame {b['frame']}: loss {b['loss_first']} -> "
+                 f"{b['loss_last']}")
+        it = 4 * cfg.iters
+        if b["gather_launches"] != it or b["scatter_launches"] != it:
+            fail(f"path D: bundle adjustment at frame {b['frame']} launched "
+                 f"{b['gather_launches']} gathers / {b['scatter_launches']} scatters, "
+                 f"expected {it} each")
+    if not repeat_ok:
+        fail("path D: the first bundle adjustment, rerun from its inputs, differs")
+    if not res["deskew_mean_err_m"] <= 0.5 * res["raw_mean_err_m"]:
+        fail(f"path D: deskewed points {res['deskew_mean_err_m']:.4f} m from the truth, "
+             f"raw {res['raw_mean_err_m']:.4f} m")
+    for k in counts:
+        if k != "rank" and counts[k] < 1:
+            fail(f"path D: kernel {k} never launched")
+    if counts["rank"] or cap.plain_rank_calls:
+        fail(f"path D: the brick probe went through the per-cell rank kernel "
+             f"({counts['rank']}) or the plain brick gather ({cap.plain_rank_calls})")
+    res["ba_gather_launches"] = sum(b["gather_launches"] for b in ba_infos)
+    res["ba_scatter_launches"] = sum(b["scatter_launches"] for b in ba_infos)
+    del system
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# the batch CLI on a KITTI-layout sequence
+# ----------------------------------------------------------------------
+
+CLI_FRAMES = 8
+CLI_ARTIFACTS = {"summary.json", "meta/run.json", "odom_poses_kitti.txt", "odom_poses_tum.txt",
+                 "pose_eval.csv", "time_table.npy", "memory_footprint.npy",
+                 "map/pin_map.npz", "map/neural_points.ply"}
+
+
+def cli_kitti_phase():
+    """``pin_slam_torch.cli.main([yaml, "kitti", "00", "--frames", "8"])``
+    in-process, on 8 frames of the corridor scene (path B's 128-beam scans)
+    written under build/ in the KITTI layout with camera-frame poses and
+    calib.txt, and a copy of ``run_kitti.yaml`` whose only changes are
+    ``pc_path`` (the dataset root) and ``output_root``.  Gated: return code
+    0, 8 frames in summary.json, the artifact set of a run(), the ground
+    truth read through calib.txt equal to the scene's within 1e-9 m, finite
+    poses, every kernel launched.  The position error is reported, not
+    gated: the tracker keeps the profile's own gates here."""
+    import glob
+    import shutil
+
+    import torch
+    import yaml
+
+    from pin_slam_torch import cli
+    from pin_slam_torch.config import Config
+    from pin_slam_torch.dataset.indexing import set_dataset_path
+    from pin_slam_torch.dataset.slam_dataset import SLAMDataset
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.utils import synthetic as syn
+
+    root = os.path.join(ROOT, "build", "cli_kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    world = syn.make_world(np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    scans, poses = [], []
+    for i in range(CLI_FRAMES):
+        R, t = syn.sensor_pose(i)
+        pts = syn.lidar_scan(rng, world, t, R, 1 << 17, n_az=1800, n_el=128)
+        scans.append(np.concatenate([pts, rng.uniform(0, 1, (len(pts), 1))], 1)
+                     .astype(np.float32))
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        poses.append(T)
+    poses = np.stack(poses)
+    data = os.path.join(root, "data")
+    syn.write_kitti_sequence(data, "00", scans, poses)
+    with open(os.path.join(ROOT, "config", "lidar_slam", "run_kitti.yaml")) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["pc_path"] = data
+    prof["setting"]["output_root"] = os.path.join(root, "out")
+    yml = os.path.join(root, "run_kitti.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main([yml, "kitti", "00", "--frames", str(CLI_FRAMES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.COUNTS)
+    runs = glob.glob(os.path.join(root, "out", "*"))
+    run = runs[0] if len(runs) == 1 else None
+    files = sorted(os.path.relpath(p, run) for p in glob.glob(os.path.join(run, "**"),
+                                                              recursive=True)
+                   if os.path.isfile(p)) if run else []
+    summary = {}
+    if run and os.path.exists(os.path.join(run, "summary.json")):
+        with open(os.path.join(run, "summary.json")) as f:
+            summary = json.load(f)
+    cfg = Config()
+    cfg.load(yml)
+    set_dataset_path(cfg, "kitti", "00")
+    gt_err = float(np.abs(SLAMDataset(cfg).gt_poses - poses).max())
+    est = (np.loadtxt(os.path.join(run, "odom_poses_kitti.txt")).reshape(-1, 3, 4)
+           if "odom_poses_kitti.txt" in files else np.zeros((0, 3, 4)))
+    res = {"phase": "cli_kitti", "argv": [os.path.relpath(yml, ROOT), "kitti", "00",
+                                          "--frames", str(CLI_FRAMES)],
+           "rc": rc, "wall_s": wall, "summary": summary, "files": files,
+           "gt_via_calib_max_err_m": gt_err,
+           "correction_deg": cfg.correction_deg if cfg.kitti_correction_on else 0.0,
+           "max_pos_err_m": (float(np.linalg.norm(est[:, :, 3] - poses[:len(est), :3, 3],
+                                                  axis=1).max()) if len(est) else None),
+           "launches": counts,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(res)
+    if rc != 0:
+        fail(f"cli_kitti: return code {rc}")
+    if summary.get("frames") != CLI_FRAMES:
+        fail(f"cli_kitti: summary.json says {summary.get('frames')} frames")
+    missing = CLI_ARTIFACTS - set(files)
+    if missing:
+        fail(f"cli_kitti: artifacts missing: {sorted(missing)}")
+    if not gt_err < 1e-9:
+        fail(f"cli_kitti: the ground truth through calib.txt is {gt_err} m off the scene's")
+    if len(est) != CLI_FRAMES or not np.isfinite(est).all():
+        fail("cli_kitti: the trajectory is incomplete or not finite")
+    for k in counts:
+        if k != "rank" and counts[k] < 1:
+            fail(f"cli_kitti: kernel {k} never launched")
+    shutil.rmtree(root, ignore_errors=True)
     return res
 
 
@@ -1534,8 +1914,10 @@ def main() -> int:
     cap.install()
     try:
         results = {name: run_path(name, cap, mesh=True) for name in PATHS}
+        results["D"] = run_path_d(cap)
     finally:
         cap.uninstall()
+    cli_kitti_phase()
 
     rows = []
     for path, res in results.items():
@@ -1555,12 +1937,21 @@ def main() -> int:
                                      cap.tally.get((path, "gather", kind), 0)))
         (n_rows, idx, val), kw = cap.inputs[(path, "scatter", "main")]
         (frame_idx, _), _ = cap.inputs[(path, "plans", "frame")]
+        # the training loop's launches (path D's bundle adjustment has its own row)
         rows.append(scatter_phase(f"path{path}", n_rows, idx, val, kw.get("plan"),
-                                  kw.get("skip_row"), res["launches"]["scatter"], frame_idx))
-        for kernel, kinds in (("rank_brick", ("far", "near")), ("gather", ("pool", "feat")),
-                              ("scatter", ("main",))):
+                                  kw.get("skip_row"), cap.tally.get((path, "scatter", "main"), 0),
+                                  frame_idx))
+        for kernel, kinds in (("rank_brick", ("far", "near")),
+                              ("gather", ("pool", "feat", "ba")), ("scatter", ("main", "ba"))):
             if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
                 fail(f"path {path}: {kernel} launch tallies disagree with the counter")
+    # bundle adjustment's shapes on path D: the feature gather (forward) and
+    # the in-order scatter of its gradient (backward), one each an iteration
+    a, kw = cap.inputs[("D", "gather", "ba")]
+    rows.append(gather_phase("pathD-ba", a, kw, results["D"]["ba_gather_launches"]))
+    (n_rows, idx, val), kw = cap.inputs[("D", "scatter", "ba")]
+    rows.append(scatter_phase("pathD-ba", n_rows, idx, val, kw.get("plan"),
+                              kw.get("skip_row"), results["D"]["ba_scatter_launches"]))
     # k = 8 (which the JAX kernels cannot run): checked and timed on random
     # inputs at the main path's widths; not a main-path shape, so these rows
     # stay out of the kernels line

@@ -1,7 +1,9 @@
 """The port's own copy of the framework-free parts of
-``pin_slam_tpu/dataset/io.py`` that it uses: KITTI scans and poses, PLY read
-and write (the map, point-cloud and mesh artifacts, byte-identical to the
-JAX package's), and TUM poses."""
+``pin_slam_tpu/dataset/io.py`` that it uses: point clouds (KITTI ``.bin``,
+``.npy``, PLY, PCD and LAS, with their per-point timestamps where the file
+has them), KITTI and TUM poses, KITTI calibration files, and the PLY and LAS
+writers (the map, point-cloud and mesh artifacts, byte-identical to the JAX
+package's)."""
 
 from __future__ import annotations
 
@@ -30,22 +32,6 @@ def read_kitti_bin(path: str) -> np.ndarray:
     return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
 
 
-def read_point_cloud(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-    """(points [N,3], intensity [N,1], timestamps None); only KITTI .bin and
-    .npy are ported."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".bin":
-        raw = read_kitti_bin(path)
-        return raw[:, :3], raw[:, 3:4], None
-    if ext == ".npy":
-        raw = np.load(path)
-        return (raw[:, :3].astype(np.float32),
-                raw[:, 3:4].astype(np.float32) if raw.shape[1] > 3 else None, None)
-    from pin_slam_torch.utils.platform import not_ported
-
-    raise not_ported(f"point cloud format {ext}")
-
-
 def read_kitti_poses(path: str) -> np.ndarray:
     """Each line 12 floats (3x4 row-major), optionally led by a timestamp.
     Returns [N,4,4] float64."""
@@ -58,6 +44,25 @@ def read_kitti_poses(path: str) -> np.ndarray:
     poses = np.tile(np.eye(4), (n, 1, 1))
     poses[:, :3, :] = data.reshape(n, 3, 4)
     return poses
+
+
+def read_tum_poses(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """TUM format: ts tx ty tz qx qy qz qw. Returns ([N,4,4], [N] ts)."""
+    from scipy.spatial.transform import Rotation
+
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            rows.append([float(v) for v in line.split()])
+    arr = np.asarray(rows, dtype=np.float64)
+    ts, t, q = arr[:, 0], arr[:, 1:4], arr[:, 4:8]
+    poses = np.tile(np.eye(4), (arr.shape[0], 1, 1))
+    poses[:, :3, :3] = Rotation.from_quat(q).as_matrix()
+    poses[:, :3, 3] = t
+    return poses, ts
 
 
 def write_kitti_poses(path: str, poses: np.ndarray) -> None:
@@ -177,3 +182,220 @@ def write_ply(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None
             frec["n"] = 3
             frec["v"] = faces.astype(np.int32)
             f.write(frec.tobytes())
+
+
+def read_pcd(path: str) -> Dict[str, np.ndarray]:
+    """Minimal PCD reader (ascii / binary, no compression)."""
+    with open(path, "rb") as f:
+        header = {}
+        while True:
+            line = f.readline().decode(errors="ignore").strip()
+            if line.startswith("#"):
+                continue
+            k, _, v = line.partition(" ")
+            header[k] = v
+            if k == "DATA":
+                break
+        fields = header["FIELDS"].split()
+        sizes = list(map(int, header["SIZE"].split()))
+        types = header["TYPE"].split()
+        counts = list(map(int, header.get("COUNT", " ".join(["1"] * len(fields))).split()))
+        npts = int(header["POINTS"])
+        tmap = {("F", 4): "f4", ("F", 8): "f8", ("U", 1): "u1", ("U", 2): "u2",
+                ("U", 4): "u4", ("I", 1): "i1", ("I", 2): "i2", ("I", 4): "i4"}
+        dt = np.dtype([(fld, "<" + tmap[(t, s)], (c,)) if c > 1 else (fld, "<" + tmap[(t, s)])
+                       for fld, s, t, c in zip(fields, sizes, types, counts)])
+        if header["DATA"] == "ascii":
+            data = np.loadtxt(f, dtype=dt, max_rows=npts, ndmin=1)
+        elif header["DATA"] == "binary":
+            data = np.frombuffer(f.read(dt.itemsize * npts), dtype=dt)
+        else:
+            raise ValueError(f"unsupported PCD encoding {header['DATA']}")
+        return {fld: np.ascontiguousarray(data[fld]) for fld in fields}
+
+
+# LAS point-record layouts (ASPRS LAS 1.0-1.4, uncompressed).  Formats 0-5
+# share the 20-byte core; 6-10 the 30-byte core.  Only the fields this
+# pipeline consumes (xyz / intensity / rgb / gps time) are named.
+_LAS_CORE_05 = [("X", "<i4"), ("Y", "<i4"), ("Z", "<i4"), ("intensity", "<u2"),
+                ("flags", "u1"), ("cls", "u1"), ("scan_angle", "i1"),
+                ("user", "u1"), ("src", "<u2")]
+_LAS_CORE_610 = [("X", "<i4"), ("Y", "<i4"), ("Z", "<i4"), ("intensity", "<u2"),
+                 ("ret", "u1"), ("flags", "u1"), ("cls", "u1"), ("user", "u1"),
+                 ("scan_angle", "<i2"), ("src", "<u2"), ("gps", "<f8")]
+_LAS_RGB = [("red", "<u2"), ("green", "<u2"), ("blue", "<u2")]
+_LAS_POINT_DTYPES = {
+    0: _LAS_CORE_05,
+    1: _LAS_CORE_05 + [("gps", "<f8")],
+    2: _LAS_CORE_05 + _LAS_RGB,
+    3: _LAS_CORE_05 + [("gps", "<f8")] + _LAS_RGB,
+    6: _LAS_CORE_610,
+    7: _LAS_CORE_610 + _LAS_RGB,
+    8: _LAS_CORE_610 + _LAS_RGB + [("nir", "<u2")],
+}
+
+
+def read_las(path: str) -> Dict[str, np.ndarray]:
+    """Minimal pure-numpy ASPRS LAS reader (uncompressed; point formats 0-3,
+    6-8).  Returns at least x/y/z (f64 world units) and intensity;
+    red/green/blue and gps time when the format has them."""
+    with open(path, "rb") as f:
+        header = f.read(375)
+        if header[:4] != b"LASF":
+            raise ValueError(f"{path}: not a LAS file (bad signature)")
+        offset_to_points = int(np.frombuffer(header[96:100], "<u4")[0])
+        fmt = header[104] & 0x3F  # high bits flag LAZ compression
+        if header[104] & 0xC0:
+            raise ValueError(f"{path}: LAZ-compressed LAS is not supported")
+        rec_len = int(np.frombuffer(header[105:107], "<u2")[0])
+        n_points = int(np.frombuffer(header[107:111], "<u4")[0])
+        ver = (header[24], header[25])
+        if n_points == 0 and ver >= (1, 4) and len(header) >= 255:
+            n_points = int(np.frombuffer(header[247:255], "<u8")[0])
+        scale = np.frombuffer(header[131:155], "<f8").copy()
+        off = np.frombuffer(header[155:179], "<f8").copy()
+        if fmt not in _LAS_POINT_DTYPES:
+            raise ValueError(f"{path}: unsupported LAS point format {fmt}")
+        base = np.dtype(_LAS_POINT_DTYPES[fmt])
+        if rec_len < base.itemsize:
+            raise ValueError(f"{path}: record length {rec_len} < expected "
+                             f"{base.itemsize} for format {fmt}")
+        fields = dict(_LAS_POINT_DTYPES[fmt])
+        if rec_len > base.itemsize:  # trailing extra bytes per record
+            fields["_extra"] = (f"V{rec_len - base.itemsize}",)
+        dt = np.dtype([(k, *(v if isinstance(v, tuple) else (v,)))
+                       for k, v in fields.items()])
+        f.seek(offset_to_points)
+        data = np.frombuffer(f.read(dt.itemsize * n_points), dtype=dt,
+                             count=n_points)
+    out = {
+        "x": data["X"] * scale[0] + off[0],
+        "y": data["Y"] * scale[1] + off[1],
+        "z": data["Z"] * scale[2] + off[2],
+        "intensity": data["intensity"].astype(np.float32),
+    }
+    if "red" in dt.names:
+        for c in ("red", "green", "blue"):
+            out[c] = data[c].astype(np.float32) / 65535.0
+    if "gps" in dt.names:
+        out["gps_time"] = data["gps"].copy()
+    return out
+
+
+def write_las(path: str, points: np.ndarray, intensity: Optional[np.ndarray] = None,
+              colors: Optional[np.ndarray] = None,
+              gps_time: Optional[np.ndarray] = None,
+              scale: float = 1e-4) -> None:
+    """Minimal LAS 1.2 writer (point format picked from the given attributes).
+    Byte-identical to the JAX package's."""
+    points = np.asarray(points, np.float64)
+    n = points.shape[0]
+    fmt = (3 if (colors is not None and gps_time is not None) else
+           2 if colors is not None else 1 if gps_time is not None else 0)
+    dt = np.dtype(_LAS_POINT_DTYPES[fmt])
+    off = points.min(axis=0) if n else np.zeros(3)
+    rec = np.zeros(n, dtype=dt)
+    q = np.rint((points - off) / scale).astype(np.int64)
+    rec["X"], rec["Y"], rec["Z"] = (q[:, 0].astype(np.int32),
+                                    q[:, 1].astype(np.int32),
+                                    q[:, 2].astype(np.int32))
+    if intensity is not None:
+        rec["intensity"] = np.clip(np.asarray(intensity).reshape(-1), 0, 65535
+                                   ).astype(np.uint16)
+    if colors is not None:
+        c = np.asarray(colors, np.float64)
+        if c.max(initial=0.0) <= 1.0:
+            c = c * 65535.0
+        rec["red"], rec["green"], rec["blue"] = (
+            c[:, 0].astype(np.uint16), c[:, 1].astype(np.uint16),
+            c[:, 2].astype(np.uint16))
+    if gps_time is not None:
+        rec["gps"] = np.asarray(gps_time, np.float64)
+
+    header = bytearray(227)
+    header[0:4] = b"LASF"
+    header[24], header[25] = 1, 2
+    header[26:30] = b"PIN "
+    header[58:62] = b"PIN "
+    header[94:96] = np.uint16(227).tobytes()
+    header[96:100] = np.uint32(227).tobytes()
+    header[104] = fmt
+    header[105:107] = np.uint16(dt.itemsize).tobytes()
+    header[107:111] = np.uint32(n).tobytes()
+    header[131:155] = np.full(3, scale, np.float64).tobytes()
+    header[155:179] = off.astype(np.float64).tobytes()
+    mins, maxs = (points.min(axis=0), points.max(axis=0)) if n else (off, off)
+    header[179:227] = np.stack([maxs, mins], axis=1).reshape(-1).tobytes()
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        f.write(rec.tobytes())
+
+
+def read_point_cloud(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
+    """(points [N,3] float32, colours / intensity [N,C] or None, per-point
+    timestamps [N] float64 or None) by extension: PLY ``timestamp`` /
+    ``time`` / ``t``, PCD ``t``, LAS GPS time."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".bin":
+        raw = read_kitti_bin(path)
+        return raw[:, :3], raw[:, 3:4], None
+    if ext == ".npy":
+        raw = np.load(path)
+        return (raw[:, :3].astype(np.float32),
+                raw[:, 3:4].astype(np.float32) if raw.shape[1] > 3 else None, None)
+    if ext == ".ply":
+        d = read_ply(path)
+        pts = np.stack([d["x"], d["y"], d["z"]], axis=1).astype(np.float32)
+        color = None
+        if all(k in d for k in ("red", "green", "blue")):
+            color = np.stack([d["red"], d["green"], d["blue"]], axis=1).astype(np.float32)
+            if color.max() > 1.0:
+                color /= 255.0
+        elif "intensity" in d:
+            color = d["intensity"].astype(np.float32)[:, None]
+        ts = None
+        for key in ("timestamp", "time", "t"):
+            if key in d:
+                ts = d[key].astype(np.float64)
+                break
+        return pts, color, ts
+    if ext == ".pcd":
+        d = read_pcd(path)
+        pts = np.stack([d["x"], d["y"], d["z"]], axis=1).astype(np.float32)
+        color = d["intensity"].astype(np.float32)[:, None] if "intensity" in d else None
+        ts = d["t"].astype(np.float64) if "t" in d else None
+        return pts, color, ts
+    if ext == ".las":
+        d = read_las(path)
+        pts = np.stack([d["x"], d["y"], d["z"]], axis=1).astype(np.float32)
+        if "red" in d:
+            color = np.stack([d["red"], d["green"], d["blue"]], axis=1).astype(np.float32)
+        else:
+            color = d["intensity"][:, None]
+            if color.max(initial=0.0) > 1.0:
+                color = color / max(color.max(), 1.0)
+        ts = d.get("gps_time")
+        return pts, color, ts
+    raise ValueError(f"unsupported point cloud format: {path}")
+
+
+def read_kitti_calib(path: str) -> Dict[str, np.ndarray]:
+    """KITTI calib file -> dict of 4x4 matrices; key 'Tr' maps lidar->camera."""
+    calib = {}
+    with open(path) as f:
+        for line in f:
+            if ":" not in line:
+                continue
+            key, vals = line.split(":", 1)
+            v = np.fromstring(vals, sep=" ")
+            if v.size == 12:
+                T = np.eye(4)
+                T[:3, :] = v.reshape(3, 4)
+                calib[key.strip()] = T
+    return calib
+
+
+def apply_kitti_calib(poses_cam: np.ndarray, Tr: np.ndarray) -> np.ndarray:
+    """Move camera-frame GT poses into the LiDAR frame: Tr^-1 @ T @ Tr."""
+    Tr_inv = np.linalg.inv(Tr)
+    return np.einsum("ij,njk,kl->nil", Tr_inv, poses_cam, Tr)

@@ -1,10 +1,13 @@
 """Frame pipeline + host pose books, torch-port counterpart of
-``pin_slam_tpu/dataset/slam_dataset.py``: KITTI frame discovery and
-preprocessing (range crop, adaptive or fixed, bucket cap), the
-constant-velocity initial guess, odometry and pose-graph poses, travel
-distance, stop and lose-track detection, and the end-of-run results: the
-trajectory with its evaluation against ground truth, and the merged point
-cloud."""
+``pin_slam_tpu/dataset/slam_dataset.py``: frame discovery (KITTI ``.bin``,
+``.npy``, PLY, PCD), ground truth (KITTI or TUM poses, moved into the LiDAR
+frame by a KITTI calibration file), preprocessing (KITTI's intrinsic
+correction, range crop, adaptive or fixed, bucket cap, and deskewing with
+per-point timestamps, read from the file or recovered from the scan's yaw,
+in torch on the dataset's device), the constant-velocity initial guess,
+odometry and pose-graph poses, travel distance, stop and lose-track
+detection, and the end-of-run results: the trajectory with its evaluation
+against ground truth, and the merged point cloud."""
 
 from __future__ import annotations
 
@@ -13,35 +16,38 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from pin_slam_torch.dataset import io as pio
-from pin_slam_torch.ops.transforms import np_se3_inverse
+from pin_slam_torch.ops.transforms import deskew_points, np_se3_inverse
 from pin_slam_torch.ops.voxel import pad_to
-from pin_slam_torch.utils.platform import not_ported
+from pin_slam_torch.utils.platform import resolve_device
 
-PC_EXTS = {".bin", ".npy"}
+PC_EXTS = {".bin", ".ply", ".pcd", ".npy"}
 
 
 class Frame:
     """One preprocessed frame, padded to the frame bucket (numpy, host)."""
 
-    def __init__(self, points, valid, raw_count):
+    def __init__(self, points, valid, raw_count, point_ts=None):
         self.points = points          # (B,3) f32 sensor frame
         self.valid = valid            # (B,) bool
         self.raw_count = raw_count
+        self.point_ts = point_ts      # (B,) f32 per-point time or None
 
 
 class SLAMDataset:
-    """Frames from ``config.pc_path`` (KITTI ``.bin`` / ``.npy``) and ground
-    truth from ``config.pose_path``, or, when ``scans`` is given, frames held
-    in memory ((N, >=3) float arrays, sensor frame) with optional ground-truth
-    poses ``gt_poses`` (n, 4, 4)."""
+    """Frames from ``config.pc_path`` and ground truth from
+    ``config.pose_path`` (through ``config.calib_path``'s ``Tr`` when that
+    file exists), or, when ``scans`` is given, frames held in memory ((N, >=3)
+    float arrays, sensor frame) with optional ground-truth poses ``gt_poses``
+    (n, 4, 4).  With ``config.deskew`` the frames are deskewed on ``device``
+    (None: the GPU, raising without one; ``SlamSystem`` passes its own)."""
 
     def __init__(self, config, scans: Optional[List[np.ndarray]] = None,
-                 gt_poses: Optional[np.ndarray] = None):
+                 gt_poses: Optional[np.ndarray] = None, device=None):
         self.config = config
-        if config.deskew:
-            raise not_ported("deskew with per-point timestamps")
+        self.device = resolve_device(device) if config.deskew else device
         self.scans = scans
         self.pc_filenames: List[str] = []
         if scans is None and config.pc_path and os.path.isdir(config.pc_path):
@@ -57,9 +63,18 @@ class SLAMDataset:
             self.gt_poses = np.asarray(gt_poses, np.float64)
             self.gt_pose_provided = True
         elif config.pose_path and os.path.exists(config.pose_path):
+            if config.pose_path.endswith(".txt"):
+                try:
+                    poses = pio.read_kitti_poses(config.pose_path)
+                except ValueError:
+                    poses, _ = pio.read_tum_poses(config.pose_path)
+            else:
+                poses, _ = pio.read_tum_poses(config.pose_path)
+            calib = None
             if config.calib_path and os.path.exists(config.calib_path):
-                raise not_ported("KITTI calibration of GT poses")
-            poses = pio.read_kitti_poses(config.pose_path)
+                calib = pio.read_kitti_calib(config.calib_path).get("Tr")
+            if calib is not None:
+                poses = pio.apply_kitti_calib(poses, calib)
             if config.first_frame_ref:
                 poses = np.einsum("ij,njk->nik", np_se3_inverse(poses[0]), poses)
             self.gt_poses = poses
@@ -81,20 +96,27 @@ class SLAMDataset:
         return self.total_pc_count
 
     def read_frame(self, frame_id: int):
-        """(points (N,3) float32, intensity (N,1) or None) of a frame."""
+        """(points (N,3) float32, intensity / colours (N,C) or None, per-point
+        timestamps (N,) or None) of a frame.  With ``deskew`` on, a frame
+        whose file carries no timestamps gets them from its scan yaw."""
         if self.scans is not None:
             scan = np.asarray(self.scans[frame_id])
-            return (scan[:, :3].astype(np.float32),
-                    scan[:, 3:4].astype(np.float32) if scan.shape[1] > 3 else None)
-        points, colors, _ = pio.read_point_cloud(self.pc_filenames[frame_id])
-        return points, colors
+            points = scan[:, :3].astype(np.float32)
+            colors = scan[:, 3:4].astype(np.float32) if scan.shape[1] > 3 else None
+            ts = None
+        else:
+            points, colors, ts = pio.read_point_cloud(self.pc_filenames[frame_id])
+        if ts is None and self.config.deskew:
+            ts = recover_point_ts(points, self.config.lidar_type_guess)
+        return points, colors, ts
 
     def preprocess_frame(self, frame_id: int) -> Frame:
-        """Read + range/z crop + random cap at the frame bucket, padded."""
+        """Read + intrinsic correction + range/z crop + random cap at the
+        frame bucket + deskew with the last relative motion, padded."""
         cfg = self.config
+        points, _, ts = self.read_frame(frame_id)
         if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
-            raise not_ported("KITTI intrinsic correction")
-        points, _ = self.read_frame(frame_id)
+            points = intrinsic_correct(points, cfg.correction_deg)
         # adaptive crop range (used for NCD): twice the scan's smaller
         # horizontal half-extent, at most max_range
         crop_max_range = cfg.max_range
@@ -107,14 +129,25 @@ class SLAMDataset:
         keep = ((d > cfg.min_range) & (d < crop_max_range)
                 & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
         points = points[keep]
+        ts = ts[keep] if ts is not None else None
         rng = np.random.default_rng(cfg.seed + frame_id)
         if cfg.rand_downsample and cfg.rand_down_r < 1.0:
-            points = points[rng.random(points.shape[0]) < cfg.rand_down_r]
+            sel = rng.random(points.shape[0]) < cfg.rand_down_r
+            points, ts = points[sel], (ts[sel] if ts is not None else None)
         bucket = cfg.frame_bucket
         if points.shape[0] > bucket:
-            points = points[rng.choice(points.shape[0], bucket, replace=False)]
+            sel = rng.choice(points.shape[0], bucket, replace=False)
+            points, ts = points[sel], (ts[sel] if ts is not None else None)
+        if cfg.deskew and ts is not None and self.processed_frame > 0:
+            dev = self.device
+            points = deskew_points(
+                torch.as_tensor(points, dtype=torch.float32, device=dev),
+                torch.as_tensor(np.asarray(ts, np.float32), device=dev),
+                torch.as_tensor(self.last_odom_tran, dtype=torch.float32, device=dev)
+            ).cpu().numpy()
         pad_pts, valid = pad_to(points.astype(np.float32), bucket)
-        return Frame(pad_pts, valid, points.shape[0])
+        pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
+        return Frame(pad_pts, valid, points.shape[0], pad_ts)
 
     def initial_guess(self) -> np.ndarray:
         """Constant-velocity initial guess."""
@@ -203,7 +236,7 @@ class SLAMDataset:
         rng = np.random.default_rng(cfg.seed)
         worlds, cols = [], []
         for i in range(0, min(len(poses), self.total_pc_count), max(frame_stride, 1)):
-            points, colors = self.read_frame(i)
+            points, colors, _ = self.read_frame(i)
             d = np.linalg.norm(points, axis=1)
             keep = (d > cfg.min_range) & (d < cfg.max_range)
             points = points[keep]
@@ -234,3 +267,27 @@ class SLAMDataset:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         pio.write_ply(out, pts, colors=col)
         return out
+
+
+def intrinsic_correct(points: np.ndarray, correct_deg: float = 0.0) -> np.ndarray:
+    """KITTI's vertical-angle intrinsic correction (as in CT-ICP and
+    IMLS-SLAM): lift each point's vertical angle by ``correct_deg``."""
+    if correct_deg == 0.0:
+        return points
+    out = points.copy()
+    dist = np.linalg.norm(points[:, :3], axis=1)
+    v_ang = np.arcsin(np.clip(points[:, 2] / np.maximum(dist, 1e-12), -1.0, 1.0))
+    v_ang_c = v_ang + np.radians(correct_deg)
+    hor_scale = np.cos(v_ang_c) / np.maximum(np.cos(v_ang), 1e-12)
+    out[:, 0] *= hor_scale
+    out[:, 1] *= hor_scale
+    out[:, 2] = dist * np.sin(v_ang_c)
+    return out
+
+
+def recover_point_ts(points: np.ndarray, lidar_type: str = "velodyne") -> np.ndarray:
+    """Per-point time in [0, 1] from the scan yaw of a spinning LiDAR
+    (clockwise sweep)."""
+    yaw = -np.arctan2(points[:, 1], points[:, 0])
+    ts = (yaw / np.pi + 1.0) / 2.0
+    return ts.astype(np.float32)

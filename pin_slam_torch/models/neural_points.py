@@ -529,12 +529,15 @@ def idw_weights(dist2: torch.Tensor, valid: torch.Tensor, eps: float):
 
 
 def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
-                         knn_lidx: torch.Tensor, after_pgo: bool = False):
+                         knn_lidx: torch.Tensor, after_pgo: bool = False,
+                         gather=None):
     """IDW interpolation at the selected neighbors (differentiable in
     ``points`` and ``lm.geo_features``).  After a pose-graph optimisation
     (``after_pgo``) each offset vector is rotated into its neighbour's frame
-    by the neighbour's quaternion.  Returns (geo_feat [B,F+3] or per-neighbor
-    [B,k,F+3], weights [B,k], certainty [B])."""
+    by the neighbour's quaternion.  ``gather(table, idx)`` reads the feature
+    rows (default ``table[idx]``; bundle adjustment passes the row kernels'
+    autograd function, whose gradient is deterministic).  Returns (geo_feat
+    [B,F+3] or per-neighbor [B,k,F+3], weights [B,k], certainty [B])."""
     L = mc.local_capacity
     valid = knn_lidx < L
     safe_idx = torch.where(valid, knn_lidx, torch.full_like(knn_lidx, L))
@@ -544,7 +547,7 @@ def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
     if after_pgo:
         vec = apply_quaternion_rotation(pose[..., C_QUAT], vec)
     vec = torch.where(valid[..., None], vec, torch.zeros_like(vec))
-    feats = lm.geo_features[safe_idx]
+    feats = lm.geo_features[safe_idx] if gather is None else gather(lm.geo_features, safe_idx)
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
     _, _, w = idw_weights(dist2, valid, mc.idw_eps)
     geo_vec = torch.cat([feats, vec], dim=-1)

@@ -6,7 +6,10 @@ bodies are ``jnp.take(tab, ix, axis=0)`` and ``tab.at[ix].add(val)``.
 
 On the main path these are the training loop's pool-row gather, its
 per-iteration feature-row gather and its row-gradient scatter
-(``slam/mapper.py:mapping_loop_cached``).
+(``slam/mapper.py:mapping_loop_cached``).  Bundle adjustment differentiates
+through the feature gather with torch autograd: ``GatherRowsFn`` runs the
+gather kernel forward and the deterministic scatter backward, where plain
+autograd of ``table[idx]`` would add with float atomics.
 
 The scatter adds without float atomics: ``scatter_plans`` sorts each
 iteration's destination indices once (stable, so equal destinations keep
@@ -239,3 +242,27 @@ def scatter_sum_rows(n_rows: int, idx: torch.Tensor, val: torch.Tensor,
         return scatter_add_rows_plain(val.new_zeros((n_rows, val.shape[1])), idx, val,
                                       skip_row)
     return _launch_scatter(None, n_rows, idx, val, plan, skip_row)
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """``table[idx]`` for any shape of int64 ``idx`` (rows (*idx.shape, C)),
+    differentiable in ``table``: forward the row-gather kernel, backward the
+    zero-base scatter of the output gradient into (N, C) rows, each row
+    summed in index order (a plan built for this call's indices), so the
+    gradient has a sequential in-order ``index_add``'s bits on every device.
+    Row ``skip_row`` (if not None) gets a zero gradient.  CPU tensors take
+    the plain versions, as the wrappers do."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor,
+                skip_row: Optional[int] = None) -> torch.Tensor:
+        flat = idx.reshape(-1).contiguous()
+        ctx.save_for_backward(flat)
+        ctx.n_rows, ctx.skip_row = table.shape[0], skip_row
+        return gather_rows(table, flat).view(*idx.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (flat,) = ctx.saved_tensors
+        g = grad_out.reshape(flat.shape[0], -1).contiguous()
+        return scatter_sum_rows(ctx.n_rows, flat, g, skip_row=ctx.skip_row), None, None

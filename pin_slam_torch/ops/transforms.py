@@ -4,8 +4,24 @@ host pose bookkeeping float64 numpy)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+
+def transform_points(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """One 4x4 (or 3x4) homogeneous transform applied to (N,3) points."""
+    R = pose[:3, :3].to(points.dtype)
+    t = pose[:3, 3].to(points.dtype)
+    return points @ R.T + t
+
+
+def transform_points_batch(points: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
+    """Per-point transforms: points (N,3), poses (N,4,4)."""
+    R = poses[:, :3, :3].to(points.dtype)
+    t = poses[:, :3, 3].to(points.dtype)
+    return torch.einsum("nij,nj->ni", R, points) + t
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -63,6 +79,22 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         2 * (xy + wz), 1 - 2 * (x2 + z2), 2 * (yz - wx),
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (x2 + y2)], dim=-1)
     return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions, u in [0,1], broadcast
+    over u."""
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - u, torch.sin((1.0 - u) * theta) / safe)
+    w1 = torch.where(small, u, torch.sin(u * theta) / safe)
+    q = w0 * q0 + w1 * q1
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -133,6 +165,41 @@ def se3_logmap(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, v], dim=-1)
 
 
+def rotation_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in radians of [...,3,3] matrices."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+# ----------------------------------------------------------------------
+# deskewing (motion undistortion)
+# ----------------------------------------------------------------------
+
+
+def deskew_points(points: torch.Tensor, ts: torch.Tensor, rel_pose: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  ts_mid_pose: float = 0.5) -> torch.Tensor:
+    """Slerp-based motion undistortion on the tensors' device.
+
+    points (N,3) in the sensor frame at each point's own time; ts (N,) per
+    point (any scale: min/max normalised to [0,1], over the ``valid`` rows
+    only when a mask is given); rel_pose 4x4, the motion of one sweep
+    (T_last<-cur).  Each point moves into the frame of the sweep's
+    ``ts_mid_pose`` instant: p' = R(u) p + u t with u = ts_norm - ts_mid_pose,
+    R(u) the slerp from the identity to the motion's rotation."""
+    if valid is None:
+        tmin, tmax = torch.min(ts), torch.max(ts)
+    else:
+        tmin = torch.min(torch.where(valid, ts, torch.full_like(ts, float("inf"))))
+        tmax = torch.max(torch.where(valid, ts, torch.full_like(ts, float("-inf"))))
+    u = (ts - tmin) / torch.clamp(tmax - tmin, min=1e-9) - ts_mid_pose
+    q1 = rotmat_to_quat(rel_pose[:3, :3].to(points.dtype))
+    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=points.dtype, device=points.device)
+    R_u = quat_to_rotmat(quat_slerp(q0[None, :], q1[None, :], u[:, None]))
+    t_u = u[:, None] * rel_pose[:3, 3].to(points.dtype)
+    return torch.einsum("nij,nj->ni", R_u, points) + t_u
+
+
 # ----------------------------------------------------------------------
 # host (numpy, f64) pose helpers
 # ----------------------------------------------------------------------
@@ -144,3 +211,7 @@ def np_se3_inverse(T: np.ndarray) -> np.ndarray:
     out[:3, :3] = R.T
     out[:3, 3] = -R.T @ t
     return out
+
+
+def np_rotation_angle_deg(R: np.ndarray) -> float:
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0))))

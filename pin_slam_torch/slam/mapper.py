@@ -1,8 +1,10 @@
 """Incremental mapping, torch counterpart of ``pin_slam_tpu/slam/mapper.py``
-(main-path and loop-closure subset): the replay pool, the append-time kNN
-with its cached geometry, its re-derivation after a pose-graph optimisation,
-and the cached training loop on the kernel path (row gather -> train/eikonal
-kernels -> deterministic row scatter -> Adam).
+(main-path, loop-closure and bundle-adjustment subset): the replay pool, the
+append-time kNN with its cached geometry, its re-derivation after a
+pose-graph optimisation, the cached training loop on the kernel path (row
+gather -> train/eikonal kernels -> deterministic row scatter -> Adam), and
+sliding-window bundle adjustment (torch autograd, with the feature gather
+and its gradient on the row kernels).
 
 Pool rows keep the JAX package's packed layout (see ``P_*``): sample
 coordinates, label, weight, frame id, sensor-frame coordinates, the k = 6
@@ -23,7 +25,7 @@ from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.ops import rank_kernel, rows as rowk, train_kernel
 from pin_slam_torch.ops.hash3d import grid_coords
 from pin_slam_torch.ops.scatter import nonzero_static
-from pin_slam_torch.ops.transforms import apply_quaternion_rotation
+from pin_slam_torch.ops.transforms import apply_quaternion_rotation, se3_expmap
 from pin_slam_torch.ops.voxel import sqnorm3
 from pin_slam_torch.utils.platform import not_ported
 
@@ -570,3 +572,114 @@ def compute_new_sample_mask(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperC
     cert = npts.query_certainty(lm, mc, coord_world)
     return (valid & (cert < mcfg.new_certainty_thre)
             & (torch.abs(sdf_label) < mcfg.surface_sample_range * 3.0))
+
+
+# ----------------------------------------------------------------------
+# bundle adjustment
+# ----------------------------------------------------------------------
+
+
+def query_sdf(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperConfig, offsets,
+              pts: torch.Tensor, feats: torch.Tensor, decoder, after_pgo: bool = True):
+    """kNN + IDW interpolation + decode at ``pts`` with the (L+1, F) feature
+    table ``feats``, differentiable in ``pts`` and ``feats``.  The kNN is
+    pure indexing (no gradient); the feature rows come through
+    ``rows.GatherRowsFn`` (the gather kernel, and the in-order scatter for
+    their gradient; the sentinel row L gets none).  Returns (sdf (B,),
+    knn lidx (B,k), IDW weights (B,k))."""
+    L = mc.local_capacity
+    with torch.no_grad():
+        knn = npts.knn_search(lm, mc, pts.detach(), offsets)
+    lmf = dataclasses.replace(lm, geo_features=feats)
+    geo_feat, w, _ = npts.interpolate_features(
+        lmf, mc, pts, knn.lidx, after_pgo=after_pgo,
+        gather=lambda tab, idx: rowk.GatherRowsFn.apply(tab, idx, L))
+    sdf, _ = decoder.blended_sdf(geo_feat, w, mc.weighted_first, mcfg.sdf_scale)
+    return sdf, knn.lidx, w
+
+
+def ba_value_and_grad(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperConfig, offsets,
+                      decoder, feats: torch.Tensor, xi: torch.Tensor,
+                      poses_full: torch.Tensor, window_start: int, local: torch.Tensor,
+                      ts: torch.Tensor, valid: torch.Tensor):
+    """Bundle adjustment's loss at one batch and its gradients in the
+    features and the window's corrections.  Each sample's world point is
+    dT(ts) @ poses_full[ts] @ local, where dT is exp(xi[ts - window_start])
+    inside the window and the identity before it; the loss is the mean of
+    sdf^2 over the ``valid`` samples.  The per-sample pose selection is a
+    one-hot (B, window) product, so its gradient is a matrix product too
+    (no float atomics, as an indexed gather's backward would add); the
+    feature rows' gradient comes from the in-order row scatter
+    (``query_sdf``).  Returns (loss, d loss / d feats, d loss / d xi)."""
+    window = xi.shape[0]
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(True)
+        x = xi.detach().requires_grad_(True)
+        T_base = poses_full[ts]
+        in_win = ts >= window_start
+        widx = torch.clamp(ts - window_start, 0, window - 1)
+        onehot = (widx[:, None] == torch.arange(window, device=ts.device)[None, :]
+                  ).to(x.dtype)
+        dT = (onehot @ se3_expmap(x).reshape(window, 16)).reshape(-1, 4, 4)
+        eye = torch.eye(4, dtype=x.dtype, device=x.device).expand_as(dT)
+        dT = torch.where(in_win[:, None, None], dT, eye)
+        T = dT @ T_base
+        coord = torch.einsum("nij,nj->ni", T[:, :3, :3], local) + T[:, :3, 3]
+        sdf, _, _ = query_sdf(lm, mc, mcfg, offsets, coord, f, decoder)
+        per = torch.where(valid, sdf ** 2, torch.zeros_like(sdf))
+        loss = torch.sum(per) / torch.clamp(torch.sum(valid), min=1)
+        g_f, g_x = torch.autograd.grad(loss, (f, x))
+    return loss.detach(), g_f, g_x
+
+
+class OptaxAdam:
+    """Adam(0.9, 0.99, eps) on one tensor, in ``optax.adam``'s order of
+    operations (the JAX package's bundle adjustment uses optax): returns the
+    update -lr * m_hat / (sqrt(v_hat) + eps) that is added to the parameter."""
+
+    def __init__(self, like: torch.Tensor, lr: float, eps: float):
+        self.lr, self.eps, self.count = lr, eps, 0
+        self.m, self.v = torch.zeros_like(like), torch.zeros_like(like)
+
+    def update(self, g: torch.Tensor) -> torch.Tensor:
+        b1, b2 = 0.9, 0.99
+        self.count += 1
+        self.m = (1.0 - b1) * g + b1 * self.m
+        self.v = (1.0 - b2) * g ** 2 + b2 * self.v
+        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(self.count))
+        return -self.lr * ((self.m / bc1) / (torch.sqrt(self.v / bc2) + self.eps))
+
+
+def bundle_adjustment_loop(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
+                           decoder, pool: PoolState, mcfg: MapperConfig, offsets,
+                           poses_full: torch.Tensor, window_start: int, xi: torch.Tensor,
+                           batch_idx: torch.Tensor, lr_pose_ratio: float = 0.1):
+    """Sliding-window bundle adjustment: ``batch_idx.shape[0]`` Adam
+    iterations over the local features (L+1, F) and the se(3) corrections
+    ``xi`` (window, 6) of the poses from ``window_start`` on, left-composed
+    onto ``poses_full`` (T, 4, 4).  Each iteration's samples are the pool
+    rows ``batch_idx[t]`` that are filled surface samples (|label| < 1e-6)
+    with a frame id; the loss is ``ba_value_and_grad``'s.  The decoder stays
+    frozen, the sentinel feature row L is zeroed after every step, and the
+    poses move by ``lr_pose_ratio`` times Adam's update.  Returns (feats,
+    xi, loss history (T,))."""
+    L = mc.local_capacity
+    feats = feats.contiguous()
+    surface = torch.abs(pool.rows[:, P_LABEL]) < 1e-6
+    opt_f = OptaxAdam(feats, mcfg.lr, mcfg.adam_eps)
+    opt_x = OptaxAdam(xi, mcfg.lr, mcfg.adam_eps)
+    losses = []
+    for t in range(batch_idx.shape[0]):
+        idx = batch_idx[t]
+        rows_b = pool.rows[idx]
+        ts = rows_b[:, P_TS].to(torch.int64)
+        valid = (idx < pool.fill) & surface[idx] & (rows_b[:, P_TS] >= 0.0)
+        loss, g_f, g_x = ba_value_and_grad(lm, mc, mcfg, offsets, decoder, feats, xi,
+                                           poses_full, window_start, rows_b[:, P_LOCAL],
+                                           ts, valid)
+        feats = feats + opt_f.update(g_f)
+        feats[L] = 0.0
+        xi = xi + lr_pose_ratio * opt_x.update(g_x)
+        losses.append(loss)
+    return feats, xi, torch.stack(losses)

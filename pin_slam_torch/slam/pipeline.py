@@ -1,6 +1,7 @@
 """The per-frame SLAM loop, torch counterpart of
-``pin_slam_tpu/slam/pipeline.py``: odometry, mapping, and with ``pgo_on``
-loop closure, pose-graph optimisation and elastic map deformation.
+``pin_slam_tpu/slam/pipeline.py``: odometry, mapping, with ``pgo_on``
+loop closure, pose-graph optimisation and elastic map deformation, and with
+``ba_freq_frame > 0`` sliding-window bundle adjustment.
 
 Per frame: odometry (source voxel-downsample + ``track_frame``), then the map
 update (voxel mask -> ``sample_rays`` -> ``map_insert`` ->
@@ -20,6 +21,11 @@ pose-graph optimisation, map deformation (``adjust_map``, ``recreate_hash``)
 and the pool's re-derivation (``pool_retransform``, ``pool_refresh_cache``).
 From then on (``after_pgo``) every offset vector is rotated into its
 neighbour's frame.
+
+Every ``ba_freq_frame`` frames (once past half of ``ba_frame``) bundle
+adjustment refines the last ``ba_frame`` poses (of the pose graph when PGO
+is on) and the local features jointly on the pool's surface samples, before
+the map update, then re-derives the pool's coordinates and cached geometry.
 
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
@@ -52,13 +58,14 @@ from pin_slam_torch.models.decoder import Decoder
 from pin_slam_torch.ops.marching_cubes import vertex_normals
 from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
 from pin_slam_torch.ops.scatter import nonzero_static
-from pin_slam_torch.ops.transforms import np_se3_inverse
+from pin_slam_torch.ops.transforms import np_se3_inverse, se3_expmap
 from pin_slam_torch.ops.voxel import voxel_down_sample_mask
 from pin_slam_torch.slam import loop_detector as ld
 from pin_slam_torch.slam import mapper as mp
 from pin_slam_torch.slam import pgo as pgo_mod
 from pin_slam_torch.slam import tracker as trk
 from pin_slam_torch.slam.mesher import Mesher, MesherConfig, split_chunks
+from pin_slam_torch.utils import wandb_log
 from pin_slam_torch.utils.experiment import save_implicit_map
 from pin_slam_torch.utils.platform import not_ported, resolve_device
 
@@ -68,21 +75,20 @@ TS_CAPACITY = 1 << 16
 def check_ported(cfg) -> None:
     """Raise for every option this slice of the port does not cover."""
     unported = [
-        ("ba_freq_frame > 0", cfg.ba_freq_frame > 0),
         ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
          cfg.dp_devices > 1),
         ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
         ("semantic_on (the head and vertex painting, ROADMAP A 11)", cfg.semantic_on),
         ("color_on (the head and vertex painting, ROADMAP A 11)",
          cfg.color_on or cfg.color_map_on),
-        ("estimate_normal", cfg.estimate_normal),
-        ("dynamic_filter_on", cfg.dynamic_filter_on),
+        ("estimate_normal (ROADMAP A 11, normals)", cfg.estimate_normal),
+        ("dynamic_filter_on (ROADMAP A 11, the dynamic filter)", cfg.dynamic_filter_on),
         ("pos_encoding_band > 0", cfg.pos_encoding_band > 0),
-        ("deskew", cfg.deskew), ("o3d_vis_on (in-run mesh/SDF artifacts)", cfg.o3d_vis_on),
+        ("o3d_vis_on (in-run mesh/SDF artifacts)", cfg.o3d_vis_on),
         ("layer_norm_on", cfg.layer_norm_on),
         # pool rows cache exactly 6 neighbours (P_KNN / P_W); a wider kNN
-        # would overwrite the weight columns (ROADMAP C2)
-        ("query_nn_k != 6", cfg.query_nn_k != 6),
+        # would overwrite the weight columns
+        ("query_nn_k != 6 (pool rows sized from nn_k, ROADMAP C 2)", cfg.query_nn_k != 6),
         ("geo_mlp_level != 1 or mlp_bias_on = False",
          cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on),
         # knobs the JAX package measured and rejected (PERF_TPU.md); kept
@@ -112,6 +118,14 @@ class RandomSource:
         return mp.sample_batch_indices(self.gen, pool, mcfg,
                                        torch.tensor(use_new, device=self.device), num_iters)
 
+    def ba_indices(self, frame_id: int, pool: mp.PoolState, bs: int, num_iters: int):
+        """Bundle adjustment's (num_iters, bs) pool rows, uniform over the
+        filled pool (tests key the JAX package's draws on the frame)."""
+        fill = torch.clamp(pool.fill, min=1)
+        u = torch.rand((num_iters, bs), generator=self.gen, device=self.device,
+                       dtype=torch.float64)
+        return torch.minimum((u * fill).to(torch.int64), fill - 1)
+
 
 class SlamSystem:
     """Owns the device state and the host pose books; one frame at a time.
@@ -125,7 +139,9 @@ class SlamSystem:
         cfg = self.config = config
         check_ported(cfg)
         self.device = dev = resolve_device(device)
-        self.dataset = dataset if dataset is not None else SLAMDataset(cfg)
+        self.dataset = dataset if dataset is not None else SLAMDataset(cfg, device=dev)
+        if self.dataset.device is None:
+            self.dataset.device = dev
         self.mc = npts.MapConfig.from_config(cfg)
         self.mcfg = mp.MapperConfig.from_config(cfg)
         self.sc = SamplerConfig.from_config(cfg)
@@ -276,7 +292,9 @@ class SlamSystem:
             # replace the pose) before the map update
             detect_due = (self.pgm is not None and self.frame_id > 0
                           and self.frame_id % max(cfg.pgo_freq, 1) == 0)
-            conservative = (not tracked or detect_due
+            ba_due = (cfg.ba_freq_frame > 0 and self.frame_id > cfg.ba_frame // 2
+                      and (self.frame_id + 1) % cfg.ba_freq_frame == 0)
+            conservative = (not tracked or detect_due or ba_due
                             or (self.frame_id > 0 and self.dataset.stop_status))
             pgo_pre = pgo_post = 0.0
 
@@ -349,6 +367,12 @@ class SlamSystem:
                     self.frame_id += 1
                     info["skipped"] = True
                     return info
+                if ba_due:
+                    # bundle adjustment's time is the back end's (the pgo column)
+                    tp = time.perf_counter()
+                    info["ba"] = self._bundle_adjustment()
+                    self._sync()
+                    pgo_pre += time.perf_counter() - tp
                 R_sel = torch.as_tensor(self.cur_pose[:3, :3], dtype=torch.float32)
                 t_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
                 ok = True
@@ -420,6 +444,12 @@ class SlamSystem:
         self.stage_times.append([t1 - t0, t2 - t1 - pgo_pre, t_map - t2,
                                  t3 - t_map - pgo_post, pgo_pre + pgo_post])
         self.dataset.time_table.append(self.stage_times[-1])
+        st = self.stage_times[-1]
+        wandb_log.log({"timing(s)/preprocess": st[0], "timing(s)/tracking": st[1],
+                       "timing(s)/mapping": st[2] + st[3], "timing(s)/pgo": st[4],
+                       **({"loss/loss_last": info["loss_last"]} if "loss_last" in info
+                          else {})},
+                      step=self.frame_id)
         if self.pgm is not None:
             info["pgo_s"] = pgo_pre + pgo_post
         # kept on the device (no host sync a frame); read once at save time
@@ -550,6 +580,51 @@ class SlamSystem:
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
 
+    def _bundle_adjustment(self) -> Optional[dict]:
+        """Refine the last ``ba_frame`` poses (frame 0 stays fixed) and the
+        local features jointly (``mapper.bundle_adjustment_loop``, 4 x
+        ``iters`` iterations), write the poses back, then re-derive the
+        pool's coordinates and cached kNN geometry (the map points do not
+        move).  Returns the call's window, losses, mean pose shift and
+        wall time, or None for a window under two poses."""
+        cfg, mc = self.config, self.mc
+        t0 = time.perf_counter()
+        poses_list = self.dataset.pgo_poses if cfg.pgo_on else self.dataset.odom_poses
+        n_poses = len(poses_list)
+        window = min(cfg.ba_frame, n_poses - 1)
+        if window < 2:
+            return None
+        window_start = n_poses - window
+        poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+        poses_full[:n_poses] = np.stack(poses_list).astype(np.float32)
+        num_iters = cfg.iters * 4
+        idx = self.rand.ba_indices(self.frame_id, self.pool, self.mcfg.bs, num_iters)
+        xi0 = torch.zeros((window, 6), dtype=torch.float32, device=self.device)
+        feats, xi, hist = mp.bundle_adjustment_loop(
+            self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
+            self.offsets, self._f32_dev(poses_full), window_start, xi0, idx)
+        self.lm.geo_features = feats
+        self.state = npts.assign_local_to_global(self.state, self.lm, mc, self._travel)
+        dT = se3_expmap(xi).double().cpu().numpy()
+        before = np.stack(poses_list[window_start:])[:, :3, 3]
+        for i in range(window):
+            poses_list[window_start + i] = dT[i] @ poses_list[window_start + i]
+        shift = np.linalg.norm(np.stack(poses_list[window_start:])[:, :3, 3] - before, axis=1)
+        self.cur_pose = poses_list[self.frame_id].copy()
+        self.dataset.last_pose = self.cur_pose.copy()
+
+        poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+        poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
+        self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new))
+        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc)
+        self._sync()
+        losses = hist.cpu().numpy()
+        return {"window": window, "window_start": window_start, "iters": num_iters,
+                "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                "loss_finite": bool(np.isfinite(losses).all()),
+                "mean_pose_shift_m": float(shift.mean()),
+                "ms": (time.perf_counter() - t0) * 1e3}
+
     def save_artifacts(self, run_path: str):
         """End-of-run artifacts: the final pose graph and loop plot, the
         finalised map (merge + prune, compacted), the time table and the
@@ -651,6 +726,7 @@ class SlamSystem:
         with ground truth its metrics, kept in ``self.metrics``) and the
         end-of-run artifacts; returns each frame's info dict."""
         cfg = self.config
+        wandb_log.setup_wandb(cfg)
         n = len(self.dataset) if num_frames is None else min(num_frames, len(self.dataset))
         end = cfg.end_frame if cfg.end_frame > 0 else n
         infos = []
@@ -661,6 +737,9 @@ class SlamSystem:
         run_path = cfg.run_path or os.path.join(cfg.output_root, cfg.name or "run")
         self.metrics = self.dataset.write_results(run_path)
         self.save_artifacts(run_path)
+        if self.metrics:
+            wandb_log.log({f"metrics/{k}": v for k, v in self.metrics.items()})
+        wandb_log.finish()
         return infos
 
 

@@ -1,12 +1,16 @@
-"""Map persistence, the port's counterpart of ``save_implicit_map`` /
-``load_implicit_map`` in ``pin_slam_tpu/utils/experiment.py``: the global
-map's live rows and the decoder in one ``.npz`` with the JAX package's keys
-and layouts (decoder weights as (in, out)), so each package loads the
-other's file."""
+"""Experiment runtime, the port's counterpart of
+``pin_slam_tpu/utils/experiment.py``: the run directory (``setup_experiment``)
+and map persistence (``save_implicit_map`` / ``load_implicit_map``: the
+global map's live rows and the decoder in one ``.npz`` with the JAX
+package's keys and layouts (decoder weights as (in, out)), so each package
+loads the other's file)."""
 
 from __future__ import annotations
 
+import json
 import os
+import subprocess
+import time
 import types
 from typing import Optional, Tuple
 
@@ -16,6 +20,33 @@ import torch
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder, decoder_from_jax
 from pin_slam_torch.utils.platform import resolve_device
+
+
+def setup_experiment(cfg, argv=None) -> str:
+    """Create ``<output_root>/<name>_<timestamp>/`` with ``map/``, ``mesh/``
+    and ``meta/``, set ``cfg.run_path`` / ``cfg.run_name``, seed numpy's
+    global generator and torch's with ``cfg.seed``, and write
+    ``meta/run.json`` (argv, seed, time, and the checkout's git commit when
+    there is one).  Returns the run path."""
+    ts = time.strftime("%Y-%m-%d_%H-%M-%S")
+    run_name = f"{cfg.name}_{ts}"
+    run_path = os.path.join(cfg.output_root or "./experiments", run_name)
+    for sub in ("map", "mesh", "meta"):
+        os.makedirs(os.path.join(run_path, sub), exist_ok=True)
+    cfg.run_path = run_path
+    cfg.run_name = run_name
+    np.random.seed(cfg.seed)
+    torch.manual_seed(cfg.seed)
+    meta = {"argv": argv or [], "seed": cfg.seed, "time": ts}
+    try:
+        meta["git_commit"] = subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], stderr=subprocess.DEVNULL,
+            cwd=os.path.dirname(os.path.abspath(__file__))).decode().strip()
+    except Exception:
+        pass
+    with open(os.path.join(run_path, "meta", "run.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    return run_path
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

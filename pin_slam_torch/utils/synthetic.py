@@ -1,9 +1,15 @@
 """Synthetic LiDAR scenes for smoke runs and tests: a dense cluttered
 corridor world, a smooth sensor trajectory, and an occlusion-aware scan
 simulator (a copy of the JAX package's bench scene, ``bench.py``, so the port
-and the JAX package can be driven with identical frames); and the square-loop
+and the JAX package can be driven with identical frames); the square-loop
 scene of the JAX package's loop-closure test, in memory, and its
-surfaces (``square_world``)."""
+surfaces (``square_world``); a rolling-sweep renderer (``rolling_sweep``,
+``make_square_sweeps``), whose points are measured from the pose at their
+own sweep time, as a spinning LiDAR moving through the scene measures them;
+and writers of a sequence in the KITTI and the Newer College (NCD) layouts
+on disk."""
+
+import os
 
 import numpy as np
 
@@ -133,18 +139,11 @@ def square_world(rng, side=8.0):
             np.concatenate(normals).astype(np.float32))
 
 
-def make_square_scene(rng, side=8.0, step=0.8):
-    """The square-loop scene of the JAX package's loop-closure test
-    (``tests/test_full_slam.py``), in memory: a rounded square path of side
-    ``side`` in a cluttered 30 x 30 m room, driven once around and along the
-    first leg again (a genuine revisit), with occlusion-aware, backface-culled
-    scans.  Draws from ``rng`` in the same order as the on-disk version (the
-    intensity column included), so a seed gives the same frames.
-
-    Returns (scans: list of (N, 4) float32 [x, y, z, intensity] in the sensor
-    frame, poses (n, 4, 4) float64 world <- sensor)."""
-    world, normals = square_world(rng, side)
-
+def square_waypoints(side=8.0, step=0.8):
+    """The square-loop scene's path: [(position (3,), heading)] for every
+    frame, a rounded square of side ``side`` driven once around and along
+    the first leg again (a genuine revisit), ``step`` m a frame on the
+    straights after a slow start, 0.15 m on the corner arcs."""
     # rounded-square centreline parameterised by arc length, so the path
     # closes exactly; the corner radius keeps the turn rate near 5 deg/frame
     r = 1.6
@@ -186,13 +185,35 @@ def make_square_scene(rng, side=8.0, step=0.8):
         s += v
         frame += 1
 
+    return waypoints
+
+
+def pose_matrix(p, heading):
+    """World <- sensor 4x4 of a planar pose (position, heading about z)."""
+    c, sn = np.cos(heading), np.sin(heading)
+    T = np.eye(4)
+    T[:3, :3] = [[c, -sn, 0], [sn, c, 0], [0, 0, 1]]
+    T[:3, 3] = p
+    return T
+
+
+def make_square_scene(rng, side=8.0, step=0.8):
+    """The square-loop scene of the JAX package's loop-closure test
+    (``tests/test_full_slam.py``), in memory: a rounded square path of side
+    ``side`` in a cluttered 30 x 30 m room, driven once around and along the
+    first leg again (a genuine revisit), with occlusion-aware, backface-culled
+    scans.  Draws from ``rng`` in the same order as the on-disk version (the
+    intensity column included), so a seed gives the same frames.
+
+    Returns (scans: list of (N, 4) float32 [x, y, z, intensity] in the sensor
+    frame, poses (n, 4, 4) float64 world <- sensor)."""
+    world, normals = square_world(rng, side)
+
+    waypoints = square_waypoints(side, step)
     n_az, n_el = 900, 64
     scans, poses = [], []
     for p, hd in waypoints:
-        c, sn = np.cos(hd), np.sin(hd)
-        T = np.eye(4)
-        T[:3, :3] = [[c, -sn, 0], [sn, c, 0], [0, 0, 1]]
-        T[:3, 3] = p
+        T = pose_matrix(p, hd)
         poses.append(T)
         Tinv = np.linalg.inv(T)
         local = world @ Tinv[:3, :3].T + Tinv[:3, 3]
@@ -213,3 +234,171 @@ def make_square_scene(rng, side=8.0, step=0.8):
             [pts[sub], rng.uniform(0, 1, (sub.size, 1)).astype(np.float32)],
             axis=1).astype(np.float32))
     return scans, np.stack(poses)
+
+
+# ----------------------------------------------------------------------
+# rolling sweeps
+# ----------------------------------------------------------------------
+
+
+def _so3_exp(w):
+    """Rodrigues for axis-angle rows w (N,3) -> (N,3,3), float64."""
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    K = np.zeros((w.shape[0], 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    K[:, 1, 0], K[:, 2, 0], K[:, 2, 1] = w[:, 2], -w[:, 1], w[:, 0]
+    small = th < 1e-12
+    safe = np.where(small, 1.0, th)
+    A = np.where(small, 1.0, np.sin(safe) / safe)
+    B = np.where(small, 0.5, (1.0 - np.cos(safe)) / safe ** 2)
+    return np.eye(3)[None] + A * K + B * (K @ K)
+
+
+def _so3_log(R):
+    cos = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(cos)
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return v * (0.5 if th < 1e-12 else th / (2.0 * np.sin(th)))
+
+
+def sweep_time(p):
+    """Sweep time in [0, 1] of sensor-frame points (N,3): a clockwise spin
+    starting behind the sensor (the time ``recover_point_ts`` assumes)."""
+    return (-np.arctan2(p[:, 1], p[:, 0]) / np.pi + 1.0) / 2.0
+
+
+def rolling_sweep(world, T_mid, T_rel, n_az=1024, n_el=128, fov=(-0.3927, 0.3927),
+                  min_range=2.0, max_range=60.0, n_iter=2):
+    """One sweep of a spinning LiDAR of ``n_az`` x ``n_el`` beams (vertical
+    field of view ``fov`` rad) whose mid-sweep pose is ``T_mid`` (world <-
+    sensor) and which moves by ``T_rel`` (the pose at the sweep's end in the
+    frame at its start; the constant velocity between neighbouring frames)
+    during one sweep.  The sensor's pose at sweep time u in [-0.5, 0.5]
+    (u = 0 at mid-sweep) is T_mid @ T_rel(u), T_rel(u) = (exp(u log R_rel),
+    u t_rel): the motion that ``deskew_points`` undoes.  Each surface point
+    facing the sensor is measured from the pose at its own time, found by a
+    fixed-point iteration between its azimuth and its time; the nearest
+    return of each (azimuth, elevation) beam is kept.
+
+    Returns (points (N,3) float32 in the sensor frame at each point's time,
+    time (N,) in [0, 1], the points' true coordinates in the mid-sweep frame
+    (N,3) float64)."""
+    points, normals = world
+    points = points.astype(np.float64)
+    Rm, tm = T_mid[:3, :3], T_mid[:3, 3]
+    p_mid = (points - tm) @ Rm
+    d_mid = np.linalg.norm(p_mid, axis=1)
+    facing = np.einsum("ij,ij->i", tm - points, normals) > 0
+    keep = (d_mid > min_range) & (d_mid < max_range) & facing
+    p_mid = p_mid[keep]
+    w_rel, t_rel = _so3_log(T_rel[:3, :3]), T_rel[:3, 3]
+    u = sweep_time(p_mid) - 0.5
+    for _ in range(n_iter):
+        R_u = _so3_exp(u[:, None] * w_rel[None, :])
+        p_u = np.einsum("nji,nj->ni", R_u, p_mid - u[:, None] * t_rel)
+        u = sweep_time(p_u) - 0.5
+    R_u = _so3_exp(u[:, None] * w_rel[None, :])
+    p_u = np.einsum("nji,nj->ni", R_u, p_mid - u[:, None] * t_rel)
+    d = np.linalg.norm(p_u, axis=1)
+    az = np.arctan2(p_u[:, 1], p_u[:, 0])
+    el = np.arcsin(np.clip(p_u[:, 2] / d, -1.0, 1.0))
+    ok = (el >= fov[0]) & (el < fov[1]) & (d > min_range) & (d < max_range)
+    ia = np.clip(((az + np.pi) / (2 * np.pi) * n_az).astype(np.int64), 0, n_az - 1)
+    ie = np.clip(((el - fov[0]) / (fov[1] - fov[0]) * n_el).astype(np.int64), 0, n_el - 1)
+    cand = np.nonzero(ok)[0]
+    order = cand[np.argsort(d[cand], kind="stable")]
+    _, first = np.unique((ia * n_el + ie)[order], return_index=True)
+    sel = np.sort(order[first])
+    return p_u[sel].astype(np.float32), u[sel] + 0.5, p_mid[sel]
+
+
+def make_square_sweeps(rng, side=8.0, step=0.8, n_az=1024, n_el=128, workers=1):
+    """The square-loop scene's world (drawn from ``rng`` as
+    ``make_square_scene`` draws it) and path, every frame rendered as a
+    rolling sweep (``rolling_sweep``) under the constant velocity from the
+    previous frame (from the next one for frame 0), on ``workers`` threads.
+    Returns (scans: list of (N, 4) float32 [x, y, z, intensity], times: list
+    of (N,) in [0, 1], true mid-sweep coordinates: list of (N, 3), poses
+    (n, 4, 4) world <- sensor at mid-sweep)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    world = square_world(rng, side)
+    poses = np.stack([pose_matrix(p, hd) for p, hd in square_waypoints(side, step)])
+
+    def render(i):
+        T_rel = (np.linalg.inv(poses[i - 1]) @ poses[i] if i > 0
+                 else np.linalg.inv(poses[0]) @ poses[1])
+        return rolling_sweep(world, poses[i], T_rel, n_az=n_az, n_el=n_el)
+
+    with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+        sweeps = list(ex.map(render, range(len(poses))))
+    scans, times, truth = [], [], []
+    for pts, ts, mid in sweeps:
+        inten = rng.uniform(0, 1, (pts.shape[0], 1)).astype(np.float32)
+        scans.append(np.concatenate([pts, inten], axis=1))
+        times.append(ts)
+        truth.append(mid)
+    return scans, times, truth, poses
+
+
+# ----------------------------------------------------------------------
+# sequences on disk
+# ----------------------------------------------------------------------
+
+# LiDAR -> camera extrinsics of KITTI odometry sequence 00 (its calib.txt "Tr")
+KITTI_TR = np.array([
+    [4.276802385584e-04, -9.999672484946e-01, -8.084491683471e-03, -1.198459927713e-02],
+    [-7.210626507497e-03, 8.081198471645e-03, -9.999413164504e-01, -5.403984729748e-02],
+    [9.999738645903e-01, 4.859485810390e-04, -7.206933692422e-03, -2.921968648686e-01],
+    [0.0, 0.0, 0.0, 1.0]])
+
+
+def write_poses(path, poses):
+    """Poses (n, 4, 4) as KITTI's 12 numbers a line, at full double
+    precision (``io.write_kitti_poses`` writes 9 decimals)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        for T in poses:
+            f.write(" ".join(f"{v:.17g}" for v in np.asarray(T)[:3, :].reshape(-1)) + "\n")
+
+
+def write_kitti_sequence(root, seq, scans, poses, Tr=KITTI_TR):
+    """A sequence in the KITTI odometry layout under ``root``:
+    ``sequences/<seq>/velodyne/%06d.bin`` (x, y, z, intensity float32),
+    ``sequences/<seq>/calib.txt`` with the LiDAR -> camera ``Tr``, and
+    ``poses/<seq>.txt``: the LiDAR poses ``poses`` as KITTI gives ground
+    truth, in the camera frame (Tr @ T @ Tr^-1), at full double precision.
+    Returns the sequence's velodyne directory."""
+    velo = os.path.join(root, "sequences", seq, "velodyne")
+    os.makedirs(velo, exist_ok=True)
+    for i, scan in enumerate(scans):
+        s = np.zeros((scan.shape[0], 4), np.float32)
+        s[:, :scan.shape[1]] = scan[:, :4]
+        s.tofile(os.path.join(velo, f"{i:06d}.bin"))
+    with open(os.path.join(root, "sequences", seq, "calib.txt"), "w") as f:
+        for key in ("P0", "P1", "P2", "P3"):
+            f.write(f"{key}: " + " ".join(f"{v:.12e}" for v in np.eye(4)[:3].reshape(-1)) + "\n")
+        f.write("Tr: " + " ".join(f"{v:.17g}" for v in Tr[:3].reshape(-1)) + "\n")
+    Tr_inv = np.linalg.inv(Tr)
+    write_poses(os.path.join(root, "poses", f"{seq}.txt"),
+                 [Tr @ T @ Tr_inv for T in poses])
+    return velo
+
+
+def write_ncd_sequence(root, seq, scans, times, poses, sweep_s=0.1):
+    """A sequence in the Newer College 128-beam layout under ``root``:
+    ``<seq>/ply/%06d.ply`` (binary PLY with x, y, z, intensity and a
+    per-point ``time`` in seconds from the sweep's start, ``sweep_s`` a
+    sweep) and ``<seq>/poses.txt`` (LiDAR poses, KITTI's 12 numbers a
+    line).  Returns the sequence's ply directory."""
+    from pin_slam_torch.dataset import io as pio
+
+    ply = os.path.join(root, seq, "ply")
+    os.makedirs(ply, exist_ok=True)
+    for i, (scan, ts) in enumerate(zip(scans, times)):
+        extra = {"time": (np.asarray(ts) * sweep_s).astype(np.float32)}
+        if scan.shape[1] > 3:
+            extra = {"intensity": scan[:, 3], **extra}
+        pio.write_ply(os.path.join(ply, f"{i:06d}.ply"), scan[:, :3], extra=extra)
+    write_poses(os.path.join(root, seq, "poses.txt"), poses)
+    return ply

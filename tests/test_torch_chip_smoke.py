@@ -344,3 +344,52 @@ def test_capture_keeps_the_zero_base_scatter_and_the_frame_plans():
     assert kw["skip_row"] == sentinel and torch.equal(kw["plan"].order, plan.order)
     assert torch.equal(out, rows.scatter_add_rows_plain(torch.zeros_like(table), idx, val,
                                                         sentinel))
+
+
+def test_capture_keeps_bundle_adjustment_rows_apart_and_stores_while_tallying():
+    """Inside bundle adjustment (``in_ba``) the row kernels' calls are kind
+    ``ba``; with ``store`` set they are tallied and cloned at once (path D
+    keeps its last frame's and its first BA's inputs so, without an extra
+    frame)."""
+    rows, table, idx, val, sentinel = _row_case()
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "D"
+        cap.in_ba, cap.store = True, True
+        tab = table[:, :8].contiguous().requires_grad_(True)
+        out = rows.GatherRowsFn.apply(tab, idx, sentinel)
+        out.sum().backward()
+        cap.in_ba, cap.store = False, False
+        rows.scatter_sum_rows(table.shape[0], idx, val, skip_row=sentinel)
+    finally:
+        cap.uninstall()
+    assert cap.tally == {("D", "gather", "ba"): 1, ("D", "scatter", "ba"): 1,
+                         ("D", "scatter", "main"): 1}
+    (t, i), _ = cap.inputs[("D", "gather", "ba")]
+    assert t.shape == (table.shape[0], 8) and torch.equal(i, idx)
+    (n, i, v), kw = cap.inputs[("D", "scatter", "ba")]
+    assert n == table.shape[0] and v.shape == (idx.shape[0], 8) and kw["skip_row"] == sentinel
+    assert ("D", "scatter", "main") not in cap.inputs
+
+
+def test_snapshot_clone_is_deep_and_bits_compare_exactly():
+    """Path D reruns its first bundle adjustment from ``_clone``d inputs:
+    dataclasses and modules are copied, not shared; ``_bits_equal`` tells
+    one ulp and signed zeros apart."""
+    from pin_slam_torch.models.decoder import Decoder
+    from pin_slam_torch.slam import mapper as mp
+
+    pool = mp.PoolState(rows=torch.ones(4, 3), head=torch.tensor(0), fill=torch.tensor(2),
+                        new_idx=torch.zeros(2, dtype=torch.int64), new_count=torch.tensor(0))
+    dec = Decoder(11, 8, 1, 1)
+    c_pool, c_dec = chip_smoke._clone(pool), chip_smoke._clone(dec)
+    pool.rows.add_(1.0)
+    with torch.no_grad():
+        dec.out.bias.add_(1.0)
+    assert torch.equal(c_pool.rows, torch.ones(4, 3))
+    assert not torch.equal(c_dec.out.bias, dec.out.bias)
+    a = torch.tensor([0.0, 1.0])
+    assert chip_smoke._bits_equal(a, a.clone())
+    assert not chip_smoke._bits_equal(a, torch.tensor([-0.0, 1.0]))
+    assert not chip_smoke._bits_equal(a, torch.nextafter(a, torch.tensor(2.0)))

@@ -193,7 +193,7 @@ def test_entry_point_refuses_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SlamSystem(cfg)
     cfg2 = _config(Config, True)
-    cfg2.ba_freq_frame = 10
+    cfg2.estimate_normal = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(cfg2, device="cpu")
 
