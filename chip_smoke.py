@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, four paths, meshes, CLI, kernels
+    python3 chip_smoke.py            # what the checks run: build, five paths, meshes, CLI, kernels
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -40,13 +40,32 @@
    gather and scatter launch 60 times in each BA; from frame 2 on, the
    deskewed points' mean distance to their true mid-sweep coordinates is at
    most half the raw points'; every kernel launched.
-6. ``cli_kitti``: ``pin_slam_torch.cli.main`` in-process on 8 corridor
+6. Path E: ``config/rgbd_slam/run_replica.yaml`` as shipped (colour head,
+   photometric tracking, BA every 20 frames, save_map and save_mesh; map
+   2^22, local 2^19, frame bucket 2^17, source bucket 2^13, pool 2e7, bs
+   16384 x 20), a copy changed only in ``pc_path``, ``pose_path`` and
+   ``output_root``, through ``pin_slam_torch.cli.main`` in process, on 41
+   frames of a painted room (walls, boxes, pillars) rendered by a
+   1200 x 680 camera with Replica's intrinsics (depth in 16 bits at
+   6553.5, colour in 8), back-projected at stride 2 by
+   ``converters.backproject_depth`` and written under build/ in the
+   Replica layout ``converters.convert_replica`` writes.  Gates: every
+   frame registers; max position error < 0.2 m; the colours regressed at
+   the map's points with at least 6 neighbours within 0.2 (mean absolute
+   error) of the painted field; the written mesh non-empty, its vertex
+   colours finite, in [0, 1] and within 0.2 of the field; ``pin_map.npz``
+   reloads with its colour features and colour decoder; every frame's
+   photometric rows hold points; the BA at frame 39 finite and not
+   rising; one training call, rerun from a snapshot, bit-identical in the
+   geometry and colour features and both decoders; every kernel launched,
+   the colour gather and scatter once an iteration.
+7. ``cli_kitti``: ``pin_slam_torch.cli.main`` in-process on 8 corridor
    frames written under build/ in the KITTI layout (camera-frame poses,
    calib.txt), with a copy of ``run_kitti.yaml`` changed only in
    ``pc_path`` and ``output_root``.  Gates: return code 0, 8 frames in
    summary.json, a run()'s artifacts, the ground truth through calib.txt
    within 1e-9 m of the scene's, finite poses, every kernel launched.
-7. Kernel phases: every kernel is run on the card on the inputs the paths
+8. Kernel phases: every kernel is run on the card on the inputs the paths
    gave it (captured in one extra, untimed frame after each path's timed
    frames, per path and shape), held against its plain PyTorch version
    (integers, ranks and gathers exact; floats part by part within the stated
@@ -65,8 +84,9 @@
    (on no path) at path B's near shape with K = 81 on random rows.
    The row gather and scatter also at bundle adjustment's shapes on path D
    (its first call's inputs): the feature gather forward and the in-order
-   scatter of its gradient.
-8. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
+   scatter of its gradient; on path E also the colour labels' and colour
+   features' gathers and the colour gradient's scatter (``pathE-*``).
+9. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
    and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 16} x
    both modes on dyadic inputs (float64 check, two launches bit-identical),
    the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
@@ -79,7 +99,7 @@
    {1, 33, 4099} x M in {0, 1, 5000}, with and without a skipped row (the
    in-order sum's bits, two launches bit-identical).
 
-9. End of run, after paths A and C (each after its capture frame):
+10. End of run, after paths A and C (each after its capture frame):
    ``SlamSystem.save_artifacts`` with save_map, save_mesh and save_merged_pc
    on, into a temporary run directory under ``build/``, then
    ``write_results``.  The ``mesh_A`` / ``mesh_C`` line reports the map's
@@ -234,17 +254,21 @@ class Capture:
             return eikonal_iter(*a, **kw)
 
         def gather(*a, **kw):
-            # the pool rows once per training call, the feature rows
-            # (F + 1 = 9 columns) once per iteration; bundle adjustment's
-            # feature rows (F = 8 columns) once per iteration
-            kind = "ba" if self.in_ba else "feat" if a[0].shape[1] == 9 else "pool"
+            # the pool rows (and with a colour head the colour labels, C = 3)
+            # once per training call, the feature rows (F + 1 = 9 columns)
+            # and the colour feature rows (F = 8) once per iteration; bundle
+            # adjustment's feature rows (F = 8) once per iteration
+            kind = ("ba" if self.in_ba
+                    else {9: "feat", 8: "color", 3: "label"}.get(a[0].shape[1], "pool"))
             self._keep((self.path, "gather", kind), a, kw)
             return gather_rows(*a, **kw)
 
         def scatter(*a, **kw):
             # the training loop's scatter into a zero table, once per
-            # iteration; bundle adjustment's feature gradient, once per iteration
-            self._keep((self.path, "scatter", "ba" if self.in_ba else "main"), a, kw)
+            # iteration (the colour features' gradient, 8 columns, a second
+            # one); bundle adjustment's feature gradient, once per iteration
+            kind = "ba" if self.in_ba else "color" if a[2].shape[1] == 8 else "main"
+            self._keep((self.path, "scatter", kind), a, kw)
             return scatter_sum_rows(*a, **kw)
 
         def plans(*a, **kw):
@@ -518,6 +542,8 @@ def _clone(x):
 
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
                                          for f in dataclasses.fields(x)})
@@ -832,6 +858,299 @@ def cli_kitti_phase():
 
 
 # ----------------------------------------------------------------------
+# path E: the RGB-D colour profile through the batch CLI
+# ----------------------------------------------------------------------
+
+PATH_E = dict(profile="config/rgbd_slam/run_replica.yaml", seq="room0", n_frames=41,
+              stride=2)
+E_BA_FRAMES = [39]                # ba_freq_frame 20 past ba_frame // 2 = 25
+E_RERUN_FRAME = 5                 # the training call rerun from its snapshot
+E_GATE_POS_M = 0.2                # tests/test_rgbd.py's position gate
+E_GATE_COLOR = 0.2                # its colour-regression gate (mean absolute error)
+
+
+def write_path_e_data():
+    """The RGB-D room rendered by a 1200 x 680 camera with Replica's
+    intrinsics along ``rgbd_pose``'s path (depth quantised to 16 bits at
+    6553.5, colour to 8 bits), back-projected at stride 2 by
+    ``converters.backproject_depth`` and written in the layout
+    ``converters.convert_replica`` writes (``rgbd_ply/*.ply``, ``poses.txt``)
+    under build/.  Returns (sequence directory, points a frame, seconds)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "path_e")
+    shutil.rmtree(root, ignore_errors=True)
+    n = PATH_E["n_frames"]
+    poses = [syn.rgbd_pose(i, n) for i in range(n)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        frames = list(ex.map(syn.render_rgbd, poses))
+    seq = os.path.join(root, PATH_E["seq"])
+    counts = syn.write_rgbd_sequence(seq, [d for d, _ in frames], [c for _, c in frames], poses,
+                                     stride=PATH_E["stride"])
+    return seq, counts, time.perf_counter() - t0
+
+
+def run_path_e(cap):
+    """Path E: ``run_replica.yaml`` as shipped (colour head, photometric
+    tracking, BA every 20 frames, save_map and save_mesh), a copy changed
+    only in ``pc_path``, ``pose_path`` and ``output_root``, through
+    ``pin_slam_torch.cli.main`` in process, on the RGB-D room written under
+    build/.  Each frame is timed (synchronised); the BA call is timed and
+    its row-kernel launches counted; one training call (frame
+    E_RERUN_FRAME's) is rerun from a snapshot of its inputs.  Gated (see
+    the module docstring) and reported."""
+    import glob
+
+    import torch
+    import yaml
+
+    from pin_slam_torch import cli
+    from pin_slam_torch.dataset import io as pio
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.models.decoder import blended_head, regress_color
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
+    from pin_slam_torch.slam.pipeline import SlamSystem
+    from pin_slam_torch.utils import synthetic as syn
+    from pin_slam_torch.utils.experiment import load_implicit_map
+
+    seq, n_points, setup_s = write_path_e_data()
+    with open(os.path.join(ROOT, PATH_E["profile"])) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["pc_path"] = os.path.join(seq, "rgbd_ply")
+    prof["setting"]["pose_path"] = os.path.join(seq, "poses.txt")
+    prof["setting"]["output_root"] = os.path.join(os.path.dirname(seq), "out")
+    yml = os.path.join(os.path.dirname(seq), "run_replica.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    n_frames = PATH_E["n_frames"]
+    got, infos, times, ba_calls, rerun = {}, [], [], [], {}
+    orig_proc, orig_save = SlamSystem.process_frame, SlamSystem.save_artifacts
+    orig_loop, orig_ba = mp.mapping_loop_cached, mp.bundle_adjustment_loop
+
+    def proc(self, frame):
+        got["system"] = self
+        cap.store = self.frame_id == n_frames - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            infos.append(orig_proc(self, frame))
+            return infos[-1]
+        finally:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            cap.store = False
+
+    def save(self, run_path):
+        torch.cuda.synchronize()
+        got["frames_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = orig_save(self, run_path)
+        torch.cuda.synchronize()
+        got["save_s"] = time.perf_counter() - t0
+        got["save_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        got["run_path"] = run_path
+        return out
+
+    def loop(*a, **kw):
+        system = got.get("system")
+        if "snap" in rerun or system is None or system.frame_id != E_RERUN_FRAME:
+            return orig_loop(*a, **kw)
+        rerun["snap"] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+        out = orig_loop(*a, **kw)
+        color = kw["color"]
+        rerun["out"] = [out[1].clone(), out[2].clone(), color.features.clone()] + \
+            [p.clone() for p in color.params]
+        return out
+
+    def ba(*a, **kw):
+        torch.cuda.synchronize()
+        c0 = dict(_cuda.COUNTS)
+        t0 = time.perf_counter()
+        cap.in_ba = True
+        try:
+            out = orig_ba(*a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            cap.in_ba = False
+        ba_calls.append({"loop_ms": (time.perf_counter() - t0) * 1e3,
+                         "gather_launches": _cuda.COUNTS["gather"] - c0["gather"],
+                         "scatter_launches": _cuda.COUNTS["scatter"] - c0["scatter"]})
+        return out
+
+    cap.path = "E"
+    cap.plain_rank_calls = 0
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    # what the earlier paths left allocated (their captured kernel inputs)
+    # is in the peak too: reported apart
+    at_start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    SlamSystem.process_frame, SlamSystem.save_artifacts = proc, save
+    mp.mapping_loop_cached, mp.bundle_adjustment_loop = loop, ba
+    try:
+        t_run = time.perf_counter()
+        rc = cli.main([yml])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        SlamSystem.process_frame, SlamSystem.save_artifacts = orig_proc, orig_save
+        mp.mapping_loop_cached, mp.bundle_adjustment_loop = orig_loop, orig_ba
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    system = got.get("system")
+    if rc != 0 or system is None:
+        fail(f"path E: the CLI returned {rc}")
+
+    # the snapshotted training call again: the same bits
+    repeat_ok = None
+    if "snap" in rerun:
+        a, kw = rerun["snap"]
+        out = orig_loop(*a, **kw)
+        color = kw["color"]
+        again = [out[1], out[2], color.features] + list(color.params)
+        repeat_ok = all(_bits_equal(x, y) for x, y in zip(again, rerun["out"]))
+        del a, kw, out, again, rerun["snap"]
+
+    ds, cfg, mc = system.dataset, system.config, system.mc
+    est = np.stack(ds.odom_poses)
+    gt = ds.gt_poses[:len(est)]
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+
+    # colours regressed at the map's points with a full neighbourhood (the
+    # JAX package's RGB-D test, every point of the finalised map)
+    count = int(system.state.count)
+    pts = system.state.positions[:count]
+    errs, n_full = [], 0
+    with torch.no_grad():
+        for s in range(0, count, 1 << 16):
+            p = pts[s:s + (1 << 16)]
+            knn = npts.knn_search(system.lm, mc, p, system.offsets)
+            _, col, w, _ = npts.interpolate_features(system.lm, mc, p, knn.lidx,
+                                                     query_color=True)
+            pred = blended_head(regress_color, system.color_decoder, col, w, mc.weighted_first)
+            full = knn.nn_count >= 6
+            target = torch.as_tensor(syn.world_color(p.cpu().numpy()), device=p.device)
+            errs.append(torch.abs(pred - target)[full].sum(0).cpu().numpy())
+            n_full += int(full.sum())
+    color_mae = float(np.sum(errs) / max(3 * n_full, 1))
+
+    # the painted mesh as written, and the saved map reloaded in the port
+    run_path = got["run_path"]
+    mesh = pio.read_ply(os.path.join(run_path, "mesh", "mesh.ply")) \
+        if os.path.exists(os.path.join(run_path, "mesh", "mesh.ply")) else {}
+    mverts = (np.stack([mesh["x"], mesh["y"], mesh["z"]], 1) if "x" in mesh
+              else np.zeros((0, 3), np.float32))
+    mcols = (np.stack([mesh["red"], mesh["green"], mesh["blue"]], 1).astype(np.float64) / 255.0
+             if "red" in mesh else None)
+    mesh_mae = (float(np.abs(mcols - syn.world_color(mverts)).mean())
+                if mcols is not None and len(mverts) else None)
+    state2, geo2, col2 = load_implicit_map(os.path.join(run_path, "map", "pin_map.npz"), mc,
+                                           color=True)
+    reload_ok = (col2 is not None and state2.color_features is not None
+                 and int(state2.count) == count
+                 and torch.equal(state2.color_features[:count],
+                                 system.state.color_features[:count])
+                 and torch.equal(state2.geo_features[:count], system.state.geo_features[:count])
+                 and all(torch.equal(x, y) for x, y in zip(col2.state_dict().values(),
+                                                           system.color_decoder.state_dict()
+                                                           .values())))
+    del state2, geo2, col2
+
+    photo = [int(x.get("photo_count", 0)) for x in infos[1:]]
+    ba_infos = [dict(frame=i, **x["ba"]) for i, x in enumerate(infos) if x.get("ba")]
+    for info, call in zip(ba_infos, ba_calls):
+        info.update(call)
+    stage = np.asarray(system.stage_times[1:n_frames])
+    n_iter = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
+    res = {
+        "phase": "path_E", "profile": PATH_E["profile"], "argv": [os.path.relpath(yml, ROOT)],
+        "layout": "Replica converted: rgbd_ply/*.ply (x, y, z, RGB) + poses.txt, from disk",
+        "camera": "1200 x 680, fx = fy = 600, stride 2", "rc": rc,
+        "weighted_first": cfg.weighted_first, "frames": len(infos),
+        "points_per_frame": [min(n_points), max(n_points)], "setup_s": setup_s,
+        "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
+                       "frame_bucket": cfg.frame_bucket, "source_bucket": cfg.source_bucket,
+                       "pool": cfg.pool_capacity},
+        "run_s": run_s, "save_artifacts_s": got.get("save_s"),
+        "save_artifacts_peak_gb": got.get("save_peak_gb"),
+        # the last frame also clones the kernels' inputs: not timed
+        "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:-1])),
+        "frame0_s": times[0],
+        "stage_ms_mean_after_frame0": _stage_ms(stage),
+        "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+        "reg_iters": [int(x.get("reg_iters", 0)) for x in infos[1:]],
+        "reg_iters_mean": float(np.mean([int(x.get("reg_iters", 0)) for x in infos[1:]])),
+        "photo_count_min": min(photo) if photo else 0, "photo_count_mean": float(np.mean(photo)),
+        "ba": ba_infos, "train_rerun_bit_identical": repeat_ok,
+        "max_pose_err_m": float(err.max()), "end_pose_err_m": float(err[-1]),
+        "map_points": count, "map_points_full_nbhd": n_full, "color_mae": color_mae,
+        "mesh_vertices": int(len(mverts)), "mesh_has_colors": mcols is not None,
+        "mesh_color_range": ([float(mcols.min()), float(mcols.max())]
+                             if mcols is not None and len(mcols) else None),
+        "mesh_color_mae": mesh_mae, "map_reload_ok": reload_ok, "metrics": system.metrics,
+        "launches": counts,
+        "color_gathers": cap.tally.get(("E", "gather", "color"), 0),
+        "color_scatters": cap.tally.get(("E", "scatter", "color"), 0),
+        "artifacts": sorted(os.path.relpath(f, run_path)
+                            for f in glob.glob(os.path.join(run_path, "**"), recursive=True)
+                            if os.path.isfile(f)),
+        "allocated_at_start_gb": at_start_gb, "frames_peak_gb": got.get("frames_peak_gb"),
+        "max_memory_allocated_gb": max(got.get("frames_peak_gb", 0.0),
+                                       got.get("save_peak_gb", 0.0)),
+        "nvidia_smi": smi_line(),
+    }
+    emit(res)
+    if len(infos) != n_frames:
+        fail(f"path E: {len(infos)} frames ran, expected {n_frames}")
+    if not all(res["reg_valid"]):
+        bad = [i + 1 for i, v in enumerate(res["reg_valid"]) if not v]
+        fail(f"path E: frames {bad} did not register")
+    if not res["max_pose_err_m"] < E_GATE_POS_M:
+        fail(f"path E: pose error {res['max_pose_err_m']:.3f} m vs the room's ground truth")
+    if not color_mae < E_GATE_COLOR or n_full == 0:
+        fail(f"path E: colours regressed at {n_full} map points {color_mae:.3f} from the field")
+    if not len(mverts) or mcols is None or not np.isfinite(mcols).all() \
+            or mcols.min() < 0.0 or mcols.max() > 1.0 or not mesh_mae < E_GATE_COLOR:
+        fail(f"path E: painted mesh: {len(mverts)} vertices, colours "
+             f"{res['mesh_color_range']}, error {mesh_mae}")
+    if not reload_ok:
+        fail("path E: pin_map.npz does not reload with its colour features and decoder")
+    if not photo or min(photo) <= 0:
+        fail(f"path E: the photometric term had no points on some frame: {photo}")
+    if [b["frame"] for b in ba_infos] != E_BA_FRAMES or len(ba_calls) != len(E_BA_FRAMES):
+        fail(f"path E: bundle adjustment ran at {[b['frame'] for b in ba_infos]}, "
+             f"expected {E_BA_FRAMES}")
+    for b in ba_infos:
+        if not b["loss_finite"] or b["loss_last"] > b["loss_first"]:
+            fail(f"path E: bundle adjustment at frame {b['frame']}: loss {b['loss_first']} -> "
+                 f"{b['loss_last']}")
+    if not repeat_ok:
+        fail("path E: the training call rerun from its inputs differs")
+    for k in counts:
+        if k != "rank" and counts[k] < 1:
+            fail(f"path E: kernel {k} never launched")
+    if counts["rank"] or cap.plain_rank_calls:
+        fail(f"path E: the brick probe went through the per-cell rank kernel "
+             f"({counts['rank']}) or the plain brick gather ({cap.plain_rank_calls})")
+    if counts["train_iter"] < n_iter or res["color_gathers"] != counts["train_iter"] \
+            or res["color_scatters"] != counts["train_iter"]:
+        fail(f"path E: {counts['train_iter']} training iterations (>= {n_iter} expected), "
+             f"{res['color_gathers']} colour gathers, {res['color_scatters']} colour scatters")
+    res["ba_gather_launches"] = sum(b["gather_launches"] for b in ba_infos)
+    res["ba_scatter_launches"] = sum(b["scatter_launches"] for b in ba_infos)
+    del system, got
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
 # end of run: finalisation, saved map, whole-map mesh, evaluation
 # ----------------------------------------------------------------------
 
@@ -880,7 +1199,8 @@ def multi_chunk_mesh(system, pts, L):
                                          radius)
             cpu_state = dataclasses.replace(
                 system.state, **{f.name: getattr(system.state, f.name).cpu()
-                                 for f in dataclasses.fields(system.state)})
+                                 for f in dataclasses.fields(system.state)
+                                 if getattr(system.state, f.name) is not None})
             host = npts.build_query_view(cpu_state, system.mc, centre, radius)
     finally:
         system.mc = mc0
@@ -1915,6 +2235,7 @@ def main() -> int:
     try:
         results = {name: run_path(name, cap, mesh=True) for name in PATHS}
         results["D"] = run_path_d(cap)
+        results["E"] = run_path_e(cap)
     finally:
         cap.uninstall()
     cli_kitti_phase()
@@ -1931,18 +2252,25 @@ def main() -> int:
         rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
         a, kw = cap.inputs[(path, "eikonal", "main")]
         rows.append(eik_phase(f"path{path}", a, kw, res["launches"]["eikonal"]))
-        for kind in ("pool", "feat"):
-            a, kw = cap.inputs[(path, "gather", kind)]
-            rows.append(gather_phase(f"path{path}-{kind}", a, kw,
-                                     cap.tally.get((path, "gather", kind), 0)))
-        (n_rows, idx, val), kw = cap.inputs[(path, "scatter", "main")]
+        # path E's colour head adds the colour labels' gather (once a
+        # training call), the colour features' gather and their gradient's
+        # scatter (once an iteration each)
+        for kind in ("pool", "feat", "color", "label"):
+            if (path, "gather", kind) in cap.inputs:
+                a, kw = cap.inputs[(path, "gather", kind)]
+                rows.append(gather_phase(f"path{path}-{kind}", a, kw,
+                                         cap.tally.get((path, "gather", kind), 0)))
         (frame_idx, _), _ = cap.inputs[(path, "plans", "frame")]
         # the training loop's launches (path D's bundle adjustment has its own row)
-        rows.append(scatter_phase(f"path{path}", n_rows, idx, val, kw.get("plan"),
-                                  kw.get("skip_row"), cap.tally.get((path, "scatter", "main"), 0),
-                                  frame_idx))
+        for kind, suffix in (("main", ""), ("color", "-color")):
+            if (path, "scatter", kind) in cap.inputs:
+                (n_rows, idx, val), kw = cap.inputs[(path, "scatter", kind)]
+                rows.append(scatter_phase(f"path{path}{suffix}", n_rows, idx, val,
+                                          kw.get("plan"), kw.get("skip_row"),
+                                          cap.tally.get((path, "scatter", kind), 0), frame_idx))
         for kernel, kinds in (("rank_brick", ("far", "near")),
-                              ("gather", ("pool", "feat", "ba")), ("scatter", ("main", "ba"))):
+                              ("gather", ("pool", "feat", "ba", "color", "label")),
+                              ("scatter", ("main", "ba", "color"))):
             if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
                 fail(f"path {path}: {kernel} launch tallies disagree with the counter")
     # bundle adjustment's shapes on path D: the feature gather (forward) and

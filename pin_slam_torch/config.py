@@ -558,6 +558,13 @@ class Config:
             self.mc_res_m = self.voxel_size_m
         for intattr in ("pool_capacity", "buffer_size", "bs", "bs_new_sample"):
             setattr(self, intattr, int(float(getattr(self, intattr))))
+        # YAML 1.1 reads an exponent without a decimal point ("1e-3", as in
+        # run_replica.yaml's tracker terms) as a string: read it as the float
+        # the key's default is
+        floats = vars(type(self)())
+        for name, val in vars(self).items():
+            if isinstance(val, str) and isinstance(floats.get(name), float):
+                setattr(self, name, float(val))
 
         self._derive()
         return self

@@ -12,9 +12,9 @@ def set_dataset_path(config, dataset_name: str = "", seq: str = "") -> None:
     """Point ``config`` at a sequence of a named dataset under the root given
     in ``config.pc_path`` (frames, poses, calibration) and append the name
     and sequence to ``config.name``.  ``kitti`` also turns KITTI's 0.195 deg
-    intrinsic correction on; the RGB-D names turn the colour head on (which
-    the port still refuses, ROADMAP A 11).  Raises ValueError for an unknown
-    name."""
+    intrinsic correction on; the RGB-D names (sequences converted by
+    ``dataset/converters.py``) turn the colour head on.  Raises ValueError
+    for an unknown name."""
     config.name = f"{config.name}_{dataset_name}_{seq}" if dataset_name else config.name
     base = config.pc_path  # user supplies the dataset root in pc_path before dispatch
 

@@ -4,7 +4,8 @@
 frame by a KITTI calibration file), preprocessing (KITTI's intrinsic
 correction, range crop, adaptive or fixed, bucket cap, and deskewing with
 per-point timestamps, read from the file or recovered from the scan's yaw,
-in torch on the dataset's device), the constant-velocity initial guess,
+in torch on the dataset's device; with ``color_on`` each point's colour
+rides along), the constant-velocity initial guess,
 odometry and pose-graph poses, travel distance, stop and lose-track
 detection, and the end-of-run results: the trajectory with its evaluation
 against ground truth, and the merged point cloud."""
@@ -29,11 +30,12 @@ PC_EXTS = {".bin", ".ply", ".pcd", ".npy"}
 class Frame:
     """One preprocessed frame, padded to the frame bucket (numpy, host)."""
 
-    def __init__(self, points, valid, raw_count, point_ts=None):
+    def __init__(self, points, valid, raw_count, point_ts=None, colors=None):
         self.points = points          # (B,3) f32 sensor frame
         self.valid = valid            # (B,) bool
         self.raw_count = raw_count
         self.point_ts = point_ts      # (B,) f32 per-point time or None
+        self.colors = colors          # (B,C) f32 colours (color_on) or None
 
 
 class SLAMDataset:
@@ -112,9 +114,13 @@ class SLAMDataset:
 
     def preprocess_frame(self, frame_id: int) -> Frame:
         """Read + intrinsic correction + range/z crop + random cap at the
-        frame bucket + deskew with the last relative motion, padded."""
+        frame bucket + deskew with the last relative motion, padded.  With
+        ``color_on`` the file's colours follow their points through every
+        step (the voxel downsample runs on the device, in the pipeline)."""
         cfg = self.config
-        points, _, ts = self.read_frame(frame_id)
+        points, colors, ts = self.read_frame(frame_id)
+        if not cfg.color_on:
+            colors = None
         if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
             points = intrinsic_correct(points, cfg.correction_deg)
         # adaptive crop range (used for NCD): twice the scan's smaller
@@ -128,16 +134,15 @@ class SLAMDataset:
         d = np.linalg.norm(points, axis=1)
         keep = ((d > cfg.min_range) & (d < crop_max_range)
                 & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
-        points = points[keep]
-        ts = ts[keep] if ts is not None else None
+        points, colors, ts = _take_all(points, colors, ts, keep)
         rng = np.random.default_rng(cfg.seed + frame_id)
         if cfg.rand_downsample and cfg.rand_down_r < 1.0:
             sel = rng.random(points.shape[0]) < cfg.rand_down_r
-            points, ts = points[sel], (ts[sel] if ts is not None else None)
+            points, colors, ts = _take_all(points, colors, ts, sel)
         bucket = cfg.frame_bucket
         if points.shape[0] > bucket:
             sel = rng.choice(points.shape[0], bucket, replace=False)
-            points, ts = points[sel], (ts[sel] if ts is not None else None)
+            points, colors, ts = _take_all(points, colors, ts, sel)
         if cfg.deskew and ts is not None and self.processed_frame > 0:
             dev = self.device
             points = deskew_points(
@@ -147,7 +152,8 @@ class SLAMDataset:
             ).cpu().numpy()
         pad_pts, valid = pad_to(points.astype(np.float32), bucket)
         pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
-        return Frame(pad_pts, valid, points.shape[0], pad_ts)
+        pad_col = pad_to(colors.astype(np.float32), bucket)[0] if colors is not None else None
+        return Frame(pad_pts, valid, points.shape[0], pad_ts, pad_col)
 
     def initial_guess(self) -> np.ndarray:
         """Constant-velocity initial guess."""
@@ -267,6 +273,13 @@ class SLAMDataset:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         pio.write_ply(out, pts, colors=col)
         return out
+
+
+def _take_all(points, colors, ts, sel):
+    """The rows ``sel`` (a mask or indices) of the points and of their
+    colours and timestamps where present."""
+    return (points[sel], colors[sel] if colors is not None else None,
+            ts[sel] if ts is not None else None)
 
 
 def intrinsic_correct(points: np.ndarray, correct_deg: float = 0.0) -> np.ndarray:

@@ -1,6 +1,8 @@
 """Shared tiny MLP decoder, torch counterpart of ``pin_slam_tpu/models/decoder.py``:
 ``Linear(F+3 -> H) -> ReLU -> [Linear(H->H) -> ReLU]* -> Linear(H -> out)``,
-SDF head scaled by ``sdf_scale`` under the BCE loss."""
+SDF head scaled by ``sdf_scale`` under the BCE loss; the colour head's
+output clipped to [0, 1] (``regress_color``), and the blend of a head's
+predictions in either interpolation mode (``blended_head``)."""
 
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ class Decoder(nn.Module):
             h = torch.relu(lin(h))
         return self.out(h)
 
+    forward = mlp
+
     def sdf(self, features: torch.Tensor, sdf_scale: float) -> torch.Tensor:
         return self.mlp(features)[..., 0] * sdf_scale
 
@@ -60,7 +64,7 @@ class Decoder(nn.Module):
         return mean, torch.sqrt(torch.clamp(var, min=0.0))
 
     # ---- packed vector [W1 (in,H) | b1 | W2 (H,1) | b2] of the one-hidden-
-    # layer decoder, the training loop's Adam leaf (mapper.mapping_loop_cached)
+    # layer SDF decoder, the training loop's Adam leaf (mapper.mapping_loop_cached)
     def pack(self) -> torch.Tensor:
         if len(self.hidden) != 1 or self.hidden[0].bias is None or self.out.bias is None:
             raise NotImplementedError("packed decoder needs 1 hidden layer with biases")
@@ -76,6 +80,28 @@ class Decoder(nn.Module):
             self.hidden[0].bias.copy_(b1)
             self.out.weight.copy_(W2.T)
             self.out.bias.copy_(b2)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to [0, 1] as ``min(max(x, 0), 1)``: torch's maximum /
+    minimum split the gradient in half at a tie, as JAX's clip does
+    (``torch.clamp`` would pass it whole at 0 and 1)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def regress_color(decoder: Decoder, features: torch.Tensor) -> torch.Tensor:
+    """The colour head's prediction, clipped to [0, 1] (``clip01``)."""
+    return clip01(decoder.mlp(features))
+
+
+def blended_head(head_fn, decoder: Decoder, features: torch.Tensor, weights: torch.Tensor,
+                 weighted_first: bool) -> torch.Tensor:
+    """A colour / semantic head's prediction: one decode of the blended
+    features [B, F+3] (``weighted_first``), or the IDW blend of the k
+    per-neighbour predictions of features [B, k, F+3]."""
+    if weighted_first:
+        return head_fn(decoder, features)
+    return torch.sum(head_fn(decoder, features) * weights[..., None], dim=-2)
 
 
 def unpack(vec: torch.Tensor, in_dim: int, H: int):

@@ -4,7 +4,10 @@ structure-of-arrays point buffer whose last row is a sentinel, a global
 voxel hash, the per-frame local map with its packed local hash, kNN probes,
 IDW feature interpolation, the elastic deformation and rehash after a
 pose-graph optimisation, and at the end of a run the map's finalisation and
-the read-only whole-map views the mesher queries.
+the read-only whole-map views the mesher queries.  With ``color_on`` every
+table of geometric features has a colour feature table beside it, whose
+rows move with the geometric ones (insert, local map, write-back,
+finalisation) and which ``interpolate_features(query_color=True)`` blends.
 
 The row layouts are the JAX package's, so the two can be compared row for
 row.  Where the JAX package returns new arrays (XLA donation), the port
@@ -48,6 +51,7 @@ class MapConfig:
     weighted_first: bool = True
     local_hash_size: int = 1 << 22
     brick: tuple = (1, 1, 1)
+    color_on: bool = False            # colour feature tables beside the geometric ones
 
     @property
     def nsub(self) -> int:
@@ -87,6 +91,7 @@ class MapConfig:
             travel_dist_window=cfg.diff_travel_dist_local,
             use_mid_ts=cfg.use_mid_ts,
             weighted_first=cfg.weighted_first,
+            color_on=cfg.color_on,
             # same local-hash sizing rule as the JAX package (identical rows)
             local_hash_size=min(
                 1 << 21 if nsub > 1 else 1 << 20,
@@ -168,6 +173,7 @@ class MapState:
     geo_features: torch.Tensor   # (cap+1, F) f32
     count: torch.Tensor          # () int64
     hash_table: torch.Tensor     # (H+1,) int64; value cap = empty; slot H = dump
+    color_features: Optional[torch.Tensor] = None   # (cap+1, F) f32 with color_on
 
     @property
     def positions(self) -> torch.Tensor:
@@ -186,6 +192,7 @@ class LocalMap:
     lo2: torch.Tensor            # () int64 anchor of span 2
     origin: torch.Tensor         # (3,) f32
     hash_rows: torch.Tensor      # packed local hash rows (see _pack_hash_rows)
+    color_features: Optional[torch.Tensor] = None   # (L+1, F) f32 with color_on
 
     @property
     def positions(self) -> torch.Tensor:
@@ -198,7 +205,9 @@ def init_map_state(mc: MapConfig, device=None) -> MapState:
         attr_rows=attr_sentinel_row(device).expand(cap + 1, ATTR_DIM).clone(),
         geo_features=torch.zeros((cap + 1, F), dtype=torch.float32, device=device),
         count=torch.zeros((), dtype=torch.int64, device=device),
-        hash_table=torch.full((mc.hash_size + 1,), cap, dtype=torch.int64, device=device))
+        hash_table=torch.full((mc.hash_size + 1,), cap, dtype=torch.int64, device=device),
+        color_features=(torch.zeros((cap + 1, F), dtype=torch.float32, device=device)
+                        if mc.color_on else None))
 
 
 def _floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -260,7 +269,9 @@ def init_local_map(mc: MapConfig, device=None) -> LocalMap:
         member_mask=torch.zeros((mc.capacity + 1,), dtype=torch.bool, device=device),
         lo1=zero.clone(), lo2=zero.clone(),
         origin=torch.zeros((3,), dtype=torch.float32, device=device),
-        hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count))
+        hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count),
+        color_features=(torch.zeros((L + 1, F), dtype=torch.float32, device=device)
+                        if mc.color_on else None))
 
 
 # ----------------------------------------------------------------------
@@ -313,9 +324,10 @@ def map_insert(state: MapState, mc: MapConfig, points: torch.Tensor,
     dst = start + ar
     cur_attr = state.attr_rows[dst]
     state.attr_rows.index_copy_(0, dst, torch.where(placed[:, None], rows, cur_attr))
-    cur_geo = state.geo_features[dst]
-    state.geo_features.index_copy_(
-        0, dst, torch.where(placed[:, None], torch.zeros_like(cur_geo), cur_geo))
+    for table in (state.geo_features, state.color_features):
+        if table is not None:
+            cur = table[dst]
+            table.index_copy_(0, dst, torch.where(placed[:, None], torch.zeros_like(cur), cur))
 
     slot = torch.where(placed, h_c, torch.full_like(h_c, mc.hash_size))
     vals = torch.where(placed, dst, torch.full_like(dst, cap))
@@ -380,7 +392,8 @@ def build_local_map(state: MapState, mc: MapConfig, origin: torch.Tensor,
     return LocalMap(indices=idx_pad, attr_rows=attr_rows, geo_features=geo_features,
                     count=count, member_mask=member_mask, lo1=lo1.to(torch.int64),
                     lo2=lo2, origin=origin.to(torch.float32).clone(),
-                    hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad))
+                    hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad),
+                    color_features=_rows_or_none(state.color_features, idx_pad))
 
 
 def build_query_view(state: MapState, mc: MapConfig, origin: torch.Tensor,
@@ -411,7 +424,12 @@ def build_query_view(state: MapState, mc: MapConfig, origin: torch.Tensor,
                                                              device=dev)]),
                     lo1=zero, lo2=zero.clone(),
                     origin=origin.to(torch.float32).clone(),
-                    hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad))
+                    hash_rows=_pack_hash_rows(mc, attr_rows[:, C_POS], count, idx_pad),
+                    color_features=_rows_or_none(state.color_features, idx_pad))
+
+
+def _rows_or_none(table: Optional[torch.Tensor], idx: torch.Tensor) -> Optional[torch.Tensor]:
+    return table[idx] if table is not None else None
 
 
 def assign_local_to_global(state: MapState, lm: LocalMap, mc: MapConfig,
@@ -426,6 +444,11 @@ def assign_local_to_global(state: MapState, lm: LocalMap, mc: MapConfig,
     wb[L] = attr_sentinel_row(dev)
     geo_wb = lm.geo_features.clone()
     geo_wb[L] = 0.0
+    tables = [(state.attr_rows, wb), (state.geo_features, geo_wb)]
+    if state.color_features is not None and lm.color_features is not None:
+        col_wb = lm.color_features.clone()
+        col_wb[L] = 0.0
+        tables.append((state.color_features, col_wb))
     rank = torch.cumsum(lm.member_mask.to(torch.int64), 0) - 1
     ar = torch.arange(S, dtype=torch.int64, device=dev)
 
@@ -434,10 +457,9 @@ def assign_local_to_global(state: MapState, lm: LocalMap, mc: MapConfig,
         sl = lo + ar
         m_s = lm.member_mask[sl] & enabled
         src = torch.where(m_s, torch.clamp(rank[sl], max=L), torch.full_like(sl, L))
-        cur = state.attr_rows[sl]
-        state.attr_rows.index_copy_(0, sl, torch.where(m_s[:, None], wb[src], cur))
-        cur_g = state.geo_features[sl]
-        state.geo_features.index_copy_(0, sl, torch.where(m_s[:, None], geo_wb[src], cur_g))
+        for table, rows in tables:
+            cur = table[sl]
+            table.index_copy_(0, sl, torch.where(m_s[:, None], rows[src], cur))
 
     # span 1 only when it lies before the tail span (a no-op merge otherwise)
     merge(lm.lo1, lm.lo1 < lm.lo2)
@@ -530,14 +552,17 @@ def idw_weights(dist2: torch.Tensor, valid: torch.Tensor, eps: float):
 
 def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
                          knn_lidx: torch.Tensor, after_pgo: bool = False,
-                         gather=None):
+                         gather=None, query_color: bool = False):
     """IDW interpolation at the selected neighbors (differentiable in
     ``points`` and ``lm.geo_features``).  After a pose-graph optimisation
     (``after_pgo``) each offset vector is rotated into its neighbour's frame
     by the neighbour's quaternion.  ``gather(table, idx)`` reads the feature
     rows (default ``table[idx]``; bundle adjustment passes the row kernels'
     autograd function, whose gradient is deterministic).  Returns (geo_feat
-    [B,F+3] or per-neighbor [B,k,F+3], weights [B,k], certainty [B])."""
+    [B,F+3] or per-neighbor [B,k,F+3], weights [B,k], certainty [B]); with
+    ``query_color`` (geo_feat, color_feat of the same layout from
+    ``lm.color_features``, weights, certainty), as the JAX function
+    returns."""
     L = mc.local_capacity
     valid = knn_lidx < L
     safe_idx = torch.where(valid, knn_lidx, torch.full_like(knn_lidx, L))
@@ -553,7 +578,14 @@ def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
     geo_vec = torch.cat([feats, vec], dim=-1)
     geo_out = torch.sum(geo_vec * w[..., None], dim=1) if mc.weighted_first else geo_vec
     cert = torch.where(valid, pose[..., C_CERT], torch.zeros_like(w))
-    return geo_out, w, torch.sum(cert * w, dim=-1)
+    cert_q = torch.sum(cert * w, dim=-1)
+    if not query_color:
+        return geo_out, w, cert_q
+    cfeats = lm.color_features[safe_idx]
+    cfeats = torch.where(valid[..., None], cfeats, torch.zeros_like(cfeats))
+    color_vec = torch.cat([cfeats, vec], dim=-1)
+    color_out = torch.sum(color_vec * w[..., None], dim=1) if mc.weighted_first else color_vec
+    return geo_out, color_out, w, cert_q
 
 
 def query_certainty(lm: LocalMap, mc: MapConfig, points: torch.Tensor) -> torch.Tensor:
@@ -645,15 +677,17 @@ def finalize_map(state: MapState, mc: MapConfig, travel_dist: torch.Tensor, cur_
     in_count = rows < count
     attr_rows = torch.where(in_count[:, None], state.attr_rows[perm],
                             attr_sentinel_row(dev)[None, :])
-    geo_features = torch.where(in_count[:, None], state.geo_features[perm],
-                               torch.zeros((), dtype=torch.float32, device=dev))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    geo_features = torch.where(in_count[:, None], state.geo_features[perm], zero)
+    color_features = (torch.where(in_count[:, None], state.color_features[perm], zero)
+                      if state.color_features is not None else None)
     h = spatial_hash(grid_coords(attr_rows[:, C_POS], mc.voxel_size), mc.hash_size)
     slot = torch.where(in_count, h, torch.full_like(h, mc.hash_size))
     table = torch.full((mc.hash_size + 1,), cap, dtype=torch.int64, device=dev)
     hash_table = scatter_set_last(table, slot,
                                   torch.where(in_count, rows, torch.full_like(rows, cap)))
     return MapState(attr_rows=attr_rows, geo_features=geo_features, count=count,
-                    hash_table=hash_table)
+                    hash_table=hash_table, color_features=color_features)
 
 
 # ----------------------------------------------------------------------
@@ -665,12 +699,18 @@ def _t(a, dtype, device):
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
+def _color_or_none(src, device):
+    col = getattr(src, "color_features", None)
+    return _t(col, torch.float32, device) if col is not None else None
+
+
 def state_from_numpy(src, device=None) -> MapState:
     """A JAX ``MapState`` (or any object with its array attributes) -> MapState."""
     return MapState(attr_rows=_t(src.attr_rows, torch.float32, device),
                     geo_features=_t(src.geo_features, torch.float32, device),
                     count=_t(src.count, torch.int64, device),
-                    hash_table=_t(src.hash_table, torch.int64, device))
+                    hash_table=_t(src.hash_table, torch.int64, device),
+                    color_features=_color_or_none(src, device))
 
 
 def local_map_from_numpy(src, device=None) -> LocalMap:
@@ -683,4 +723,5 @@ def local_map_from_numpy(src, device=None) -> LocalMap:
                     lo1=_t(src.lo1, torch.int64, device),
                     lo2=_t(src.lo2, torch.int64, device),
                     origin=_t(src.origin, torch.float32, device),
-                    hash_rows=_t(src.hash_rows, torch.float32, device))
+                    hash_rows=_t(src.hash_rows, torch.float32, device),
+                    color_features=_color_or_none(src, device))

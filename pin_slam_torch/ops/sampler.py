@@ -1,12 +1,13 @@
 """Along-ray sampling for SDF supervision, torch counterpart of
 ``pin_slam_tpu/ops/sampler.py``: per ray the exact endpoint, ``n_surf``
 Gaussian close-to-surface samples, ``n_front`` / ``n_behind`` uniform
-free-space samples, ray-major layout [endpoint, surf x n, front, behind]."""
+free-space samples, ray-major layout [endpoint, surf x n, front, behind];
+with colours, each ray's colour labels its surface samples."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +51,8 @@ class SampleBatch(NamedTuple):
     sdf_label: torch.Tensor  # (N*S,)
     weight: torch.Tensor     # (N*S,) sign < 0 flags free space
     valid: torch.Tensor      # (N*S,) bool
+    color_label: Optional[torch.Tensor] = None   # (N*S, C): the ray's colour on its
+    #                                              surface samples, 0 on free space
 
 
 def draw_ray_noise(gen: torch.Generator, sc: SamplerConfig, n: int,
@@ -61,9 +64,11 @@ def draw_ray_noise(gen: torch.Generator, sc: SamplerConfig, n: int,
 
 
 def sample_rays(sc: SamplerConfig, points: torch.Tensor, valid: torch.Tensor,
-                draws: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> SampleBatch:
+                draws: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                color: Optional[torch.Tensor] = None) -> SampleBatch:
     """points (N,3) sensor-frame ray endpoints (padded); valid (N,); draws from
-    ``draw_ray_noise`` (tests hand in the JAX package's draws instead)."""
+    ``draw_ray_noise`` (tests hand in the JAX package's draws instead);
+    color (N,C) the endpoints' colours or None."""
     n = points.shape[0]
     S = sc.ray_sample_count
     dev, dt = points.device, points.dtype
@@ -105,6 +110,12 @@ def sample_rays(sc: SamplerConfig, points: torch.Tensor, valid: torch.Tensor,
     free_flag = torch.arange(S, device=dev) >= n_surf_tot
     weight = torch.where(free_flag[None, :], -weight, weight)
 
+    color_out = None
+    if color is not None:
+        surf = (torch.arange(S, device=dev) < n_surf_tot)[None, :, None]
+        color_out = torch.where(surf, color[:, None, :], torch.zeros((), dtype=color.dtype,
+                                                                     device=dev))
+        color_out = color_out.reshape(n * S, -1)
     return SampleBatch(coord=coord.reshape(n * S, 3), sdf_label=(-disp).reshape(-1),
                        weight=weight.reshape(-1),
-                       valid=valid[:, None].expand(n, S).reshape(-1))
+                       valid=valid[:, None].expand(n, S).reshape(-1), color_label=color_out)

@@ -1,10 +1,11 @@
 """Incremental mapping, torch counterpart of ``pin_slam_tpu/slam/mapper.py``
-(main-path, loop-closure and bundle-adjustment subset): the replay pool, the
-append-time kNN with its cached geometry, its re-derivation after a
-pose-graph optimisation, the cached training loop on the kernel path (row
-gather -> train/eikonal kernels -> deterministic row scatter -> Adam), and
-sliding-window bundle adjustment (torch autograd, with the feature gather
-and its gradient on the row kernels).
+(main-path, loop-closure, bundle-adjustment and colour subset): the replay
+pool (with its colour labels), the append-time kNN with its cached
+geometry, its re-derivation after a pose-graph optimisation, the cached
+training loop on the kernel path (row gather -> train/eikonal kernels ->
+deterministic row scatter -> Adam) with the colour head's term beside it,
+and sliding-window bundle adjustment (torch autograd, with the feature
+gather and its gradient on the row kernels).
 
 Pool rows keep the JAX package's packed layout (see ``P_*``): sample
 coordinates, label, weight, frame id, sensor-frame coordinates, the k = 6
@@ -21,8 +22,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from pin_slam_torch.models import decoder as dec
 from pin_slam_torch.models import neural_points as npts
-from pin_slam_torch.ops import rank_kernel, rows as rowk, train_kernel
+from pin_slam_torch.ops import losses, rank_kernel, rows as rowk, train_kernel
 from pin_slam_torch.ops.hash3d import grid_coords
 from pin_slam_torch.ops.scatter import nonzero_static
 from pin_slam_torch.ops.transforms import apply_quaternion_rotation, se3_expmap
@@ -51,6 +53,8 @@ class MapperConfig:
     new_certainty_thre: float = 1.0
     vec_dim: int = 3
     weighted_first: bool = True
+    color_on: bool = False
+    weight_i: float = 1.0
 
     @property
     def pool_dim(self) -> int:
@@ -73,7 +77,8 @@ class MapperConfig:
             num_grad_step=cfg.voxel_size_m * cfg.num_grad_step_ratio,
             surface_sample_range=cfg.surface_sample_range_m,
             window_radius=cfg.window_radius,
-            new_certainty_thre=cfg.new_certainty_thre)
+            new_certainty_thre=cfg.new_certainty_thre,
+            color_on=cfg.color_on, weight_i=cfg.weight_i)
 
 
 P_COORD = slice(0, 3)
@@ -98,9 +103,11 @@ class PoolState:
     fill: torch.Tensor       # () int64 valid entries
     new_idx: torch.Tensor    # (N_new,) int64 pool indices of new-region samples
     new_count: torch.Tensor  # () int64
+    color_label: Optional[torch.Tensor] = None   # (P+1, C) f32 with color_on; its
+    #                                              own array, so the rows keep their width
 
 
-def init_pool(mcfg: MapperConfig, device=None) -> PoolState:
+def init_pool(mcfg: MapperConfig, device=None, color_channel: int = 3) -> PoolState:
     P = mcfg.pool_capacity
     rows = torch.zeros((P + 1, mcfg.pool_dim), dtype=torch.float32, device=device)
     rows[:, P_KNN] = -1.0
@@ -108,16 +115,20 @@ def init_pool(mcfg: MapperConfig, device=None) -> PoolState:
     return PoolState(rows=rows, head=z.clone(), fill=z.clone(),
                      new_idx=torch.zeros((mcfg.new_idx_capacity,), dtype=torch.int64,
                                          device=device),
-                     new_count=z.clone())
+                     new_count=z.clone(),
+                     color_label=(torch.zeros((P + 1, color_channel), dtype=torch.float32,
+                                              device=device) if mcfg.color_on else None))
 
 
 def pool_from_numpy(src, device=None) -> PoolState:
     """A JAX ``PoolState`` (or any object with its array attributes) -> PoolState."""
     def t(a, dt):
         return torch.as_tensor(np.array(a), device=device).to(dt)
+    col = getattr(src, "color_label", None)
     return PoolState(rows=t(src.rows, torch.float32), head=t(src.head, torch.int64),
                      fill=t(src.fill, torch.int64), new_idx=t(src.new_idx, torch.int64),
-                     new_count=t(src.new_count, torch.int64))
+                     new_count=t(src.new_count, torch.int64),
+                     color_label=t(col, torch.float32) if col is not None else None)
 
 
 def idw_blend(points: torch.Tensor, nbr_pos: torch.Tensor, valid: torch.Tensor,
@@ -276,9 +287,11 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
                 coord_local: torch.Tensor, sdf_label: torch.Tensor, weight: torch.Tensor,
                 valid: torch.Tensor, cur_ts: int, new_mask: torch.Tensor,
                 knn_gidx: torch.Tensor, knn_w: torch.Tensor, knn_vec: torch.Tensor,
-                knn_nbr_vec: Optional[torch.Tensor] = None) -> PoolState:
+                knn_nbr_vec: Optional[torch.Tensor] = None,
+                color_label: Optional[torch.Tensor] = None) -> PoolState:
     """Ring-buffer append of one frame's valid samples as one contiguous
-    block at the head (updates ``pool.rows`` in place)."""
+    block at the head (updates ``pool.rows``, and ``pool.color_label`` with
+    the samples' ``color_label`` (n, C) in the same order, in place)."""
     dev = coord_world.device
     P = mcfg.pool_capacity
     n = coord_world.shape[0]
@@ -310,6 +323,9 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
     new_rows[:, P_KNN] = torch.where(in_valid[:, None], new_rows[:, P_KNN],
                                      torch.full_like(new_rows[:, P_KNN], -1.0))
     pool.rows.index_copy_(0, head + ar, new_rows)
+    if pool.color_label is not None:
+        pool.color_label.index_copy_(0, head + ar,
+                                     color_label[perm] * in_valid[:, None].to(torch.float32))
 
     new_head = head + n_valid
     nm_compact = in_valid & new_mask[perm]
@@ -317,7 +333,8 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
     return PoolState(rows=pool.rows, head=new_head % P,
                      fill=torch.clamp(torch.maximum(pool.fill, new_head), max=P),
                      new_idx=head + new_idx,
-                     new_count=torch.clamp(torch.sum(nm_compact), max=mcfg.new_idx_capacity))
+                     new_count=torch.clamp(torch.sum(nm_compact), max=mcfg.new_idx_capacity),
+                     color_label=pool.color_label)
 
 
 def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> PoolState:
@@ -335,7 +352,9 @@ def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> Po
     rows[P] = 0.0
     rows[P, P_KNN] = -1.0
     return PoolState(rows=rows, head=count % P, fill=count, new_idx=pool.new_idx,
-                     new_count=torch.zeros_like(pool.new_count))
+                     new_count=torch.zeros_like(pool.new_count),
+                     color_label=(pool.color_label[perm] if pool.color_label is not None
+                                  else None))
 
 
 def pool_retransform(pool: PoolState, poses: torch.Tensor) -> PoolState:
@@ -415,6 +434,68 @@ def adam_step(mcfg: MapperConfig, params: List[torch.Tensor], grads: List[torch.
     return new_p, AdamState(count=c, m=new_m, v=new_v)
 
 
+@dataclasses.dataclass
+class ColorState:
+    """The colour head's trained leaves: the (L+1, F) local colour feature
+    table and the values of the colour decoder's parameters (in the order
+    of ``decoder.parameters()``), with their Adam moments, threaded through
+    a frame's training calls like the geometry's (``mapping_loop_cached``
+    replaces ``features``, ``params`` and ``opt``).  ``decoder`` gives the
+    head's structure; its own parameters are not read."""
+    decoder: torch.nn.Module
+    features: torch.Tensor
+    params: List[torch.Tensor]
+    opt: AdamState
+
+    def leaves(self) -> List[torch.Tensor]:
+        return [self.features] + self.params
+
+    def load_into(self, decoder: torch.nn.Module) -> None:
+        """Copy the trained parameter values into ``decoder``."""
+        with torch.no_grad():
+            for p, v in zip(decoder.parameters(), self.params):
+                p.copy_(v)
+
+
+def init_color_state(features: torch.Tensor, decoder: torch.nn.Module) -> ColorState:
+    """The colour leaves of a training call with fresh Adam moments."""
+    params = [p.detach().clone() for p in decoder.parameters()]
+    leaves = [features] + params
+    return ColorState(decoder=decoder, features=features, params=params,
+                      opt=AdamState(count=0, m=[torch.zeros_like(x) for x in leaves],
+                                    v=[torch.zeros_like(x) for x in leaves]))
+
+
+def color_loss_and_grads(color: ColorState, cfeats: torch.Tensor, w: torch.Tensor,
+                         vin: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
+                         surf: torch.Tensor, mcfg: MapperConfig):
+    """The colour term of one iteration, ``weight_i`` x the L1 colour loss
+    of the surface samples, and its gradients in the gathered colour rows
+    ``cfeats`` (B, k, F) and in the colour decoder's parameters (torch
+    autograd over this small graph; the rows are a leaf, so nothing is
+    scattered here).  ``vin``: the blended offset vectors (B, 3) with
+    ``weighted_first`` (blend the features, decode once), else the
+    per-neighbour ones (B, k, 3) (decode each neighbour, blend the colours).
+    Returns (loss, d loss / d cfeats, [d loss / d param])."""
+    names = [n for n, _ in color.decoder.named_parameters()]
+    with torch.enable_grad():
+        cf = cfeats.detach().requires_grad_(True)
+        ps = [p.detach().requires_grad_(True) for p in color.params]
+
+        def head(x):
+            out = torch.func.functional_call(color.decoder, dict(zip(names, ps)), (x,))
+            return dec.clip01(out)
+
+        if mcfg.weighted_first:
+            pred = head(torch.cat([torch.einsum("bk,bkf->bf", w, cf), vin], -1))
+        else:
+            pred = torch.einsum("bk,bkc->bc", w, head(torch.cat([cf, vin], -1)))
+        loss = mcfg.weight_i * losses.color_diff_loss(pred, label, weight, mcfg.loss_weight_on,
+                                                      valid=surf)
+        grads = torch.autograd.grad(loss, [cf] + ps)
+    return loss.detach(), grads[0], list(grads[1:])
+
+
 def sample_batch_indices(gen: torch.Generator, pool: PoolState, mcfg: MapperConfig,
                          use_new: torch.Tensor, num_iters: int) -> torch.Tensor:
     """Mixed new/history batches for all iterations at once: the last
@@ -438,9 +519,10 @@ def sample_batch_indices(gen: torch.Generator, pool: PoolState, mcfg: MapperConf
 
 
 def kernel_path_supported(mcfg: MapperConfig, cfg) -> bool:
-    """Whether the port's training path covers this configuration: geometry
-    head only, one hidden layer with biases, no feature layer-norm."""
-    return (not cfg.semantic_on and not cfg.color_on and not cfg.layer_norm_on
+    """Whether the port's training path covers this configuration: the
+    geometry head (one hidden layer with biases) on the kernels, the colour
+    head beside them; no semantic head, no feature layer-norm."""
+    return (not cfg.semantic_on and not cfg.layer_norm_on
             and cfg.geo_mlp_level == 1 and cfg.mlp_bias_on
             and (mcfg.bs // mcfg.gradient_decimation > 0 or not mcfg.ekional_loss_on))
 
@@ -448,7 +530,8 @@ def kernel_path_supported(mcfg: MapperConfig, cfg) -> bool:
 def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
                         gvec: torch.Tensor, opt: AdamState, pool: PoolState,
                         mcfg: MapperConfig, batch_idx: torch.Tensor,
-                        decoder_lr_scale: float, after_pgo: bool = False):
+                        decoder_lr_scale: float, after_pgo: bool = False,
+                        color: Optional[ColorState] = None):
     """The per-frame training loop with pool-cached kNN (the kernel path).
 
     ``feats`` is the (L+1, F+1) local feature table whose column F is the
@@ -465,6 +548,15 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     destination-sorted plans are built once for all T iterations.  Every invalid neighbour points at the sentinel row L: the
     scatter skips it (its gradient and certainty are never read: feats[L] is
     zeroed after every Adam step and attr[L] reset at the end).
+
+    With ``color`` (and ``pool.color_label``) each iteration adds the colour
+    head's term (``color_loss_and_grads``) at the same cached neighbours and
+    weights: the colour rows come from the gather kernel, and their gradient
+    goes back through the same scatter plan as the geometry's (zero rows
+    stand in for the eikonal part), summed in index order.  The geometry and
+    colour terms share no parameter and Adam works element by element, so
+    the colour leaves take their own Adam step; ``color`` is updated in
+    place and the loss history holds both terms.
 
     Returns (lm with updated certainty / ts bookkeeping, feats, gvec, opt,
     loss history (T,))."""
@@ -503,6 +595,10 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     denom = torch.clamp(torch.sum(inp_f, dim=1), min=1.0)
     wt_base = weights if mcfg.loss_weight_on else torch.ones_like(weights)
     wt_eff = wt_base * inp_f / denom[:, None]
+    if color is not None:
+        col_lab = rowk.gather_rows(pool.color_label, flat_idx).reshape(T, B, -1)
+        col_surf = in_pool & (torch.abs(labels) < mcfg.surface_sample_range)
+        col_vin = vin if wf else vin.reshape(T, B, k, VD)
 
     if eik:
         coord_r = rows.reshape(T, B, -1)[:, :n_grad, 0:3]
@@ -531,7 +627,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     plans = rowk.scatter_plans(idx_it, L + 1)
 
     cert_acc = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
-    losses = []
+    hist = []
     for t in range(T):
         feats2 = rowk.gather_rows(feats, idx_it[t, :B * k],
                                   bounds_checked=True).view(B, k, F + 1)
@@ -552,7 +648,22 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
         gfeat[:, F] = 0.0
         (feats, gvec), opt = adam_step(mcfg, [feats, gvec], [gfeat, decoder_lr_scale * gp], opt)
         feats[L] = 0.0
-        losses.append(loss)
+        if color is not None:
+            cf = rowk.gather_rows(color.features, idx_it[t, :B * k],
+                                  bounds_checked=True).view(B, k, -1)
+            loss_c, g_cf, g_dec = color_loss_and_grads(
+                color, cf, w[t], col_vin[t], col_lab[t], weights[t], col_surf[t], mcfg)
+            loss = loss + loss_c
+            g_rows = g_cf.reshape(B * k, -1)
+            if eik:
+                g_rows = torch.cat([g_rows, g_rows.new_zeros((n_grad * k, g_rows.shape[1]))])
+            gcol = rowk.scatter_sum_rows(L + 1, idx_it[t], g_rows,
+                                         plan=rowk.plan_at(plans, t), skip_row=L)
+            new, color.opt = adam_step(mcfg, color.leaves(),
+                                       [gcol] + [decoder_lr_scale * g for g in g_dec],
+                                       color.opt)
+            color.features, color.params = new[0], new[1:]
+        hist.append(loss)
 
     touched = cert_acc > 0.0
     attr = lm.attr_rows.clone()
@@ -561,7 +672,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
                                       attr[:, npts.C_TSU])
     attr[L] = npts.attr_sentinel_row(dev)
     lm_out = dataclasses.replace(lm, attr_rows=attr)
-    return lm_out, feats, gvec, opt, torch.stack(losses)
+    return lm_out, feats, gvec, opt, torch.stack(hist)
 
 
 def compute_new_sample_mask(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperConfig,
@@ -662,14 +773,17 @@ def bundle_adjustment_loop(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.T
     rows ``batch_idx[t]`` that are filled surface samples (|label| < 1e-6)
     with a frame id; the loss is ``ba_value_and_grad``'s.  The decoder stays
     frozen, the sentinel feature row L is zeroed after every step, and the
-    poses move by ``lr_pose_ratio`` times Adam's update.  Returns (feats,
+    poses move by ``lr_pose_ratio`` times Adam's update.  The colour features
+    are not touched: their gradient is zero here, and Adam (the JAX
+    package's optax) moves a leaf with a zero gradient and zero moments by
+    exactly 0.  Returns (feats,
     xi, loss history (T,))."""
     L = mc.local_capacity
     feats = feats.contiguous()
     surface = torch.abs(pool.rows[:, P_LABEL]) < 1e-6
     opt_f = OptaxAdam(feats, mcfg.lr, mcfg.adam_eps)
     opt_x = OptaxAdam(xi, mcfg.lr, mcfg.adam_eps)
-    losses = []
+    hist = []
     for t in range(batch_idx.shape[0]):
         idx = batch_idx[t]
         rows_b = pool.rows[idx]
@@ -681,5 +795,5 @@ def bundle_adjustment_loop(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.T
         feats = feats + opt_f.update(g_f)
         feats[L] = 0.0
         xi = xi + lr_pose_ratio * opt_x.update(g_x)
-        losses.append(loss)
-    return feats, xi, torch.stack(losses)
+        hist.append(loss)
+    return feats, xi, torch.stack(hist)

@@ -6,7 +6,9 @@ extraction on the host (``ops/marching_cubes.py``), and SDF slices.
 
 The grid query is ``knn_search`` + ``interpolate_features`` +
 ``Decoder.blended_sdf`` as torch ops, as the JAX package's is XLA; it runs
-no hand-written kernel.  Vertex colour and semantic painting and the
+no hand-written kernel.  With a colour head each box's vertices are painted
+with the regressed colours at them (``paint_vertices``, in padded chunks of
+``query_bucket`` on the same view).  Semantic painting and the
 data-parallel query are not ported and raise ``NotImplementedError``.
 """
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from pin_slam_torch.models import neural_points as npts
-from pin_slam_torch.models.decoder import Decoder
+from pin_slam_torch.models.decoder import Decoder, blended_head, regress_color
 from pin_slam_torch.ops import marching_cubes as mcubes
 from pin_slam_torch.utils.platform import not_ported
 
@@ -46,11 +48,19 @@ def grid_query(lm: npts.LocalMap, mc: npts.MapConfig, decoder: Decoder, sdf_scal
     return sdf, knn.nn_count
 
 
+def grid_query_color(lm: npts.LocalMap, mc: npts.MapConfig, color_decoder: Decoder,
+                     offsets: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """The colour head's regressed colour at ``pts`` (B, 3): (B, C) in [0, 1]."""
+    knn = npts.knn_search(lm, mc, pts, offsets)
+    _, col, w, _ = npts.interpolate_features(lm, mc, pts, knn.lidx, query_color=True)
+    return blended_head(regress_color, color_decoder, col, w, mc.weighted_first)
+
+
 class Mesher:
     def __init__(self, cfg: MesherConfig, mc: npts.MapConfig, offsets: torch.Tensor,
                  dp_mesh=None):
-        if cfg.color_on or cfg.semantic_on:
-            raise not_ported("vertex colour / semantic painting (ROADMAP A 11, heads)")
+        if cfg.semantic_on:
+            raise not_ported("semantic vertex painting (ROADMAP A 11, the semantic head)")
         if dp_mesh is not None:
             raise not_ported("data-parallel mesh queries, dp_mesh (ROADMAP A 12)")
         self.cfg = cfg
@@ -78,11 +88,30 @@ class Mesher:
                 nn_out[s:e] = nn[: e - s]
         return sdf_out.cpu().numpy(), nn_out.to(torch.int32).cpu().numpy()
 
+    def paint_vertices(self, lm, color_decoder: Decoder, verts: np.ndarray) -> np.ndarray:
+        """The regressed colour at each vertex (V, 3) float32, queried on
+        ``lm``'s device in padded chunks of ``query_bucket`` (a one-channel
+        head is repeated to grey RGB)."""
+        n = verts.shape[0]
+        B = self.cfg.query_bucket
+        dev = lm.attr_rows.device
+        colors = np.zeros((n, 3), np.float32)
+        with torch.no_grad():
+            for s in range(0, n, B):
+                e = min(s + B, n)
+                chunk = np.zeros((B, 3), np.float32)
+                chunk[: e - s] = verts[s:e]
+                c = grid_query_color(lm, self.mc, color_decoder, self.offsets,
+                                     torch.as_tensor(chunk, device=dev))[: e - s].cpu().numpy()
+                colors[s:e] = c if c.shape[1] == 3 else np.repeat(c, 3, axis=1)
+        return colors
+
     def recon_aabb_mesh(self, lm, decoder: Decoder, sdf_scale: float,
-                        aabb_min: np.ndarray, aabb_max: np.ndarray
-                        ) -> Tuple[np.ndarray, np.ndarray]:
+                        aabb_min: np.ndarray, aabb_max: np.ndarray,
+                        color_decoder: Optional[Decoder] = None):
         """Reconstruct one box; returns (vertices [V,3] float32, faces [F,3]
-        int64) in world coordinates."""
+        int64) in world coordinates, and with ``color_decoder`` (vertices,
+        faces, vertex colours [V,3] float32 or None for an empty box)."""
         res = self.cfg.mc_res_m
         lo = np.floor(aabb_min / res) - self.cfg.pad_voxel
         hi = np.ceil(aabb_max / res) + self.cfg.pad_voxel
@@ -103,27 +132,37 @@ class Mesher:
         if verts.shape[0] and self.cfg.min_cluster_vertices > 0:
             verts, faces = mcubes.filter_isolated_vertices(verts, faces,
                                                            self.cfg.min_cluster_vertices)
-        return verts, faces
+        if color_decoder is None:
+            return verts, faces
+        colors = self.paint_vertices(lm, color_decoder, verts) if verts.shape[0] else None
+        return verts, faces, colors
 
     def recon_aabb_collections_mesh(self, lm, decoder: Decoder, sdf_scale: float,
-                                    aabbs: List[Tuple[np.ndarray, np.ndarray]]
-                                    ) -> Tuple[np.ndarray, np.ndarray]:
+                                    aabbs: List[Tuple[np.ndarray, np.ndarray]],
+                                    color_decoder: Optional[Decoder] = None):
         """Chunked reconstruction over a list of boxes, one mesh.  ``lm`` is
         one view for every box, or a function ``(amin, amax) -> view`` that
-        gives each box its own, built when the box is meshed."""
-        all_v, all_f = [], []
+        gives each box its own, built when the box is meshed.  Returns
+        (vertices, faces), and with ``color_decoder`` (vertices, faces,
+        vertex colours), each box painted on its own view."""
+        all_v, all_f, all_c = [], [], []
         off = 0
         for amin, amax in aabbs:
             view = lm(amin, amax) if callable(lm) else lm
-            v, f = self.recon_aabb_mesh(view, decoder, sdf_scale, amin, amax)
+            out = self.recon_aabb_mesh(view, decoder, sdf_scale, amin, amax, color_decoder)
+            v, f = out[:2]
             if v.shape[0] == 0:
                 continue
             all_v.append(v)
             all_f.append(f + off)
             off += v.shape[0]
+            if color_decoder is not None:
+                all_c.append(out[2])
         if not all_v:
-            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
-        return np.concatenate(all_v), np.concatenate(all_f)
+            empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
+            return empty if color_decoder is None else empty + (np.zeros((0, 3), np.float32),)
+        mesh = (np.concatenate(all_v), np.concatenate(all_f))
+        return mesh if color_decoder is None else mesh + (np.concatenate(all_c),)
 
     # ------------------------------------------------------------------
     def sdf_slice(self, lm, decoder: Decoder, sdf_scale: float, center: np.ndarray,

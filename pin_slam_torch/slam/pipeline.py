@@ -27,6 +27,13 @@ adjustment refines the last ``ba_frame`` poses (of the pose graph when PGO
 is on) and the local features jointly on the pool's surface samples, before
 the map update, then re-derives the pool's coordinates and cached geometry.
 
+With ``color_on`` (the RGB-D profile) a colour head rides along: the
+frame's colours go with its points into the source cloud (the tracker's
+intensity-consistency weight or photometric rows) and the samples (the
+pool's colour labels), the training loop trains the colour features and
+the colour decoder beside the geometry, the saved map holds both, and the
+mesh's vertices are painted.
+
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
 health-gate decisions on the host.  Every random draw comes from one
@@ -79,8 +86,6 @@ def check_ported(cfg) -> None:
          cfg.dp_devices > 1),
         ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
         ("semantic_on (the head and vertex painting, ROADMAP A 11)", cfg.semantic_on),
-        ("color_on (the head and vertex painting, ROADMAP A 11)",
-         cfg.color_on or cfg.color_map_on),
         ("estimate_normal (ROADMAP A 11, normals)", cfg.estimate_normal),
         ("dynamic_filter_on (ROADMAP A 11, the dynamic filter)", cfg.dynamic_filter_on),
         ("pos_encoding_band > 0", cfg.pos_encoding_band > 0),
@@ -170,15 +175,26 @@ class SlamSystem:
                                cfg.geo_mlp_level, 1, cfg.mlp_bias_on, generator=gen,
                                device=dev)
         self.decoder.requires_grad_(False)
+        self.color_decoder = None
+        if cfg.color_on:
+            self.color_decoder = Decoder(cfg.feature_dim + 3, cfg.color_mlp_hidden_dim,
+                                         cfg.color_mlp_level, max(cfg.color_channel, 1),
+                                         cfg.mlp_bias_on, generator=gen, device=dev)
+            self.color_decoder.requires_grad_(False)
 
         wd = cfg.use_probe_dedup
         self._use_dedup = wd is True or wd == "true" or wd not in (False, "false")
+        # dedup_group_probe packs frame-recentred voxel coordinates into 10
+        # bits an axis: exact while a frame's probe extent, 2 * max_range /
+        # voxel_size cells, stays under 1024 (KITTI 2 * 80 / 0.4 = 400,
+        # Replica 2 * 10 / 0.05 = 400); past it the 30-bit group key would
+        # alias voxels, so the per-item probe runs instead
         if self._use_dedup and int(np.ceil(2.0 * cfg.max_range / self.mc.voxel_size)) >= 1024:
-            self._use_dedup = False     # the 30-bit group key would alias voxels
+            self._use_dedup = False
 
         self.state = npts.init_map_state(self.mc, dev)
         self.lm = npts.init_local_map(self.mc, dev)
-        self.pool = mp.init_pool(self.mcfg, dev)
+        self.pool = mp.init_pool(self.mcfg, dev, color_channel=max(cfg.color_channel, 1))
         self.sdf_scale = cfg.sdf_scale
         self.cur_pose = np.eye(4)
         if self.dataset.gt_pose_provided and cfg.track_on:
@@ -188,6 +204,7 @@ class SlamSystem:
         self.frame_id = 0
         self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
         self.map_counts = []       # the map's count after each frame, device scalars
+        self.mesh_colors = None    # the last whole-map mesh's vertex colours (colour head)
         self.metrics = {}          # the trajectory's, set by run()
         self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
         self._stop_count = 0
@@ -209,17 +226,23 @@ class SlamSystem:
         if self.sync_stages and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _source_prep(self, points, valid):
+    def _source_prep(self, points, valid, colors=None):
+        """(source points, their validity): the frame's first point of each
+        ``source_vox_down_m`` voxel; with ``colors`` (B, C), (points,
+        validity, their colours)."""
         cfg = self.config
         keep = voxel_down_sample_mask(points, valid, cfg.source_vox_down_m,
                                       cfg.downsample_hash_size)
         idx = nonzero_static(keep, cfg.source_bucket, 0)
         n_keep = torch.sum(keep)
         src_valid = torch.arange(cfg.source_bucket, device=self.device) < n_keep
-        return points[idx], src_valid
+        if colors is None:
+            return points[idx], src_valid
+        return points[idx], src_valid, colors[idx]
 
-    def _frame_update(self, points, valid, pose_R, pose_t, frame_id):
-        """Sample -> insert -> local map -> new flags -> kNN probe -> pool append."""
+    def _frame_update(self, points, valid, pose_R, pose_t, frame_id, colors=None):
+        """Sample -> insert -> local map -> new flags -> kNN probe -> pool
+        append (with ``colors`` (B, C), the samples' colour labels too)."""
         cfg, mc, mcfg, sc = self.config, self.mc, self.mcfg, self.sc
         dev = self.device
         if not cfg.rand_downsample:
@@ -231,7 +254,10 @@ class SlamSystem:
             n_val = torch.sum(valid)
             points = torch.cat([points, torch.zeros((1, 3), device=dev)])[cidx]
             valid = torch.arange(Mb, device=dev) < torch.clamp(n_val, max=Mb)
-        batch = sample_rays(sc, points, valid, self.rand.ray_noise(frame_id, sc, points.shape[0]))
+            if colors is not None:
+                colors = torch.cat([colors, colors.new_zeros((1, colors.shape[1]))])[cidx]
+        batch = sample_rays(sc, points, valid, self.rand.ray_noise(frame_id, sc, points.shape[0]),
+                            colors)
         coord_world = batch.coord @ pose_R.T + pose_t
         Sn, n_surf_tot = sc.ray_sample_count, 1 + sc.surface_sample_n
         cw_surf = coord_world.reshape(-1, Sn, 3)[:, :n_surf_tot].reshape(-1, 3)
@@ -258,18 +284,29 @@ class SlamSystem:
             quats=self.state.attr_rows[:, npts.C_QUAT] if self.after_pgo else None)
         self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
                                    batch.sdf_label, batch.weight, batch.valid & ~dropped,
-                                   frame_id, new_mask, gidx, w, vec, nvec)
+                                   frame_id, new_mask, gidx, w, vec, nvec,
+                                   color_label=batch.color_label)
         return lm
 
-    def _train(self, lm, feats, gvec, opt, frame_id, chunk, use_new, dec_scale, num_iters):
+    def _train(self, lm, feats, gvec, opt, frame_id, chunk, use_new, dec_scale, num_iters,
+               color=None):
         """``num_iters`` Adam iterations on ``lm``; returns (lm_out, feats, gvec,
-        opt, loss history) with lm_out's features set to the trained ones."""
+        opt, loss history) with lm_out's features (and, with the colour
+        state ``color``, its colour features) set to the trained ones."""
         idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
         lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
             lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
-            self.after_pgo)
+            self.after_pgo, color=color)
         lm2.geo_features = feats[:, :self.mc.feature_dim]
+        if color is not None:
+            lm2.color_features = color.features
         return lm2, feats, gvec, opt, hist
+
+    def _color_state(self, lm):
+        """Fresh colour leaves of a frame's training (None without colour)."""
+        if self.color_decoder is None:
+            return None
+        return mp.init_color_state(lm.color_features, self.color_decoder)
 
     def _with_cert_column(self, lm):
         L = self.mc.local_capacity
@@ -287,6 +324,8 @@ class SlamSystem:
             t0 = time.perf_counter()
             points = torch.as_tensor(frame.points, dtype=torch.float32, device=dev)
             valid = torch.as_tensor(frame.valid, device=dev)
+            colors = (torch.as_tensor(frame.colors, dtype=torch.float32, device=dev)
+                      if cfg.color_on and frame.colors is not None else None)
             tracked = cfg.track_on and self.frame_id > 0
             # detection frames settle the pose books (and a loop closure may
             # replace the pose) before the map update
@@ -305,11 +344,13 @@ class SlamSystem:
                 origin64 = self.lm_origin64
                 R_init = torch.as_tensor(init_pose[:3, :3], dtype=torch.float32)
                 t_init = torch.as_tensor(init_pose[:3, 3] - origin64, dtype=torch.float32)
-                src, src_valid = self._source_prep(points, valid)
+                src, src_valid, *src_col = self._source_prep(points, valid, colors)
                 self.last_source = (src, src_valid)
                 res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
                                       self.append_tmpl, src, src_valid, R_init, t_init,
-                                      after_pgo=self.after_pgo)
+                                      after_pgo=self.after_pgo,
+                                      color_decoder=self.color_decoder,
+                                      source_colors=src_col[0] if src_col else None)
                 # pose selection in float32, as the JAX package does on device
                 origin = self.lm.origin.cpu()
                 t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
@@ -334,6 +375,8 @@ class SlamSystem:
                     info["reg_valid"] = res.valid
                     info["reg_residual_cm"] = res.sdf_residual_cm
                     info["reg_iters"] = res.iterations
+                    if self.tc.photometric_on and self.color_decoder is not None:
+                        info["photo_count"] = res.photo_count
                 booked = fetch_and_book
             else:
                 if not cfg.track_on and self.dataset.gt_pose_provided:
@@ -391,21 +434,24 @@ class SlamSystem:
                 n_it = max(1, cfg.iters - 10) if cfg.adaptive_mode else int(cfg.iters)
                 feats = self._with_cert_column(self.lm)
                 opt = mp.init_opt_state(feats, gvec)
+                color = self._color_state(self.lm)
                 lm_out, feats, gvec, opt, hist = self._train(
-                    self.lm, feats, gvec, opt, fid, -2, False, dec_scale, n_it)
+                    self.lm, feats, gvec, opt, fid, -2, False, dec_scale, n_it, color)
                 t_map = time.perf_counter()
             else:
                 self._stop_count = (self._stop_count + 1
                                     if tran_sel < 0.01 * cfg.voxel_size_m else 0)
                 use_new = ok and not (self._stop_count > cfg.stop_frame_thre)
-                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid)
+                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid, colors)
                 self._sync()
                 t_map = time.perf_counter()
                 feats = self._with_cert_column(lm2)
                 opt = mp.init_opt_state(feats, gvec)
+                color = self._color_state(lm2)
                 if ok:
                     lm_out, feats, gvec, opt, hist = self._train(
-                        lm2, feats, gvec, opt, fid, -1, use_new, dec_scale, int(cfg.iters))
+                        lm2, feats, gvec, opt, fid, -1, use_new, dec_scale, int(cfg.iters),
+                        color)
                 else:
                     # lost frame: keep the rebuilt local map and the untrained
                     # parameters (the JAX package trains and then discards)
@@ -413,6 +459,8 @@ class SlamSystem:
             self.state = npts.assign_local_to_global(self.state, lm_out, self.mc, self._travel)
             self.lm = lm_out
             self.decoder.load_packed(gvec)
+            if color is not None and hist is not None:
+                color.load_into(self.color_decoder)
 
             if booked is not None:
                 booked()
@@ -431,10 +479,13 @@ class SlamSystem:
             extra_chunks = cfg.init_iter_ratio - 1 if fid == 0 else 0
             for chunk in range(extra_chunks):
                 self.lm, feats, gvec, opt, hist = self._train(
-                    self.lm, feats, gvec, opt, fid, chunk, True, dec_scale, int(cfg.iters))
+                    self.lm, feats, gvec, opt, fid, chunk, True, dec_scale, int(cfg.iters),
+                    color)
                 self.state = npts.assign_local_to_global(self.state, self.lm, self.mc,
                                                          self._travel)
                 self.decoder.load_packed(gvec)
+                if color is not None:
+                    color.load_into(self.color_decoder)
             if cfg.log_loss_per_frame and hist is not None:
                 info["loss_last"] = float(hist[-1])
                 info["loss_finite"] = bool(torch.isfinite(hist).all())
@@ -647,7 +698,7 @@ class SlamSystem:
         if self.map_counts:
             # one read of the per-frame counts; MB as the JAX package writes them
             counts = torch.stack(self.map_counts).cpu().numpy()
-            point_dim = cfg.feature_dim + 3 + 4
+            point_dim = cfg.feature_dim + 3 + 4 + (cfg.feature_dim if cfg.color_on else 0)
             np.save(os.path.join(run_path, "memory_footprint.npy"),
                     counts * point_dim * 4 / 2**20)
         if self.stage_times:
@@ -659,7 +710,7 @@ class SlamSystem:
         pts = self.state.positions[:count].cpu().numpy()
         if cfg.save_map:
             save_implicit_map(os.path.join(run_path, "map", "pin_map.npz"), self.state,
-                              self.decoder)
+                              self.decoder, color_decoder=self.color_decoder)
         if cfg.save_merged_pc or cfg.save_map:
             pio.write_ply(os.path.join(run_path, "map", "neural_points.ply"), pts,
                           extra={"certainty": self.state.attr_rows[:count, npts.C_CERT]
@@ -673,7 +724,8 @@ class SlamSystem:
             if len(verts):
                 os.makedirs(os.path.join(run_path, "mesh"), exist_ok=True)
                 pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
-                              normals=vertex_normals(verts, faces), faces=faces)
+                              colors=self.mesh_colors, normals=vertex_normals(verts, faces),
+                              faces=faces)
         if not cfg.silence:
             print(f"[pipeline] {not_ported('viewer.html export (ROADMAP A 11)')}", flush=True)
         return mesh
@@ -684,7 +736,9 @@ class SlamSystem:
         chunk size halves from 60 m until every chunk's view (a sphere of
         the chunk's half-diagonal plus the kNN reach) holds at most 0.7 of
         ``local_capacity`` points: a saturated view drops points and leaves
-        holes.  Returns (vertices, faces, each chunk's view count)."""
+        holes.  Returns (vertices, faces, each chunk's view count); with a
+        colour head the vertices' regressed colours are kept in
+        ``self.mesh_colors`` (else None)."""
         cfg, mc = self.config, self.mc
         mesher = Mesher(MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
                                      min_cluster_vertices=cfg.min_cluster_vertices,
@@ -717,8 +771,10 @@ class SlamSystem:
                       f"capacity {mc.local_capacity}; reduce chunk_m")
             return v
 
-        verts, faces = mesher.recon_aabb_collections_mesh(view, self.decoder,
-                                                          self.sdf_scale, chunks)
+        out = mesher.recon_aabb_collections_mesh(view, self.decoder, self.sdf_scale, chunks,
+                                                 color_decoder=self.color_decoder)
+        verts, faces = out[:2]
+        self.mesh_colors = out[2] if self.color_decoder is not None else None
         return verts, faces, view_counts
 
     def run(self, num_frames: Optional[int] = None) -> list:

@@ -1,9 +1,9 @@
 """Experiment runtime, the port's counterpart of
 ``pin_slam_tpu/utils/experiment.py``: the run directory (``setup_experiment``)
 and map persistence (``save_implicit_map`` / ``load_implicit_map``: the
-global map's live rows and the decoder in one ``.npz`` with the JAX
-package's keys and layouts (decoder weights as (in, out)), so each package
-loads the other's file)."""
+global map's live rows, with a colour head its colour features, and the
+decoders in one ``.npz`` with the JAX package's keys and layouts (decoder
+weights as (in, out)), so each package loads the other's file)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import os
 import subprocess
 import time
 import types
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,8 +54,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
-                      extra: Optional[dict] = None) -> None:
-    """Write the map's first ``count`` rows and the geometry decoder."""
+                      extra: Optional[dict] = None,
+                      color_decoder: Optional[Decoder] = None) -> None:
+    """Write the map's first ``count`` rows (with their colour features
+    where the map has them), the geometry decoder and the colour decoder
+    when given."""
     n = int(state.count)
     attr = state.attr_rows[:n]
     blob = {
@@ -66,23 +69,30 @@ def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
         "ts_update": _np(attr[:, npts.C_TSU].to(torch.int32)),
         "certainties": _np(attr[:, npts.C_CERT]),
     }
-    layers = decoder.layers()
-    for i, (W, b) in enumerate(layers):
-        name = "out" if i == len(layers) - 1 else f"hidden_{i}"
-        blob[f"decoder_geo_{name}_W"] = _np(W)
-        if b is not None:
-            blob[f"decoder_geo_{name}_b"] = _np(b)
+    if state.color_features is not None:
+        blob["color_features"] = _np(state.color_features[:n])
+    for head, dec in (("geo", decoder), ("color", color_decoder)):
+        if dec is None:
+            continue
+        layers = dec.layers()
+        for i, (W, b) in enumerate(layers):
+            name = "out" if i == len(layers) - 1 else f"hidden_{i}"
+            blob[f"decoder_{head}_{name}_W"] = _np(W)
+            if b is not None:
+                blob[f"decoder_{head}_{name}_b"] = _np(b)
     for k, v in (extra or {}).items():
         blob[f"extra_{k}"] = np.asarray(v)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(path, **blob)
 
 
-def load_implicit_map(path: str, mc: npts.MapConfig,
-                      device=None) -> Tuple[npts.MapState, Decoder]:
+def load_implicit_map(path: str, mc: npts.MapConfig, device=None,
+                      color: bool = False):
     """A saved map -> (a fresh MapState holding its rows with the hash
     rebuilt, the geometry decoder), on ``device``: the GPU unless the CPU
-    is asked for (raises without one)."""
+    is asked for (raises without one).  With ``color`` -> (state, geometry
+    decoder, colour decoder or None); the state then holds the file's
+    colour features (``mc.color_on``)."""
     device = resolve_device(device)
     blob = dict(np.load(path, allow_pickle=False))
     n = blob["positions"].shape[0]
@@ -100,13 +110,24 @@ def load_implicit_map(path: str, mc: npts.MapConfig,
     attr[:n, npts.C_TSC] = t(blob["ts_create"])
     attr[:n, npts.C_TSU] = t(blob["ts_update"])
     state.geo_features[:n] = t(blob["geo_features"])
+    if "color_features" in blob and state.color_features is not None:
+        state.color_features[:n] = t(blob["color_features"])
     state.count = torch.tensor(n, dtype=torch.int64, device=device)
     state = npts.recreate_hash(state, mc, int(blob["ts_create"].max(initial=0)))
+    geo = _decoder_of(blob, "geo", device)
+    return (state, geo, _decoder_of(blob, "color", device)) if color else (state, geo)
 
+
+def _decoder_of(blob: dict, head: str, device) -> Optional[Decoder]:
+    """The ``decoder_<head>_*`` arrays of a saved map as a Decoder, or None."""
+    if f"decoder_{head}_out_W" not in blob:
+        return None
     hidden, i = [], 0
-    while f"decoder_geo_hidden_{i}_W" in blob:
-        hidden.append((blob[f"decoder_geo_hidden_{i}_W"], blob.get(f"decoder_geo_hidden_{i}_b")))
+    while f"decoder_{head}_hidden_{i}_W" in blob:
+        hidden.append((blob[f"decoder_{head}_hidden_{i}_W"],
+                       blob.get(f"decoder_{head}_hidden_{i}_b")))
         i += 1
     params = types.SimpleNamespace(
-        hidden=tuple(hidden), out=(blob["decoder_geo_out_W"], blob.get("decoder_geo_out_b")))
-    return state, decoder_from_jax(params, device)
+        hidden=tuple(hidden),
+        out=(blob[f"decoder_{head}_out_W"], blob.get(f"decoder_{head}_out_b")))
+    return decoder_from_jax(params, device)

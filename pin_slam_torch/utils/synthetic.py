@@ -6,12 +6,16 @@ scene of the JAX package's loop-closure test, in memory, and its
 surfaces (``square_world``); a rolling-sweep renderer (``rolling_sweep``,
 ``make_square_sweeps``), whose points are measured from the pose at their
 own sweep time, as a spinning LiDAR moving through the scene measures them;
-and writers of a sequence in the KITTI and the Newer College (NCD) layouts
-on disk."""
+writers of a sequence in the KITTI and the Newer College (NCD) layouts on
+disk; and an RGB-D renderer (a painted room seen by a pinhole camera with
+Replica's intrinsics, ``render_rgbd``) with a writer of the layout the
+RGB-D converters write (``write_rgbd_sequence``)."""
 
 import os
 
 import numpy as np
+
+from pin_slam_torch.dataset import converters
 
 
 def make_world(rng):
@@ -402,3 +406,113 @@ def write_ncd_sequence(root, seq, scans, times, poses, sweep_s=0.1):
         pio.write_ply(os.path.join(ply, f"{i:06d}.ply"), scan[:, :3], extra=extra)
     write_poses(os.path.join(root, seq, "poses.txt"), poses)
     return ply
+
+
+# ----------------------------------------------------------------------
+# RGB-D: a painted room seen by a pinhole camera with Replica's intrinsics
+# ----------------------------------------------------------------------
+
+# the room (x, y, z lower and upper bounds; z up) and boxes standing in it
+RGBD_ROOM = (np.array([-3.0, -2.5, -1.2]), np.array([3.0, 2.5, 1.5]))
+RGBD_BOXES = [(np.array([1.2, 0.8, -1.2]), np.array([2.0, 1.6, -0.3])),
+              (np.array([-2.4, -1.9, -1.2]), np.array([-1.6, -1.1, 0.2])),
+              (np.array([0.6, -2.1, -1.2]), np.array([1.6, -1.5, -0.6])),
+              (np.array([-1.0, 1.6, -1.2]), np.array([-0.2, 2.3, 0.4])),
+              # floor-to-ceiling pillars: faces across the view constrain
+              # sideways motion
+              (np.array([1.3, -1.3, -1.2]), np.array([1.6, -1.0, 1.5])),
+              (np.array([2.0, 0.2, -1.2]), np.array([2.3, 0.5, 1.5])),
+              (np.array([0.5, 1.3, -1.2]), np.array([0.8, 1.6, 1.5])),
+              (np.array([2.4, -0.8, -1.2]), np.array([2.7, -0.5, 0.9]))]
+
+
+def world_color(pts):
+    """The colour field painted on the RGB-D room: the field of the JAX
+    package's RGB-D test (``tests/test_rgbd.py``), in [0, 1]."""
+    pts = np.asarray(pts)
+    c = 0.5 + 0.5 * np.stack([np.sin(pts[:, 0] * 2.0), np.cos(pts[:, 1] * 2.0),
+                              np.sin(pts[:, 2] * 3.0)], axis=1)
+    return c.astype(np.float32)
+
+
+def rgbd_pose(i, n_frames=41):
+    """Camera -> world pose (4, 4) of frame ``i`` (OpenCV camera: x right,
+    y down, z forward): a slow dolly across the room (about 3 cm a frame)
+    with a swaying heading (up to 0.2 rad) and a slight downward tilt."""
+    s = i / max(n_frames - 1, 1)
+    pos = np.array([-1.0 + 1.2 * s, 0.3 * np.sin(2.0 * np.pi * s), 0.1 * np.sin(np.pi * s)])
+    yaw = 0.2 * np.sin(2.0 * np.pi * s + 0.5)
+    tilt = 0.15 + 0.05 * np.cos(2.0 * np.pi * s)
+    fwd = np.array([np.cos(yaw) * np.cos(tilt), np.sin(yaw) * np.cos(tilt), -np.sin(tilt)])
+    right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+    down = np.cross(fwd, right)
+    T = np.eye(4)
+    T[:3, :3] = np.stack([right, down, fwd], axis=1)
+    T[:3, 3] = pos
+    return T
+
+
+def _ray_box_exit(o, inv_d, lo, hi):
+    """Ray parameter at which rays o + t d (``inv_d`` = 1 / d, one array a
+    coordinate) starting inside [lo, hi] leave it."""
+    t = [np.maximum((lo[a] - o[a]) * inv_d[a], (hi[a] - o[a]) * inv_d[a]) for a in range(3)]
+    return np.minimum(np.minimum(t[0], t[1]), t[2])
+
+
+def _ray_box_enter(o, inv_d, lo, hi):
+    """Ray parameter at which rays starting outside [lo, hi] enter it (inf
+    for a miss)."""
+    near, far = None, None
+    for a in range(3):
+        t1, t2 = (lo[a] - o[a]) * inv_d[a], (hi[a] - o[a]) * inv_d[a]
+        n_a, f_a = np.minimum(t1, t2), np.maximum(t1, t2)
+        near = n_a if near is None else np.maximum(near, n_a)
+        far = f_a if far is None else np.minimum(far, f_a)
+    return np.where((near <= far) & (near > 0), near, np.inf)
+
+
+def render_rgbd(T_wc, width=1200, height=680, fx=converters.REPLICA_FX,
+                fy=converters.REPLICA_FY, cx=converters.REPLICA_CX, cy=converters.REPLICA_CY,
+                depth_scale=converters.REPLICA_DEPTH_SCALE):
+    """One RGB-D frame of the room from camera pose ``T_wc``: a uint16
+    depth image (z-depth times ``depth_scale``, 0 where nothing is hit
+    within range) and a uint8 colour image (the painted field at the hit
+    point).  Defaults are Replica's camera."""
+    v, u = np.meshgrid(np.arange(height, dtype=np.float64),
+                       np.arange(width, dtype=np.float64), indexing="ij")
+    xc, yc = ((u - cx) / fx).reshape(-1), ((v - cy) / fy).reshape(-1)
+    R, o = T_wc[:3, :3], T_wc[:3, 3]
+    d = [R[a, 0] * xc + R[a, 1] * yc + R[a, 2] for a in range(3)]   # unit z-depth per ray
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv_d = [1.0 / x for x in d]       # +-inf along an axis the ray is parallel to
+        t = _ray_box_exit(o, inv_d, *RGBD_ROOM)
+        for lo, hi in RGBD_BOXES:
+            t = np.minimum(t, _ray_box_enter(o, inv_d, lo, hi))
+    hit = np.stack([o[a] + t * d[a] for a in range(3)], axis=1)
+    depth = np.rint(t * depth_scale)
+    depth = np.where(np.isfinite(t) & (depth < 65536), depth, 0).astype(np.uint16)
+    color = np.rint(world_color(hit) * 255.0).astype(np.uint8)
+    return depth.reshape(height, width), color.reshape(height, width, 3)
+
+
+def write_rgbd_sequence(root, depths, colors, poses, stride=2,
+                        intrinsics=(converters.REPLICA_FX, converters.REPLICA_FY,
+                                    converters.REPLICA_CX, converters.REPLICA_CY),
+                        depth_scale=converters.REPLICA_DEPTH_SCALE):
+    """Rendered RGB-D frames as ``converters.convert_replica`` writes a
+    Replica sequence: ``root/rgbd_ply/%06d.ply`` (the frames back-projected
+    at ``stride`` by ``converters.backproject_depth``, x y z + RGB) and
+    ``root/poses.txt`` (camera -> world, KITTI's 12 numbers a line).
+    Returns the number of points of each frame."""
+    from pin_slam_torch.dataset import io as pio
+
+    fx, fy, cx, cy = intrinsics
+    os.makedirs(os.path.join(root, "rgbd_ply"), exist_ok=True)
+    counts = []
+    for i, (depth, color) in enumerate(zip(depths, colors)):
+        pts, cols = converters.backproject_depth(depth, fx, fy, cx, cy, color,
+                                                 depth_scale=depth_scale, stride=stride)
+        pio.write_ply(os.path.join(root, "rgbd_ply", f"{i:06d}.ply"), pts, colors=cols)
+        counts.append(pts.shape[0])
+    pio.write_kitti_poses(os.path.join(root, "poses.txt"), np.stack(poses))
+    return counts

@@ -360,7 +360,7 @@ def test_load_implicit_map_on_the_gpu_unless_asked(saved_maps, monkeypatch):
 
 @pytest.mark.parametrize("option, value, label", [
     ("dp_devices", 2, "ROADMAP A 12"), ("map_shards", 2, "ROADMAP A 12"),
-    ("color_on", True, "ROADMAP A 11"), ("semantic_on", True, "ROADMAP A 11")])
+    ("estimate_normal", True, "ROADMAP A 11"), ("semantic_on", True, "ROADMAP A 11")])
 def test_still_refused_options_name_their_roadmap_item(option, value, label, tmp_path):
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem

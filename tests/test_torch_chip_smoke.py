@@ -393,3 +393,65 @@ def test_snapshot_clone_is_deep_and_bits_compare_exactly():
     assert chip_smoke._bits_equal(a, a.clone())
     assert not chip_smoke._bits_equal(a, torch.tensor([-0.0, 1.0]))
     assert not chip_smoke._bits_equal(a, torch.nextafter(a, torch.tensor(2.0)))
+
+
+def test_path_e_writer_matches_convert_replica(tmp_path, monkeypatch):
+    """Path E's data writer (the RGB-D renderer -> converters.backproject_depth
+    -> PLY + poses.txt, here at 64 x 36 pixels with Replica's intrinsics)
+    writes the files ``converters.convert_replica`` writes from the same
+    frames stored in Replica's own layout (16-bit depth PNG, the colour image
+    stored losslessly under its .jpg name, traj.txt): byte for byte."""
+    import functools
+
+    import numpy as np
+    from PIL import Image
+
+    from pin_slam_torch.dataset import converters
+    from pin_slam_torch.utils import synthetic as syn
+
+    small = functools.partial(syn.render_rgbd, width=64, height=36)
+    monkeypatch.setattr(syn, "render_rgbd", small)
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    monkeypatch.setitem(chip_smoke.PATH_E, "n_frames", 3)
+    seq, counts, _ = chip_smoke.write_path_e_data()
+    assert counts == [32 * 18] * 3
+
+    raw = tmp_path / "raw"
+    os.makedirs(raw / "results")
+    poses = [syn.rgbd_pose(i, 3) for i in range(3)]
+    for i, T in enumerate(poses):
+        depth, color = small(T)
+        assert depth.dtype == np.uint16 and color.dtype == np.uint8 and depth.min() > 0
+        Image.fromarray(depth).save(raw / "results" / f"depth{i:06d}.png")
+        Image.fromarray(color).save(raw / "results" / f"frame{i:06d}.jpg", format="PNG")
+    np.savetxt(raw / "traj.txt", np.stack(poses).reshape(3, 16))
+    out = tmp_path / "converted"
+    assert converters.convert_replica(str(raw), str(out)) == 3
+    names = sorted(os.listdir(os.path.join(seq, "rgbd_ply")))
+    assert names == sorted(os.listdir(out / "rgbd_ply")) and len(names) == 3
+    for rel in [os.path.join("rgbd_ply", n) for n in names] + ["poses.txt"]:
+        with open(os.path.join(seq, rel), "rb") as a, open(out / rel, "rb") as b:
+            assert a.read() == b.read(), rel
+
+
+def test_capture_tells_the_colour_rows_apart():
+    """The training loop's colour rows are their own kinds: the colour
+    features' gather (8 columns) and the colour labels' gather (3) outside
+    bundle adjustment, the colour gradient's scatter (8 columns)."""
+    rows, table, idx, val, sentinel = _row_case()
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "E"
+        rows.gather_rows(table[:, :8].contiguous(), idx)
+        rows.gather_rows(table[:, :3].contiguous(), idx)
+        rows.gather_rows(table, idx)
+        rows.scatter_sum_rows(table.shape[0], idx, val[:, :8].contiguous(), skip_row=sentinel)
+        rows.scatter_sum_rows(table.shape[0], idx, val, skip_row=sentinel)
+        cap.in_ba = True
+        rows.gather_rows(table[:, :8].contiguous(), idx)
+    finally:
+        cap.uninstall()
+    assert cap.tally == {("E", "gather", "color"): 1, ("E", "gather", "label"): 1,
+                         ("E", "gather", "feat"): 1, ("E", "scatter", "color"): 1,
+                         ("E", "scatter", "main"): 1, ("E", "gather", "ba"): 1}

@@ -109,6 +109,17 @@ def _write_layout(kind, root, seq, scans, poses):
     ts = [syn.sweep_time(s[:, :3]) for s in scans]
     if kind == "ncd128":
         return syn.write_ncd_sequence(root, seq, scans, ts, poses)
+    if kind == "replica":
+        # the converters' layout: rgbd_ply/*.ply with RGB, poses.txt
+        from pin_slam_torch.dataset import io as pio
+
+        d = os.path.join(root, seq, "rgbd_ply")
+        os.makedirs(d, exist_ok=True)
+        for i, s in enumerate(scans):
+            pio.write_ply(os.path.join(d, f"{i:06d}.ply"), s[:, :3],
+                          colors=np.repeat(s[:, 3:4], 3, axis=1))
+        pio.write_kitti_poses(os.path.join(root, seq, "poses.txt"), poses)
+        return d
     d = os.path.join(root, seq, {"mulran": "Ouster", "ipbcar": "ouster"}.get(kind, ""))
     os.makedirs(d, exist_ok=True)
     for i, s in enumerate(scans):
@@ -135,7 +146,7 @@ PROFILES = [
     ("lidar_slam/run_demo_no_vis.yaml", None, "kitti", None),
     ("lidar_slam/run_ros_general.yaml", None, None, None),
     ("lidar_slam/run_livox.yaml", None, None, "ROADMAP C 2"),
-    ("rgbd_slam/run_replica.yaml", "replica", None, "ROADMAP A 11"),
+    ("rgbd_slam/run_replica.yaml", "replica", "replica", None),
 ]
 
 
@@ -179,6 +190,9 @@ def test_shipped_profile_builds_and_reads_frames(tmp_path, profile, name, layout
     assert len(ds) == 2
     f0 = ds.preprocess_frame(0)
     assert f0.raw_count > 1000 and np.isfinite(f0.points).all()
+    if cfg.color_on:
+        assert f0.colors is not None and f0.colors.shape == (f0.points.shape[0], 3)
+        assert system.color_decoder is not None and system.pool.color_label is not None
     if name == "kitti":
         assert cfg.kitti_correction_on and cfg.correction_deg == pytest.approx(0.195)
         assert np.abs(ds.gt_poses - poses).max() < 1e-9
