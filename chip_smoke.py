@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, five paths, meshes, CLI, kernels
+    python3 chip_smoke.py            # what the checks run: build, six paths, meshes, CLI, kernels
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -120,6 +120,36 @@
    distance to the one-chunk mesh of at most MULTI_CHAMFER_FRAC x
    mc_res_m; and a whole-map view of 2^13 rows, which overflows (the oldest
    kept), must equal the same view built on the CPU.
+
+11. Path F: the semantic LiDAR profile.  A copy of ``run_kitti.yaml``
+   changed in its paths (``pc_path``, ``label_path``, ``pose_path``,
+   ``calib_path``, ``output_root``), in semantic_on, dynamic_filter_on
+   and estimate_normal (filter_moving_object is True by default), and to
+   path B's KITTI capacities (map 2^22, local 2^18 and 2^17 rays as the
+   profile ships them; pool 2^23 and a 2^16 mapping bucket set;
+   per-neighbour decoding, bs 16384), through
+   ``pin_slam_torch.cli.main`` in process on 16 sweeps of the labelled
+   corridor (``synthetic.labelled_corridor_scans``: road, buildings,
+   poles, a walking person with a moving class, a car labelled static
+   that drives through observed free space) written under build/ in the
+   SemanticKITTI layout.  The semantic head trains by the autograd loop.
+   Gates: every frame after the first registers, max position error
+   < 0.5 m; the pool's classes within {0} and the scene's classes, never
+   the person's (6); the semantic head right at >= 0.8 of 256 observed
+   road points and of 256 building points; >= 0.8 of the mesh's vertices
+   carry the class of the nearest scene surface; the dynamic filter drops
+   at least ``F_GATE_CAR_DROP`` of the car's points from its entry on and
+   keeps >= 0.99 of the static surfaces' points; >= 0.5 of every frame's
+   valid source points carry a valid normal; ``pin_map.npz`` reloads with
+   its semantic head, which decodes the same classes; frame 5's training
+   call rerun from a snapshot bit-identical; the rank, gather and scatter
+   kernels launched and the training kernels not.  Its kernel rows:
+   ``rank_brick[pathF-far|near]``, ``gather[pathF-pool|feat]``,
+   ``scatter[pathF-sem]`` (the autograd loop's feature gradient).
+12. ``train_general``: path B's profile and capacities on 4 corridor frames
+   with ``geo_mlp_level: 2`` and ``mlp_bias_on: False`` (the autograd
+   loop).  Gates: every frame registers, position error < 0.5 m, finite
+   losses, the first training call's loss falling, no training kernel.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -310,8 +340,9 @@ PATHS = {
 SQUARE_SEED, SQUARE_PGO_FREQ = 7, 4
 
 
-def make_path(name, n_frames=None):
-    """(SlamSystem on the GPU, frames, ground-truth positions) of a path."""
+def make_path(name, n_frames=None, over=None):
+    """(SlamSystem on the GPU, frames, ground-truth positions) of a path;
+    ``over`` sets configuration keys before the system is built."""
     import torch
 
     from pin_slam_torch.config import Config
@@ -341,6 +372,8 @@ def make_path(name, n_frames=None):
         cfg.min_loop_travel_dist_ratio = 1.0
         cfg.reg_iter_n = 100
         cfg.kitti_correction_on = False    # the scene is synthetic, not KITTI's raw scans
+    for k, v in (over or {}).items():
+        setattr(cfg, k, v)
     cfg._derive()
 
     if cfg.pgo_on:
@@ -1146,6 +1179,412 @@ def run_path_e(cap):
     res["ba_gather_launches"] = sum(b["gather_launches"] for b in ba_infos)
     res["ba_scatter_launches"] = sum(b["scatter_launches"] for b in ba_infos)
     del system, got
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# path F: the semantic LiDAR profile (SemanticKITTI labels) through the CLI
+# ----------------------------------------------------------------------
+
+PATH_F = dict(profile="config/lidar_slam/run_kitti.yaml", seq="00", n_frames=16,
+              n_points=1 << 17, density=2.5, seed=0)
+F_OPTIONS = dict(semantic_on=True, filter_moving_object=True, dynamic_filter_on=True,
+                 estimate_normal=True)
+F_CAPACITIES = dict(pool_capacity=1 << 23, mapping_bucket=1 << 16)   # path B's
+F_RERUN_FRAME = 5                 # the training call rerun from its snapshot
+F_GATE_POS_M = 0.5
+F_GATE_SEM = 0.8                  # tests/test_semantic.py's head accuracy gate
+F_GATE_MESH_SEM = 0.8             # mesh vertices with their nearest surface's class
+F_GATE_STATIC_KEEP = 0.99         # static surface points the dynamic filter keeps
+F_GATE_NORMALS = 0.5              # valid source points with a valid normal, every frame
+# the share of the car's points (frames from CAR_ENTER on) that the dynamic
+# filter must drop at least: the JAX package's share on the same scene at a
+# reduced size on the CPU, 0.1723 of 1,294 car points at 2^13 points a
+# sweep (scripts/dynamic_filter_cpu.py), rounded down
+F_GATE_CAR_DROP = 0.17
+F_ROAD, F_BUILDING, F_PERSON = 9, 13, 6
+
+
+def write_path_f_data():
+    """The labelled corridor (``synthetic.labelled_corridor_scans``, seed 0,
+    16 sweeps of up to 2^17 points) written under build/ in the
+    SemanticKITTI layout with KITTI's 0.195 deg intrinsic correction undone
+    (run_kitti.yaml's reader applies it).  Returns (sequence directory,
+    raw labels, poses, static world, points a frame, seconds)."""
+    import shutil
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "path_f")
+    shutil.rmtree(root, ignore_errors=True)
+    scans, labels, poses, world = syn.labelled_corridor_scans(
+        PATH_F["seed"], PATH_F["n_frames"], PATH_F["n_points"], density=PATH_F["density"])
+    seq = syn.write_semantic_kitti_sequence(os.path.join(root, "data"), PATH_F["seq"], scans,
+                                            labels, poses, correction_deg=0.195)
+    return seq, labels, poses, world, [len(s) for s in scans], time.perf_counter() - t0
+
+
+def _section_of(key):
+    from pin_slam_torch.config import Config
+
+    return next((s for s, keys in Config._SECTION_KEYS.items()
+                 if key in keys or key in keys.values()), None)
+
+
+def _scene_reference(world, n_frames):
+    """(points, learning classes) of every surface the labelled corridor
+    showed: the static world, and the car at each frame's position."""
+    from pin_slam_torch.utils import synthetic as syn
+    from pin_slam_torch.utils.semantic_kitti import apply_learning_map
+
+    pts, lab = [world[0]], [world[2]]
+    rng = np.random.default_rng(1)
+    for i in range(n_frames):
+        mp_, _, ml = syn.corridor_movers(rng, i, PATH_F["density"])
+        car = ml == syn.RAW_CAR
+        pts.append(mp_[car])
+        lab.append(ml[car])
+    return np.concatenate(pts), apply_learning_map(np.concatenate(lab).astype(np.int64))
+
+
+def run_path_f(cap):
+    """Path F: a copy of ``run_kitti.yaml`` changed in its paths, in
+    semantic_on, dynamic_filter_on and estimate_normal (filter_moving_object
+    is True by default and has no YAML key in either package) and to path
+    B's KITTI capacities (``F_CAPACITIES``), through ``pin_slam_torch.cli.main``
+    in process on the labelled corridor written under build/.  The semantic
+    head trains by the autograd loop (gather kernel forward, in-order
+    scatter kernel backward); the training kernels do not launch.  Gated
+    (see the module docstring) and reported."""
+    import torch
+    import yaml
+    from scipy.spatial import cKDTree
+
+    from pin_slam_torch import cli
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.models.decoder import blended_head, sem_label_prob
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
+    from pin_slam_torch.slam.pipeline import SlamSystem
+    from pin_slam_torch.utils import synthetic as syn
+    from pin_slam_torch.utils.experiment import load_implicit_map
+
+    seq, raw_labels, gt_poses, world, n_points, setup_s = write_path_f_data()
+    with open(os.path.join(ROOT, PATH_F["profile"])) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["pc_path"] = os.path.join(seq, "velodyne")
+    prof["setting"]["label_path"] = os.path.join(seq, "labels")
+    prof["setting"]["pose_path"] = os.path.join(seq, "poses.txt")
+    prof["setting"]["calib_path"] = os.path.join(seq, "calib.txt")
+    prof["setting"]["output_root"] = os.path.join(os.path.dirname(os.path.dirname(seq)), "out")
+    for key in ("semantic_on", "dynamic_filter_on", "estimate_normal"):
+        prof.setdefault(_section_of(key), {})[key] = True
+    # path B's KITTI capacities: its pool and mapping bucket (the profile
+    # ships a 2e7 pool and no mapping bucket; map, local map and frame
+    # bucket are the profile's own, 2^22, 2^18 and 2^17)
+    for key, v in F_CAPACITIES.items():
+        prof.setdefault(_section_of(key), {})[key] = v
+    yml = os.path.join(os.path.dirname(os.path.dirname(seq)), "run_kitti_semantic.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    n_frames = PATH_F["n_frames"]
+    got, infos, times, frames, masks, nrm_share, calls, rerun = {}, [], [], {}, {}, {}, [], {}
+    orig = (SlamSystem.process_frame, SlamSystem.save_artifacts, SlamSystem.dynamic_static_mask,
+            SlamSystem._source_normals, mp.mapping_loop_autograd)
+
+    def proc(self, frame):
+        got["system"] = self
+        frames[self.frame_id] = (frame.valid.copy(), frame.sem_labels.copy(),
+                                 frame.points.copy())
+        cap.store = self.frame_id == n_frames - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            infos.append(orig[0](self, frame))
+            return infos[-1]
+        finally:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            cap.store = False
+
+    def save(self, run_path):
+        torch.cuda.synchronize()
+        got["frames_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        out = orig[1](self, run_path)
+        torch.cuda.synchronize()
+        got["save_s"] = time.perf_counter() - t0
+        got["run_path"] = run_path
+        return out
+
+    def dyn(self, points, R, t):
+        keep = orig[2](self, points, R, t)
+        masks[self.frame_id] = keep.cpu().numpy()
+        return keep
+
+    def normals(self, src, src_valid):
+        nrm, nv = orig[3](self, src, src_valid)
+        nrm_share[self.frame_id] = float((nv & src_valid).sum()) / max(int(src_valid.sum()), 1)
+        return nrm, nv
+
+    def loop(*a, **kw):
+        system = got.get("system")
+        snap = ("snap" not in rerun and system is not None
+                and system.frame_id == F_RERUN_FRAME)
+        if snap:
+            rerun["snap"] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig[4](*a, **kw)
+        torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "iters": int(out[4].shape[0]),
+                      "loss_first": float(out[4][0]), "loss_last": float(out[4][-1]),
+                      "finite": bool(torch.isfinite(out[4]).all())})
+        if snap:
+            rerun["out"] = [out[1].clone()] + [p.clone() for p in out[2].leaves()]
+        return out
+
+    cap.path = "F"
+    cap.plain_rank_calls = 0
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    at_start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    (SlamSystem.process_frame, SlamSystem.save_artifacts, SlamSystem.dynamic_static_mask,
+     SlamSystem._source_normals, mp.mapping_loop_autograd) = proc, save, dyn, normals, loop
+    try:
+        t_run = time.perf_counter()
+        rc = cli.main([yml])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        (SlamSystem.process_frame, SlamSystem.save_artifacts, SlamSystem.dynamic_static_mask,
+         SlamSystem._source_normals, mp.mapping_loop_autograd) = orig
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    system = got.get("system")
+    if rc != 0 or system is None:
+        fail(f"path F: the CLI returned {rc}")
+    cfg, mc = system.config, system.mc
+
+    repeat_ok = None
+    if "snap" in rerun:
+        a, kw = rerun["snap"]
+        out = orig[4](*a, **kw)
+        again = [out[1]] + list(out[2].leaves())
+        repeat_ok = all(_bits_equal(x, y) for x, y in zip(again, rerun["out"]))
+        del a, kw, out, again, rerun["snap"]
+
+    ds = system.dataset
+    est = np.stack(ds.odom_poses)
+    err = np.linalg.norm(est[:, :3, 3] - ds.gt_poses[:len(est), :3, 3], axis=1)
+
+    # the pool's classes
+    pool_classes = sorted(int(c) for c in torch.unique(system.pool.sem_label).cpu())
+    scene_classes = {0} | set(int(c) for c in np.unique(np.concatenate(
+        [f[1][f[0]] for f in frames.values()])))
+
+    # the semantic head at observed road and building points of the last
+    # sweep (world coordinates through the ground truth)
+    last = n_frames - 1
+    rng = np.random.default_rng(2)
+    v_last, lab_last, pts_last = frames[last]
+    T = ds.gt_poses[last]
+    scan_w = pts_last.astype(np.float64) @ T[:3, :3].T + T[:3, 3]
+    acc = {}
+    queries = {}
+    for name, cls in (("road", F_ROAD), ("building", F_BUILDING)):
+        cand = np.nonzero(v_last & (lab_last == cls))[0]
+        q = scan_w[rng.choice(cand, 256, replace=False)].astype(np.float32)
+        queries[name] = q
+        with torch.no_grad():
+            qt = torch.as_tensor(q, device=system.device)
+            knn = npts.knn_search(system.lm, mc, qt, system.offsets)
+            feat, w, _ = npts.interpolate_features(system.lm, mc, qt, knn.lidx)
+            pred = torch.argmax(blended_head(sem_label_prob, system.sem_decoder, feat, w,
+                                             mc.weighted_first), -1).cpu().numpy()
+        acc[name] = float(np.mean(pred == cls))
+
+    # the finalised map's mesh (recon_aabb_mesh, chunk by chunk; the
+    # profile does not save one): its vertex classes against the nearest
+    # scene surface's
+    t0 = time.perf_counter()
+    count = int(system.state.count)
+    verts, _, _ = system.mesh_map(system.state.positions[:count].cpu().numpy())
+    mesh_s = time.perf_counter() - t0
+    vsem = system.mesh_sem_labels
+    ref_pts, ref_cls = _scene_reference(world, n_frames)
+    mesh_acc = (float(np.mean(ref_cls[cKDTree(ref_pts).query(verts)[1]] == vsem))
+                if len(verts) and vsem is not None else 0.0)
+
+    # the dynamic filter: the car's points dropped, the static points kept
+    car_n = car_drop = st_n = st_keep = 0
+    per_frame_drop = {}
+    for i, keep in masks.items():
+        v, lab, _ = frames[i]
+        car = v & (lab == 1)
+        st = v & np.isin(lab, (F_ROAD, F_BUILDING, 18))
+        st_n += int(st.sum())
+        st_keep += int((st & keep).sum())
+        if i >= syn.CAR_ENTER:
+            car_n += int(car.sum())
+            car_drop += int((car & ~keep).sum())
+            per_frame_drop[i] = float((car & ~keep).sum() / max(car.sum(), 1))
+    car_share = car_drop / max(car_n, 1)
+    static_share = st_keep / max(st_n, 1)
+
+    # the saved map with its semantic head, reloaded in the port
+    state2, _, sem2 = load_implicit_map(os.path.join(got["run_path"], "map", "pin_map.npz"), mc,
+                                        semantic=True)
+    reload_ok = sem2 is not None and all(
+        torch.equal(x, y) for x, y in zip(sem2.state_dict().values(),
+                                          system.sem_decoder.state_dict().values()))
+    with torch.no_grad():
+        qt = torch.as_tensor(np.concatenate([queries["road"], queries["building"]]),
+                             device=system.device)
+        knn = npts.knn_search(system.lm, mc, qt, system.offsets)
+        feat, w, _ = npts.interpolate_features(system.lm, mc, qt, knn.lidx)
+        a1 = torch.argmax(blended_head(sem_label_prob, system.sem_decoder, feat, w,
+                                       mc.weighted_first), -1)
+        a2 = torch.argmax(blended_head(sem_label_prob, sem2, feat, w, mc.weighted_first), -1)
+    reload_ok = reload_ok and bool(torch.equal(a1, a2))
+    del state2, sem2
+
+    stage = np.asarray(system.stage_times[1:n_frames])
+    iters = sum(c["iters"] for c in calls)
+    res = {
+        "phase": "path_F", "profile": PATH_F["profile"], "argv": [os.path.relpath(yml, ROOT)],
+        "options": {k: getattr(cfg, k) for k in F_OPTIONS},
+        "layout": "SemanticKITTI: velodyne/*.bin, labels/*.label, calib.txt, poses.txt",
+        "rc": rc, "weighted_first": cfg.weighted_first, "kernel_path": system.kernel_path,
+        "frames": len(infos), "points_per_frame": [min(n_points), max(n_points)],
+        "setup_s": setup_s,
+        "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
+                       "pool": cfg.pool_capacity, "frame_bucket": cfg.frame_bucket,
+                       "mapping_bucket": cfg.mapping_bucket, "bs": cfg.bs},
+        "run_s": run_s, "save_artifacts_s": got.get("save_s"),
+        "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:-1])),
+        "frame0_s": times[0], "stage_ms_mean_after_frame0": _stage_ms(stage),
+        "train_ms_per_iter": float(sum(c["ms"] for c in calls) / max(iters, 1)),
+        "train_calls": len(calls), "train_iters": iters,
+        "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+        "max_pose_err_m": float(err.max()), "end_pose_err_m": float(err[-1]),
+        "pool_classes": pool_classes, "scene_classes": sorted(scene_classes),
+        "sem_accuracy": acc, "mesh_vertices": int(len(verts)), "mesh_s": mesh_s,
+        "mesh_res_m": cfg.mc_res_m, "mesh_sem_accuracy": mesh_acc,
+        "dynamic_car_points": car_n, "dynamic_car_drop_share": car_share,
+        "dynamic_car_drop_per_frame": per_frame_drop, "dynamic_static_keep_share": static_share,
+        "normal_valid_share_min": min(nrm_share.values()) if nrm_share else 0.0,
+        "normal_valid_share_mean": float(np.mean(list(nrm_share.values()))) if nrm_share else 0.0,
+        "map_reload_ok": reload_ok, "train_rerun_bit_identical": repeat_ok,
+        "metrics": system.metrics, "launches": counts,
+        "allocated_at_start_gb": at_start_gb, "frames_peak_gb": got.get("frames_peak_gb"),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "nvidia_smi": smi_line(),
+    }
+    emit(res)
+    if len(infos) != n_frames:
+        fail(f"path F: {len(infos)} frames ran, expected {n_frames}")
+    if system.kernel_path or not all(getattr(cfg, k) == v for k, v in F_OPTIONS.items()):
+        fail(f"path F: the profile's options {res['options']}, kernel path "
+             f"{system.kernel_path}")
+    if not all(res["reg_valid"]):
+        bad = [i + 1 for i, v in enumerate(res["reg_valid"]) if not v]
+        fail(f"path F: frames {bad} did not register")
+    if not res["max_pose_err_m"] < F_GATE_POS_M:
+        fail(f"path F: pose error {res['max_pose_err_m']:.3f} m vs the corridor's ground truth")
+    if not set(pool_classes) <= scene_classes or F_PERSON in pool_classes:
+        fail(f"path F: pool classes {pool_classes}, scene classes {sorted(scene_classes)}")
+    if min(acc.values()) < F_GATE_SEM:
+        fail(f"path F: semantic head accuracy {acc}")
+    if not mesh_acc >= F_GATE_MESH_SEM:
+        fail(f"path F: {mesh_acc:.3f} of {len(verts)} mesh vertices have their surface's class")
+    if car_n == 0 or car_share < F_GATE_CAR_DROP or static_share < F_GATE_STATIC_KEEP:
+        fail(f"path F: dynamic filter drops {car_share:.4f} of {car_n} car points "
+             f"(>= {F_GATE_CAR_DROP}), keeps {static_share:.4f} of the static ones")
+    if not nrm_share or min(nrm_share.values()) < F_GATE_NORMALS:
+        fail(f"path F: valid-normal shares {nrm_share}")
+    if not reload_ok:
+        fail("path F: pin_map.npz does not reload with its semantic head")
+    if not repeat_ok:
+        fail("path F: the training call rerun from its inputs differs")
+    if not all(c["finite"] for c in calls):
+        fail("path F: a non-finite training loss")
+    for k in ("rank_brick", "gather", "scatter"):
+        if counts[k] < 1:
+            fail(f"path F: kernel {k} never launched")
+    if counts["train_iter"] or counts["eikonal"] or counts["rank"] or cap.plain_rank_calls:
+        fail(f"path F: training kernels launched ({counts['train_iter']}, "
+             f"{counts['eikonal']}) or the per-cell / plain rank ({counts['rank']}, "
+             f"{cap.plain_rank_calls})")
+    if counts["scatter"] < iters or counts["gather"] < iters:
+        fail(f"path F: {counts['gather']} gathers, {counts['scatter']} scatters for {iters} "
+             f"training iterations")
+    del system, got
+    torch.cuda.empty_cache()
+    return res
+
+
+TG_FRAMES = 4
+
+
+def train_general_phase():
+    """``run_kitti.yaml`` at path B's capacities on 4 corridor frames with
+    ``geo_mlp_level: 2`` and ``mlp_bias_on: False``: an SDF decoder the
+    training kernels do not take, trained by the autograd loop.  Gated:
+    every frame after the first registers, the position error under 0.5 m,
+    every training loss finite, the first call's loss falling, no training
+    kernel launched."""
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
+
+    system, frames, gt = make_path("B", TG_FRAMES, over=dict(geo_mlp_level=2,
+                                                              mlp_bias_on=False))
+    hist, orig = [], mp.mapping_loop_autograd
+
+    def loop(*a, **kw):
+        out = orig(*a, **kw)
+        hist.append(out[4].cpu().numpy())
+        return out
+
+    cfg = system.config
+    _cuda.reset_counts()
+    mp.mapping_loop_autograd = loop
+    t0 = time.perf_counter()
+    try:
+        infos = [system.process_frame(f) for f in frames]
+        torch.cuda.synchronize()
+    finally:
+        mp.mapping_loop_autograd = orig
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.COUNTS)
+    poses = np.stack(system.dataset.odom_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    res = {"phase": "train_general", "profile": PATHS["B"]["profile"],
+           "geo_mlp_level": cfg.geo_mlp_level, "mlp_bias_on": cfg.mlp_bias_on,
+           "kernel_path": system.kernel_path, "frames": len(infos), "wall_s": wall,
+           "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+           "max_pose_err_m": float(err.max()),
+           "loss_first_call": [float(hist[0][0]), float(hist[0][-1])] if hist else None,
+           "loss_last_per_call": [float(h[-1]) for h in hist], "launches": counts}
+    emit(res)
+    if system.kernel_path or not hist:
+        fail("train_general: the configuration did not train by the autograd loop")
+    if not all(res["reg_valid"]) or not res["max_pose_err_m"] < 0.5:
+        fail(f"train_general: registration {res['reg_valid']}, pose error "
+             f"{res['max_pose_err_m']:.3f} m")
+    if not all(np.isfinite(h).all() for h in hist) or not hist[0][-1] < hist[0][0]:
+        fail(f"train_general: losses {res['loss_first_call']} (first call), finite "
+             f"{all(np.isfinite(h).all() for h in hist)}")
+    if counts["train_iter"] or counts["eikonal"] or counts["gather"] < 1 \
+            or counts["scatter"] < 1:
+        fail(f"train_general: launches {counts}")
+    del system
     torch.cuda.empty_cache()
     return res
 
@@ -2236,9 +2675,11 @@ def main() -> int:
         results = {name: run_path(name, cap, mesh=True) for name in PATHS}
         results["D"] = run_path_d(cap)
         results["E"] = run_path_e(cap)
+        results["F"] = run_path_f(cap)
     finally:
         cap.uninstall()
     cli_kitti_phase()
+    train_general_phase()
 
     rows = []
     for path, res in results.items():
@@ -2248,10 +2689,12 @@ def main() -> int:
                 fail(f"path {path}: no {kind} rank launch captured")
             rows.append(rank_brick_phase(f"path{path}-{kind}", cap.inputs[key][0],
                                          cap.tally[key]))
-        a, kw = cap.inputs[(path, "train_iter", "main")]
-        rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
-        a, kw = cap.inputs[(path, "eikonal", "main")]
-        rows.append(eik_phase(f"path{path}", a, kw, res["launches"]["eikonal"]))
+        # path F trains by autograd: no training kernel on it
+        if (path, "train_iter", "main") in cap.inputs:
+            a, kw = cap.inputs[(path, "train_iter", "main")]
+            rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
+            a, kw = cap.inputs[(path, "eikonal", "main")]
+            rows.append(eik_phase(f"path{path}", a, kw, res["launches"]["eikonal"]))
         # path E's colour head adds the colour labels' gather (once a
         # training call), the colour features' gather and their gradient's
         # scatter (once an iteration each)
@@ -2261,8 +2704,9 @@ def main() -> int:
                 rows.append(gather_phase(f"path{path}-{kind}", a, kw,
                                          cap.tally.get((path, "gather", kind), 0)))
         (frame_idx, _), _ = cap.inputs[(path, "plans", "frame")]
-        # the training loop's launches (path D's bundle adjustment has its own row)
-        for kind, suffix in (("main", ""), ("color", "-color")):
+        # the training loop's launches (path D's bundle adjustment has its own
+        # row; on path F the autograd loop's feature gradient, as "-sem")
+        for kind, suffix in (("main", "-sem" if path == "F" else ""), ("color", "-color")):
             if (path, "scatter", kind) in cap.inputs:
                 (n_rows, idx, val), kw = cap.inputs[(path, "scatter", kind)]
                 rows.append(scatter_phase(f"path{path}{suffix}", n_rows, idx, val,

@@ -1,7 +1,8 @@
 """The port's own copy of the framework-free parts of
 ``pin_slam_tpu/dataset/io.py`` that it uses: point clouds (KITTI ``.bin``,
 ``.npy``, PLY, PCD and LAS, with their per-point timestamps where the file
-has them), KITTI and TUM poses, KITTI calibration files, and the PLY and LAS
+has them), SemanticKITTI ``.label`` files, KITTI and TUM poses, KITTI
+calibration files, and the PLY and LAS
 writers (the map, point-cloud and mesh artifacts, byte-identical to the JAX
 package's)."""
 
@@ -377,6 +378,13 @@ def read_point_cloud(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], Optio
         ts = d.get("gps_time")
         return pts, color, ts
     raise ValueError(f"unsupported point cloud format: {path}")
+
+
+def read_semantic_labels(path: str) -> np.ndarray:
+    """A SemanticKITTI ``.label`` file (uint32 a point): the lower 16 bits,
+    the raw semantic class, as int32."""
+    raw = np.fromfile(path, dtype=np.uint32)
+    return (raw & 0xFFFF).astype(np.int32)
 
 
 def read_kitti_calib(path: str) -> Dict[str, np.ndarray]:

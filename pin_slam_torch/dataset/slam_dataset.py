@@ -5,7 +5,10 @@ frame by a KITTI calibration file), preprocessing (KITTI's intrinsic
 correction, range crop, adaptive or fixed, bucket cap, and deskewing with
 per-point timestamps, read from the file or recovered from the scan's yaw,
 in torch on the dataset's device; with ``color_on`` each point's colour
-rides along), the constant-velocity initial guess,
+rides along, with ``semantic_on`` its SemanticKITTI class, read from
+``label_path``, reduced to the learning classes, with outliers and, under
+``filter_moving_object``, moving objects dropped), the constant-velocity
+initial guess,
 odometry and pose-graph poses, travel distance, stop and lose-track
 detection, and the end-of-run results: the trajectory with its evaluation
 against ground truth, and the merged point cloud."""
@@ -22,6 +25,7 @@ import torch
 from pin_slam_torch.dataset import io as pio
 from pin_slam_torch.ops.transforms import deskew_points, np_se3_inverse
 from pin_slam_torch.ops.voxel import pad_to
+from pin_slam_torch.utils.semantic_kitti import apply_learning_map
 from pin_slam_torch.utils.platform import resolve_device
 
 PC_EXTS = {".bin", ".ply", ".pcd", ".npy"}
@@ -30,12 +34,14 @@ PC_EXTS = {".bin", ".ply", ".pcd", ".npy"}
 class Frame:
     """One preprocessed frame, padded to the frame bucket (numpy, host)."""
 
-    def __init__(self, points, valid, raw_count, point_ts=None, colors=None):
+    def __init__(self, points, valid, raw_count, point_ts=None, colors=None,
+                 sem_labels=None):
         self.points = points          # (B,3) f32 sensor frame
         self.valid = valid            # (B,) bool
         self.raw_count = raw_count
         self.point_ts = point_ts      # (B,) f32 per-point time or None
         self.colors = colors          # (B,C) f32 colours (color_on) or None
+        self.sem_labels = sem_labels  # (B,) int32 learning classes (semantic_on) or None
 
 
 class SLAMDataset:
@@ -99,26 +105,48 @@ class SLAMDataset:
 
     def read_frame(self, frame_id: int):
         """(points (N,3) float32, intensity / colours (N,C) or None, per-point
-        timestamps (N,) or None) of a frame.  With ``deskew`` on, a frame
-        whose file carries no timestamps gets them from its scan yaw."""
+        timestamps (N,) or None, semantic classes (N,) int32 or None) of a
+        frame.  With ``semantic_on`` and a ``<label_path>/<frame>.label``
+        file, the raw SemanticKITTI ids become the 20 learning classes and
+        the points with raw id 0 or 1 (unlabeled, outlier) are dropped, and
+        under ``filter_moving_object`` those of the moving classes (raw id
+        >= 100) too.  With ``deskew`` on, a frame whose file carries no
+        timestamps gets them from its scan yaw."""
+        sem = None
         if self.scans is not None:
             scan = np.asarray(self.scans[frame_id])
             points = scan[:, :3].astype(np.float32)
             colors = scan[:, 3:4].astype(np.float32) if scan.shape[1] > 3 else None
             ts = None
         else:
-            points, colors, ts = pio.read_point_cloud(self.pc_filenames[frame_id])
+            path = self.pc_filenames[frame_id]
+            points, colors, ts = pio.read_point_cloud(path)
+            cfg = self.config
+            lab_path = (os.path.join(cfg.label_path,
+                                     os.path.splitext(os.path.basename(path))[0] + ".label")
+                        if cfg.semantic_on and cfg.label_path else "")
+            if lab_path and os.path.exists(lab_path):
+                raw = pio.read_semantic_labels(lab_path)
+                if raw.shape[0] != points.shape[0]:
+                    raise ValueError(f"{lab_path}: {raw.shape[0]} labels for "
+                                     f"{points.shape[0]} points")
+                sem = apply_learning_map(raw)
+                inlier = raw > 1
+                if cfg.filter_moving_object:
+                    inlier &= raw < 100
+                points, colors, ts, sem = _take_all(inlier, points, colors, ts, sem)
         if ts is None and self.config.deskew:
             ts = recover_point_ts(points, self.config.lidar_type_guess)
-        return points, colors, ts
+        return points, colors, ts, sem
 
     def preprocess_frame(self, frame_id: int) -> Frame:
         """Read + intrinsic correction + range/z crop + random cap at the
         frame bucket + deskew with the last relative motion, padded.  With
         ``color_on`` the file's colours follow their points through every
-        step (the voxel downsample runs on the device, in the pipeline)."""
+        step (the voxel downsample runs on the device, in the pipeline), and
+        so do the semantic classes."""
         cfg = self.config
-        points, colors, ts = self.read_frame(frame_id)
+        points, colors, ts, sem = self.read_frame(frame_id)
         if not cfg.color_on:
             colors = None
         if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
@@ -134,15 +162,15 @@ class SLAMDataset:
         d = np.linalg.norm(points, axis=1)
         keep = ((d > cfg.min_range) & (d < crop_max_range)
                 & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
-        points, colors, ts = _take_all(points, colors, ts, keep)
+        points, colors, ts, sem = _take_all(keep, points, colors, ts, sem)
         rng = np.random.default_rng(cfg.seed + frame_id)
         if cfg.rand_downsample and cfg.rand_down_r < 1.0:
             sel = rng.random(points.shape[0]) < cfg.rand_down_r
-            points, colors, ts = _take_all(points, colors, ts, sel)
+            points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
         bucket = cfg.frame_bucket
         if points.shape[0] > bucket:
             sel = rng.choice(points.shape[0], bucket, replace=False)
-            points, colors, ts = _take_all(points, colors, ts, sel)
+            points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
         if cfg.deskew and ts is not None and self.processed_frame > 0:
             dev = self.device
             points = deskew_points(
@@ -153,7 +181,8 @@ class SLAMDataset:
         pad_pts, valid = pad_to(points.astype(np.float32), bucket)
         pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
         pad_col = pad_to(colors.astype(np.float32), bucket)[0] if colors is not None else None
-        return Frame(pad_pts, valid, points.shape[0], pad_ts, pad_col)
+        pad_sem = pad_to(sem.astype(np.int32), bucket)[0] if sem is not None else None
+        return Frame(pad_pts, valid, points.shape[0], pad_ts, pad_col, pad_sem)
 
     def initial_guess(self) -> np.ndarray:
         """Constant-velocity initial guess."""
@@ -242,7 +271,7 @@ class SLAMDataset:
         rng = np.random.default_rng(cfg.seed)
         worlds, cols = [], []
         for i in range(0, min(len(poses), self.total_pc_count), max(frame_stride, 1)):
-            points, colors, _ = self.read_frame(i)
+            points, colors, _, _ = self.read_frame(i)
             d = np.linalg.norm(points, axis=1)
             keep = (d > cfg.min_range) & (d < cfg.max_range)
             points = points[keep]
@@ -275,11 +304,9 @@ class SLAMDataset:
         return out
 
 
-def _take_all(points, colors, ts, sel):
-    """The rows ``sel`` (a mask or indices) of the points and of their
-    colours and timestamps where present."""
-    return (points[sel], colors[sel] if colors is not None else None,
-            ts[sel] if ts is not None else None)
+def _take_all(sel, *arrays):
+    """The rows ``sel`` (a mask or indices) of each array (None stays None)."""
+    return tuple(a[sel] if a is not None else None for a in arrays)
 
 
 def intrinsic_correct(points: np.ndarray, correct_deg: float = 0.0) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Shared tiny MLP decoder, torch counterpart of ``pin_slam_tpu/models/decoder.py``:
 ``Linear(F+3 -> H) -> ReLU -> [Linear(H->H) -> ReLU]* -> Linear(H -> out)``,
 SDF head scaled by ``sdf_scale`` under the BCE loss; the colour head's
-output clipped to [0, 1] (``regress_color``), and the blend of a head's
-predictions in either interpolation mode (``blended_head``)."""
+output clipped to [0, 1] (``regress_color``), the semantic head's
+per-class log-probabilities (``sem_label_prob``) and classes
+(``sem_label``), and the blend of a head's predictions in either
+interpolation mode (``blended_head``)."""
 
 from __future__ import annotations
 
@@ -92,6 +94,16 @@ def clip01(x: torch.Tensor) -> torch.Tensor:
 def regress_color(decoder: Decoder, features: torch.Tensor) -> torch.Tensor:
     """The colour head's prediction, clipped to [0, 1] (``clip01``)."""
     return clip01(decoder.mlp(features))
+
+
+def sem_label_prob(decoder: Decoder, features: torch.Tensor) -> torch.Tensor:
+    """The semantic head's per-class log-probabilities (log-softmax)."""
+    return torch.log_softmax(decoder.mlp(features), dim=-1)
+
+
+def sem_label(decoder: Decoder, features: torch.Tensor) -> torch.Tensor:
+    """The semantic head's class (argmax of ``sem_label_prob``)."""
+    return torch.argmax(sem_label_prob(decoder, features), dim=-1)
 
 
 def blended_head(head_fn, decoder: Decoder, features: torch.Tensor, weights: torch.Tensor,

@@ -1,6 +1,6 @@
 """Training losses, torch counterpart of ``pin_slam_tpu/ops/losses.py``
 (padding-aware means through a ``valid`` mask): the SDF's BCE, the eikonal
-term and the colour head's L1 / L2."""
+term, the colour head's L1 / L2 and the semantic head's NLL."""
 
 from __future__ import annotations
 
@@ -47,3 +47,15 @@ def color_diff_loss(pred: torch.Tensor, label: torch.Tensor,
     if valid is not None:
         valid = valid[:, None].expand(per.shape)
     return _masked_mean(per, valid)
+
+
+def sem_nll_loss(log_prob: torch.Tensor, label: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Negative log-likelihood of the ``label`` classes under the
+    log-softmax outputs ``log_prob`` (B, S).  The label's entry is picked by
+    a one-hot mask (a sum of one value and zeros, exact), so the gradient
+    needs no indexed scatter."""
+    hot = label.to(torch.int64)[:, None] == torch.arange(log_prob.shape[1],
+                                                          device=log_prob.device)
+    picked = -torch.sum(torch.where(hot, log_prob, torch.zeros_like(log_prob)), dim=1)
+    return _masked_mean(picked, valid)

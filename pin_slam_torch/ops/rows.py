@@ -250,19 +250,24 @@ class GatherRowsFn(torch.autograd.Function):
     zero-base scatter of the output gradient into (N, C) rows, each row
     summed in index order (a plan built for this call's indices), so the
     gradient has a sequential in-order ``index_add``'s bits on every device.
-    Row ``skip_row`` (if not None) gets a zero gradient.  CPU tensors take
-    the plain versions, as the wrappers do."""
+    Row ``skip_row`` (if not None) gets a zero gradient.  A caller that has
+    built the scatter plan of ``idx`` (flattened) passes it as ``plan``; its
+    indices were range-checked then, so the forward gather checks none.
+    CPU tensors take the plain versions, as the wrappers do."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, idx: torch.Tensor,
-                skip_row: Optional[int] = None) -> torch.Tensor:
+                skip_row: Optional[int] = None,
+                plan: Optional[ScatterPlan] = None) -> torch.Tensor:
         flat = idx.reshape(-1).contiguous()
         ctx.save_for_backward(flat)
-        ctx.n_rows, ctx.skip_row = table.shape[0], skip_row
-        return gather_rows(table, flat).view(*idx.shape, table.shape[1])
+        ctx.n_rows, ctx.skip_row, ctx.plan = table.shape[0], skip_row, plan
+        return gather_rows(table, flat, bounds_checked=plan is not None).view(
+            *idx.shape, table.shape[1])
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
         (flat,) = ctx.saved_tensors
         g = grad_out.reshape(flat.shape[0], -1).contiguous()
-        return scatter_sum_rows(ctx.n_rows, flat, g, skip_row=ctx.skip_row), None, None
+        return (scatter_sum_rows(ctx.n_rows, flat, g, plan=ctx.plan, skip_row=ctx.skip_row),
+                None, None, None)

@@ -2,7 +2,8 @@
 ``pin_slam_tpu/ops/sampler.py``: per ray the exact endpoint, ``n_surf``
 Gaussian close-to-surface samples, ``n_front`` / ``n_behind`` uniform
 free-space samples, ray-major layout [endpoint, surf x n, front, behind];
-with colours, each ray's colour labels its surface samples."""
+with colours (or semantic classes), each ray's colour (class) labels its
+surface samples, and free space gets 0."""
 
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ class SampleBatch(NamedTuple):
     valid: torch.Tensor      # (N*S,) bool
     color_label: Optional[torch.Tensor] = None   # (N*S, C): the ray's colour on its
     #                                              surface samples, 0 on free space
+    sem_label: Optional[torch.Tensor] = None     # (N*S,) int32: the ray's class on its
+    #                                              surface samples, 0 on free space
 
 
 def draw_ray_noise(gen: torch.Generator, sc: SamplerConfig, n: int,
@@ -65,10 +68,12 @@ def draw_ray_noise(gen: torch.Generator, sc: SamplerConfig, n: int,
 
 def sample_rays(sc: SamplerConfig, points: torch.Tensor, valid: torch.Tensor,
                 draws: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-                color: Optional[torch.Tensor] = None) -> SampleBatch:
+                color: Optional[torch.Tensor] = None,
+                sem_label: Optional[torch.Tensor] = None) -> SampleBatch:
     """points (N,3) sensor-frame ray endpoints (padded); valid (N,); draws from
     ``draw_ray_noise`` (tests hand in the JAX package's draws instead);
-    color (N,C) the endpoints' colours or None."""
+    color (N,C) the endpoints' colours or None; sem_label (N,) their
+    semantic classes or None."""
     n = points.shape[0]
     S = sc.ray_sample_count
     dev, dt = points.device, points.dtype
@@ -116,6 +121,12 @@ def sample_rays(sc: SamplerConfig, points: torch.Tensor, valid: torch.Tensor,
         color_out = torch.where(surf, color[:, None, :], torch.zeros((), dtype=color.dtype,
                                                                      device=dev))
         color_out = color_out.reshape(n * S, -1)
+    sem_out = None
+    if sem_label is not None:
+        surf = (torch.arange(S, device=dev) < n_surf_tot)[None, :]
+        sem_out = torch.where(surf, sem_label.to(torch.int32)[:, None],
+                              torch.zeros((), dtype=torch.int32, device=dev)).reshape(-1)
     return SampleBatch(coord=coord.reshape(n * S, 3), sdf_label=(-disp).reshape(-1),
                        weight=weight.reshape(-1),
-                       valid=valid[:, None].expand(n, S).reshape(-1), color_label=color_out)
+                       valid=valid[:, None].expand(n, S).reshape(-1), color_label=color_out,
+                       sem_label=sem_out)

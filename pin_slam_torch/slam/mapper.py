@@ -1,11 +1,14 @@
 """Incremental mapping, torch counterpart of ``pin_slam_tpu/slam/mapper.py``
-(main-path, loop-closure, bundle-adjustment and colour subset): the replay
-pool (with its colour labels), the append-time kNN with its cached
-geometry, its re-derivation after a pose-graph optimisation, the cached
-training loop on the kernel path (row gather -> train/eikonal kernels ->
-deterministic row scatter -> Adam) with the colour head's term beside it,
-and sliding-window bundle adjustment (torch autograd, with the feature
-gather and its gradient on the row kernels).
+(main-path, loop-closure, bundle-adjustment, colour and semantic subset):
+the replay pool (with its colour or semantic labels), the append-time kNN
+with its cached geometry, its re-derivation after a pose-graph
+optimisation, the cached training loop on the kernel path (row gather ->
+train/eikonal kernels -> deterministic row scatter -> Adam) with the colour
+head's term beside it, the same loop by torch autograd for the
+configurations the kernels do not cover (the semantic head, deeper or
+bias-free SDF decoders; ``mapping_loop_autograd``), and sliding-window
+bundle adjustment (torch autograd, with the feature gather and its
+gradient on the row kernels).
 
 Pool rows keep the JAX package's packed layout (see ``P_*``): sample
 coordinates, label, weight, frame id, sensor-frame coordinates, the k = 6
@@ -25,7 +28,7 @@ import torch
 from pin_slam_torch.models import decoder as dec
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.ops import losses, rank_kernel, rows as rowk, train_kernel
-from pin_slam_torch.ops.hash3d import grid_coords
+from pin_slam_torch.ops.hash3d import div_f32, grid_coords
 from pin_slam_torch.ops.scatter import nonzero_static
 from pin_slam_torch.ops.transforms import apply_quaternion_rotation, se3_expmap
 from pin_slam_torch.ops.voxel import sqnorm3
@@ -55,6 +58,8 @@ class MapperConfig:
     weighted_first: bool = True
     color_on: bool = False
     weight_i: float = 1.0
+    semantic_on: bool = False
+    weight_s: float = 1.0
 
     @property
     def pool_dim(self) -> int:
@@ -78,7 +83,8 @@ class MapperConfig:
             surface_sample_range=cfg.surface_sample_range_m,
             window_radius=cfg.window_radius,
             new_certainty_thre=cfg.new_certainty_thre,
-            color_on=cfg.color_on, weight_i=cfg.weight_i)
+            color_on=cfg.color_on, weight_i=cfg.weight_i,
+            semantic_on=cfg.semantic_on, weight_s=cfg.weight_s)
 
 
 P_COORD = slice(0, 3)
@@ -105,6 +111,7 @@ class PoolState:
     new_count: torch.Tensor  # () int64
     color_label: Optional[torch.Tensor] = None   # (P+1, C) f32 with color_on; its
     #                                              own array, so the rows keep their width
+    sem_label: Optional[torch.Tensor] = None     # (P+1,) int32 with semantic_on
 
 
 def init_pool(mcfg: MapperConfig, device=None, color_channel: int = 3) -> PoolState:
@@ -117,7 +124,9 @@ def init_pool(mcfg: MapperConfig, device=None, color_channel: int = 3) -> PoolSt
                                          device=device),
                      new_count=z.clone(),
                      color_label=(torch.zeros((P + 1, color_channel), dtype=torch.float32,
-                                              device=device) if mcfg.color_on else None))
+                                              device=device) if mcfg.color_on else None),
+                     sem_label=(torch.zeros((P + 1,), dtype=torch.int32, device=device)
+                                if mcfg.semantic_on else None))
 
 
 def pool_from_numpy(src, device=None) -> PoolState:
@@ -125,10 +134,12 @@ def pool_from_numpy(src, device=None) -> PoolState:
     def t(a, dt):
         return torch.as_tensor(np.array(a), device=device).to(dt)
     col = getattr(src, "color_label", None)
+    sem = getattr(src, "sem_label", None)
     return PoolState(rows=t(src.rows, torch.float32), head=t(src.head, torch.int64),
                      fill=t(src.fill, torch.int64), new_idx=t(src.new_idx, torch.int64),
                      new_count=t(src.new_count, torch.int64),
-                     color_label=t(col, torch.float32) if col is not None else None)
+                     color_label=t(col, torch.float32) if col is not None else None,
+                     sem_label=t(sem, torch.int32) if sem is not None else None)
 
 
 def idw_blend(points: torch.Tensor, nbr_pos: torch.Tensor, valid: torch.Tensor,
@@ -288,10 +299,12 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
                 valid: torch.Tensor, cur_ts: int, new_mask: torch.Tensor,
                 knn_gidx: torch.Tensor, knn_w: torch.Tensor, knn_vec: torch.Tensor,
                 knn_nbr_vec: Optional[torch.Tensor] = None,
-                color_label: Optional[torch.Tensor] = None) -> PoolState:
+                color_label: Optional[torch.Tensor] = None,
+                sem_label: Optional[torch.Tensor] = None) -> PoolState:
     """Ring-buffer append of one frame's valid samples as one contiguous
-    block at the head (updates ``pool.rows``, and ``pool.color_label`` with
-    the samples' ``color_label`` (n, C) in the same order, in place)."""
+    block at the head (updates ``pool.rows``, and ``pool.color_label`` /
+    ``pool.sem_label`` with the samples' ``color_label`` (n, C) /
+    ``sem_label`` (n,) in the same order, in place)."""
     dev = coord_world.device
     P = mcfg.pool_capacity
     n = coord_world.shape[0]
@@ -326,6 +339,9 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
     if pool.color_label is not None:
         pool.color_label.index_copy_(0, head + ar,
                                      color_label[perm] * in_valid[:, None].to(torch.float32))
+    if pool.sem_label is not None:
+        pool.sem_label.index_copy_(0, head + ar,
+                                   sem_label.to(torch.int32)[perm] * in_valid.to(torch.int32))
 
     new_head = head + n_valid
     nm_compact = in_valid & new_mask[perm]
@@ -334,7 +350,7 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
                      fill=torch.clamp(torch.maximum(pool.fill, new_head), max=P),
                      new_idx=head + new_idx,
                      new_count=torch.clamp(torch.sum(nm_compact), max=mcfg.new_idx_capacity),
-                     color_label=pool.color_label)
+                     color_label=pool.color_label, sem_label=pool.sem_label)
 
 
 def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> PoolState:
@@ -354,7 +370,8 @@ def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> Po
     return PoolState(rows=rows, head=count % P, fill=count, new_idx=pool.new_idx,
                      new_count=torch.zeros_like(pool.new_count),
                      color_label=(pool.color_label[perm] if pool.color_label is not None
-                                  else None))
+                                  else None),
+                     sem_label=pool.sem_label[perm] if pool.sem_label is not None else None)
 
 
 def pool_retransform(pool: PoolState, poses: torch.Tensor) -> PoolState:
@@ -403,17 +420,21 @@ def pool_refresh_cache(pool: PoolState, state_attr_rows: torch.Tensor,
 
 @dataclasses.dataclass
 class AdamState:
-    """Adam moments of the two trained leaves: the (L+1, F+1) local feature
-    table and the packed decoder vector."""
+    """Adam moments of the trained leaves: the (L+1, F+1) local feature
+    table, then the packed decoder vector (the kernel path) or every decoder
+    leaf (the autograd loop)."""
     count: int
     m: List[torch.Tensor]
     v: List[torch.Tensor]
 
 
-def init_opt_state(feats: torch.Tensor, gvec: torch.Tensor) -> AdamState:
-    """Fresh Adam moments (re-initialized every frame, as in the JAX package)."""
-    return AdamState(count=0, m=[torch.zeros_like(feats), torch.zeros_like(gvec)],
-                     v=[torch.zeros_like(feats), torch.zeros_like(gvec)])
+def init_opt_state(feats: torch.Tensor, params) -> AdamState:
+    """Fresh Adam moments (re-initialized every frame, as in the JAX package)
+    of the feature table and the decoder leaves: the packed decoder vector
+    (the kernel path) or a ``Heads`` (the autograd loop)."""
+    leaves = [feats] + (params.leaves() if isinstance(params, Heads) else [params])
+    return AdamState(count=0, m=[torch.zeros_like(x) for x in leaves],
+                     v=[torch.zeros_like(x) for x in leaves])
 
 
 def adam_step(mcfg: MapperConfig, params: List[torch.Tensor], grads: List[torch.Tensor],
@@ -519,12 +540,104 @@ def sample_batch_indices(gen: torch.Generator, pool: PoolState, mcfg: MapperConf
 
 
 def kernel_path_supported(mcfg: MapperConfig, cfg) -> bool:
-    """Whether the port's training path covers this configuration: the
-    geometry head (one hidden layer with biases) on the kernels, the colour
-    head beside them; no semantic head, no feature layer-norm."""
+    """Whether the training kernels cover this configuration: the geometry
+    head (one hidden layer with biases) on the kernels, the colour head
+    beside them; no semantic head, no feature layer-norm.  Every other
+    configuration trains by ``mapping_loop_autograd``, as the JAX package
+    trains by autodiff what its kernels do not cover."""
     return (not cfg.semantic_on and not cfg.layer_norm_on
             and cfg.geo_mlp_level == 1 and cfg.mlp_bias_on
             and (mcfg.bs // mcfg.gradient_decimation > 0 or not mcfg.ekional_loss_on))
+
+
+@dataclasses.dataclass
+class _Batches:
+    """Every iteration's batch of one training call, read from the pool at
+    once: (T, B) labels, |weights|, in-pool flags; (T, B, k) local neighbour
+    rows (L where invalid) and IDW weights (0 where invalid); the offset
+    vectors ``vin``, blended (T, B, VD) with ``weighted_first``, else per
+    neighbour (T, B, k * VD); the newest frame id sampled; and with the
+    eikonal term the stencil's weights (T, 6 n, k) and offset vectors
+    (T, 6 n, VD or k * VD) of the first n = B / gradient_decimation rows."""
+    flat_idx: torch.Tensor
+    labels: torch.Tensor
+    weights: torch.Tensor
+    in_pool: torch.Tensor
+    safe_g: torch.Tensor
+    w: torch.Tensor
+    vin: torch.Tensor
+    ts_proxy: torch.Tensor
+    n_grad: int
+    wst2: Optional[torch.Tensor] = None
+    vst: Optional[torch.Tensor] = None
+
+
+def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: MapperConfig,
+                  batch_idx: torch.Tensor, after_pgo: bool) -> _Batches:
+    """The pool rows of ``batch_idx`` (T, B) (one gather-kernel launch),
+    their cached neighbours remapped to local rows, and the eikonal
+    stencil's geometry (offset vectors rotated by the neighbours'
+    quaternions ``after_pgo``)."""
+    dev = pool.rows.device
+    T, B = batch_idx.shape
+    L, cap, k = mc.local_capacity, mc.capacity, 6
+    n_grad = B // mcfg.gradient_decimation if mcfg.ekional_loss_on else 0
+    VD = mcfg.vec_dim
+    wf = mcfg.weighted_first
+
+    flat_idx = batch_idx.reshape(-1)
+    rows = rowk.gather_rows(pool.rows, flat_idx)
+    labels = rows[:, P_LABEL].reshape(T, B).contiguous()
+    weights = torch.abs(rows[:, P_WEIGHT]).reshape(T, B)
+    ts_flat = rows[:, P_TS]
+    in_pool = ((flat_idx < pool.fill) & (ts_flat >= 0.0)).reshape(T, B)
+    gidx = rows[:, P_KNN].to(torch.int64)
+
+    rank = torch.cumsum(lm.member_mask.to(torch.int64), 0) - 1
+    local_of = torch.where(lm.member_mask, torch.clamp(rank, max=L), torch.full_like(rank, L))
+    lidx = local_of[torch.where(gidx >= 0, torch.clamp(gidx, max=cap), torch.full_like(gidx, cap))]
+    valid_k = (gidx >= 0) & (lidx < L)
+    safe_g = torch.where(valid_k, lidx, torch.full_like(lidx, L))
+    ts_proxy = torch.max(torch.where(in_pool, ts_flat.reshape(T, B), torch.zeros_like(labels)))
+
+    w = torch.where(valid_k, rows[:, P_W], torch.zeros_like(rows[:, P_W])).reshape(T, B, k)
+    if wf:
+        vin = rows[:, P_VEC0:P_VEC0 + VD].reshape(T, B, VD).contiguous()
+    else:
+        vin = rows[:, P_VEC0 + VD:].reshape(T, B, k * VD).contiguous()
+    safe_g = safe_g.reshape(T, B, k)
+    out = _Batches(flat_idx=flat_idx, labels=labels, weights=weights, in_pool=in_pool,
+                   safe_g=safe_g, w=w, vin=vin, ts_proxy=ts_proxy, n_grad=n_grad)
+    if n_grad:
+        coord_r = rows.reshape(T, B, -1)[:, :n_grad, 0:3]
+        eps_mat = torch.eye(3, dtype=torch.float32, device=dev) * mcfg.num_grad_step
+        stencil = torch.cat([coord_r[:, None] + eps_mat[None, :, None, :],
+                             coord_r[:, None] - eps_mat[None, :, None, :]], 1)  # (T,6,n,3)
+        valid_b = valid_k.reshape(T, B, k)[:, :n_grad]
+        pose_b = lm.attr_rows[safe_g[:, :n_grad]]                               # (T,n,k,16)
+        quat_b = (pose_b[..., 3:7][:, None].expand(T, 6, n_grad, k, 4) if after_pgo
+                  else None)
+        w_st, vecb_st, enc_st = idw_blend(
+            stencil, pose_b[..., :3][:, None].expand(T, 6, n_grad, k, 3),
+            valid_b[:, None].expand(T, 6, n_grad, k), quat_b, return_per_neighbor=True)
+        out.wst2 = w_st.reshape(T, 6 * n_grad, k).contiguous()
+        out.vst = (vecb_st.reshape(T, 6 * n_grad, VD) if wf
+                   else enc_st.reshape(T, 6 * n_grad, k * VD)).contiguous()
+    return out
+
+
+def _fold_certainty(lm: npts.LocalMap, cert_acc: torch.Tensor,
+                    ts_proxy: torch.Tensor) -> npts.LocalMap:
+    """The local map with a training call's certainty sums added and the
+    touched points' update stamp raised to the newest frame sampled."""
+    L = lm.attr_rows.shape[0] - 1
+    touched = cert_acc > 0.0
+    attr = lm.attr_rows.clone()
+    attr[:, npts.C_CERT] = attr[:, npts.C_CERT] + cert_acc
+    attr[:, npts.C_TSU] = torch.where(touched, torch.maximum(attr[:, npts.C_TSU], ts_proxy),
+                                      attr[:, npts.C_TSU])
+    attr[L] = npts.attr_sentinel_row(attr.device)
+    return dataclasses.replace(lm, attr_rows=attr)
 
 
 def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
@@ -563,58 +676,21 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     dev = feats.device
     T, B = batch_idx.shape
     F = feats.shape[1] - 1
-    L, cap, k = mc.local_capacity, mc.capacity, 6
-    eik = mcfg.ekional_loss_on
-    n_grad = B // mcfg.gradient_decimation if eik else 0
-    VD = mcfg.vec_dim
+    L, k = mc.local_capacity, 6
     wf = mcfg.weighted_first
+    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
+    n_grad, eik = bt.n_grad, mcfg.ekional_loss_on
+    safe_g, w, vin, labels, weights = bt.safe_g, bt.w, bt.vin, bt.labels, bt.weights
 
-    flat_idx = batch_idx.reshape(-1)
-    rows = rowk.gather_rows(pool.rows, flat_idx)
-    labels = rows[:, P_LABEL].reshape(T, B).contiguous()
-    weights = torch.abs(rows[:, P_WEIGHT]).reshape(T, B)
-    ts_flat = rows[:, P_TS]
-    in_pool = ((flat_idx < pool.fill) & (ts_flat >= 0.0)).reshape(T, B)
-    gidx = rows[:, P_KNN].to(torch.int64)
-
-    rank = torch.cumsum(lm.member_mask.to(torch.int64), 0) - 1
-    local_of = torch.where(lm.member_mask, torch.clamp(rank, max=L), torch.full_like(rank, L))
-    lidx = local_of[torch.where(gidx >= 0, torch.clamp(gidx, max=cap), torch.full_like(gidx, cap))]
-    valid_k = (gidx >= 0) & (lidx < L)
-    safe_g = torch.where(valid_k, lidx, torch.full_like(lidx, L))
-    ts_proxy = torch.max(torch.where(in_pool, ts_flat.reshape(T, B), torch.zeros_like(labels)))
-
-    w = torch.where(valid_k, rows[:, P_W], torch.zeros_like(rows[:, P_W])).reshape(T, B, k)
-    if wf:
-        vin = rows[:, P_VEC0:P_VEC0 + VD].reshape(T, B, VD).contiguous()
-    else:
-        vin = rows[:, P_VEC0 + VD:].reshape(T, B, k * VD).contiguous()
-    safe_g = safe_g.reshape(T, B, k)
-
-    inp_f = in_pool.to(torch.float32)
+    inp_f = bt.in_pool.to(torch.float32)
     denom = torch.clamp(torch.sum(inp_f, dim=1), min=1.0)
     wt_base = weights if mcfg.loss_weight_on else torch.ones_like(weights)
     wt_eff = wt_base * inp_f / denom[:, None]
     if color is not None:
-        col_lab = rowk.gather_rows(pool.color_label, flat_idx).reshape(T, B, -1)
-        col_surf = in_pool & (torch.abs(labels) < mcfg.surface_sample_range)
-        col_vin = vin if wf else vin.reshape(T, B, k, VD)
-
+        col_lab = rowk.gather_rows(pool.color_label, bt.flat_idx).reshape(T, B, -1)
+        col_surf = bt.in_pool & (torch.abs(labels) < mcfg.surface_sample_range)
+        col_vin = vin if wf else vin.reshape(T, B, k, mcfg.vec_dim)
     if eik:
-        coord_r = rows.reshape(T, B, -1)[:, :n_grad, 0:3]
-        eps_mat = torch.eye(3, dtype=torch.float32, device=dev) * mcfg.num_grad_step
-        stencil = torch.cat([coord_r[:, None] + eps_mat[None, :, None, :],
-                             coord_r[:, None] - eps_mat[None, :, None, :]], 1)  # (T,6,n,3)
-        valid_b = valid_k.reshape(T, B, k)[:, :n_grad]
-        pose_b = lm.attr_rows[safe_g[:, :n_grad]]                               # (T,n,k,16)
-        quat_b = (pose_b[..., 3:7][:, None].expand(T, 6, n_grad, k, 4) if after_pgo
-                  else None)
-        w_st, vecb_st, enc_st = idw_blend(
-            stencil, pose_b[..., :3][:, None].expand(T, 6, n_grad, k, 3),
-            valid_b[:, None].expand(T, 6, n_grad, k), quat_b, return_per_neighbor=True)
-        wst2 = w_st.reshape(T, 6 * n_grad, k).contiguous()
-        vst = (vecb_st.reshape(T, 6 * n_grad, VD) if wf
-               else enc_st.reshape(T, 6 * n_grad, k * VD)).contiguous()
         inp_e = inp_f[:, :n_grad]
         denom_e = torch.clamp(torch.sum(inp_e, dim=1), min=1.0)
         esc = mcfg.weight_e * inp_e / denom_e[:, None]
@@ -637,7 +713,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
         val_cat = dfe.reshape(-1, F + 1)
         if eik:
             el, dfe_e, gpe = train_kernel.eikonal_iter(
-                feats2[:n_grad], wst2[t], vst[t], esc[t], gvec, wf,
+                feats2[:n_grad], bt.wst2[t], bt.vst[t], esc[t], gvec, wf,
                 mcfg.sdf_scale, mcfg.num_grad_step)
             loss = loss + el
             gp = gp + gpe
@@ -664,15 +740,160 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
                                        color.opt)
             color.features, color.params = new[0], new[1:]
         hist.append(loss)
+    return _fold_certainty(lm, cert_acc, bt.ts_proxy), feats, gvec, opt, torch.stack(hist)
 
-    touched = cert_acc > 0.0
-    attr = lm.attr_rows.clone()
-    attr[:, npts.C_CERT] = attr[:, npts.C_CERT] + cert_acc
-    attr[:, npts.C_TSU] = torch.where(touched, torch.maximum(attr[:, npts.C_TSU], ts_proxy),
-                                      attr[:, npts.C_TSU])
-    attr[L] = npts.attr_sentinel_row(dev)
-    lm_out = dataclasses.replace(lm, attr_rows=attr)
-    return lm_out, feats, gvec, opt, torch.stack(hist)
+
+@dataclasses.dataclass
+class Heads:
+    """The decoders the autograd loop trains: the SDF decoder and, with a
+    semantic head, the semantic decoder, each given by its structure (a
+    ``Decoder``, whose own parameters are not read) and the values of its
+    parameters in the order of ``decoder.parameters()``.  Threaded through a
+    frame's training calls as the packed vector is on the kernel path."""
+    geo: torch.nn.Module
+    geo_params: List[torch.Tensor]
+    sem: Optional[torch.nn.Module] = None
+    sem_params: List[torch.Tensor] = dataclasses.field(default_factory=list)
+
+    def leaves(self) -> List[torch.Tensor]:
+        return self.geo_params + self.sem_params
+
+    def with_leaves(self, leaves: List[torch.Tensor]) -> "Heads":
+        n = len(self.geo_params)
+        return dataclasses.replace(self, geo_params=list(leaves[:n]),
+                                   sem_params=list(leaves[n:]))
+
+    def load_into(self, geo: torch.nn.Module, sem: Optional[torch.nn.Module] = None) -> None:
+        """Copy the trained values into ``geo`` (and ``sem``)."""
+        with torch.no_grad():
+            for dst, vals in ((geo, self.geo_params), (sem, self.sem_params)):
+                if dst is not None:
+                    for p, v in zip(dst.parameters(), vals):
+                        p.copy_(v)
+
+
+def init_heads(geo: torch.nn.Module, sem: Optional[torch.nn.Module] = None) -> Heads:
+    """The autograd loop's decoder leaves, copied from ``geo`` and ``sem``."""
+    return Heads(geo=geo, geo_params=[p.detach().clone() for p in geo.parameters()], sem=sem,
+                 sem_params=[p.detach().clone() for p in sem.parameters()] if sem is not None
+                 else [])
+
+
+def _functional(module: torch.nn.Module, params: List[torch.Tensor]):
+    """``module``'s forward with ``params`` in place of its own parameters."""
+    names = [n for n, _ in module.named_parameters()]
+    return lambda x: torch.func.functional_call(module, dict(zip(names, params)), (x,))
+
+
+def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, bt: _Batches, t: int,
+                            sem_lab: Optional[torch.Tensor], mcfg: MapperConfig,
+                            plan: rowk.ScatterPlan):
+    """One iteration's loss of the autograd loop, the JAX package's
+    ``mapping_loop_cached`` body without its kernels: the IDW-blended SDF
+    (blend then decode with ``weighted_first``, else decode each neighbour
+    and blend), BCE against the labels, the eikonal term at the stencil, the
+    certainty channel's term sum(w * feats[..., F]), and with a semantic
+    head the weighted NLL of the surface samples' classes (log-probabilities
+    blended per neighbour unless ``weighted_first``).  The feature rows come
+    through ``rows.GatherRowsFn`` (the gather kernel, and for their gradient
+    the in-order scatter with ``plan``; row L gets none); no other indexed
+    operation is in the graph.  Returns (loss without the certainty term,
+    d / d feats (L+1, F+1), [d / d head leaf])."""
+    L = feats.shape[0] - 1
+    F = feats.shape[1] - 1
+    B, k = bt.safe_g.shape[1], bt.safe_g.shape[2]
+    n = bt.n_grad
+    wf = mcfg.weighted_first
+    w = bt.w[t]
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(True)
+        ps = [p.detach().requires_grad_(True) for p in heads.leaves()]
+        hs = heads.with_leaves(ps)
+        geo = _functional(hs.geo, hs.geo_params)
+
+        def sdf(x):
+            return geo(x)[..., 0] * mcfg.sdf_scale
+
+        rows = rowk.GatherRowsFn.apply(f, bt.safe_g[t], L, plan)            # (B, k, F+1)
+        fk = rows[..., :F]
+        if wf:
+            geo_feat = torch.cat([torch.einsum("bk,bkf->bf", w, fk), bt.vin[t]], -1)
+            sdf_pred = sdf(geo_feat)
+        else:
+            per_in = torch.cat([fk, bt.vin[t].reshape(B, k, -1)], -1)
+            sdf_pred = torch.sum(sdf(per_in) * w, dim=-1)
+        loss = losses.sdf_bce_loss(sdf_pred, bt.labels[t], mcfg.sigma_sigmoid, bt.weights[t],
+                                   mcfg.loss_weight_on, valid=bt.in_pool[t])
+        cert_term = torch.sum(w * rows[..., F])
+        if n:
+            w_st = bt.wst2[t].reshape(6, n, k)
+            f_base = rows[:n]
+            if wf:
+                st_feat = torch.einsum("jnk,nkf->jnf", w_st, f_base[..., :F])
+                sdf_st = sdf(torch.cat([st_feat.reshape(6 * n, -1), bt.vst[t]], -1)
+                             ).reshape(6, n)
+            else:
+                st_in = torch.cat([f_base[None, :, :, :F].expand(6, n, k, F).reshape(6 * n, k, F),
+                                   bt.vst[t].reshape(6 * n, k, -1)], -1)
+                sdf_st = torch.sum(sdf(st_in) * bt.wst2[t], dim=-1).reshape(6, n)
+            g = div_f32(torch.stack([sdf_st[0] - sdf_st[3], sdf_st[1] - sdf_st[4],
+                                     sdf_st[2] - sdf_st[5]], -1), 2.0 * mcfg.num_grad_step)
+            loss = loss + mcfg.weight_e * losses.eikonal_loss(g, valid=bt.in_pool[t, :n])
+            cert_term = cert_term + torch.einsum("jnk,nk->", w_st, f_base[..., F])
+        if hs.sem is not None and sem_lab is not None:
+            sem = _functional(hs.sem, hs.sem_params)
+            if wf:
+                sem_logp = torch.log_softmax(sem(geo_feat), dim=-1)
+            else:
+                sem_logp = torch.einsum("bk,bks->bs", w,
+                                        torch.log_softmax(sem(per_in), dim=-1))
+            sem_valid = bt.in_pool[t] & (sem_lab[t] > 0)
+            loss = loss + mcfg.weight_s * losses.sem_nll_loss(sem_logp, sem_lab[t],
+                                                              valid=sem_valid)
+        grads = torch.autograd.grad(loss + cert_term, [f] + ps)
+    return loss.detach(), grads[0], list(grads[1:])
+
+
+def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
+                          heads: Heads, opt: AdamState, pool: PoolState, mcfg: MapperConfig,
+                          batch_idx: torch.Tensor, decoder_lr_scale: float,
+                          after_pgo: bool = False):
+    """The per-frame training loop for the configurations the training
+    kernels do not cover (``kernel_path_supported``): the same pool-cached
+    batches, certainty channel and Adam as ``mapping_loop_cached``, with the
+    loss and its gradients by torch autograd (``autograd_loss_and_grads``),
+    the counterpart of the JAX package's ``mapping_loop_cached(use_kernel=
+    False)``.  The pool rows come from the gather kernel once a call; each
+    iteration gathers the feature rows with the gather kernel and scatters
+    their gradient with the in-order scatter kernel, on plans built once a
+    call.  The certainty column's gradient is harvested and kept out of
+    Adam; the decoders' gradients are scaled by ``decoder_lr_scale``; one
+    Adam step covers the features and every decoder leaf; feats[L] is
+    zeroed after each step.  With a semantic head (``heads.sem`` and
+    ``pool.sem_label``) the classes of the sampled rows are read once a
+    call.  Returns (lm with updated certainty / ts bookkeeping, feats,
+    heads, opt, loss history (T,))."""
+    T, B = batch_idx.shape
+    L = mc.local_capacity
+    F = feats.shape[1] - 1
+    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
+    sem_lab = (pool.sem_label[bt.flat_idx].reshape(T, B)
+               if heads.sem is not None and pool.sem_label is not None else None)
+    plans = rowk.scatter_plans(bt.safe_g.reshape(T, -1), L + 1)
+    cert_acc = torch.zeros((L + 1,), dtype=torch.float32, device=feats.device)
+    hist = []
+    for t in range(T):
+        loss, gf, gh = autograd_loss_and_grads(feats, heads, bt, t, sem_lab, mcfg,
+                                               rowk.plan_at(plans, t))
+        cert_acc = cert_acc + gf[:, F]
+        gf[:, F] = 0.0
+        new, opt = adam_step(mcfg, [feats] + heads.leaves(),
+                             [gf] + [decoder_lr_scale * g for g in gh], opt)
+        feats = new[0]
+        feats[L] = 0.0
+        heads = heads.with_leaves(new[1:])
+        hist.append(loss)
+    return _fold_certainty(lm, cert_acc, bt.ts_proxy), feats, heads, opt, torch.stack(hist)
 
 
 def compute_new_sample_mask(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperConfig,

@@ -7,9 +7,11 @@ extraction on the host (``ops/marching_cubes.py``), and SDF slices.
 The grid query is ``knn_search`` + ``interpolate_features`` +
 ``Decoder.blended_sdf`` as torch ops, as the JAX package's is XLA; it runs
 no hand-written kernel.  With a colour head each box's vertices are painted
-with the regressed colours at them (``paint_vertices``, in padded chunks of
-``query_bucket`` on the same view).  Semantic painting and the
-data-parallel query are not ported and raise ``NotImplementedError``.
+with the regressed colours at them (``paint_vertices``), with a semantic
+head they get the head's class at them (``paint_semantics``: the argmax of
+the IDW-blended log-probabilities), both in padded chunks of
+``query_bucket`` on the same view.  The data-parallel query is not ported
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from pin_slam_torch.models import neural_points as npts
-from pin_slam_torch.models.decoder import Decoder, blended_head, regress_color
+from pin_slam_torch.models.decoder import Decoder, blended_head, regress_color, sem_label_prob
 from pin_slam_torch.ops import marching_cubes as mcubes
 from pin_slam_torch.utils.platform import not_ported
 
@@ -56,11 +58,18 @@ def grid_query_color(lm: npts.LocalMap, mc: npts.MapConfig, color_decoder: Decod
     return blended_head(regress_color, color_decoder, col, w, mc.weighted_first)
 
 
+def grid_query_sem(lm: npts.LocalMap, mc: npts.MapConfig, sem_decoder: Decoder,
+                   offsets: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """The semantic head's class at ``pts`` (B, 3): (B,) int64."""
+    knn = npts.knn_search(lm, mc, pts, offsets)
+    feat, w, _ = npts.interpolate_features(lm, mc, pts, knn.lidx)
+    return torch.argmax(blended_head(sem_label_prob, sem_decoder, feat, w, mc.weighted_first),
+                        dim=-1)
+
+
 class Mesher:
     def __init__(self, cfg: MesherConfig, mc: npts.MapConfig, offsets: torch.Tensor,
                  dp_mesh=None):
-        if cfg.semantic_on:
-            raise not_ported("semantic vertex painting (ROADMAP A 11, the semantic head)")
         if dp_mesh is not None:
             raise not_ported("data-parallel mesh queries, dp_mesh (ROADMAP A 12)")
         self.cfg = cfg
@@ -106,12 +115,30 @@ class Mesher:
                 colors[s:e] = c if c.shape[1] == 3 else np.repeat(c, 3, axis=1)
         return colors
 
+    def paint_semantics(self, lm, sem_decoder: Decoder, verts: np.ndarray) -> np.ndarray:
+        """The semantic head's class at each vertex (V,) int32, queried on
+        ``lm``'s device in padded chunks of ``query_bucket``."""
+        n = verts.shape[0]
+        B = self.cfg.query_bucket
+        dev = lm.attr_rows.device
+        sems = np.zeros((n,), np.int32)
+        with torch.no_grad():
+            for s in range(0, n, B):
+                e = min(s + B, n)
+                chunk = np.zeros((B, 3), np.float32)
+                chunk[: e - s] = verts[s:e]
+                sems[s:e] = grid_query_sem(lm, self.mc, sem_decoder, self.offsets,
+                                           torch.as_tensor(chunk, device=dev))[: e - s].cpu().numpy()
+        return sems
+
     def recon_aabb_mesh(self, lm, decoder: Decoder, sdf_scale: float,
                         aabb_min: np.ndarray, aabb_max: np.ndarray,
-                        color_decoder: Optional[Decoder] = None):
+                        color_decoder: Optional[Decoder] = None,
+                        sem_decoder: Optional[Decoder] = None):
         """Reconstruct one box; returns (vertices [V,3] float32, faces [F,3]
-        int64) in world coordinates, and with ``color_decoder`` (vertices,
-        faces, vertex colours [V,3] float32 or None for an empty box)."""
+        int64) in world coordinates, and with a colour or semantic head
+        (vertices, faces, vertex colours [V,3] float32 or None, vertex classes
+        [V] int32 or None; None for an empty box or a head not given)."""
         res = self.cfg.mc_res_m
         lo = np.floor(aabb_min / res) - self.cfg.pad_voxel
         hi = np.ceil(aabb_max / res) + self.cfg.pad_voxel
@@ -132,37 +159,50 @@ class Mesher:
         if verts.shape[0] and self.cfg.min_cluster_vertices > 0:
             verts, faces = mcubes.filter_isolated_vertices(verts, faces,
                                                            self.cfg.min_cluster_vertices)
-        if color_decoder is None:
+        if color_decoder is None and sem_decoder is None:
             return verts, faces
-        colors = self.paint_vertices(lm, color_decoder, verts) if verts.shape[0] else None
-        return verts, faces, colors
+        colors = (self.paint_vertices(lm, color_decoder, verts)
+                  if verts.shape[0] and color_decoder is not None else None)
+        sems = (self.paint_semantics(lm, sem_decoder, verts)
+                if verts.shape[0] and sem_decoder is not None else None)
+        return verts, faces, colors, sems
 
     def recon_aabb_collections_mesh(self, lm, decoder: Decoder, sdf_scale: float,
                                     aabbs: List[Tuple[np.ndarray, np.ndarray]],
-                                    color_decoder: Optional[Decoder] = None):
+                                    color_decoder: Optional[Decoder] = None,
+                                    sem_decoder: Optional[Decoder] = None):
         """Chunked reconstruction over a list of boxes, one mesh.  ``lm`` is
         one view for every box, or a function ``(amin, amax) -> view`` that
         gives each box its own, built when the box is meshed.  Returns
-        (vertices, faces), and with ``color_decoder`` (vertices, faces,
-        vertex colours), each box painted on its own view."""
-        all_v, all_f, all_c = [], [], []
+        (vertices, faces), and with a colour or semantic head (vertices,
+        faces, vertex colours or None, vertex classes or None), each box
+        painted on its own view."""
+        heads = color_decoder is not None or sem_decoder is not None
+        all_v, all_f, all_c, all_s = [], [], [], []
         off = 0
         for amin, amax in aabbs:
             view = lm(amin, amax) if callable(lm) else lm
-            out = self.recon_aabb_mesh(view, decoder, sdf_scale, amin, amax, color_decoder)
+            out = self.recon_aabb_mesh(view, decoder, sdf_scale, amin, amax, color_decoder,
+                                       sem_decoder)
             v, f = out[:2]
             if v.shape[0] == 0:
                 continue
             all_v.append(v)
             all_f.append(f + off)
             off += v.shape[0]
-            if color_decoder is not None:
+            if heads:
                 all_c.append(out[2])
+                all_s.append(out[3])
         if not all_v:
-            empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
-            return empty if color_decoder is None else empty + (np.zeros((0, 3), np.float32),)
-        mesh = (np.concatenate(all_v), np.concatenate(all_f))
-        return mesh if color_decoder is None else mesh + (np.concatenate(all_c),)
+            mesh = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
+            all_c = [np.zeros((0, 3), np.float32)]
+            all_s = [np.zeros((0,), np.int32)]
+        else:
+            mesh = (np.concatenate(all_v), np.concatenate(all_f))
+        if not heads:
+            return mesh
+        return mesh + (np.concatenate(all_c) if color_decoder is not None else None,
+                       np.concatenate(all_s) if sem_decoder is not None else None)
 
     # ------------------------------------------------------------------
     def sdf_slice(self, lm, decoder: Decoder, sdf_scale: float, center: np.ndarray,

@@ -34,6 +34,18 @@ pool's colour labels), the training loop trains the colour features and
 the colour decoder beside the geometry, the saved map holds both, and the
 mesh's vertices are painted.
 
+With ``semantic_on`` (the SemanticKITTI profile) each frame's learning
+classes go with its points into the samples (the pool's class column), a
+semantic decoder shares the geometry's features, and the mesh's vertices
+get its classes.  The semantic head, and SDF decoders other than one hidden
+layer with biases, train by torch autograd (``mapper.mapping_loop_autograd``)
+instead of the training kernels, as the JAX package trains them by
+autodiff.  With ``estimate_normal`` the source cloud's normals weight the
+tracker's rows (odometry and loop verification); with ``dynamic_filter_on``
+a frame's points in confidently observed free space (the certainty of the
+map around them at least ``dynamic_certainty_thre``, their SDF at least
+``dynamic_sdf_ratio_thre`` voxels) stay out of the map.
+
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
 health-gate decisions on the host.  Every random draw comes from one
@@ -63,6 +75,7 @@ from pin_slam_torch.dataset.slam_dataset import Frame, SLAMDataset
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder
 from pin_slam_torch.ops.marching_cubes import vertex_normals
+from pin_slam_torch.ops.normals import estimate_normals
 from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
 from pin_slam_torch.ops.scatter import nonzero_static
 from pin_slam_torch.ops.transforms import np_se3_inverse, se3_expmap
@@ -85,17 +98,17 @@ def check_ported(cfg) -> None:
         ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
          cfg.dp_devices > 1),
         ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
-        ("semantic_on (the head and vertex painting, ROADMAP A 11)", cfg.semantic_on),
-        ("estimate_normal (ROADMAP A 11, normals)", cfg.estimate_normal),
-        ("dynamic_filter_on (ROADMAP A 11, the dynamic filter)", cfg.dynamic_filter_on),
-        ("pos_encoding_band > 0", cfg.pos_encoding_band > 0),
-        ("o3d_vis_on (in-run mesh/SDF artifacts)", cfg.o3d_vis_on),
-        ("layer_norm_on", cfg.layer_norm_on),
+        ("pos_encoding_band > 0 (ROADMAP A 11 item 4)", cfg.pos_encoding_band > 0),
+        ("o3d_vis_on (in-run mesh/SDF artifacts, ROADMAP A 11)", cfg.o3d_vis_on),
+        # the JAX package's cached loop trains raw features while its
+        # queries normalise them (ROADMAP C 14)
+        ("layer_norm_on (ROADMAP C 14, A 11 item 4)", cfg.layer_norm_on),
         # pool rows cache exactly 6 neighbours (P_KNN / P_W); a wider kNN
         # would overwrite the weight columns
         ("query_nn_k != 6 (pool rows sized from nn_k, ROADMAP C 2)", cfg.query_nn_k != 6),
-        ("geo_mlp_level != 1 or mlp_bias_on = False",
-         cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on),
+        ("the colour head with the semantic head or an SDF decoder outside the training "
+         "kernels (ROADMAP A 11 item 4)",
+         cfg.color_on and (cfg.semantic_on or cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on)),
         # knobs the JAX package measured and rejected (PERF_TPU.md); kept
         # there at their defaults, not carried into the port
         ("fresh_freespace_damp < 1.0", cfg.fresh_freespace_damp < 1.0),
@@ -143,6 +156,10 @@ class SlamSystem:
                  sync_stages: bool = False):
         cfg = self.config = config
         check_ported(cfg)
+        if os.environ.get("PIN_SLAM_EXACT_KNN", "0") == "1":
+            # the JAX package trains with its uncached mapping_loop then
+            raise not_ported("PIN_SLAM_EXACT_KNN=1, the exact-kNN training loop "
+                             "(ROADMAP A 11 item 4)")
         self.device = dev = resolve_device(device)
         self.dataset = dataset if dataset is not None else SLAMDataset(cfg, device=dev)
         if self.dataset.device is None:
@@ -151,8 +168,8 @@ class SlamSystem:
         self.mcfg = mp.MapperConfig.from_config(cfg)
         self.sc = SamplerConfig.from_config(cfg)
         self.tc = trk.TrackerConfig.from_config(cfg)
-        if not mp.kernel_path_supported(self.mcfg, cfg):
-            raise not_ported("training configuration outside the kernel path")
+        # the training kernels, or torch autograd for what they do not cover
+        self.kernel_path = mp.kernel_path_supported(self.mcfg, cfg)
         self.sync_stages = sync_stages
         self.rand = random_source or RandomSource(cfg.seed, dev)
 
@@ -175,6 +192,12 @@ class SlamSystem:
                                cfg.geo_mlp_level, 1, cfg.mlp_bias_on, generator=gen,
                                device=dev)
         self.decoder.requires_grad_(False)
+        self.sem_decoder = None
+        if cfg.semantic_on:
+            self.sem_decoder = Decoder(cfg.feature_dim + 3, cfg.sem_mlp_hidden_dim,
+                                       cfg.sem_mlp_level, cfg.sem_class_count,
+                                       cfg.mlp_bias_on, generator=gen, device=dev)
+            self.sem_decoder.requires_grad_(False)
         self.color_decoder = None
         if cfg.color_on:
             self.color_decoder = Decoder(cfg.feature_dim + 3, cfg.color_mlp_hidden_dim,
@@ -205,6 +228,7 @@ class SlamSystem:
         self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
         self.map_counts = []       # the map's count after each frame, device scalars
         self.mesh_colors = None    # the last whole-map mesh's vertex colours (colour head)
+        self.mesh_sem_labels = None  # its vertex classes (semantic head)
         self.metrics = {}          # the trajectory's, set by run()
         self._travel = torch.zeros((TS_CAPACITY,), dtype=torch.float32, device=dev)
         self._stop_count = 0
@@ -218,7 +242,8 @@ class SlamSystem:
                             if cfg.pgo_on and cfg.use_gt_loop else None)
         self.tc_loop = trk.TrackerConfig.from_config(cfg, loop_reg=True)
         self.loop_reg_failed_count = 0
-        self.last_source = None        # the frame's source cloud, for loop verification
+        self.last_source = None        # the frame's source cloud (and its normals), for
+        #                                loop verification
         self.last_reg_cov = None
 
     # ------------------------------------------------------------------
@@ -240,14 +265,39 @@ class SlamSystem:
             return points[idx], src_valid
         return points[idx], src_valid, colors[idx]
 
-    def _frame_update(self, points, valid, pose_R, pose_t, frame_id, colors=None):
-        """Sample -> insert -> local map -> new flags -> kNN probe -> pool
-        append (with ``colors`` (B, C), the samples' colour labels too)."""
+    def _source_normals(self, src, src_valid):
+        """(normals, their validity) of the source cloud with
+        ``estimate_normal`` (a ``source_vox_down_m`` grid), else (None, None)."""
+        if not self.config.estimate_normal:
+            return None, None
+        return estimate_normals(src, src_valid, max(self.config.source_vox_down_m, 1e-3))
+
+    def dynamic_static_mask(self, points, pose_R, pose_t) -> torch.Tensor:
+        """The dynamic filter's keep mask of a frame's points (B, 3) in the
+        sensor frame at the pose (pose_R, pose_t): False where the current
+        local map is certain (interpolated certainty at least
+        ``dynamic_certainty_thre``) that the point lies in free space (its
+        SDF at least ``dynamic_sdf_ratio_thre`` voxels)."""
+        cfg, mc = self.config, self.mc
+        pts_world = points @ pose_R.T + pose_t
+        knn = npts.knn_search(self.lm, mc, pts_world, self.offsets)
+        feat, w, cert = npts.interpolate_features(self.lm, mc, pts_world, knn.lidx)
+        sdf_pred, _ = self.decoder.blended_sdf(feat, w, mc.weighted_first, cfg.sdf_scale)
+        return ((cert < cfg.dynamic_certainty_thre)
+                | (sdf_pred < cfg.dynamic_sdf_ratio_thre * cfg.voxel_size_m))
+
+    def _frame_update(self, points, valid, pose_R, pose_t, frame_id, colors=None,
+                      sem_labels=None):
+        """(Dynamic filter ->) sample -> insert -> local map -> new flags ->
+        kNN probe -> pool append (with ``colors`` (B, C) / ``sem_labels``
+        (B,), the samples' colour labels / classes too)."""
         cfg, mc, mcfg, sc = self.config, self.mc, self.mcfg, self.sc
         dev = self.device
         if not cfg.rand_downsample:
             valid = valid & voxel_down_sample_mask(points, valid, cfg.vox_down_m,
                                                    cfg.downsample_hash_size)
+        if cfg.dynamic_filter_on:
+            valid = valid & self.dynamic_static_mask(points, pose_R, pose_t)
         if cfg.mapping_bucket and cfg.mapping_bucket < points.shape[0]:
             Mb = cfg.mapping_bucket
             cidx = nonzero_static(valid, Mb, points.shape[0])
@@ -256,8 +306,10 @@ class SlamSystem:
             valid = torch.arange(Mb, device=dev) < torch.clamp(n_val, max=Mb)
             if colors is not None:
                 colors = torch.cat([colors, colors.new_zeros((1, colors.shape[1]))])[cidx]
+            if sem_labels is not None:
+                sem_labels = torch.cat([sem_labels, sem_labels.new_zeros((1,))])[cidx]
         batch = sample_rays(sc, points, valid, self.rand.ray_noise(frame_id, sc, points.shape[0]),
-                            colors)
+                            colors, sem_labels)
         coord_world = batch.coord @ pose_R.T + pose_t
         Sn, n_surf_tot = sc.ray_sample_count, 1 + sc.surface_sample_n
         cw_surf = coord_world.reshape(-1, Sn, 3)[:, :n_surf_tot].reshape(-1, 3)
@@ -285,18 +337,38 @@ class SlamSystem:
         self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
                                    batch.sdf_label, batch.weight, batch.valid & ~dropped,
                                    frame_id, new_mask, gidx, w, vec, nvec,
-                                   color_label=batch.color_label)
+                                   color_label=batch.color_label, sem_label=batch.sem_label)
         return lm
+
+    def _decoder_leaves(self):
+        """The decoders as a training call takes them: the packed vector on
+        the kernel path, else a ``mapper.Heads`` (the SDF decoder and the
+        semantic decoder)."""
+        if self.kernel_path:
+            return self.decoder.pack()
+        return mp.init_heads(self.decoder, self.sem_decoder)
+
+    def _load_decoders(self, params) -> None:
+        if self.kernel_path:
+            self.decoder.load_packed(params)
+        else:
+            params.load_into(self.decoder, self.sem_decoder)
 
     def _train(self, lm, feats, gvec, opt, frame_id, chunk, use_new, dec_scale, num_iters,
                color=None):
-        """``num_iters`` Adam iterations on ``lm``; returns (lm_out, feats, gvec,
-        opt, loss history) with lm_out's features (and, with the colour
-        state ``color``, its colour features) set to the trained ones."""
+        """``num_iters`` Adam iterations on ``lm``, on the kernel path or by
+        autograd; returns (lm_out, feats, decoder leaves, opt, loss history)
+        with lm_out's features (and, with the colour state ``color``, its
+        colour features) set to the trained ones."""
         idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
-        lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
-            lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
-            self.after_pgo, color=color)
+        if self.kernel_path:
+            lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
+                lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
+                self.after_pgo, color=color)
+        else:
+            lm2, feats, gvec, opt, hist = mp.mapping_loop_autograd(
+                lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
+                self.after_pgo)
         lm2.geo_features = feats[:, :self.mc.feature_dim]
         if color is not None:
             lm2.color_features = color.features
@@ -326,6 +398,8 @@ class SlamSystem:
             valid = torch.as_tensor(frame.valid, device=dev)
             colors = (torch.as_tensor(frame.colors, dtype=torch.float32, device=dev)
                       if cfg.color_on and frame.colors is not None else None)
+            sem = (torch.as_tensor(frame.sem_labels, dtype=torch.int32, device=dev)
+                   if cfg.semantic_on and frame.sem_labels is not None else None)
             tracked = cfg.track_on and self.frame_id > 0
             # detection frames settle the pose books (and a loop closure may
             # replace the pose) before the map update
@@ -345,12 +419,15 @@ class SlamSystem:
                 R_init = torch.as_tensor(init_pose[:3, :3], dtype=torch.float32)
                 t_init = torch.as_tensor(init_pose[:3, 3] - origin64, dtype=torch.float32)
                 src, src_valid, *src_col = self._source_prep(points, valid, colors)
-                self.last_source = (src, src_valid)
+                nrm, nrm_valid = self._source_normals(src, src_valid)
+                self.last_source = (src, src_valid, nrm, nrm_valid)
                 res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
                                       self.append_tmpl, src, src_valid, R_init, t_init,
                                       after_pgo=self.after_pgo,
                                       color_decoder=self.color_decoder,
-                                      source_colors=src_col[0] if src_col else None)
+                                      source_colors=src_col[0] if src_col else None,
+                                      source_normals=nrm,
+                                      source_normal_valid=nrm_valid)
                 # pose selection in float32, as the JAX package does on device
                 origin = self.lm.origin.cpu()
                 t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
@@ -429,7 +506,7 @@ class SlamSystem:
             R_d, t_d = R_sel.to(dev), t_w.to(dev)
             self._travel_step(fid, tran_sel)
             stop_frame = fid > 0 and self.dataset.stop_status
-            gvec = self.decoder.pack()
+            gvec = self._decoder_leaves()
             if stop_frame:
                 n_it = max(1, cfg.iters - 10) if cfg.adaptive_mode else int(cfg.iters)
                 feats = self._with_cert_column(self.lm)
@@ -442,7 +519,7 @@ class SlamSystem:
                 self._stop_count = (self._stop_count + 1
                                     if tran_sel < 0.01 * cfg.voxel_size_m else 0)
                 use_new = ok and not (self._stop_count > cfg.stop_frame_thre)
-                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid, colors)
+                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid, colors, sem)
                 self._sync()
                 t_map = time.perf_counter()
                 feats = self._with_cert_column(lm2)
@@ -458,7 +535,7 @@ class SlamSystem:
                     lm_out, hist = lm2, None
             self.state = npts.assign_local_to_global(self.state, lm_out, self.mc, self._travel)
             self.lm = lm_out
-            self.decoder.load_packed(gvec)
+            self._load_decoders(gvec)
             if color is not None and hist is not None:
                 color.load_into(self.color_decoder)
 
@@ -483,7 +560,7 @@ class SlamSystem:
                     color)
                 self.state = npts.assign_local_to_global(self.state, self.lm, self.mc,
                                                          self._travel)
-                self.decoder.load_packed(gvec)
+                self._load_decoders(gvec)
                 if color is not None:
                     color.load_into(self.color_decoder)
             if cfg.log_loss_per_frame and hist is not None:
@@ -590,12 +667,12 @@ class SlamSystem:
                             max(0.5 * (travel[fid] - travel[loop_id]), 1e-3)))
         lm_loop = npts.build_local_map(self.state, mc, self._f32_dev(origin_loop), loop_id,
                                        self._travel, travel_window=float(tw))
-        source, src_valid = self.last_source
+        source, src_valid, nrm, nrm_valid = self.last_source
         res = trk.track_frame(
             lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
             source, src_valid, torch.as_tensor(guess[:3, :3].astype(np.float32)),
             torch.as_tensor((guess[:3, 3] - origin_loop).astype(np.float32)),
-            after_pgo=self.after_pgo)
+            after_pgo=self.after_pgo, source_normals=nrm, source_normal_valid=nrm_valid)
         if not res.valid:
             self.loop_reg_failed_count += 1
             info["loop_verified"] = False
@@ -710,7 +787,8 @@ class SlamSystem:
         pts = self.state.positions[:count].cpu().numpy()
         if cfg.save_map:
             save_implicit_map(os.path.join(run_path, "map", "pin_map.npz"), self.state,
-                              self.decoder, color_decoder=self.color_decoder)
+                              self.decoder, color_decoder=self.color_decoder,
+                              sem_decoder=self.sem_decoder)
         if cfg.save_merged_pc or cfg.save_map:
             pio.write_ply(os.path.join(run_path, "map", "neural_points.ply"), pts,
                           extra={"certainty": self.state.attr_rows[:count, npts.C_CERT]
@@ -738,7 +816,9 @@ class SlamSystem:
         ``local_capacity`` points: a saturated view drops points and leaves
         holes.  Returns (vertices, faces, each chunk's view count); with a
         colour head the vertices' regressed colours are kept in
-        ``self.mesh_colors`` (else None)."""
+        ``self.mesh_colors``, with a semantic head their classes in
+        ``self.mesh_sem_labels`` (else None).  The mesh file is written
+        with the colours only, as the JAX package writes it."""
         cfg, mc = self.config, self.mc
         mesher = Mesher(MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
                                      min_cluster_vertices=cfg.min_cluster_vertices,
@@ -772,9 +852,10 @@ class SlamSystem:
             return v
 
         out = mesher.recon_aabb_collections_mesh(view, self.decoder, self.sdf_scale, chunks,
-                                                 color_decoder=self.color_decoder)
+                                                 color_decoder=self.color_decoder,
+                                                 sem_decoder=self.sem_decoder)
         verts, faces = out[:2]
-        self.mesh_colors = out[2] if self.color_decoder is not None else None
+        self.mesh_colors, self.mesh_sem_labels = out[2:] if len(out) == 4 else (None, None)
         return verts, faces, view_counts
 
     def run(self, num_frames: Optional[int] = None) -> list:

@@ -1,6 +1,7 @@
 """Correspondence-free point-to-implicit registration (odometry), torch
 counterpart of ``pin_slam_tpu/slam/tracker.py``: the analytic-gradient path
-with the candidate cache, every health gate, and with a colour head the JAX
+with the candidate cache, every health gate, the normal-consistency weight
+of source points that carry a normal, and with a colour head the JAX
 package's colour path (a fresh kNN and autograd input gradients every
 iteration; the intensity-consistency weight or the photometric rows).
 
@@ -126,7 +127,8 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
                 sdf_scale: float, offsets, source: torch.Tensor,
                 source_valid: torch.Tensor, R_init, t_init,
                 after_pgo: bool = False, color_decoder=None,
-                source_colors=None) -> TrackResult:
+                source_colors=None, source_normals=None,
+                source_normal_valid=None) -> TrackResult:
     """Register ``source`` (sensor frame, padded, on the map's device)
     against the implicit map.  R_init / t_init: the initial guess with the
     translation expressed in the shifted frame (world minus ``lm.origin``).
@@ -135,7 +137,11 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     map's colour features) it takes the JAX package's colour path: no
     candidate cache, a fresh kNN every iteration, the SDF's and the
     regressed intensity's gradients by autograd, and either the photometric
-    rows (``tc.photometric_on``) or the intensity-consistency weight."""
+    rows (``tc.photometric_on``) or the intensity-consistency weight.
+    ``source_normals`` (N, 3) in the sensor frame (``ops/normals.py``)
+    weight each point by 0.5 + |n . g|, n rotated by the current rotation
+    and g the SDF's unit gradient; 1 where ``source_normal_valid`` is
+    False."""
     dev = source.device
     color_on = (color_decoder is not None and source_colors is not None
                 and lm.color_features is not None)
@@ -170,6 +176,14 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
                     & (sdf_std < max_sdf_std))
             residual = sdf
             w = _gm_weight(tc.GM_dist, residual) * _gm_weight(tc.GM_grad, grad_norm - 1.0)
+            if source_normals is not None:
+                n_w = source_normals @ R.to(dev).T
+                grad_unit = grad / torch.clamp(grad_norm, min=1e-12)[:, None]
+                w_normal = 0.5 + torch.abs(torch.sum(n_w * grad_unit, dim=-1))
+                if source_normal_valid is not None:
+                    w_normal = torch.where(source_normal_valid, w_normal,
+                                           torch.ones_like(w_normal))
+                w = w * w_normal
             if color_on and not tc.photometric_on and tc.consist_weight_on:
                 w = w * torch.exp(-torch.abs(inten - src_intensity))
             w = torch.where(mask, w, torch.zeros_like(w))

@@ -2,7 +2,7 @@
 ``pin_slam_tpu/utils/experiment.py``: the run directory (``setup_experiment``)
 and map persistence (``save_implicit_map`` / ``load_implicit_map``: the
 global map's live rows, with a colour head its colour features, and the
-decoders in one ``.npz`` with the JAX package's keys and layouts (decoder
+decoders (geometry, semantic, colour) in one ``.npz`` with the JAX package's keys and layouts (decoder
 weights as (in, out)), so each package loads the other's file)."""
 
 from __future__ import annotations
@@ -55,10 +55,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
                       extra: Optional[dict] = None,
-                      color_decoder: Optional[Decoder] = None) -> None:
+                      color_decoder: Optional[Decoder] = None,
+                      sem_decoder: Optional[Decoder] = None) -> None:
     """Write the map's first ``count`` rows (with their colour features
-    where the map has them), the geometry decoder and the colour decoder
-    when given."""
+    where the map has them), the geometry decoder, and the semantic and
+    colour decoders when given."""
     n = int(state.count)
     attr = state.attr_rows[:n]
     blob = {
@@ -71,7 +72,7 @@ def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
     }
     if state.color_features is not None:
         blob["color_features"] = _np(state.color_features[:n])
-    for head, dec in (("geo", decoder), ("color", color_decoder)):
+    for head, dec in (("geo", decoder), ("sem", sem_decoder), ("color", color_decoder)):
         if dec is None:
             continue
         layers = dec.layers()
@@ -87,12 +88,13 @@ def save_implicit_map(path: str, state: npts.MapState, decoder: Decoder,
 
 
 def load_implicit_map(path: str, mc: npts.MapConfig, device=None,
-                      color: bool = False):
+                      color: bool = False, semantic: bool = False):
     """A saved map -> (a fresh MapState holding its rows with the hash
     rebuilt, the geometry decoder), on ``device``: the GPU unless the CPU
-    is asked for (raises without one).  With ``color`` -> (state, geometry
-    decoder, colour decoder or None); the state then holds the file's
-    colour features (``mc.color_on``)."""
+    is asked for (raises without one).  With ``color`` the colour decoder
+    (or None) follows, and the state holds the file's colour features
+    (``mc.color_on``); with ``semantic`` the semantic decoder (or None)
+    comes last."""
     device = resolve_device(device)
     blob = dict(np.load(path, allow_pickle=False))
     n = blob["positions"].shape[0]
@@ -114,8 +116,12 @@ def load_implicit_map(path: str, mc: npts.MapConfig, device=None,
         state.color_features[:n] = t(blob["color_features"])
     state.count = torch.tensor(n, dtype=torch.int64, device=device)
     state = npts.recreate_hash(state, mc, int(blob["ts_create"].max(initial=0)))
-    geo = _decoder_of(blob, "geo", device)
-    return (state, geo, _decoder_of(blob, "color", device)) if color else (state, geo)
+    out = (state, _decoder_of(blob, "geo", device))
+    if color:
+        out += (_decoder_of(blob, "color", device),)
+    if semantic:
+        out += (_decoder_of(blob, "sem", device),)
+    return out
 
 
 def _decoder_of(blob: dict, head: str, device) -> Optional[Decoder]:

@@ -85,16 +85,18 @@ def sensor_pose(i):
 
 
 def lidar_scan(rng, world, origin, R, n_pts, max_range=20.0,
-               n_az=900, n_el=96):
+               n_az=900, n_el=96, return_index=False):
     """Visible world points in the SENSOR frame.  Occlusion is resolved with a
     spherical depth buffer (nearest point per azimuth/elevation bin — the same
     thing a spinning LiDAR measures), plus backface culling for surface
-    orientation.  world: (points, normals)."""
+    orientation.  world: (points, normals).  With ``return_index``, (points,
+    their rows in ``world``)."""
     points, normals = world
     local = (points - origin) @ R
     dist = np.linalg.norm(local, axis=1)
     facing = np.einsum("ij,ij->i", origin - points, normals) > 0
     keep = (dist > 2.0) & (dist < max_range) & facing
+    rows = np.nonzero(keep)[0]
     pts, d = local[keep], dist[keep]
 
     az = np.arctan2(pts[:, 1], pts[:, 0])                     # [-pi, pi)
@@ -107,6 +109,8 @@ def lidar_scan(rng, world, origin, R, n_pts, max_range=20.0,
     pts = pts[order[first]]
 
     sub = rng.choice(pts.shape[0], min(n_pts, pts.shape[0]), replace=False)
+    if return_index:
+        return pts[sub].astype(np.float32), rows[order[first]][sub]
     return pts[sub].astype(np.float32)
 
 
@@ -516,3 +520,175 @@ def write_rgbd_sequence(root, depths, colors, poses, stride=2,
         counts.append(pts.shape[0])
     pio.write_kitti_poses(os.path.join(root, "poses.txt"), np.stack(poses))
     return counts
+
+
+# ----------------------------------------------------------------------
+# a labelled corridor in the SemanticKITTI layout
+# ----------------------------------------------------------------------
+
+# raw SemanticKITTI ids of the labelled corridor's surfaces
+RAW_ROAD, RAW_BUILDING, RAW_POLE, RAW_CAR, RAW_PERSON = 40, 50, 80, 10, 254
+CAR_ENTER = 6                     # the first frame the car is in the corridor
+CAR_STEP = 3.0                    # the car's travel a frame toward -x (m)
+CAR_SIZE = (4.2, 1.8, 1.25)       # length, width, height (m) above a 0.2 m clearance
+GROUND_Z = -1.5
+
+
+def _box_surface(rng, lo, hi, n):
+    """``n`` points on an axis-aligned box's faces (but its bottom), area
+    weighted, with outward normals."""
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    ext = hi - lo
+    faces = [(0, -1), (0, 1), (1, -1), (1, 1), (2, 1)]
+    area = np.array([ext[(a + 1) % 3] * ext[(a + 2) % 3] for a, _ in faces])
+    which = rng.choice(len(faces), n, p=area / area.sum())
+    pts = lo + rng.uniform(0, 1, (n, 3)) * ext
+    nrm = np.zeros((n, 3))
+    for f, (axis, sign) in enumerate(faces):
+        sel = which == f
+        pts[sel, axis] = hi[axis] if sign > 0 else lo[axis]
+        nrm[sel, axis] = sign
+    return pts, nrm
+
+
+def labelled_corridor_world(rng, density=1.0):
+    """The static surfaces of the labelled corridor, drawn from ``rng``: a
+    road (raw 40) from x = -20 to 60 between building walls (raw 50) at
+    y = +-9, an end wall at each end, thick buildings (raw 50) flanking
+    the road and poles (raw 80) along it, whose x-facing faces constrain
+    the travel direction.
+    ``density`` scales every surface's point count.  Returns (points (N,3),
+    outward normals (N,3), raw labels (N,) uint32)."""
+    def n(k):
+        return max(int(k * density), 1)
+    pts, nrm, lab = [], [], []
+    g = np.column_stack([rng.uniform(-20, 60, n(120000)), rng.uniform(-9, 9, n(120000)),
+                         GROUND_Z + 0.02 * rng.standard_normal(n(120000))])
+    pts.append(g)
+    nrm.append(np.tile([0.0, 0.0, 1.0], (len(g), 1)))
+    lab.append(np.full(len(g), RAW_ROAD))
+    for axis, lo_hi, pos in [(1, (-20, 60), -9.0), (1, (-20, 60), 9.0),
+                             (0, (-9, 9), -20.0), (0, (-9, 9), 60.0)]:
+        m = n(50000)
+        w = np.empty((m, 3))
+        w[:, axis] = pos + 0.03 * rng.standard_normal(m)
+        w[:, 1 - axis] = rng.uniform(*lo_hi, m)
+        w[:, 2] = rng.uniform(GROUND_Z, 3.5, m)
+        v = np.zeros((m, 3))
+        v[:, axis] = -np.sign(pos)
+        pts.append(w)
+        nrm.append(v)
+        lab.append(np.full(m, RAW_BUILDING))
+    for bx in np.arange(-16.0, 58.0, 8.0):
+        for side in (-1.0, 1.0):
+            cy = side * rng.uniform(6.0, 7.0)
+            wx, wy = rng.uniform(1.5, 2.5), rng.uniform(1.0, 1.5)
+            p, v = _box_surface(rng, (bx - wx, cy - wy, GROUND_Z), (bx + wx, cy + wy, 3.0),
+                                n(8000))
+            pts.append(p)
+            nrm.append(v)
+            lab.append(np.full(len(p), RAW_BUILDING))
+    for px in np.arange(-17.0, 58.0, 5.0):
+        for py in (-4.2, 4.2):
+            m = n(2500)
+            ang = rng.uniform(0, 2 * np.pi, m)
+            pts.append(np.column_stack([px + 0.15 * np.cos(ang), py + 0.15 * np.sin(ang),
+                                        rng.uniform(GROUND_Z, 2.5, m)]))
+            nrm.append(np.column_stack([np.cos(ang), np.sin(ang), np.zeros(m)]))
+            lab.append(np.full(m, RAW_POLE))
+    return (np.concatenate(pts).astype(np.float32), np.concatenate(nrm).astype(np.float32),
+            np.concatenate(lab).astype(np.uint32))
+
+
+def labelled_corridor_pose(i):
+    """The sensor's pose (R, t) at frame ``i``: 0.5 m a frame along +x after
+    a short ramp, a gentle sway and yaw, 0.3 m off the road's centre."""
+    s = 0.5 * sum(min(1.0, (k + 1) / 4.0) for k in range(i))
+    yaw = 0.003 * i
+    R = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+    return R, np.array([s, -0.3 + 0.3 * np.sin(0.2 * i), 0.02 * np.sin(0.3 * i)])
+
+
+def corridor_movers(rng, i, density=1.0):
+    """The corridor's moving objects at frame ``i``: a person (raw 254, a
+    moving class) walking along the left side of the road, and from frame
+    ``CAR_ENTER`` on a car labelled static (raw 10) driving toward the
+    sensor in the right lane, 13 m ahead of it on arrival and ``CAR_STEP``
+    on a frame, past it and on behind it, through space that earlier sweeps
+    saw as free.  Returns (points,
+    outward normals, raw labels)."""
+    pts, nrm, lab = [], [], []
+    m = max(int(3000 * density), 1)
+    ang = rng.uniform(0, 2 * np.pi, m)
+    px = 9.0 + 0.15 * i
+    p = np.column_stack([px + 0.3 * np.cos(ang), -3.0 + 0.3 * np.sin(ang),
+                         rng.uniform(GROUND_Z, GROUND_Z + 1.75, m)])
+    pts.append(p)
+    nrm.append(np.column_stack([np.cos(ang), np.sin(ang), np.zeros(m)]))
+    lab.append(np.full(m, RAW_PERSON))
+    if i >= CAR_ENTER:
+        L, W, H = CAR_SIZE
+        x0 = labelled_corridor_pose(CAR_ENTER)[1][0] + 13.0 - CAR_STEP * (i - CAR_ENTER)
+        lo = (x0 - L / 2, 2.6 - W / 2, GROUND_Z + 0.2)
+        p, v = _box_surface(rng, lo, (x0 + L / 2, 2.6 + W / 2, GROUND_Z + 0.2 + H),
+                            max(int(9000 * density), 1))
+        pts.append(p)
+        nrm.append(v)
+        lab.append(np.full(len(p), RAW_CAR))
+    return (np.concatenate(pts).astype(np.float32), np.concatenate(nrm).astype(np.float32),
+            np.concatenate(lab).astype(np.uint32))
+
+
+def labelled_corridor_scans(seed, n_frames, n_pts, density=1.0, n_az=1800, n_el=128):
+    """The labelled corridor's sweeps, drawn from ``seed``: the static world
+    and each frame's movers scanned from ``labelled_corridor_pose``.
+    Returns (scans: (N, 4) float32 [x, y, z, intensity] in the sensor
+    frame, raw labels (N,) uint32 each, poses (n, 4, 4) world <- sensor,
+    the static world (points, normals, raw labels))."""
+    rng = np.random.default_rng(seed)
+    world = labelled_corridor_world(rng, density)
+    scans, labels, poses = [], [], []
+    for i in range(n_frames):
+        R, t = labelled_corridor_pose(i)
+        mp, mn, ml = corridor_movers(rng, i, density)
+        pts_w = np.concatenate([world[0], mp])
+        idx_pts, rows = lidar_scan(rng, (pts_w, np.concatenate([world[1], mn])), t, R, n_pts,
+                                   n_az=n_az, n_el=n_el, return_index=True)
+        lab = np.concatenate([world[2], ml])[rows]
+        inten = rng.uniform(0, 1, (idx_pts.shape[0], 1)).astype(np.float32)
+        scans.append(np.concatenate([idx_pts, inten], 1))
+        labels.append(lab)
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        poses.append(T)
+    return scans, labels, np.stack(poses), world
+
+
+def write_semantic_kitti_sequence(root, seq, scans, labels, poses, Tr=KITTI_TR,
+                                  correction_deg=0.0):
+    """A sequence in the SemanticKITTI layout under ``root``:
+    ``sequences/<seq>/velodyne/%06d.bin``, ``labels/%06d.label`` (uint32,
+    the raw class in the lower 16 bits), ``calib.txt`` with ``Tr`` and
+    ``poses.txt``, the LiDAR poses in the camera frame (Tr @ T @ Tr^-1).
+    With ``correction_deg`` the points are written with KITTI's intrinsic
+    correction undone, so that the reader's correction gives them back.
+    Returns the sequence's directory."""
+    from pin_slam_torch.dataset.slam_dataset import intrinsic_correct
+
+    seq_dir = os.path.join(root, "sequences", seq)
+    for sub in ("velodyne", "labels"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    for i, (scan, lab) in enumerate(zip(scans, labels)):
+        s = np.zeros((scan.shape[0], 4), np.float32)
+        s[:, :scan.shape[1]] = scan[:, :4]
+        if correction_deg:
+            s[:, :3] = intrinsic_correct(s[:, :3].astype(np.float64), -correction_deg)
+        s.tofile(os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))
+        np.asarray(lab, np.uint32).tofile(os.path.join(seq_dir, "labels", f"{i:06d}.label"))
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        for key in ("P0", "P1", "P2", "P3"):
+            f.write(f"{key}: " + " ".join(f"{v:.12e}" for v in np.eye(4)[:3].reshape(-1)) + "\n")
+        f.write("Tr: " + " ".join(f"{v:.17g}" for v in Tr[:3].reshape(-1)) + "\n")
+    Tr_inv = np.linalg.inv(Tr)
+    write_poses(os.path.join(seq_dir, "poses.txt"), [Tr @ T @ Tr_inv for T in poses])
+    return seq_dir

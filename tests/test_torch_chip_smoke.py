@@ -455,3 +455,141 @@ def test_capture_tells_the_colour_rows_apart():
     assert cap.tally == {("E", "gather", "color"): 1, ("E", "gather", "label"): 1,
                          ("E", "gather", "feat"): 1, ("E", "scatter", "color"): 1,
                          ("E", "scatter", "main"): 1, ("E", "gather", "ba"): 1}
+
+
+def _small_path_f(monkeypatch, tmp_path, n_frames=2):
+    import functools
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    monkeypatch.setitem(chip_smoke.PATH_F, "n_frames", n_frames)
+    monkeypatch.setitem(chip_smoke.PATH_F, "n_points", 3000)
+    monkeypatch.setitem(chip_smoke.PATH_F, "density", 0.3)
+    monkeypatch.setattr(syn, "labelled_corridor_scans",
+                        functools.partial(syn.labelled_corridor_scans, n_az=400, n_el=48))
+    return chip_smoke.write_path_f_data()
+
+
+def test_path_f_data_reads_in_both_packages(tmp_path, monkeypatch):
+    """Path F's sequence (here 2 small sweeps): both packages' datasets read
+    it with the profile's intrinsic correction and give the same points and
+    learning classes; the correction gives back the scene's points (its
+    inverse was applied on writing); the ground truth through calib.txt is
+    the scene's; the person (raw 254) is dropped."""
+    import numpy as np
+
+    import jax
+
+    from pin_slam_torch.config import Config as TConfig
+    from pin_slam_torch.dataset.slam_dataset import SLAMDataset as TDataset
+    from pin_slam_torch.utils import synthetic as syn
+    from pin_slam_tpu.config import Config as JConfig
+    from pin_slam_tpu.dataset.slam_dataset import SLAMDataset as JDataset
+
+    jax.config.update("jax_platforms", "cpu")
+    seq, labels, poses, _, n_points, _ = _small_path_f(monkeypatch, tmp_path)
+    assert n_points == [3000, 3000]
+    ds = []
+    for Config, Dataset in ((JConfig, JDataset), (TConfig, TDataset)):
+        cfg = Config()
+        cfg.load(os.path.join(ROOT, chip_smoke.PATH_F["profile"]))
+        cfg.pc_path, cfg.label_path = f"{seq}/velodyne", f"{seq}/labels"
+        cfg.pose_path, cfg.calib_path = f"{seq}/poses.txt", f"{seq}/calib.txt"
+        cfg.semantic_on = True
+        assert cfg.kitti_correction_on and cfg.filter_moving_object
+        ds.append(Dataset(cfg))
+    jp, _, js, _ = ds[0].read_frame(1)
+    tp, _, _, ts_ = ds[1].read_frame(1)
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(ts_, js)
+    assert 6 not in set(ts_.tolist()) and {9, 13} <= set(ts_.tolist())
+    assert np.abs(ds[1].gt_poses - poses).max() < 1e-9
+    scans, raw, _, _ = syn.labelled_corridor_scans(chip_smoke.PATH_F["seed"], 2, 3000,
+                                                   density=0.3)
+    keep = raw[1] != syn.RAW_PERSON
+    from pin_slam_torch.dataset.slam_dataset import intrinsic_correct
+
+    np.testing.assert_allclose(intrinsic_correct(tp, 0.195), scans[1][keep, :3], atol=1e-4)
+
+
+def test_path_f_profile_keys_reach_both_loaders(tmp_path):
+    """The YAML section path F writes each option into is one both
+    packages' loaders read it from."""
+    import yaml
+
+    from pin_slam_torch.config import Config as TConfig
+    from pin_slam_tpu.config import Config as JConfig
+
+    with open(os.path.join(ROOT, chip_smoke.PATH_F["profile"])) as f:
+        prof = yaml.safe_load(f)
+    for key in ("semantic_on", "dynamic_filter_on", "estimate_normal"):
+        prof.setdefault(chip_smoke._section_of(key), {})[key] = True
+    path = str(tmp_path / "p.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(prof, f)
+    for Config in (JConfig, TConfig):
+        cfg = Config().load(path)
+        assert all(getattr(cfg, k) for k in chip_smoke.F_OPTIONS), Config
+
+
+def test_path_f_scene_reference_classes(monkeypatch):
+    """The surfaces path F holds the mesh's classes to: road, building,
+    pole and the car at each frame's place, never the person."""
+    import numpy as np
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    world = syn.labelled_corridor_world(np.random.default_rng(0), density=0.2)
+    monkeypatch.setitem(chip_smoke.PATH_F, "density", 0.2)
+    pts, cls = chip_smoke._scene_reference(world, syn.CAR_ENTER + 2)
+    assert set(np.unique(cls).tolist()) == {1, 9, 13, 18}
+    assert pts.shape == (cls.shape[0], 3) and (cls == 1).sum() > 100
+
+
+def test_capture_tallies_the_autograd_loop_rows():
+    """On path F the autograd loop's rows are the main kinds: the pool rows'
+    gather once a call, the feature rows' gather (9 columns) and their
+    gradient's scatter once an iteration, the plans once a call."""
+    import numpy as np
+
+    from pin_slam_torch.models import neural_points as tn
+    from pin_slam_torch.models.decoder import Decoder
+    from pin_slam_torch.slam import mapper as tm
+    from torch_port_util import small_config
+
+    from pin_slam_torch.config import Config
+
+    cfg = small_config(Config, semantic_on=True, bs=64, bs_new_sample=8, pool_capacity=1 << 10)
+    mc, mcfg = tn.MapConfig.from_config(cfg), tm.MapperConfig.from_config(cfg)
+    rng = np.random.default_rng(0)
+    st = tn.init_map_state(mc)
+    pts = torch.as_tensor(rng.uniform(-3, 3, (500, 3)).astype(np.float32))
+    travel = torch.zeros(64)
+    st = tn.map_insert(st, mc, pts, torch.ones(500, dtype=torch.bool), 0, travel,
+                       downsample_table_size=cfg.downsample_hash_size, insert_bucket=512)
+    lm = tn.build_local_map(st, mc, torch.zeros(3), 0, travel)
+    pool = tm.init_pool(mcfg)
+    n = 140
+    gidx = torch.as_tensor(rng.integers(-1, int(st.count), (n, 6)).astype(np.int32))
+    pool = tm.pool_append(pool, mcfg, pts[:n], pts[:n], torch.zeros(n), torch.ones(n),
+                          torch.ones(n, dtype=torch.bool), 0, torch.ones(n, dtype=torch.bool),
+                          gidx, torch.full((n, 6), 1 / 6), torch.zeros(n, 3),
+                          knn_nbr_vec=torch.zeros(n, 6, 3),
+                          sem_label=torch.as_tensor(rng.integers(0, 20, n)))
+    g = torch.Generator().manual_seed(0)
+    geo = Decoder(11, 16, 1, 1, generator=g)
+    sem = Decoder(11, 16, 1, 20, generator=g)
+    heads = tm.init_heads(geo, sem)
+    feats = torch.zeros(mc.local_capacity + 1, 9)
+    idx = tm.sample_batch_indices(g, pool, mcfg, torch.tensor(True), 3)
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "F"
+        tm.mapping_loop_autograd(lm, mc, feats, heads, tm.init_opt_state(feats, heads), pool,
+                                 mcfg, idx, 1.0)
+    finally:
+        cap.uninstall()
+    assert cap.tally == {("F", "gather", "pool"): 1, ("F", "gather", "feat"): 3,
+                         ("F", "scatter", "main"): 3, ("F", "plans", "frame"): 1}

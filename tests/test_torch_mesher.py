@@ -379,8 +379,7 @@ def test_split_chunks_matches(chunk_m):
 def test_unported_mesher_options_raise():
     m = _map()
     offs = torch.as_tensor(m["offsets"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A 11"):
-        tm.Mesher(tm.MesherConfig(semantic_on=True), m["tmc"], offs)
+    tm.Mesher(tm.MesherConfig(semantic_on=True), m["tmc"], offs)   # semantic painting is ported
     tm.Mesher(tm.MesherConfig(color_on=True), m["tmc"], offs)      # painting is ported
     with pytest.raises(NotImplementedError, match="ROADMAP A 12"):
         tm.Mesher(tm.MesherConfig(), m["tmc"], offs, dp_mesh=object())

@@ -193,14 +193,14 @@ def test_entry_point_refuses_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SlamSystem(cfg)
     cfg2 = _config(Config, True)
-    cfg2.estimate_normal = True
+    cfg2.layer_norm_on = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(cfg2, device="cpu")
 
 
 @pytest.mark.parametrize("option, value", [
     ("fresh_freespace_damp", 0.5), ("probe_dedup_near_budget", 0.25),
-    ("semantic_on", True), ("pos_encoding_band", 4)])
+    ("layer_norm_on", True), ("pos_encoding_band", 4)])
 def test_unported_option_raises(option, value):
     """Options outside this slice (and knobs the JAX package measured and
     rejected) raise instead of being ignored."""

@@ -403,7 +403,7 @@ def test_replica_profile_builds_and_heads_still_refused():
     assert s.pool.color_label.shape == (s.mcfg.pool_capacity + 1, 3)
     assert s.tc.photometric_on and s.tc.photometric_weight == pytest.approx(0.01)
     assert s.tc.term_thre_deg == pytest.approx(1e-3) and s.tc.term_thre_m == pytest.approx(1e-4)
-    for over, label in ((dict(semantic_on=True), "ROADMAP A 11"),
+    for over, label in ((dict(semantic_on=True), "ROADMAP A 11 item 4"),
                         (dict(layer_norm_on=True), "layer_norm_on"),
                         (dict(pos_encoding_band=4), "pos_encoding_band")):
         with pytest.raises(NotImplementedError, match=label):
