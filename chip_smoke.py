@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pin_slam_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what the checks run: build, six paths, meshes, CLI, kernels
+    python3 chip_smoke.py            # what the checks run: build, the paths, meshes, CLI, kernels
 
 1. Builds every CUDA kernel from ``pin_slam_torch/csrc`` (one nvcc per
    source, in parallel) into ``build/kernels``.
@@ -87,8 +87,10 @@
    scatter of its gradient; on path E also the colour labels' and colour
    features' gathers and the colour gradient's scatter (``pathE-*``).
 9. Edge cases on random inputs: the train kernel at B in {1, 37, 16384}
-   and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 16} x
-   both modes on dyadic inputs (float64 check, two launches bit-identical),
+   and the eikonal kernel at n in {1, 37, 1638}, each x k in {1, 6, 8, 16}
+   x offset width VD in {3, 15, 27, 35, 64} (the VD = 3 build and the
+   general form) x both modes on dyadic inputs (float64 check, two launches
+   bit-identical),
    the row gather at C in {1, 9, 24, 42} x M in {0, 1, 98304} on aligned
    and misaligned tables and on one of more than 2^31 floats (bit-exact),
    the fused rank kernel at G in {0, 1, 37} x n in {1, 4, 5} x k in
@@ -150,6 +152,38 @@
    with ``geo_mlp_level: 2`` and ``mlp_bias_on: False`` (the autograd
    loop).  Gates: every frame registers, position error < 0.5 m, finite
    losses, the first training call's loss falling, no training kernel.
+13. Path G: ``config/lidar_slam/run_livox.yaml`` as shipped (k = 8,
+   per-neighbour decoding, pool 2e7, map 2^21, local 2^18, frame bucket
+   2^16, BA off, ``mapping_freq_frame: 2``, which both packages read and
+   train every frame anyway), a copy changed only in ``pc_path`` and
+   ``output_root``, through ``pin_slam_torch.cli.main`` in process on 14
+   sweeps of the labelled corridor's static surfaces seen through a Livox
+   Avia's 70.4 x 77.2 degree field of view (60,000 points a sweep), written
+   as binary PCD under build/.  Gates: every frame after the first
+   registers; max position error < 0.5 m against the scene's trajectory
+   relative to its first pose (the profile gives no poses); the pool's rows
+   hold 8 integral neighbour ids and, on rows with a neighbour, 8 weights
+   summing to 1 (1e-5); the training kernels launched at k = 8.  Kernel
+   rows ``rank_brick[pathG-far|near]``, ``train_iter[pathG]``,
+   ``eikonal[pathG]``, ``gather[pathG-pool|feat]``, ``scatter[pathG]``.
+14. Path H: path B with ``pos_encoding_band: 4`` (NeRF, VD = 27; pool rows
+   of 210 floats), 8 frames.  Path B's gates, and the tracker takes the
+   autograd path (no closed-form evaluation).  Its training kernels run
+   their general form at VD = 27.  ``pe_gaussian``: path A with
+   ``pos_encoding_gaussian: True`` and 16 bands (VD = 35) at
+   ``pos_encoding_freq: 1`` (at the default 200 neither package registers
+   a frame of the corridor; at 1 both do, tests/test_torch_slam_configs.py),
+   4 frames, with path A's gates; its kernel rows are at VD = 35.
+15. ``exact_A`` and ``exact_B_ln``: ``PIN_SLAM_EXACT_KNN=1`` on path A's
+   profile (weighted_first) and on path B's with ``layer_norm_on: True``
+   (per neighbour), 4 frames each, training with ``mapper.mapping_loop``
+   (a fresh kNN per batch).  Gates: every frame after the first registers,
+   position error < 0.5 m, finite losses, frame 2's training call rerun
+   from a snapshot bit-identical, no training-kernel launch, a gather and a
+   scatter launch at least once an iteration.  Kernel rows
+   ``gather[exact_*-pool|feat]``, ``scatter[exact_*]`` (the feature
+   gradient) and ``scatter[exact_*-cert]`` (the certainty sum, one column,
+   some 1.6 M terms on B's shapes), from the last frame's inputs.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -224,8 +258,11 @@ class Capture:
     per path and shape instead; while ``store`` it does both (path D keeps
     the inputs of its last frame and of its first bundle adjustment so).
     The row kernels' launches made inside bundle adjustment (``in_ba``) are
-    kept apart, as kind ``ba``.  It also counts calls of the fused rank
-    kernel's plain twin, which the main path on the card must not make."""
+    kept apart, as kind ``ba``; while ``slim`` (the exact-kNN loop, whose
+    feature table has no certainty column) the 8-column rows are the
+    feature rows and their gradient.  The one-column scatter is the exact
+    loop's certainty sum, kind ``cert``.  It also counts calls of the fused
+    rank kernel's plain twin, which the main path on the card must not make."""
 
     def __init__(self):
         from pin_slam_torch.ops import rank_kernel, rows, train_kernel
@@ -238,6 +275,7 @@ class Capture:
         self.capturing = False
         self.store = False
         self.in_ba = False
+        self.slim = False
         self.inputs = {}
         self.tally = {}
         self.rank_calls = 0
@@ -287,24 +325,34 @@ class Capture:
             # the pool rows (and with a colour head the colour labels, C = 3)
             # once per training call, the feature rows (F + 1 = 9 columns)
             # and the colour feature rows (F = 8) once per iteration; bundle
-            # adjustment's feature rows (F = 8) once per iteration
-            kind = ("ba" if self.in_ba
-                    else {9: "feat", 8: "color", 3: "label"}.get(a[0].shape[1], "pool"))
+            # adjustment's feature rows (F = 8) once per iteration; the exact
+            # loop's pool rows once per call, its feature rows (F = 8) once
+            # per iteration
+            C = a[0].shape[1]
+            kind = ("ba" if self.in_ba else "feat" if self.slim and C == 8
+                    else {9: "feat", 8: "color", 3: "label"}.get(C, "pool"))
             self._keep((self.path, "gather", kind), a, kw)
             return gather_rows(*a, **kw)
 
         def scatter(*a, **kw):
             # the training loop's scatter into a zero table, once per
             # iteration (the colour features' gradient, 8 columns, a second
-            # one); bundle adjustment's feature gradient, once per iteration
-            kind = "ba" if self.in_ba else "color" if a[2].shape[1] == 8 else "main"
+            # one); bundle adjustment's feature gradient, once per iteration;
+            # the exact loop's feature gradient (8 columns) once per
+            # iteration and its certainty sum (1 column) once per call
+            C = a[2].shape[1]
+            kind = ("ba" if self.in_ba else "cert" if C == 1
+                    else "color" if C == 8 and not self.slim else "main")
             self._keep((self.path, "scatter", kind), a, kw)
             return scatter_sum_rows(*a, **kw)
 
         def plans(*a, **kw):
             # every iteration's scatter plan, once per training call; one
-            # plan per bundle-adjustment iteration
-            self._keep((self.path, "plans", "ba" if self.in_ba else "frame"), a, kw)
+            # plan per bundle-adjustment iteration; the exact loop's
+            # certainty sum builds its own (one row of indices)
+            kind = ("ba" if self.in_ba else "cert" if self.slim and a[0].dim() == 1
+                    else "frame")
+            self._keep((self.path, "plans", kind), a, kw)
             return scatter_plans(*a, **kw)
 
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
@@ -334,6 +382,16 @@ PATHS = {
               caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 14,
               n_frames=None, mapping_bucket=0, dedup_budget=0.5, pgo=True, mesh=True,
               multi_chunk_L=1 << 13),
+    # positional encoding: B with NeRF bands 4 (VD 27, 210-float pool rows),
+    # and A with Gaussian Fourier features of 16 bands (VD 35) at N(0, 1) cycles a metre
+    "H": dict(profile="config/lidar_slam/run_kitti.yaml",
+              caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 17,
+              n_frames=8, mapping_bucket=1 << 16, dedup_budget=0.5,
+              over=dict(pos_encoding_band=4)),
+    "pe_gaussian": dict(profile=None, caps=(1 << 18, 1 << 16, 1 << 21, 1 << 21), n_rays=1 << 15,
+                        n_frames=4, mapping_bucket=0, dedup_budget=0.625,
+                        over=dict(pos_encoding_band=16, use_gaussian_pe=True,
+                                  pos_encoding_freq=1)),
 }
 # path C's overrides: those of the JAX package's square-loop test
 # (tests/test_full_slam.py), which let a loop close on an 8 m square
@@ -372,7 +430,7 @@ def make_path(name, n_frames=None, over=None):
         cfg.min_loop_travel_dist_ratio = 1.0
         cfg.reg_iter_n = 100
         cfg.kitti_correction_on = False    # the scene is synthetic, not KITTI's raw scans
-    for k, v in (over or {}).items():
+    for k, v in {**p.get("over", {}), **(over or {})}.items():
         setattr(cfg, k, v)
     cfg._derive()
 
@@ -419,6 +477,9 @@ def run_path(name, cap, mesh=False):
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.slam import mapper as mp
 
+    from pin_slam_torch.slam import tracker as trk
+    from pin_slam_torch.slam import tracker_grad as tg
+
     p = PATHS[name]
     pgo = p.get("pgo", False)
     if pgo:
@@ -435,12 +496,27 @@ def run_path(name, cap, mesh=False):
     cap.plain_rank_calls = 0
     _cuda.reset_counts()
     infos, times = [], []
-    for fr in frames:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        infos.append(system.process_frame(fr))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    queries = {"cached": 0, "autograd": 0}        # the tracker's SDF evaluations by path
+    orig_q = (tg.sdf_value_and_grad_cached, trk._autograd_sdf)
+
+    def q_cached(*a, **kw):
+        queries["cached"] += 1
+        return orig_q[0](*a, **kw)
+
+    def q_auto(*a, **kw):
+        queries["autograd"] += 1
+        return orig_q[1](*a, **kw)
+
+    tg.sdf_value_and_grad_cached, trk._autograd_sdf = q_cached, q_auto
+    try:
+        for fr in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infos.append(system.process_frame(fr))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        tg.sdf_value_and_grad_cached, trk._autograd_sdf = orig_q
     counts = dict(_cuda.COUNTS)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ds = system.dataset
@@ -454,7 +530,7 @@ def run_path(name, cap, mesh=False):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t_ref = time.perf_counter()
-        mp.pool_refresh_cache(system.pool, system.state.attr_rows, system.mc)
+        mp.pool_refresh_cache(system.pool, system.state.attr_rows, system.mc, system.mc.pos_encode)
         torch.cuda.synchronize()
         refresh_ms = (time.perf_counter() - t_ref) * 1e3
         refresh_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -477,7 +553,9 @@ def run_path(name, cap, mesh=False):
         "reg_iters": [int(x.get("reg_iters", 0)) for x in infos[1:]],
         "max_pose_err_m": float(err.max()), "map_points": int(system.state.count),
         "local_points": int(system.lm.count), "pool_fill": int(system.pool.fill),
-        "launches": counts,
+        "pos_encoding": {"band": cfg.pos_encoding_band, "gaussian": cfg.use_gaussian_pe,
+                         "vec_dim": system.mcfg.vec_dim, "pool_dim": system.mcfg.pool_dim},
+        "tracker_queries": queries, "launches": counts,
         "max_memory_allocated_gb": peak_gb,
     }
     if pgo:
@@ -526,6 +604,9 @@ def run_path(name, cap, mesh=False):
         iters = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
         need = {"rank_brick": n_frames, "train_iter": iters, "eikonal": iters,
                 "gather": iters + n_frames, "scatter": iters}
+    if cfg.pos_encoding_band > 0 and (queries["cached"] or not queries["autograd"]):
+        fail(f"path {name}: with positional encoding the tracker took the cached closed-form "
+             f"path ({queries})")
     for k, n in need.items():
         if counts[k] < n:
             fail(f"path {name}: kernel {k} launched {counts[k]} times, expected >= {n}")
@@ -1528,6 +1609,271 @@ def run_path_f(cap):
     return res
 
 
+# ----------------------------------------------------------------------
+# path G: the Livox profile as shipped (k = 8, per-neighbour decoding)
+# ----------------------------------------------------------------------
+
+PATH_G = dict(profile="config/lidar_slam/run_livox.yaml", n_frames=14, n_points=60000,
+              density=2.5, seed=0)
+G_GATE_POS_M = 0.5
+
+
+def write_path_g_data():
+    """The labelled corridor's static surfaces seen through a Livox Avia's
+    70.4 x 77.2 degree field of view (``synthetic.livox_corridor_scans``,
+    seed 0), ``PATH_G["n_frames"]`` sweeps of 60,000 points written as
+    binary PCD under build/.  Returns (pcd directory, poses, seconds)."""
+    import shutil
+
+    from pin_slam_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "path_g")
+    shutil.rmtree(root, ignore_errors=True)
+    scans, poses = syn.livox_corridor_scans(PATH_G["seed"], PATH_G["n_frames"],
+                                            PATH_G["n_points"], density=PATH_G["density"])
+    pcd = syn.write_pcd_sequence(os.path.join(root, "data", "HKU_ZYM", "pcd"), scans)
+    return pcd, poses, time.perf_counter() - t0
+
+
+def run_path_g(cap):
+    """Path G: ``run_livox.yaml`` as shipped (k = 8, per-neighbour
+    decoding, pool 2e7, map 2^21, local 2^18, frame bucket 2^16, BA off,
+    ``mapping_freq_frame: 2``, which both packages read and train every
+    frame anyway), a copy changed only in ``pc_path`` and ``output_root``,
+    through ``pin_slam_torch.cli.main`` in process on the PCD sweeps of
+    ``write_path_g_data``.  The profile gives no poses: the errors are
+    against the scene's trajectory taken relative to its first pose.  Gated
+    (see the module docstring) and reported."""
+    import torch
+    import yaml
+
+    from pin_slam_torch import cli
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam.pipeline import SlamSystem
+
+    pcd, gt_poses, setup_s = write_path_g_data()
+    with open(os.path.join(ROOT, PATH_G["profile"])) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["pc_path"] = pcd
+    prof["setting"]["output_root"] = os.path.join(ROOT, "build", "path_g", "out")
+    yml = os.path.join(ROOT, "build", "path_g", "run_livox.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    n_frames = PATH_G["n_frames"]
+    got, infos, times = {}, [], []
+    orig = SlamSystem.process_frame
+
+    def proc(self, frame):
+        got["system"] = self
+        cap.store = self.frame_id == n_frames - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            infos.append(orig(self, frame))
+            return infos[-1]
+        finally:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            cap.store = False
+
+    cap.path = "G"
+    cap.plain_rank_calls = 0
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SlamSystem.process_frame = proc
+    try:
+        t_run = time.perf_counter()
+        rc = cli.main([yml])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        SlamSystem.process_frame = orig
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    system = got.get("system")
+    if rc != 0 or system is None:
+        fail(f"path G: the CLI returned {rc}")
+    cfg, mcfg = system.config, system.mcfg
+    est = np.stack(system.dataset.odom_poses)
+    rel = np.linalg.inv(gt_poses[0]) @ gt_poses[:len(est)]
+    err = np.linalg.norm(est[:, :3, 3] - rel[:, :3, 3], axis=1)
+
+    # the pool's rows: 8 neighbour ids, 8 IDW weights summing to 1 on rows
+    # that have a neighbour
+    fill = int(system.pool.fill)
+    rows = system.pool.rows[:fill]
+    gidx = rows[:, mcfg.p_knn]
+    wsum = rows[:, mcfg.p_w].sum(1)
+    has = (gidx >= 0).any(1) & (rows[:, 5] >= 0)       # a neighbour, a frame id
+    w_err = float((wsum[has] - 1.0).abs().max()) if bool(has.any()) else float("inf")
+    ids_ok = bool(((gidx == -1) | ((gidx >= 0) & (gidx == gidx.round()))).all())
+    train_k = [cap.inputs[("G", kern, "main")][0][0].shape[1]
+               for kern in ("train_iter", "eikonal") if ("G", kern, "main") in cap.inputs]
+
+    stage = np.asarray(system.stage_times[1:n_frames])
+    res = {
+        "phase": "path_G", "profile": PATH_G["profile"], "argv": [os.path.relpath(yml, ROOT)],
+        "layout": "a folder of binary PCD sweeps (x, y, z, intensity), no poses",
+        "rc": rc, "query_nn_k": cfg.query_nn_k, "weighted_first": cfg.weighted_first,
+        "mapping_freq_frame": cfg.mapping_freq_frame, "kernel_path": system.kernel_path,
+        "frames": len(infos), "points_per_frame": PATH_G["n_points"], "setup_s": setup_s,
+        "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
+                       "pool": cfg.pool_capacity, "frame_bucket": cfg.frame_bucket,
+                       "bs": cfg.bs},
+        "pool_dim": mcfg.pool_dim, "pool_fill": fill,
+        "pool_rows_with_neighbour": int(has.sum()), "pool_weight_sum_max_err": w_err,
+        "run_s": run_s, "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:-1])),
+        "frame0_s": times[0], "stage_ms_mean_after_frame0": _stage_ms(stage),
+        "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+        "max_pose_err_m": float(err.max()), "end_pose_err_m": float(err[-1]),
+        "training_kernel_k": train_k, "launches": counts,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "nvidia_smi": smi_line(),
+    }
+    emit(res)
+    if len(infos) != n_frames:
+        fail(f"path G: {len(infos)} frames ran, expected {n_frames}")
+    if cfg.query_nn_k != 8 or cfg.weighted_first or not system.kernel_path:
+        fail(f"path G: the profile's k {cfg.query_nn_k}, weighted_first {cfg.weighted_first}, "
+             f"kernel path {system.kernel_path}")
+    if not all(res["reg_valid"]):
+        bad = [i + 1 for i, v in enumerate(res["reg_valid"]) if not v]
+        fail(f"path G: frames {bad} did not register")
+    if not res["max_pose_err_m"] < G_GATE_POS_M:
+        fail(f"path G: pose error {res['max_pose_err_m']:.3f} m vs the corridor's trajectory")
+    if gidx.shape[1] != 8 or not ids_ok or not bool(has.any()) or not w_err < 1e-5:
+        fail(f"path G: pool rows with {gidx.shape[1]} ids (integral {ids_ok}), weights off 1 by "
+             f"{w_err:.3e} on {int(has.sum())} rows with a neighbour")
+    if train_k != [8, 8]:
+        fail(f"path G: the training kernels ran at k = {train_k}")
+    if any(counts[k] < 1 for k in ("rank_brick", "train_iter", "eikonal", "gather", "scatter")):
+        fail(f"path G: launches {counts}")
+    if counts["rank"] or cap.plain_rank_calls:
+        fail(f"path G: the per-cell rank ({counts['rank']}) or the plain brick gather "
+             f"({cap.plain_rank_calls}) ran")
+    del system, got, rows
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# the exact-kNN training loop (PIN_SLAM_EXACT_KNN=1)
+# ----------------------------------------------------------------------
+
+EXACT_FRAMES = 4
+EXACT_RERUN_FRAME = 2
+EXACT_PHASES = {"exact_A": ("A", {}), "exact_B_ln": ("B", dict(layer_norm_on=True))}
+
+
+def exact_phase(name, cap):
+    """``PIN_SLAM_EXACT_KNN=1`` on a path's profile and capacities, 4 corridor
+    frames: every frame trains with ``mapper.mapping_loop`` (a fresh kNN per
+    batch, autograd; path A's weighted_first, path B's per-neighbour with
+    feature layer-norm).  Gated: every frame after the first registers, the
+    position error under 0.5 m, finite losses, frame 2's training call rerun
+    from a snapshot of its inputs bit-identical, no training-kernel launch,
+    the feature gather and its gradient's in-order scatter once an
+    iteration each.  The row kernels' launches are tallied under the
+    phase's name and the last frame's inputs kept (``cap.store``) for the
+    kernel rows: the pool rows' and the feature rows' gather, the feature
+    gradient's scatter and the certainty sum's."""
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
+
+    path, over = EXACT_PHASES[name]
+    os.environ["PIN_SLAM_EXACT_KNN"] = "1"
+    try:
+        system, frames, gt = make_path(path, EXACT_FRAMES, over=over)
+    finally:
+        os.environ.pop("PIN_SLAM_EXACT_KNN", None)
+    calls, rerun, orig = [], {}, mp.mapping_loop
+
+    def loop(*a, **kw):
+        snap = "snap" not in rerun and system.frame_id == EXACT_RERUN_FRAME
+        if snap:
+            rerun["snap"] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+        cap.store = system.frame_id == len(frames) - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            cap.store = False
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "iters": int(out[4].shape[0]),
+                      "loss_first": float(out[4][0]), "loss_last": float(out[4][-1]),
+                      "finite": bool(torch.isfinite(out[4]).all())})
+        if snap:
+            rerun["out"] = ([out[0].attr_rows.clone(), out[1].clone()]
+                            + [p.clone() for p in out[2].leaves()])
+        return out
+
+    cfg = system.config
+    _cuda.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mp.mapping_loop = loop
+    cap.path, cap.slim = name, True
+    t0 = time.perf_counter()
+    try:
+        infos = [system.process_frame(f) for f in frames]
+        torch.cuda.synchronize()
+    finally:
+        mp.mapping_loop = orig
+        cap.path, cap.slim = None, False
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.COUNTS)
+    repeat_ok = None
+    if "snap" in rerun:
+        a, kw = rerun["snap"]
+        out = orig(*a, **kw)
+        again = [out[0].attr_rows, out[1]] + list(out[2].leaves())
+        repeat_ok = all(_bits_equal(x, y) for x, y in zip(again, rerun["out"]))
+        del a, kw, out, again, rerun["snap"]
+    poses = np.stack(system.dataset.odom_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    iters = sum(c["iters"] for c in calls)
+    stage = np.asarray(system.stage_times[1:])
+    res = {"phase": name, "profile": PATHS[path]["profile"] or "default (weighted_first)",
+           "weighted_first": cfg.weighted_first, "layer_norm_on": cfg.layer_norm_on,
+           "exact_knn": system.exact_knn, "kernel_path": system.kernel_path,
+           "frames": len(infos), "wall_s": wall, "stage_ms_mean_after_frame0": _stage_ms(stage),
+           "train_calls": len(calls), "train_iters": iters,
+           "train_ms_per_iter": float(sum(c["ms"] for c in calls) / max(iters, 1)),
+           "loss_first_call": [calls[0]["loss_first"], calls[0]["loss_last"]] if calls else None,
+           "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+           "max_pose_err_m": float(err.max()), "train_rerun_bit_identical": repeat_ok,
+           "launches": counts,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(res)
+    if not system.exact_knn or system.kernel_path or not calls:
+        fail(f"{name}: the exact-kNN loop did not train")
+    if not all(res["reg_valid"]) or not res["max_pose_err_m"] < 0.5:
+        fail(f"{name}: registration {res['reg_valid']}, pose error {res['max_pose_err_m']:.3f} m")
+    if not all(c["finite"] for c in calls):
+        fail(f"{name}: a non-finite training loss")
+    if not repeat_ok:
+        fail(f"{name}: frame {EXACT_RERUN_FRAME}'s training call rerun from its inputs differs")
+    if counts["train_iter"] or counts["eikonal"]:
+        fail(f"{name}: training kernels launched ({counts['train_iter']}, {counts['eikonal']})")
+    if counts["gather"] < iters or counts["scatter"] < iters:
+        fail(f"{name}: {counts['gather']} gathers, {counts['scatter']} scatters for {iters} "
+             f"training iterations")
+    for kernel, kinds in (("gather", ("pool", "feat")), ("scatter", ("main", "cert"))):
+        if sum(cap.tally.get((name, kernel, x), 0) for x in kinds) != counts[kernel]:
+            fail(f"{name}: {kernel} launch tallies disagree with the counter")
+        for x in kinds:
+            if (name, kernel, x) not in cap.inputs:
+                fail(f"{name}: no {kernel} launch of kind {x} captured")
+    del system
+    torch.cuda.empty_cache()
+    return res
+
+
 TG_FRAMES = 4
 
 
@@ -2169,7 +2515,8 @@ def _parts(out):
     from pin_slam_torch.ops import train_kernel as tk
 
     loss, dfeats, dparams = out
-    F, IN, H = tk.KERNEL_F, tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
+    F, H = tk.KERNEL_F, tk.KERNEL_H
+    IN = F + tk.offset_width(dparams)
     cuts = np.cumsum([0, IN * H, H, H, 1])
     leaves = [(n, dparams[a:b], TOL_REL, True) for n, a, b in
               zip(("dW1", "db1", "dW2", "db2"), cuts[:-1], cuts[1:])]
@@ -2213,15 +2560,16 @@ def decodes(wf, rows, k, per_row):
     return rows * per_row * (1 if wf else k)
 
 
-def decode_flops():
-    """Float32 operations one decode of a training kernel needs: the
-    forward (IN x H FMAs, H bias adds, H FMAs into the output), dh (H), the
-    input gradient of the F feature columns only (F x H FMAs: the offset
-    vectors take none), and the decoder-gradient sums (IN x H + H FMAs,
-    H adds)."""
+def decode_flops(vd=3):
+    """Float32 operations one decode of a training kernel needs at offset
+    width ``vd`` (IN = 8 + vd inputs): the forward (IN x H FMAs, H bias
+    adds, H FMAs into the output), dh (H), the input gradient of the F
+    feature columns only (F x H FMAs: the offset vectors take none), and the
+    decoder-gradient sums (IN x H + H FMAs, H adds)."""
     from pin_slam_torch.ops import train_kernel as tk
 
-    F, IN, H = tk.KERNEL_F, tk.KERNEL_F + tk.KERNEL_VD, tk.KERNEL_H
+    F, H = tk.KERNEL_F, tk.KERNEL_H
+    IN = F + vd
     return (2 * IN * H + 3 * H) + H + 2 * F * H + (2 * IN * H + 3 * H)
 
 
@@ -2230,29 +2578,34 @@ def train_phase(label, args, kwargs, launches):
 
     feats, w, vin, label_t, wt, params, wf, scale, sigma = args
     B, k = w.shape
+    vd = tk.offset_width(params)
     out_k = launched_twice(tk.train_iter, args, f"train_iter kernel {label}")
     err, detail = _cmp(out_k, tk.train_iter_plain, args, f"train_iter kernel {label}")
     t = timings(lambda: tk.train_iter(*args), lambda: tk.train_iter_plain(*args))
-    flops = decodes(wf, B, k, decode_flops()) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
+    flops = decodes(wf, B, k, decode_flops(vd)) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
     b, by = bound(nbytes(feats, w, vin, label_t, wt, params, out_k[1], out_k[2]) + 4, flops)
     row = {"name": f"train_iter[{label}]", "route": "cuda",
            "source": "pin_slam_torch/csrc/train_iter.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:247", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-           "shape": {"B": B, "k": k, "weighted_first": wf},
-           "launch": train_launch(B, k, wf, feats.get_device()),
+           "shape": {"B": B, "k": k, "VD": vd, "weighted_first": wf},
+           "launch": train_launch(B, k, wf, feats.get_device(), vd),
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
 
 
-def train_launch(B, k, wf, device):
+def train_launch(B, k, wf, device, vd=3):
     """The train kernel's launch at (B, k, mode) on ``device``: rows per
-    block, blocks, threads per block, and the blocks per SM its registers
-    allow."""
+    block, blocks, threads per block, and (VD = 3) the blocks per SM its
+    registers allow."""
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
+    if vd != tk.KERNEL_VD:
+        R = tk.general_rows_per_block(B, 1 if wf else k, _cuda.sm_count(device))
+        return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.GEN_THREADS,
+                "form": "general"}
     resident = tk.train_resident_blocks(device, bool(wf))
     R = tk.train_rows_per_block(B, k, bool(wf), resident)
     return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.TRAIN_THREADS,
@@ -2278,70 +2631,85 @@ def eik_phase(label, args, kwargs, launches):
 
     feats, wst, vst, esc, params, wf, scale, step = args
     n, k = feats.shape[0], feats.shape[1]
+    vd = tk.offset_width(params)
     out_k = launched_twice(tk.eikonal_iter, args, f"eikonal kernel {label}")
     err, detail = _cmp(out_k, tk.eikonal_iter_plain, args, f"eikonal kernel {label}")
     t = timings(lambda: tk.eikonal_iter(*args), lambda: tk.eikonal_iter_plain(*args))
-    flops = decodes(wf, n, k, 6 * decode_flops())
+    flops = decodes(wf, n, k, 6 * decode_flops(vd))
     b, by = bound(nbytes(feats, wst, vst, esc, params, out_k[1], out_k[2]) + 4, flops)
-    R = tk.eikonal_rows_per_block(n, k, bool(wf), _cuda.sm_count(feats.get_device()))
+    sms = _cuda.sm_count(feats.get_device())
+    R = (tk.eikonal_rows_per_block(n, k, bool(wf), sms) if vd == tk.KERNEL_VD
+         else tk.general_rows_per_block(n, 6 * (1 if wf else k), sms))
     row = {"name": f"eikonal[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/eikonal.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:471", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-           "shape": {"n": n, "k": k, "weighted_first": wf},
-           "launch": {"rows_per_block": R, "blocks": -(-n // R), "threads": 256},
+           "shape": {"n": n, "k": k, "VD": vd, "weighted_first": wf},
+           "launch": {"rows_per_block": R, "blocks": -(-n // R), "threads": 256,
+                      "form": "VD=3" if vd == tk.KERNEL_VD else "general"},
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
 
 
+EDGE_VDS = (3, 15, 27, 35, 64)     # no encoding, NeRF bands 2 and 4, Gaussian 16, the widest
+EDGE_KS = (1, 6, 8, 16)
+
+
 def train_edge_phase():
     """The train kernel on dyadic inputs at B in {1, 37, 16384} x k in
-    {1, 6, 16} x both modes: two launches bit-identical, and part by part
-    against the plain version in float64 at the stated tolerances; at B = 0
-    no launch and zero sums.  Not a main-path shape, so kept out of the
-    kernels line."""
+    {1, 6, 8, 16} x VD in ``EDGE_VDS`` x both modes: two launches
+    bit-identical, and part by part against the plain version in float64
+    at the stated tolerances; at B = 0 no launch and zero sums.  Not a
+    main-path shape, so kept out of the kernels line."""
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
-    errs, cases = [], 0
-    for wf in (True, False):
-        for k in (1, 6, 16):
-            args = synthetic_train_args(wf, 0, k, 0)
-            before = _cuda.COUNTS["train_iter"]
-            loss, dfeats, dparams = tk.train_iter(*args)
-            if (_cuda.COUNTS["train_iter"] != before or dfeats.shape != (0, k, 9)
-                    or float(loss) != 0.0 or bool(dparams.any())):
-                fail(f"train_iter kernel edge B=0 k={k} wf={int(wf)}: launched, or not zero")
-            cases += 1
-            for B in (1, 37, 16384):
-                label = f"train_iter kernel edge B={B} k={k} wf={int(wf)}"
-                args = synthetic_train_args(wf, B, k, 200 + 10 * B + k, dyadic=True)
-                err, _ = _cmp(launched_twice(tk.train_iter, args, label), tk.train_iter_plain,
-                              args, label)
-                errs.append(err)
+    errs, cases = {}, 0
+    for vd in EDGE_VDS:
+        for wf in (True, False):
+            for k in EDGE_KS:
+                args = synthetic_train_args(wf, 0, k, 0, vd=vd)
+                before = _cuda.COUNTS["train_iter"]
+                loss, dfeats, dparams = tk.train_iter(*args)
+                if (_cuda.COUNTS["train_iter"] != before or dfeats.shape != (0, k, 9)
+                        or float(loss) != 0.0 or bool(dparams.any())
+                        or dparams.shape != (tk.n_params(vd),)):
+                    fail(f"train_iter kernel edge B=0 k={k} VD={vd} wf={int(wf)}: launched, "
+                         f"or not zero")
                 cases += 1
-    emit({"phase": "train_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),
+                for B in (1, 37, 16384):
+                    label = f"train_iter kernel edge B={B} k={k} VD={vd} wf={int(wf)}"
+                    args = synthetic_train_args(wf, B, k, 200 + 10 * B + k + 1000 * vd,
+                                                dyadic=True, vd=vd)
+                    err, _ = _cmp(launched_twice(tk.train_iter, args, label),
+                                  tk.train_iter_plain, args, label)
+                    errs[vd] = max(errs.get(vd, 0.0), err)
+                    cases += 1
+    emit({"phase": "train_edges", "cases": cases, "max_abs_err_vs_plain_by_vd": errs,
           "check": CHECK_TEXT + "; two launches bit-identical"})
 
 
 def eikonal_edge_phase():
-    """The eikonal kernel on random inputs at n in {1, 37, 1638} x k in
-    {1, 6, 16} x both modes: two launches bit-identical, and part by part
-    against the plain version in float64 at the stated tolerances.  Not a
-    main-path shape, so kept out of the kernels line."""
+    """The eikonal kernel on dyadic inputs at n in {1, 37, 1638} x k in
+    {1, 6, 8, 16} x VD in ``EDGE_VDS`` x both modes: two launches
+    bit-identical, and part by part against the plain version in float64 at
+    the stated tolerances.  Not a main-path shape, so kept out of the
+    kernels line."""
     from pin_slam_torch.ops import train_kernel as tk
 
-    errs, cases = [], 0
-    for wf in (True, False):
-        for k in (1, 6, 16):
-            for n in (1, 37, 1638):
-                label = f"eikonal kernel edge n={n} k={k} wf={int(wf)}"
-                args = synthetic_eik_args(wf, n, k, 100 + 10 * n + k, dyadic=True)
-                err, _ = _cmp(launched_twice(tk.eikonal_iter, args, label),
-                              tk.eikonal_iter_plain, args, label)
-                errs.append(err)
-                cases += 1
-    emit({"phase": "eikonal_edges", "cases": cases, "max_abs_err_vs_plain": max(errs),
+    errs, cases = {}, 0
+    for vd in EDGE_VDS:
+        for wf in (True, False):
+            for k in EDGE_KS:
+                for n in (1, 37, 1638):
+                    label = f"eikonal kernel edge n={n} k={k} VD={vd} wf={int(wf)}"
+                    args = synthetic_eik_args(wf, n, k, 100 + 10 * n + k + 1000 * vd,
+                                              dyadic=True, vd=vd)
+                    err, _ = _cmp(launched_twice(tk.eikonal_iter, args, label),
+                                  tk.eikonal_iter_plain, args, label)
+                    errs[vd] = max(errs.get(vd, 0.0), err)
+                    cases += 1
+    emit({"phase": "eikonal_edges", "cases": cases, "max_abs_err_vs_plain_by_vd": errs,
           "check": CHECK_TEXT + "; two launches bit-identical"})
 
 
@@ -2592,54 +2960,58 @@ def experiment_shape_rows():
     scatter_phase("experiment", L, idx, val, None, None, 0)
 
 
-def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False):
-    """Random inputs at the main path's widths (F=8, VD=3, H=64).
-    ``dyadic``: as for ``synthetic_eik_args``, features, IDW weights, offset
-    vectors and decoder are small integers over powers of two, so every
-    hidden pre-activation is exact in float32."""
+def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False, vd=3):
+    """Random inputs at the main path's widths (F=8, H=64) and offset width
+    ``vd``.  ``dyadic``: as for ``synthetic_eik_args``, features, IDW
+    weights, offset vectors and decoder are small integers over powers of
+    two, so every hidden pre-activation is exact in float32."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
+    nw1 = (8 + vd) * 64
     if dyadic:
         q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
                                                   device=device).float() / den
-        params = torch.cat([q(-32, 32, 128, 11 * 64), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
                             q(-8, 8, 64, 1)])
-        return (q(-16, 16, 8, B, k, 9), q(1, 16, 64, B, k), q(-8, 8, 32, B, 3 if wf else 3 * k),
-                r(B) * 0.3, u(B) / B, params, wf, 0.055, 0.1)
+        return (q(-16, 16, 8, B, k, 9), q(1, 16, 64, B, k),
+                q(-8, 8, 32, B, vd if wf else vd * k), r(B) * 0.3, u(B) / B, params, wf,
+                0.055, 0.1)
     w = u(B, k)
     w = w / w.sum(1, keepdim=True)
-    params = torch.cat([r(11 * 64) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
-    return (r(B, k, 9), w, r(B, 3 if wf else 3 * k) * 0.2, r(B) * 0.3,
+    params = torch.cat([r(nw1) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
+    return (r(B, k, 9), w, r(B, vd if wf else vd * k) * 0.2, r(B) * 0.3,
             u(B) / B, params, wf, 0.055, 0.1)
 
 
-def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False):
-    """Random eikonal inputs at the main path's widths.  ``dyadic``: the
-    features, stencil weights, offset vectors and decoder are small integers
-    over powers of two, so every hidden pre-activation is exact in float32.
-    The float64 check then sees the kernel's own ReLU masks: at a million
-    hidden units a random pre-activation within float32 rounding of 0 is
-    likely, and its mask flip is a difference of the inputs' conditioning,
-    not of the kernel."""
+def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False, vd=3):
+    """Random eikonal inputs at the main path's widths and offset width
+    ``vd``.  ``dyadic``: the features, stencil weights, offset vectors and
+    decoder are small integers over powers of two, so every hidden
+    pre-activation is exact in float32.  The float64 check then sees the
+    kernel's own ReLU masks: at a million hidden units a random
+    pre-activation within float32 rounding of 0 is likely, and its mask flip
+    is a difference of the inputs' conditioning, not of the kernel."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
+    nw1 = (8 + vd) * 64
     if dyadic:
         q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
                                                   device=device).float() / den
-        params = torch.cat([q(-32, 32, 128, 11 * 64), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
                             q(-8, 8, 64, 1)])
         return (q(-16, 16, 8, n, k, 9), q(1, 16, 64, 6 * n, k),
-                q(-8, 8, 32, 6 * n, 3 if wf else 3 * k), u(n) * 0.5 / n, params, wf, 0.055, 0.08)
+                q(-8, 8, 32, 6 * n, vd if wf else vd * k), u(n) * 0.5 / n, params, wf, 0.055,
+                0.08)
     wst = u(6 * n, k)
     wst = wst / wst.sum(1, keepdim=True)
-    params = torch.cat([r(11 * 64) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
-    return (r(n, k, 9), wst, r(6 * n, 3 if wf else 3 * k) * 0.2, u(n) * 0.5 / n,
+    params = torch.cat([r(nw1) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
+    return (r(n, k, 9), wst, r(6 * n, vd if wf else vd * k) * 0.2, u(n) * 0.5 / n,
             params, wf, 0.055, 0.08)
 
 
@@ -2676,6 +3048,8 @@ def main() -> int:
         results["D"] = run_path_d(cap)
         results["E"] = run_path_e(cap)
         results["F"] = run_path_f(cap)
+        results["G"] = run_path_g(cap)
+        exact = {name: exact_phase(name, cap) for name in EXACT_PHASES}
     finally:
         cap.uninstall()
     cli_kitti_phase()
@@ -2683,25 +3057,26 @@ def main() -> int:
 
     rows = []
     for path, res in results.items():
+        tag = f"path{path}" if len(path) == 1 else path
         for kind in ("far", "near"):
             key = (path, "rank_brick", kind)
             if key not in cap.inputs:
                 fail(f"path {path}: no {kind} rank launch captured")
-            rows.append(rank_brick_phase(f"path{path}-{kind}", cap.inputs[key][0],
+            rows.append(rank_brick_phase(f"{tag}-{kind}", cap.inputs[key][0],
                                          cap.tally[key]))
         # path F trains by autograd: no training kernel on it
         if (path, "train_iter", "main") in cap.inputs:
             a, kw = cap.inputs[(path, "train_iter", "main")]
-            rows.append(train_phase(f"path{path}", a, kw, res["launches"]["train_iter"]))
+            rows.append(train_phase(tag, a, kw, res["launches"]["train_iter"]))
             a, kw = cap.inputs[(path, "eikonal", "main")]
-            rows.append(eik_phase(f"path{path}", a, kw, res["launches"]["eikonal"]))
+            rows.append(eik_phase(tag, a, kw, res["launches"]["eikonal"]))
         # path E's colour head adds the colour labels' gather (once a
         # training call), the colour features' gather and their gradient's
         # scatter (once an iteration each)
         for kind in ("pool", "feat", "color", "label"):
             if (path, "gather", kind) in cap.inputs:
                 a, kw = cap.inputs[(path, "gather", kind)]
-                rows.append(gather_phase(f"path{path}-{kind}", a, kw,
+                rows.append(gather_phase(f"{tag}-{kind}", a, kw,
                                          cap.tally.get((path, "gather", kind), 0)))
         (frame_idx, _), _ = cap.inputs[(path, "plans", "frame")]
         # the training loop's launches (path D's bundle adjustment has its own
@@ -2709,7 +3084,7 @@ def main() -> int:
         for kind, suffix in (("main", "-sem" if path == "F" else ""), ("color", "-color")):
             if (path, "scatter", kind) in cap.inputs:
                 (n_rows, idx, val), kw = cap.inputs[(path, "scatter", kind)]
-                rows.append(scatter_phase(f"path{path}{suffix}", n_rows, idx, val,
+                rows.append(scatter_phase(f"{tag}{suffix}", n_rows, idx, val,
                                           kw.get("plan"), kw.get("skip_row"),
                                           cap.tally.get((path, "scatter", kind), 0), frame_idx))
         for kernel, kinds in (("rank_brick", ("far", "near")),
@@ -2717,6 +3092,20 @@ def main() -> int:
                               ("scatter", ("main", "ba", "color"))):
             if sum(cap.tally.get((path, kernel, x), 0) for x in kinds) != res["launches"][kernel]:
                 fail(f"path {path}: {kernel} launch tallies disagree with the counter")
+    # the exact-kNN loop's row kernels: the pool rows' gather once a call,
+    # the feature rows' gather and their gradient's scatter once an
+    # iteration, the certainty sum once a call
+    for name in exact:
+        for kind in ("pool", "feat"):
+            a, kw = cap.inputs[(name, "gather", kind)]
+            rows.append(gather_phase(f"{name}-{kind}", a, kw,
+                                     cap.tally[(name, "gather", kind)]))
+        (frame_idx, _), _ = cap.inputs[(name, "plans", "frame")]
+        for kind, suffix in (("main", ""), ("cert", "-cert")):
+            (n_rows, idx, val), kw = cap.inputs[(name, "scatter", kind)]
+            rows.append(scatter_phase(f"{name}{suffix}", n_rows, idx, val, kw.get("plan"),
+                                      kw.get("skip_row"), cap.tally[(name, "scatter", kind)],
+                                      frame_idx if kind == "main" else None))
     # bundle adjustment's shapes on path D: the feature gather (forward) and
     # the in-order scatter of its gradient (backward), one each an iteration
     a, kw = cap.inputs[("D", "gather", "ba")]

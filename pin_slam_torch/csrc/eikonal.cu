@@ -298,6 +298,166 @@ int launch(const void* feats, const void* wst, const void* vst, const void* esc,
 
 }  // namespace eik
 
+namespace eig {
+
+using namespace gen;
+
+// The general form for VD != 3 (positional encoding; gen:: in
+// train_common.cuh): the phases above with the decoder, each chunk's inputs
+// x (in = F + VD a decode) and the decoder-gradient owners' sums as the
+// general train kernel lays them out.
+template <bool WF>
+__global__ void __launch_bounds__(gen::GB) eikonal_general_kernel(
+    const float* __restrict__ feats, const float* __restrict__ wst,
+    const float* __restrict__ vst, const float* __restrict__ esc,
+    const float* __restrict__ params, int n, int k, int vd, int R, float scale, float inv2e,
+    float* __restrict__ dfeats, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const Dims m = dims(vd);
+  const int kd = WF ? 1 : k;
+  const int dr = 6 * kd;                  // decodes per base row: (stencil, neighbour)
+  const Smem s = carve(sm, m, R * dr);
+  const int tid = threadIdx.x, lane = tid % LANES, slot = tid / LANES;
+  const int grp = tid / H, jo = tid % H;
+  const long row0 = (long)blockIdx.x * R;
+  const int rows = (int)min((long)R, (long)n - row0);
+  const int Dv = rows * dr;
+  const int nchunks = (Dv + SLOTS - 1) / SLOTS;
+  for (int e = tid; e < m.np; e += GB) sm[e] = params[e];
+  const float b2 = params[m.np - 1];
+
+  auto build = [&](int c) {
+    for (int e = tid; e < SLOTS * m.in; e += GB) {
+      const int sl = e / m.in, i = e - sl * m.in;
+      const int d = c * SLOTS + sl;
+      float v = 0.f;
+      if (d < Dv) {
+        const int r = d / dr, rem = d - r * dr, j = rem / kd, kk = rem - j * kd;
+        const long row = row0 + r, sr = (long)j * n + row;
+        if (i < F) {
+          if (WF) {
+            const float* wj = wst + sr * k;
+            const float* fr = feats + row * k * C;
+            for (int q = 0; q < k; ++q) v = fmaf(wj[q], fr[q * C + i], v);
+          } else {
+            v = feats[(row * k + kk) * C + i];
+          }
+        } else {
+          v = vst[(sr * kd + kk) * vd + (i - F)];
+        }
+      }
+      s.xs[sl * m.xp + i] = v;
+    }
+  };
+
+  // 1. forward
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // decoder loaded / previous chunk's xs read
+    build(c);
+    __syncthreads();
+    const float o = forward(s, s.xs + slot * m.xp, m.in, lane);
+    const int d = c * SLOTS + slot;
+    if (lane == 0 && d < Dv) s.od[d] = o + b2;
+  }
+  __syncthreads();
+
+  // 2. per row: the loss term and each decode's upstream gradient
+  for (int r = tid; r < rows; r += GB) {
+    const long row = row0 + r;
+    float* o = s.od + r * dr;
+    auto wgt = [&](int j, int kk) { return wst[((long)j * n + row) * k + kk]; };
+    float sdf[6];
+    for (int j = 0; j < 6; ++j) {
+      if (WF) {
+        sdf[j] = o[j] * scale;
+      } else {
+        float p = 0.f;
+        for (int kk = 0; kk < k; ++kk) p = fmaf(wgt(j, kk), o[j * k + kk], p);
+        sdf[j] = p * scale;
+      }
+    }
+    const float e = esc[row];
+    const float gx = (sdf[0] - sdf[3]) * inv2e;
+    const float gy = (sdf[1] - sdf[4]) * inv2e;
+    const float gz = (sdf[2] - sdf[5]) * inv2e;
+    const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+    s.pwr[r] = (nrm - 1.f) * (nrm - 1.f) * e;
+    const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
+    const float dsdf[6] = {dg * gx, dg * gy, dg * gz, -dg * gx, -dg * gy, -dg * gz};
+    for (int j = 0; j < 6; ++j) {
+      if (WF)
+        o[j] = dsdf[j] * scale;
+      else
+        for (int kk = 0; kk < k; ++kk) o[j * k + kk] = dsdf[j] * scale * wgt(j, kk);
+    }
+  }
+
+  // 3. backward, the decoder-gradient sums once a chunk
+  Acc a;
+  acc_init(a);
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // dO written / previous chunk's staging read
+    build(c);
+    __syncthreads();
+    const int d = c * SLOTS + slot;
+    const bool act = d < Dv;
+    float dx[F];
+    backward(s, s.xs + slot * m.xp, m.in, lane, act ? s.od[d] : 0.f, s.hs + slot * HP,
+             s.dhs + slot * HP, dx);
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (act && f / 2 == lane) s.dxs[d * F + f] = dx[f];
+    __syncthreads();
+    acc_chunk(s, m, s.od + c * SLOTS, min(SLOTS, Dv - c * SLOTS), grp, jo, a);
+  }
+  __syncthreads();
+
+  // 4. feature gradients of the block's rows, in stencil order
+  const int per_row = k * C;
+  float* dst = dfeats + row0 * per_row;
+  for (int e = tid; e < rows * per_row; e += GB) {
+    const int r = e / per_row, rem = e - r * per_row, kk = rem / C, f = rem - kk * C;
+    const long row = row0 + r;
+    const float* dxr = s.dxs + (long)r * dr * F;
+    float v = 0.f;
+    if (f == F) {
+      for (int j = 0; j < 6; ++j) v += wst[((long)j * n + row) * k + kk];
+    } else if (WF) {
+      for (int j = 0; j < 6; ++j) v = fmaf(wst[((long)j * n + row) * k + kk], dxr[j * F + f], v);
+    } else {
+      for (int j = 0; j < 6; ++j) v += dxr[(j * k + kk) * F + f];
+    }
+    dst[e] = v;
+  }
+
+  // 5. the block's partial row
+  store_partial(s, m, a, grp, jo, rows, partial + (long)blockIdx.x * m.ne);
+}
+
+template <bool WF>
+int launch_general(const void* feats, const void* wst, const void* vst, const void* esc,
+                   const void* params, int n, int k, int vd, int R, float scale, float inv2e,
+                   void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  static bool opted_in = false;           // the dynamic shared memory above 48 KB
+  if (!opted_in) {
+    const gen::Dims mx = gen::dims(gen::MAXVD);
+    const int err = (int)cudaFuncSetAttribute(
+        eikonal_general_kernel<WF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gen::smem_floats(mx, gen::DMAX, gen::DMAX / 6) * 4);
+    if (err) return err;
+    opted_in = true;
+  }
+  const int D = R * 6 * (WF ? 1 : k);
+  eikonal_general_kernel<WF><<<nblocks, gen::GB, gen::smem_floats(gen::dims(vd), D, R) * 4,
+                               st>>>(
+      (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
+      (const float*)params, n, k, vd, R, scale, inv2e, (float*)dfeats, (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace eig
+
 using namespace eik;
 
 // R base rows per block (R * decodes per row <= 512); partial holds
@@ -319,4 +479,27 @@ extern "C" int eikonal_launch(const void* feats, const void* wst, const void* vs
     if (err) return err;
   }
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
+}
+
+// the general form: any vd in [1, gen::MAXVD]; R base rows per block
+// (R * decodes per row <= gen::DMAX); partial holds ceil(n / R) rows of
+// gen::dims(vd).ne
+extern "C" int eikonal_launch_vd(const void* feats, const void* wst, const void* vst,
+                                 const void* esc, const void* params, int n, int k, int vd,
+                                 int weighted_first, int R, float scale, float inv2e,
+                                 void* dfeats, void* partial, void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R < 1 || k < 1 || k > MAXK || vd < 1 || vd > gen::MAXVD ||
+      R * 6 * (weighted_first ? 1 : k) > gen::DMAX)
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = (n + R - 1) / R;
+  if (nblocks > 0) {
+    const int err = weighted_first
+        ? eig::launch_general<true>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
+                               dfeats, partial, nblocks, st)
+        : eig::launch_general<false>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
+                                dfeats, partial, nblocks, st);
+    if (err) return err;
+  }
+  return launch_reduce((const float*)partial, nblocks, (float*)out, st, gen::dims(vd).ne);
 }

@@ -460,6 +460,149 @@ int launch(const void* feats, const void* w, const void* vin, const void* label,
 
 }  // namespace ti
 
+namespace tig {
+
+using namespace gen;
+
+// The general form for VD != 3 (positional encoding; gen:: in
+// train_common.cuh): R rows, D = R or R * k decodes a block in chunks of 64.
+// Per chunk the inputs are built from global memory (the blended features
+// with weighted_first, in the neighbour order of the VD = 3 kernel), then
+// forward; one thread a row: prediction, BCE, each decode's dO; per chunk
+// again: the inputs, backward, the decoder-gradient sums; then the rows'
+// feature gradients (w_k dx with weighted_first) and the block's partial.
+template <bool WF>
+__global__ void __launch_bounds__(gen::GB) train_iter_general_kernel(
+    const float* __restrict__ feats, const float* __restrict__ w,
+    const float* __restrict__ vin, const float* __restrict__ label,
+    const float* __restrict__ wt, const float* __restrict__ params, int B, int k, int vd,
+    int R, float scale, float inv_sigma, float* __restrict__ dfeats,
+    float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const Dims m = dims(vd);
+  const int kd = WF ? 1 : k;
+  const Smem s = carve(sm, m, R * kd);
+  const int tid = threadIdx.x, lane = tid % LANES, slot = tid / LANES;
+  const int grp = tid / H, jo = tid % H;
+  const long row0 = (long)blockIdx.x * R;
+  const int rows = (int)min((long)R, (long)B - row0);
+  const int Dv = rows * kd;
+  const int nchunks = (Dv + SLOTS - 1) / SLOTS;
+  for (int e = tid; e < m.np; e += GB) sm[e] = params[e];
+  const float b2 = params[m.np - 1];
+
+  auto build = [&](int c) {
+    for (int e = tid; e < SLOTS * m.in; e += GB) {
+      const int sl = e / m.in, i = e - sl * m.in;
+      const int d = c * SLOTS + sl;
+      float v = 0.f;
+      if (d < Dv) {
+        const int r = d / kd, q = d - r * kd;
+        const long row = row0 + r;
+        if (i < F) {
+          if (WF) {
+            const float* fr = feats + row * k * C + i;
+            const float* wr = w + row * k;
+            for (int qq = 0; qq < k; ++qq) v = fmaf(wr[qq], fr[qq * C], v);
+          } else {
+            v = feats[(row * k + q) * C + i];
+          }
+        } else {
+          v = vin[(row * kd + q) * vd + (i - F)];
+        }
+      }
+      s.xs[sl * m.xp + i] = v;
+    }
+  };
+
+  // 1. forward
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // decoder loaded / previous chunk's xs read
+    build(c);
+    __syncthreads();
+    const float o = forward(s, s.xs + slot * m.xp, m.in, lane);
+    const int d = c * SLOTS + slot;
+    if (lane == 0 && d < Dv) s.od[d] = o + b2;
+  }
+  __syncthreads();
+
+  // 2. per row: the loss term and each decode's dO
+  for (int r = tid; r < rows; r += GB) {
+    const float* wr = w + (row0 + r) * k;
+    float* o = s.od + r * kd;
+    float pred = 0.f;
+    if (WF)
+      pred = o[0];
+    else
+      for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
+    float pw, dpred;
+    ti::bce(pred * scale, label[row0 + r], wt[row0 + r], inv_sigma, pw, dpred);
+    const float g = dpred * scale;
+    s.pwr[r] = pw;
+    if (WF)
+      o[0] = g;
+    else
+      for (int q = 0; q < k; ++q) o[q] = g * wr[q];
+  }
+
+  // 3. backward, the decoder-gradient sums once a chunk
+  Acc a;
+  acc_init(a);
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();                      // dO written / previous chunk's staging read
+    build(c);
+    __syncthreads();
+    const int d = c * SLOTS + slot;
+    const bool act = d < Dv;
+    float dx[F];
+    backward(s, s.xs + slot * m.xp, m.in, lane, act ? s.od[d] : 0.f, s.hs + slot * HP,
+             s.dhs + slot * HP, dx);
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (act && f / 2 == lane) s.dxs[d * F + f] = dx[f];
+    __syncthreads();
+    acc_chunk(s, m, s.od + c * SLOTS, min(SLOTS, Dv - c * SLOTS), grp, jo, a);
+  }
+  __syncthreads();
+
+  // 4. the rows' feature gradients; the certainty column is w
+  float* dst = dfeats + row0 * k * C;
+  for (int e = tid; e < rows * k * C; e += GB) {
+    const int r = e / (k * C), rem = e - r * k * C, q = rem / C, f = rem - q * C;
+    const float wq = w[(row0 + r) * k + q];
+    dst[e] = f == F ? wq : (WF ? wq * s.dxs[r * F + f] : s.dxs[(r * k + q) * F + f]);
+  }
+
+  // 5. the block's partial row
+  store_partial(s, m, a, grp, jo, rows, partial + (long)blockIdx.x * m.ne);
+}
+
+template <bool WF>
+int launch_general(const void* feats, const void* w, const void* vin, const void* label,
+                   const void* wt, const void* params, int B, int k, int vd, int R,
+                   float scale, float inv_sigma, void* dfeats, void* partial, int nblocks,
+                   cudaStream_t st) {
+  static bool opted_in = false;           // the dynamic shared memory above 48 KB
+  const gen::Dims m = gen::dims(vd);
+  if (!opted_in) {
+    const gen::Dims mx = gen::dims(gen::MAXVD);
+    const int err = (int)cudaFuncSetAttribute(
+        train_iter_general_kernel<WF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gen::smem_floats(mx, gen::DMAX, gen::DMAX) * 4);
+    if (err) return err;
+    opted_in = true;
+  }
+  const int kd = WF ? 1 : k;
+  train_iter_general_kernel<WF><<<nblocks, gen::GB, gen::smem_floats(m, R * kd, R) * 4, st>>>(
+      (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
+      (const float*)wt, (const float*)params, B, k, vd, R, scale, inv_sigma, (float*)dfeats,
+      (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tig
+
 using namespace ti;
 
 // R rows per block (R * k <= DMAX); partial holds ceil(B / R) rows of E.
@@ -481,6 +624,38 @@ extern "C" int train_iter_launch(const void* feats, const void* w, const void* v
                       partial, nblocks, st);
   if (err) return err;
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
+}
+
+// the general form: any vd in [1, MAXVD]; R rows per block (R * k <=
+// gen::DMAX for per-neighbour decoding, R <= gen::DMAX); partial holds
+// ceil(B / R) rows of gen::dims(vd).ne
+extern "C" int train_iter_launch_vd(const void* feats, const void* w, const void* vin,
+                                    const void* label, const void* wt, const void* params,
+                                    int B, int k, int vd, int weighted_first, int R,
+                                    float scale, float inv_sigma, void* dfeats, void* partial,
+                                    void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R < 1 || k < 1 || k > MAXK || vd < 1 || vd > gen::MAXVD || B < 0 || R > gen::DMAX ||
+      (!weighted_first && R * k > gen::DMAX))
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = (B + R - 1) / R;
+  if (nblocks == 0) return (int)cudaGetLastError();
+  const int err = weighted_first
+      ? tig::launch_general<true>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
+                             dfeats, partial, nblocks, st)
+      : tig::launch_general<false>(feats, w, vin, label, wt, params, B, k, vd, R, scale,
+                              inv_sigma, dfeats, partial, nblocks, st);
+  if (err) return err;
+  return launch_reduce((const float*)partial, nblocks, (float*)out, st, gen::dims(vd).ne);
+}
+
+// the general form's limits and block geometry: threads, decodes per chunk,
+// decodes per block, widest offset vector
+extern "C" void train_iter_general_geometry(int* out) {
+  out[0] = gen::GB;
+  out[1] = gen::SLOTS;
+  out[2] = gen::DMAX;
+  out[3] = gen::MAXVD;
 }
 
 // blocks of the kernel an SM holds at once, as its registers allow

@@ -215,6 +215,23 @@ def read_pcd(path: str) -> Dict[str, np.ndarray]:
         return {fld: np.ascontiguousarray(data[fld]) for fld in fields}
 
 
+def write_pcd(path: str, points: np.ndarray, intensity: Optional[np.ndarray] = None) -> None:
+    """Binary PCD (v0.7) of float32 x, y, z and, if given, intensity: the
+    layout ``read_pcd`` reads, and that Livox recordings converted to PCD use."""
+    fields = ["x", "y", "z"] + (["intensity"] if intensity is not None else [])
+    data = np.asarray(points, np.float32)[:, :3]
+    if intensity is not None:
+        data = np.concatenate([data, np.asarray(intensity, np.float32).reshape(-1, 1)], 1)
+    n = data.shape[0]
+    header = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+              f"FIELDS {' '.join(fields)}\nSIZE {' '.join(['4'] * len(fields))}\n"
+              f"TYPE {' '.join(['F'] * len(fields))}\nCOUNT {' '.join(['1'] * len(fields))}\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(np.ascontiguousarray(data, "<f4").tobytes())
+
+
 # LAS point-record layouts (ASPRS LAS 1.0-1.4, uncompressed).  Formats 0-5
 # share the 20-byte core; 6-10 the 30-byte core.  Only the fields this
 # pipeline consumes (xyz / intensity / rgb / gps time) are named.

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pin_slam_torch.ops.encodings import encoded_dim, encoder
 from pin_slam_torch.ops.hash3d import grid_coords, spatial_hash
 from pin_slam_torch.ops.scatter import nonzero_static, scatter_set_last
 from pin_slam_torch.ops.transforms import apply_quaternion_rotation, quat_multiply, rotmat_to_quat
@@ -52,6 +53,22 @@ class MapConfig:
     local_hash_size: int = 1 << 22
     brick: tuple = (1, 1, 1)
     color_on: bool = False            # colour feature tables beside the geometric ones
+    layer_norm_on: bool = False       # queries normalise each neighbour's feature row
+    pos_encoding_band: int = 0        # offset-vector encoding (ops/encodings.py), 0 = off
+    pos_encoding_freq: float = 200.0
+    pos_encoding_base: float = 2.0
+    use_gaussian_pe: bool = False
+
+    @property
+    def vec_dim(self) -> int:
+        """Width of the (encoded) offset vector a decoder reads."""
+        return encoded_dim(3, self.pos_encoding_band, self.use_gaussian_pe)
+
+    @property
+    def pos_encode(self):
+        """The offset vectors' encoder, or None when encoding is off."""
+        return encoder(self.pos_encoding_band, self.pos_encoding_freq, self.pos_encoding_base,
+                       self.use_gaussian_pe)
 
     @property
     def nsub(self) -> int:
@@ -92,6 +109,11 @@ class MapConfig:
             use_mid_ts=cfg.use_mid_ts,
             weighted_first=cfg.weighted_first,
             color_on=cfg.color_on,
+            layer_norm_on=cfg.layer_norm_on,
+            pos_encoding_band=cfg.pos_encoding_band,
+            pos_encoding_freq=float(cfg.pos_encoding_freq),
+            pos_encoding_base=float(cfg.pos_encoding_base),
+            use_gaussian_pe=cfg.use_gaussian_pe,
             # same local-hash sizing rule as the JAX package (identical rows)
             local_hash_size=min(
                 1 << 21 if nsub > 1 else 1 << 20,
@@ -550,16 +572,30 @@ def idw_weights(dist2: torch.Tensor, valid: torch.Tensor, eps: float):
     return w_hat, S, torch.where(valid, w, torch.zeros_like(w))
 
 
+def layer_norm(feats: torch.Tensor) -> torch.Tensor:
+    """Each feature row less its mean, over its population std + 1e-6 (the
+    JAX package's query normalisation).  ``torch.std``'s gradient is 0 where
+    the std is 0 (a row of equal values, such as a new point's zero
+    features), where ``jnp.std``'s is NaN (ROADMAP C 16)."""
+    mu = torch.mean(feats, dim=-1, keepdim=True)
+    sig = torch.std(feats, dim=-1, keepdim=True, unbiased=False) + 1e-6
+    return (feats - mu) / sig
+
+
 def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
                          knn_lidx: torch.Tensor, after_pgo: bool = False,
                          gather=None, query_color: bool = False):
     """IDW interpolation at the selected neighbors (differentiable in
     ``points`` and ``lm.geo_features``).  After a pose-graph optimisation
     (``after_pgo``) each offset vector is rotated into its neighbour's frame
-    by the neighbour's quaternion.  ``gather(table, idx)`` reads the feature
+    by the neighbour's quaternion.  With ``mc.layer_norm_on`` each neighbour's
+    feature row is normalised (``layer_norm``), and with
+    ``mc.pos_encoding_band`` the offset vectors are encoded (after the
+    rotation and the mask, before the concatenation), as in the JAX
+    package.  ``gather(table, idx)`` reads the feature
     rows (default ``table[idx]``; bundle adjustment passes the row kernels'
     autograd function, whose gradient is deterministic).  Returns (geo_feat
-    [B,F+3] or per-neighbor [B,k,F+3], weights [B,k], certainty [B]); with
+    [B,F+VD] or per-neighbor [B,k,F+VD], weights [B,k], certainty [B]); with
     ``query_color`` (geo_feat, color_feat of the same layout from
     ``lm.color_features``, weights, certainty), as the JAX function
     returns."""
@@ -574,7 +610,12 @@ def interpolate_features(lm: LocalMap, mc: MapConfig, points: torch.Tensor,
     vec = torch.where(valid[..., None], vec, torch.zeros_like(vec))
     feats = lm.geo_features[safe_idx] if gather is None else gather(lm.geo_features, safe_idx)
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
+    if mc.layer_norm_on:
+        feats = layer_norm(feats)
     _, _, w = idw_weights(dist2, valid, mc.idw_eps)
+    enc = mc.pos_encode
+    if enc is not None:
+        vec = enc(vec)
     geo_vec = torch.cat([feats, vec], dim=-1)
     geo_out = torch.sum(geo_vec * w[..., None], dim=1) if mc.weighted_first else geo_vec
     cert = torch.where(valid, pose[..., C_CERT], torch.zeros_like(w))

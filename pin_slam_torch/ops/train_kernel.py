@@ -14,6 +14,12 @@ The plain twins compute the loss with torch ops and the gradients with
 ``torch.autograd.grad``: an independent check of the kernels' hand-derived
 backward.  Unlike the JAX kernels (which break at k = 8), both the kernels
 and the twins take any k up to 16.
+
+The offset vector's width VD is 3 without positional encoding: the kernels
+built for it (``train_iter_launch`` / ``eikonal_launch``) stay as they are.
+With encoding (VD = 9 .. ``MAX_VD``) the same wrappers launch the kernels'
+general forms (``*_launch_vd``, csrc/train_common.cuh ``gen``), which take
+VD at run time.
 """
 
 from __future__ import annotations
@@ -28,6 +34,17 @@ from pin_slam_torch.ops import _cuda
 
 KERNEL_F, KERNEL_VD, KERNEL_H = 8, 3, 64   # the shapes the CUDA kernels are built for
 MAX_K = 16
+MAX_VD = 64                                # the general forms' widest offset vector
+
+
+def n_params(vd: int) -> int:
+    """Length of the packed decoder at offset width ``vd``."""
+    return (KERNEL_F + vd) * KERNEL_H + 2 * KERNEL_H + 1
+
+
+def offset_width(params: torch.Tensor, F: int = KERNEL_F, H: int = KERNEL_H) -> int:
+    """VD of a packed one-hidden-layer decoder with F features and H units."""
+    return (params.shape[0] - 1 - 2 * H) // H - F
 
 
 def _mlp(x, W1, b1, W2, b2):
@@ -103,11 +120,13 @@ def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
             raise ValueError(f"row count mismatch: {tuple(t.shape)} vs {rows}")
     vd = vcols if weighted_first else vcols // k
     if feats.is_cuda:
-        n_par = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 1
-        if feats.shape[2] != KERNEL_F + 1 or vd != KERNEL_VD or params.shape != (n_par,):
+        if (feats.shape[2] != KERNEL_F + 1 or not 1 <= vd <= MAX_VD
+                or params.shape != (n_params(vd),)):
             raise NotImplementedError(
-                f"the CUDA training kernels are built for F={KERNEL_F}, VD={KERNEL_VD}, "
-                f"H={KERNEL_H}; got feats {tuple(feats.shape)}, {params.shape[0]} decoder values")
+                f"the CUDA training kernels take F={KERNEL_F}, H={KERNEL_H} and VD up to "
+                f"{MAX_VD}; got feats {tuple(feats.shape)}, VD {vd}, {params.shape[0]} "
+                f"decoder values")
+    return vd
 
 
 TRAIN_THREADS = 128   # threads per block of csrc/train_iter.cu
@@ -116,8 +135,9 @@ TRAIN_DMAX = 1024     # decodes, and rows x k, per block
 TRAIN_BLOCK_PASSES = 8   # a block's fixed work (weights, staging, sums), in passes
 _TRAIN_ARGS = ([_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
                + [_cuda.P] * 4)
-_E = (KERNEL_F + KERNEL_VD) * KERNEL_H + 2 * KERNEL_H + 2   # a block's partial row
+_TRAIN_ARGS_VD = ([_cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 _TRAIN_RESIDENT = {}
+GEN_THREADS, GEN_SLOTS, GEN_DMAX = 256, 64, 512   # the general forms' block geometry
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,6 +168,28 @@ def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) ->
                            resident, TRAIN_BLOCK_PASSES)
 
 
+def general_rows_per_block(n: int, decodes_per_row: int, n_sms: int) -> int:
+    """Rows R per block of a general form (VD != 3): R * decodes_per_row
+    decodes, at most ``GEN_DMAX``, in chunks of ``GEN_SLOTS``, one block an
+    SM at a time."""
+    return _rows_per_block(n, decodes_per_row, GEN_DMAX // decodes_per_row, GEN_SLOTS, n_sms)
+
+
+def _general_geometry() -> None:
+    """Raise unless csrc/train_iter.cu's general form has the block geometry
+    and the widest VD these wrappers assume (checked once)."""
+    if not _GEN_CHECKED:
+        geom = (ctypes.c_int * 4)()
+        _cuda.lib("train_iter").train_iter_general_geometry(geom)
+        if tuple(geom) != (GEN_THREADS, GEN_SLOTS, GEN_DMAX, MAX_VD):
+            raise RuntimeError(f"csrc/train_iter.cu's general geometry {tuple(geom)} is not "
+                               f"({GEN_THREADS}, {GEN_SLOTS}, {GEN_DMAX}, {MAX_VD})")
+        _GEN_CHECKED.append(True)
+
+
+_GEN_CHECKED = []
+
+
 def train_resident_blocks(device: int, weighted_first: bool) -> int:
     """Blocks of the train kernel that ``device`` holds at once, as the
     build's registers allow (cached).  The first call also checks that the
@@ -173,26 +215,35 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
     vector (weighted_first) or (B,k*VD) per-neighbour vectors; label (B,);
     wt (B,) premultiplied ``weight * in_pool / denom``."""
     B, k = w.shape
-    _check(feats, params, k, weighted_first, vin.shape[1],
-           [(t, B) for t in (feats, vin, label, wt)], w, vin, label, wt)
+    vd = _check(feats, params, k, weighted_first, vin.shape[1],
+                [(t, B) for t in (feats, vin, label, wt)], w, vin, label, wt)
     if feats.is_cpu:
         return train_iter_plain(feats, w, vin, label, wt, params, weighted_first,
                                 scale, sigma)
     dev = feats.get_device()
     nf = B * k * (KERNEL_F + 1)
+    ne = n_params(vd) + 1
     if B == 0:                                   # nothing to launch
-        out = feats.new_zeros((_E,))
+        out = feats.new_zeros((ne,))
         return out[-1], feats.new_empty((0, k, KERNEL_F + 1)), out[:-1]
     wf = bool(weighted_first)
-    R = train_rows_per_block(B, k, wf, train_resident_blocks(dev, wf))
+    general = vd != KERNEL_VD
+    if general:
+        _general_geometry()
+        R = general_rows_per_block(B, 1 if wf else k, _cuda.sm_count(dev))
+    else:
+        R = train_rows_per_block(B, k, wf, train_resident_blocks(dev, wf))
     nblocks = -(-B // R)
-    buf = feats.new_empty((nf + (nblocks + 1) * _E,))     # dfeats | out | block partials
-    dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + _E]
-    f = _cuda.fn("train_iter", "train_iter_launch", _TRAIN_ARGS)
+    buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
+    dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + ne]
+    f = _cuda.fn("train_iter", "train_iter_launch_vd" if general else "train_iter_launch",
+                 _TRAIN_ARGS_VD if general else _TRAIN_ARGS)
     _cuda.check(f(feats.data_ptr(), w.data_ptr(), vin.data_ptr(), label.data_ptr(),
-                  wt.data_ptr(), params.data_ptr(), B, k, int(wf), R, float(scale),
-                  float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * _E,
-                  out.data_ptr(), _cuda.stream_ptr(dev)), "train_iter_kernel")
+                  wt.data_ptr(), params.data_ptr(),
+                  *((B, k, vd, int(wf), R) if general else (B, k, int(wf), R)), float(scale),
+                  float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * ne,
+                  out.data_ptr(), _cuda.stream_ptr(dev)),
+                "train_iter_general_kernel" if general else "train_iter_kernel")
     _cuda.COUNTS["train_iter"] += 1
     return out[-1], dfeats, out[:-1]
 
@@ -201,6 +252,7 @@ EIK_SLOTS = 64     # decodes per chunk of csrc/eikonal.cu (256 threads, 4 lanes 
 EIK_DMAX = 512     # decodes per block
 _EIK_ARGS = ([_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
              + [_cuda.P] * 4)
+_EIK_ARGS_VD = ([_cuda.P] * 5 + [_cuda.I] * 5 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 
 
 def eikonal_rows_per_block(n: int, k: int, weighted_first: bool, n_sms: int) -> int:
@@ -217,23 +269,31 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
     in rows [j*n, (j+1)*n)); vst (6n,VD) or (6n,k*VD); esc (n,)
     premultiplied ``weight_e * in_pool / denom``."""
     n, k = feats.shape[0], feats.shape[1]
-    _check(feats, params, k, weighted_first, vst.shape[1],
-           [(esc, n), (wst, 6 * n), (vst, 6 * n)], wst, vst, esc)
+    vd = _check(feats, params, k, weighted_first, vst.shape[1],
+                [(esc, n), (wst, 6 * n), (vst, 6 * n)], wst, vst, esc)
     if wst.shape[1] != k:
         raise ValueError(f"wst {tuple(wst.shape)} for k={k}")
     if feats.is_cpu:
         return eikonal_iter_plain(feats, wst, vst, esc, params, weighted_first,
                                   scale, step)
     dev = feats.get_device()
-    R = eikonal_rows_per_block(n, k, bool(weighted_first), _cuda.sm_count(dev))
+    wf = bool(weighted_first)
+    general = vd != KERNEL_VD
+    if general:
+        _general_geometry()
+        R = general_rows_per_block(n, 6 * (1 if wf else k), _cuda.sm_count(dev))
+    else:
+        R = eikonal_rows_per_block(n, k, wf, _cuda.sm_count(dev))
     nblocks = -(-n // R)
-    nf = n * k * (KERNEL_F + 1)
-    buf = feats.new_empty((nf + (nblocks + 1) * _E,))     # dfeats | out | block partials
-    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + _E]
-    f = _cuda.fn("eikonal", "eikonal_launch", _EIK_ARGS)
+    nf, ne = n * k * (KERNEL_F + 1), n_params(vd) + 1
+    buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
+    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + ne]
+    f = _cuda.fn("eikonal", "eikonal_launch_vd" if general else "eikonal_launch",
+                 _EIK_ARGS_VD if general else _EIK_ARGS)
     _cuda.check(f(feats.data_ptr(), wst.data_ptr(), vst.data_ptr(), esc.data_ptr(),
-                  params.data_ptr(), n, k, int(weighted_first), R, float(scale),
-                  float(1.0 / (2.0 * step)), dfeats.data_ptr(), out.data_ptr() + 4 * _E,
-                  out.data_ptr(), _cuda.stream_ptr(dev)), "eikonal_kernel")
+                  params.data_ptr(), *((n, k, vd, int(wf), R) if general else (n, k, int(wf), R)),
+                  float(scale), float(1.0 / (2.0 * step)), dfeats.data_ptr(),
+                  out.data_ptr() + 4 * ne, out.data_ptr(), _cuda.stream_ptr(dev)),
+                "eikonal_general_kernel" if general else "eikonal_kernel")
     _cuda.COUNTS["eikonal"] += 1
     return out[-1], dfeats, out[:-1]

@@ -10,11 +10,17 @@ bias-free SDF decoders; ``mapping_loop_autograd``), and sliding-window
 bundle adjustment (torch autograd, with the feature gather and its
 gradient on the row kernels).
 
-Pool rows keep the JAX package's packed layout (see ``P_*``): sample
-coordinates, label, weight, frame id, sensor-frame coordinates, the k = 6
-GLOBAL neighbour ids (value-cast float32, -1 = none), their normalized IDW
-weights and the blended offset vector (plus per-neighbour vectors when
-``weighted_first`` is False).
+Pool rows keep the JAX package's packed layout (``MapperConfig.p_*``):
+sample coordinates, label, weight, frame id, sensor-frame coordinates, the
+k = ``nn_k`` GLOBAL neighbour ids (value-cast float32, -1 = none), their
+normalized IDW weights and the blended (encoded) offset vector (plus
+per-neighbour vectors when ``weighted_first`` is False).  The layout is
+sized from ``nn_k`` and ``vec_dim``; at k = 6 it is the JAX package's
+column for column (whose fixed k = 6 layout a wider kNN overwrites,
+ROADMAP C 2).
+
+``mapping_loop`` is the JAX package's uncached loop (``PIN_SLAM_EXACT_KNN=1``):
+a fresh kNN per batch, every head trained by autograd, feature layer-norm.
 """
 
 from __future__ import annotations
@@ -28,11 +34,11 @@ import torch
 from pin_slam_torch.models import decoder as dec
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.ops import losses, rank_kernel, rows as rowk, train_kernel
+from pin_slam_torch.ops.encodings import encoded_dim
 from pin_slam_torch.ops.hash3d import div_f32, grid_coords
 from pin_slam_torch.ops.scatter import nonzero_static
 from pin_slam_torch.ops.transforms import apply_quaternion_rotation, se3_expmap
 from pin_slam_torch.ops.voxel import sqnorm3
-from pin_slam_torch.utils.platform import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,17 +66,29 @@ class MapperConfig:
     weight_i: float = 1.0
     semantic_on: bool = False
     weight_s: float = 1.0
+    nn_k: int = 6
+
+    @property
+    def p_knn(self) -> slice:
+        return pool_layout(self.nn_k)[0]
+
+    @property
+    def p_w(self) -> slice:
+        return pool_layout(self.nn_k)[1]
+
+    @property
+    def p_vec0(self) -> int:
+        return pool_layout(self.nn_k)[2]
 
     @property
     def pool_dim(self) -> int:
-        return pool_dim(self.vec_dim) + (0 if self.weighted_first else 6 * self.vec_dim)
+        return self.p_vec0 + self.vec_dim * (1 if self.weighted_first else 1 + self.nn_k)
 
     @staticmethod
     def from_config(cfg) -> "MapperConfig":
-        if cfg.pos_encoding_band > 0:
-            raise not_ported("pos_encoding_band > 0")
         return MapperConfig(
-            vec_dim=3,
+            vec_dim=encoded_dim(cfg.pos_input_dim, cfg.pos_encoding_band, cfg.use_gaussian_pe),
+            nn_k=int(cfg.query_nn_k),
             weighted_first=cfg.weighted_first,
             pool_capacity=int(cfg.pool_capacity),
             new_idx_capacity=min(int(cfg.pool_capacity), 1 << 17),
@@ -92,13 +110,20 @@ P_LABEL = 3
 P_WEIGHT = 4
 P_TS = 5
 P_LOCAL = slice(6, 9)
-P_KNN = slice(9, 15)
-P_W = slice(15, 21)
-P_VEC0 = 21
 
 
-def pool_dim(vec_dim: int = 3) -> int:
-    return P_VEC0 + vec_dim
+def pool_layout(k: int) -> Tuple[slice, slice, int]:
+    """(neighbour-id columns, IDW-weight columns, first offset-vector column)
+    of pool rows holding k neighbours: after the sample's coordinates,
+    label, weight, frame id and sensor-frame coordinates (P_COORD ..
+    P_LOCAL) come the k GLOBAL neighbour ids, their k IDW weights, then the
+    blended (encoded) offset vector (vec_dim), and with weighted_first
+    False the k per-neighbour vectors."""
+    return slice(9, 9 + k), slice(9 + k, 9 + 2 * k), 9 + 2 * k
+
+
+# the k = 6 layout, the JAX package's
+P_KNN, P_W, P_VEC0 = pool_layout(6)
 
 
 @dataclasses.dataclass
@@ -117,7 +142,7 @@ class PoolState:
 def init_pool(mcfg: MapperConfig, device=None, color_channel: int = 3) -> PoolState:
     P = mcfg.pool_capacity
     rows = torch.zeros((P + 1, mcfg.pool_dim), dtype=torch.float32, device=device)
-    rows[:, P_KNN] = -1.0
+    rows[:, mcfg.p_knn] = -1.0
     z = torch.zeros((), dtype=torch.int64, device=device)
     return PoolState(rows=rows, head=z.clone(), fill=z.clone(),
                      new_idx=torch.zeros((mcfg.new_idx_capacity,), dtype=torch.int64,
@@ -143,17 +168,23 @@ def pool_from_numpy(src, device=None) -> PoolState:
 
 
 def idw_blend(points: torch.Tensor, nbr_pos: torch.Tensor, valid: torch.Tensor,
-              quat: Optional[torch.Tensor] = None, return_per_neighbor: bool = False):
-    """Normalized IDW weights + weight-blended offset vector at fixed
-    neighbour positions.  points (...,3), nbr_pos (...,k,3), valid (...,k),
-    quat (...,k,4) or None: each offset vector rotated into its neighbour's
-    frame (identity until a pose-graph optimisation deforms the map)."""
+              quat: Optional[torch.Tensor] = None, return_per_neighbor: bool = False,
+              pos_encode=None):
+    """Normalized IDW weights + weight-blended (encoded) offset vector at
+    fixed neighbour positions.  points (...,3), nbr_pos (...,k,3), valid
+    (...,k), quat (...,k,4) or None: each offset vector rotated into its
+    neighbour's frame (identity until a pose-graph optimisation deforms the
+    map); ``pos_encode`` (``MapConfig.pos_encode``) encodes the masked
+    vectors before the blend.  With ``return_per_neighbor`` the (encoded)
+    per-neighbour vectors come third."""
     vec = points[..., None, :] - nbr_pos
     dist2 = torch.where(valid, sqnorm3(vec), torch.full_like(vec[..., 0], npts._INVALID_DIST2))
     if quat is not None:
         vec = apply_quaternion_rotation(quat, vec)
     vec = torch.where(valid[..., None], vec, torch.zeros_like(vec))
     _, _, w = npts.idw_weights(dist2, valid, 1e-15)
+    if pos_encode is not None:
+        vec = pos_encode(vec)
     vec_blend = torch.einsum("...k,...kp->...p", w, vec)
     if return_per_neighbor:
         return w, vec_blend, vec
@@ -243,16 +274,18 @@ def dedup_group_probe(lm, mc, offsets, probe_pts: torch.Tensor, queries: torch.T
 def append_knn(lm: npts.LocalMap, mc: npts.MapConfig, offsets, coords: torch.Tensor,
                ray_sample_count: int, near_count: int, far_offsets=None,
                per_neighbor_vecs: bool = False,
-               dedup_far_budget: int = 0, quats: Optional[torch.Tensor] = None):
+               dedup_far_budget: int = 0, quats: Optional[torch.Tensor] = None,
+               pos_encode=None):
     """kNN + cached geometry of one frame's samples at append time: the
     first ``near_count`` samples of a ray rank within the ENDPOINT's probed
     ball, the free-space samples probe individually (optionally deduplicated
     by voxel).  coords (n_rays * S, 3) ray-major.  ``quats``: the global
     (cap+1, 4) quaternion column after a pose-graph optimisation (offset
-    vectors rotated into each neighbour's frame), else None.
+    vectors rotated into each neighbour's frame), else None.  ``pos_encode``
+    encodes the offset vectors (``MapConfig.pos_encode``).
 
-    Returns (gidx (M,k) int32 global ids, w (M,k), vec_blend (M,3),
-    per-neighbour vectors (M,k,3) or None, dropped (M,))."""
+    Returns (gidx (M,k) int32 global ids, w (M,k), vec_blend (M,VD),
+    per-neighbour vectors (M,k,VD) or None, dropped (M,))."""
     cells_t = offsets.cells if isinstance(offsets, npts.ProbeTemplate) else offsets
     k = min(mc.nn_k, cells_t.shape[0])
     Sn = ray_sample_count
@@ -290,7 +323,8 @@ def append_knn(lm: npts.LocalMap, mc: npts.MapConfig, offsets, coords: torch.Ten
         g64 = gidx.to(torch.int64)
         cap = mc.capacity
         quat = quats[torch.where(g64 >= 0, torch.clamp(g64, max=cap), torch.full_like(g64, cap))]
-    w, vec_blend, enc = idw_blend(coords, pos, valid, quat, return_per_neighbor=True)
+    w, vec_blend, enc = idw_blend(coords, pos, valid, quat, return_per_neighbor=True,
+                                  pos_encode=pos_encode)
     return gidx, w, vec_blend, (enc if per_neighbor_vecs else None), dropped
 
 
@@ -304,7 +338,10 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
     """Ring-buffer append of one frame's valid samples as one contiguous
     block at the head (updates ``pool.rows``, and ``pool.color_label`` /
     ``pool.sem_label`` with the samples' ``color_label`` (n, C) /
-    ``sem_label`` (n,) in the same order, in place)."""
+    ``sem_label`` (n,) in the same order, in place).  ``knn_gidx`` /
+    ``knn_w`` (n, k) fill the layout's k neighbour and weight columns (k at
+    most ``mcfg.nn_k``; -1 ids past k), ``knn_vec`` (n, VD) the blended
+    vector and ``knn_nbr_vec`` (n, k, VD) the per-neighbour ones."""
     dev = coord_world.device
     P = mcfg.pool_capacity
     n = coord_world.shape[0]
@@ -312,16 +349,19 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
         raise ValueError(f"frame sample bucket {n} exceeds pool capacity {P}")
     head = torch.where(pool.head + n > P, torch.zeros_like(pool.head), pool.head)
     kk = knn_gidx.shape[1]
+    if kk > mcfg.nn_k:
+        raise ValueError(f"{kk} neighbours for a pool laid out for {mcfg.nn_k}")
+    p_knn, p_w, p_vec0 = mcfg.p_knn, mcfg.p_w, mcfg.p_vec0
     built = torch.zeros((n, mcfg.pool_dim), dtype=torch.float32, device=dev)
-    built[:, P_KNN] = -1.0
+    built[:, p_knn] = -1.0
     built[:, P_COORD] = coord_world
     built[:, P_LABEL] = sdf_label
     built[:, P_WEIGHT] = weight
     built[:, P_TS] = float(cur_ts)
     built[:, P_LOCAL] = coord_local
-    built[:, 9:9 + kk] = knn_gidx.to(torch.float32)
-    built[:, 15:15 + kk] = knn_w
-    built[:, P_VEC0:P_VEC0 + knn_vec.shape[1]] = knn_vec
+    built[:, p_knn.start:p_knn.start + kk] = knn_gidx.to(torch.float32)
+    built[:, p_w.start:p_w.start + kk] = knn_w
+    built[:, p_vec0:p_vec0 + knn_vec.shape[1]] = knn_vec
     if knn_nbr_vec is not None:
         nv = knn_nbr_vec.reshape(n, -1)
         built[:, mcfg.pool_dim - nv.shape[1]:] = nv
@@ -333,8 +373,8 @@ def pool_append(pool: PoolState, mcfg: MapperConfig, coord_world: torch.Tensor,
     new_rows = torch.where(in_valid[:, None], built[perm], torch.zeros_like(built))
     new_rows[:, P_TS] = torch.where(in_valid, new_rows[:, P_TS],
                                     torch.full_like(new_rows[:, P_TS], -1.0))
-    new_rows[:, P_KNN] = torch.where(in_valid[:, None], new_rows[:, P_KNN],
-                                     torch.full_like(new_rows[:, P_KNN], -1.0))
+    new_rows[:, p_knn] = torch.where(in_valid[:, None], new_rows[:, p_knn],
+                                     torch.full_like(new_rows[:, p_knn], -1.0))
     pool.rows.index_copy_(0, head + ar, new_rows)
     if pool.color_label is not None:
         pool.color_label.index_copy_(0, head + ar,
@@ -366,7 +406,7 @@ def pool_filter(pool: PoolState, mcfg: MapperConfig, origin: torch.Tensor) -> Po
     count = torch.sum(keep)
     rows = pool.rows[perm]
     rows[P] = 0.0
-    rows[P, P_KNN] = -1.0
+    rows[P, mcfg.p_knn] = -1.0
     return PoolState(rows=rows, head=count % P, fill=count, new_idx=pool.new_idx,
                      new_count=torch.zeros_like(pool.new_count),
                      color_label=(pool.color_label[perm] if pool.color_label is not None
@@ -387,29 +427,32 @@ REFRESH_CHUNK = 1 << 20
 
 
 def pool_refresh_cache(pool: PoolState, state_attr_rows: torch.Tensor,
-                       mc: npts.MapConfig) -> PoolState:
+                       mc: npts.MapConfig, pos_encode=None) -> PoolState:
     """Recompute every pool row's cached kNN geometry (IDW weights, blended
-    and per-neighbour offset vectors) from the current global positions and
-    quaternions, keeping the cached neighbour sets (in place).  Rows are
-    independent; they are processed ``REFRESH_CHUNK`` at a time so that the
-    gathered neighbour rows ((P+1) x 6 x 16 floats, 3.2 GB at P = 2^23) are
+    and per-neighbour (encoded, with ``pos_encode``) offset vectors) from the
+    current global positions and quaternions, keeping the cached neighbour
+    sets (in place; the layout's k is ``mc.nn_k``).  Rows are independent;
+    they are processed ``REFRESH_CHUNK`` at a time so that the gathered
+    neighbour rows ((P+1) x k x 16 floats, 3.2 GB at P = 2^23, k = 6) are
     never held at once."""
     cap = mc.capacity
+    p_knn, p_w, p_vec0 = pool_layout(mc.nn_k)
     n = pool.rows.shape[0]
     for a in range(0, n, REFRESH_CHUNK):
         rows_c = pool.rows[a:a + REFRESH_CHUNK]
-        gidx = rows_c[:, P_KNN].to(torch.int64)
+        gidx = rows_c[:, p_knn].to(torch.int64)
         safe = torch.where(gidx >= 0, torch.clamp(gidx, max=cap), torch.full_like(gidx, cap))
         nbr = state_attr_rows[safe]                                   # (c, k, 16)
         nbr_pos, quat = nbr[..., 0:3], nbr[..., 3:7]
         coord = rows_c[:, P_COORD]
         valid = (gidx >= 0) & (sqnorm3(nbr_pos - coord[:, None, :]) <= mc.max_valid_dist2)
-        w, vec_blend, enc = idw_blend(coord, nbr_pos, valid, quat, return_per_neighbor=True)
-        rows_c[:, P_W] = w
+        w, vec_blend, enc = idw_blend(coord, nbr_pos, valid, quat, return_per_neighbor=True,
+                                      pos_encode=pos_encode)
+        rows_c[:, p_w] = w
         vd = vec_blend.shape[-1]
-        rows_c[:, P_VEC0:P_VEC0 + vd] = vec_blend
-        if rows_c.shape[1] > P_VEC0 + vd:
-            rows_c[:, P_VEC0 + vd:] = enc.reshape(enc.shape[0], -1)
+        rows_c[:, p_vec0:p_vec0 + vd] = vec_blend
+        if rows_c.shape[1] > p_vec0 + vd:
+            rows_c[:, p_vec0 + vd:] = enc.reshape(enc.shape[0], -1)
     return pool
 
 
@@ -571,6 +614,41 @@ class _Batches:
     wst2: Optional[torch.Tensor] = None
     vst: Optional[torch.Tensor] = None
 
+    def step(self, t: int, wf: bool, sem_lab: Optional[torch.Tensor] = None) -> "_Step":
+        """Iteration t's inputs to ``autograd_loss_and_grads``."""
+        B, k = self.safe_g.shape[1], self.safe_g.shape[2]
+        n = self.n_grad
+        st = _Step(gidx=self.safe_g[t], w=self.w[t],
+                   vin=self.vin[t] if wf else self.vin[t].reshape(B, k, -1),
+                   labels=self.labels[t], weights=self.weights[t], in_pool=self.in_pool[t],
+                   sem_lab=None if sem_lab is None else sem_lab[t])
+        if n:
+            st.wst = self.wst2[t].reshape(6, n, k)
+            st.vst = self.vst[t].reshape(6, n, -1) if wf else self.vst[t].reshape(6, n, k, -1)
+        return st
+
+
+@dataclasses.dataclass
+class _Step:
+    """One iteration's batch for ``autograd_loss_and_grads``, from the pool
+    cache (``_Batches.step``) or a fresh kNN (``mapping_loop``): (B, k) local
+    neighbour rows (L where invalid) and IDW weights; the (encoded) offset
+    vectors, blended (B, VD) with ``weighted_first``, else (B, k, VD); (B,)
+    labels, |weights|, in-pool flags; with the eikonal term the stencil's
+    weights (6, n, k) and offset vectors (6, n, VD) or (6, n, k, VD) of the
+    first n rows; the semantic classes (B,) and colour labels (B, 3) where
+    a head reads them."""
+    gidx: torch.Tensor
+    w: torch.Tensor
+    vin: torch.Tensor
+    labels: torch.Tensor
+    weights: torch.Tensor
+    in_pool: torch.Tensor
+    wst: Optional[torch.Tensor] = None
+    vst: Optional[torch.Tensor] = None
+    sem_lab: Optional[torch.Tensor] = None
+    col_lab: Optional[torch.Tensor] = None
+
 
 def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: MapperConfig,
                   batch_idx: torch.Tensor, after_pgo: bool) -> _Batches:
@@ -580,7 +658,7 @@ def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: 
     quaternions ``after_pgo``)."""
     dev = pool.rows.device
     T, B = batch_idx.shape
-    L, cap, k = mc.local_capacity, mc.capacity, 6
+    L, cap, k = mc.local_capacity, mc.capacity, mcfg.nn_k
     n_grad = B // mcfg.gradient_decimation if mcfg.ekional_loss_on else 0
     VD = mcfg.vec_dim
     wf = mcfg.weighted_first
@@ -591,7 +669,7 @@ def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: 
     weights = torch.abs(rows[:, P_WEIGHT]).reshape(T, B)
     ts_flat = rows[:, P_TS]
     in_pool = ((flat_idx < pool.fill) & (ts_flat >= 0.0)).reshape(T, B)
-    gidx = rows[:, P_KNN].to(torch.int64)
+    gidx = rows[:, mcfg.p_knn].to(torch.int64)
 
     rank = torch.cumsum(lm.member_mask.to(torch.int64), 0) - 1
     local_of = torch.where(lm.member_mask, torch.clamp(rank, max=L), torch.full_like(rank, L))
@@ -600,11 +678,12 @@ def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: 
     safe_g = torch.where(valid_k, lidx, torch.full_like(lidx, L))
     ts_proxy = torch.max(torch.where(in_pool, ts_flat.reshape(T, B), torch.zeros_like(labels)))
 
-    w = torch.where(valid_k, rows[:, P_W], torch.zeros_like(rows[:, P_W])).reshape(T, B, k)
+    p_w, p_vec0 = mcfg.p_w, mcfg.p_vec0
+    w = torch.where(valid_k, rows[:, p_w], torch.zeros_like(rows[:, p_w])).reshape(T, B, k)
     if wf:
-        vin = rows[:, P_VEC0:P_VEC0 + VD].reshape(T, B, VD).contiguous()
+        vin = rows[:, p_vec0:p_vec0 + VD].reshape(T, B, VD).contiguous()
     else:
-        vin = rows[:, P_VEC0 + VD:].reshape(T, B, k * VD).contiguous()
+        vin = rows[:, p_vec0 + VD:].reshape(T, B, k * VD).contiguous()
     safe_g = safe_g.reshape(T, B, k)
     out = _Batches(flat_idx=flat_idx, labels=labels, weights=weights, in_pool=in_pool,
                    safe_g=safe_g, w=w, vin=vin, ts_proxy=ts_proxy, n_grad=n_grad)
@@ -619,7 +698,8 @@ def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: 
                   else None)
         w_st, vecb_st, enc_st = idw_blend(
             stencil, pose_b[..., :3][:, None].expand(T, 6, n_grad, k, 3),
-            valid_b[:, None].expand(T, 6, n_grad, k), quat_b, return_per_neighbor=True)
+            valid_b[:, None].expand(T, 6, n_grad, k), quat_b, return_per_neighbor=True,
+            pos_encode=mc.pos_encode)
         out.wst2 = w_st.reshape(T, 6 * n_grad, k).contiguous()
         out.vst = (vecb_st.reshape(T, 6 * n_grad, VD) if wf
                    else enc_st.reshape(T, 6 * n_grad, k * VD)).contiguous()
@@ -676,7 +756,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     dev = feats.device
     T, B = batch_idx.shape
     F = feats.shape[1] - 1
-    L, k = mc.local_capacity, 6
+    L, k = mc.local_capacity, mcfg.nn_k
     wf = mcfg.weighted_first
     bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
     n_grad, eik = bt.n_grad, mcfg.ekional_loss_on
@@ -785,26 +865,32 @@ def _functional(module: torch.nn.Module, params: List[torch.Tensor]):
     return lambda x: torch.func.functional_call(module, dict(zip(names, params)), (x,))
 
 
-def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, bt: _Batches, t: int,
-                            sem_lab: Optional[torch.Tensor], mcfg: MapperConfig,
-                            plan: rowk.ScatterPlan):
-    """One iteration's loss of the autograd loop, the JAX package's
-    ``mapping_loop_cached`` body without its kernels: the IDW-blended SDF
-    (blend then decode with ``weighted_first``, else decode each neighbour
-    and blend), BCE against the labels, the eikonal term at the stencil, the
-    certainty channel's term sum(w * feats[..., F]), and with a semantic
-    head the weighted NLL of the surface samples' classes (log-probabilities
-    blended per neighbour unless ``weighted_first``).  The feature rows come
-    through ``rows.GatherRowsFn`` (the gather kernel, and for their gradient
-    the in-order scatter with ``plan``; row L gets none); no other indexed
-    operation is in the graph.  Returns (loss without the certainty term,
-    d / d feats (L+1, F+1), [d / d head leaf])."""
+def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, st: _Step,
+                            mcfg: MapperConfig, plan: rowk.ScatterPlan,
+                            certainty: bool = True, layer_norm: bool = False,
+                            color: Optional[ColorState] = None):
+    """One iteration's loss of the autograd loops, the JAX package's
+    ``mapping_loop_cached`` body without its kernels and its uncached
+    ``mapping_loop`` body: the IDW-blended SDF (blend then decode with
+    ``weighted_first``, else decode each neighbour and blend), BCE against
+    the labels, the eikonal term at the stencil, with a semantic head the
+    weighted NLL of the surface samples' classes (log-probabilities blended
+    per neighbour unless ``weighted_first``), and with ``color`` the colour
+    head's L1 term at the surface samples.  The feature rows come through
+    ``rows.GatherRowsFn`` (the gather kernel, and for their gradient the
+    in-order scatter with ``plan``; row L gets none), masked where the
+    neighbour is invalid and layer-normed with ``layer_norm``; no other
+    indexed operation is in the graph.  With ``certainty`` the table's last
+    column is the certainty channel, whose gradient is the term sum(w *
+    feats[..., F]).  Returns (loss without the certainty term, d / d feats,
+    [d / d head leaf], [d / d colour leaf] or None)."""
     L = feats.shape[0] - 1
-    F = feats.shape[1] - 1
-    B, k = bt.safe_g.shape[1], bt.safe_g.shape[2]
-    n = bt.n_grad
+    F = feats.shape[1] - int(certainty)
+    k = st.gidx.shape[1]
+    n = 0 if st.wst is None else st.wst.shape[1]
     wf = mcfg.weighted_first
-    w = bt.w[t]
+    w = st.w
+    valid = st.gidx < L
     with torch.enable_grad():
         f = feats.detach().requires_grad_(True)
         ps = [p.detach().requires_grad_(True) for p in heads.leaves()]
@@ -814,44 +900,61 @@ def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, bt: _Batches, t: 
         def sdf(x):
             return geo(x)[..., 0] * mcfg.sdf_scale
 
-        rows = rowk.GatherRowsFn.apply(f, bt.safe_g[t], L, plan)            # (B, k, F+1)
-        fk = rows[..., :F]
+        def read(tab):                                                   # (B, k, C)
+            r = rowk.GatherRowsFn.apply(tab, st.gidx, L, plan)
+            return torch.where(valid[..., None], r, torch.zeros_like(r))
+
+        rows = read(f)
+        fk = npts.layer_norm(rows[..., :F]) if layer_norm else rows[..., :F]
         if wf:
-            geo_feat = torch.cat([torch.einsum("bk,bkf->bf", w, fk), bt.vin[t]], -1)
+            geo_feat = torch.cat([torch.einsum("bk,bkf->bf", w, fk), st.vin], -1)
             sdf_pred = sdf(geo_feat)
         else:
-            per_in = torch.cat([fk, bt.vin[t].reshape(B, k, -1)], -1)
+            per_in = torch.cat([fk, st.vin], -1)
             sdf_pred = torch.sum(sdf(per_in) * w, dim=-1)
-        loss = losses.sdf_bce_loss(sdf_pred, bt.labels[t], mcfg.sigma_sigmoid, bt.weights[t],
-                                   mcfg.loss_weight_on, valid=bt.in_pool[t])
-        cert_term = torch.sum(w * rows[..., F])
+        loss = losses.sdf_bce_loss(sdf_pred, st.labels, mcfg.sigma_sigmoid, st.weights,
+                                   mcfg.loss_weight_on, valid=st.in_pool)
+        cert_term = torch.sum(w * rows[..., F]) if certainty else 0.0
         if n:
-            w_st = bt.wst2[t].reshape(6, n, k)
-            f_base = rows[:n]
             if wf:
-                st_feat = torch.einsum("jnk,nkf->jnf", w_st, f_base[..., :F])
-                sdf_st = sdf(torch.cat([st_feat.reshape(6 * n, -1), bt.vst[t]], -1)
-                             ).reshape(6, n)
+                st_feat = torch.einsum("jnk,nkf->jnf", st.wst, fk[:n])
+                sdf_st = sdf(torch.cat([st_feat, st.vst], -1))                   # (6, n)
             else:
-                st_in = torch.cat([f_base[None, :, :, :F].expand(6, n, k, F).reshape(6 * n, k, F),
-                                   bt.vst[t].reshape(6 * n, k, -1)], -1)
-                sdf_st = torch.sum(sdf(st_in) * bt.wst2[t], dim=-1).reshape(6, n)
+                st_in = torch.cat([fk[None, :n].expand(6, n, k, F), st.vst], -1)
+                sdf_st = torch.sum(sdf(st_in) * st.wst, dim=-1)
             g = div_f32(torch.stack([sdf_st[0] - sdf_st[3], sdf_st[1] - sdf_st[4],
                                      sdf_st[2] - sdf_st[5]], -1), 2.0 * mcfg.num_grad_step)
-            loss = loss + mcfg.weight_e * losses.eikonal_loss(g, valid=bt.in_pool[t, :n])
-            cert_term = cert_term + torch.einsum("jnk,nk->", w_st, f_base[..., F])
-        if hs.sem is not None and sem_lab is not None:
+            loss = loss + mcfg.weight_e * losses.eikonal_loss(g, valid=st.in_pool[:n])
+            if certainty:
+                cert_term = cert_term + torch.einsum("jnk,nk->", st.wst, rows[:n, :, F])
+        if hs.sem is not None and st.sem_lab is not None:
             sem = _functional(hs.sem, hs.sem_params)
             if wf:
                 sem_logp = torch.log_softmax(sem(geo_feat), dim=-1)
             else:
-                sem_logp = torch.einsum("bk,bks->bs", w,
-                                        torch.log_softmax(sem(per_in), dim=-1))
-            sem_valid = bt.in_pool[t] & (sem_lab[t] > 0)
-            loss = loss + mcfg.weight_s * losses.sem_nll_loss(sem_logp, sem_lab[t],
-                                                              valid=sem_valid)
-        grads = torch.autograd.grad(loss + cert_term, [f] + ps)
-    return loss.detach(), grads[0], list(grads[1:])
+                sem_logp = torch.einsum("bk,bks->bs", w, torch.log_softmax(sem(per_in), dim=-1))
+            loss = loss + mcfg.weight_s * losses.sem_nll_loss(
+                sem_logp, st.sem_lab, valid=st.in_pool & (st.sem_lab > 0))
+        leaves = [f] + ps
+        if color is not None:
+            cf = color.features.detach().requires_grad_(True)
+            cps = [p.detach().requires_grad_(True) for p in color.params]
+            chead = _functional(color.decoder, cps)
+            crow = read(cf)
+            if wf:
+                cpred = dec.clip01(chead(torch.cat([torch.einsum("bk,bkc->bc", w, crow),
+                                                    st.vin], -1)))
+            else:
+                cpred = torch.einsum("bk,bkc->bc", w,
+                                     dec.clip01(chead(torch.cat([crow, st.vin], -1))))
+            surf = st.in_pool & (torch.abs(st.labels) < mcfg.surface_sample_range)
+            loss = loss + mcfg.weight_i * losses.color_diff_loss(
+                cpred, st.col_lab, st.weights, mcfg.loss_weight_on, valid=surf)
+            leaves = leaves + [cf] + cps
+        grads = torch.autograd.grad(loss + cert_term, leaves)
+    nh = len(ps)
+    return (loss.detach(), grads[0], list(grads[1:1 + nh]),
+            list(grads[1 + nh:]) if color is not None else None)
 
 
 def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
@@ -883,8 +986,9 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
     cert_acc = torch.zeros((L + 1,), dtype=torch.float32, device=feats.device)
     hist = []
     for t in range(T):
-        loss, gf, gh = autograd_loss_and_grads(feats, heads, bt, t, sem_lab, mcfg,
-                                               rowk.plan_at(plans, t))
+        loss, gf, gh, _ = autograd_loss_and_grads(feats, heads,
+                                                  bt.step(t, mcfg.weighted_first, sem_lab),
+                                                  mcfg, rowk.plan_at(plans, t))
         cert_acc = cert_acc + gf[:, F]
         gf[:, F] = 0.0
         new, opt = adam_step(mcfg, [feats] + heads.leaves(),
@@ -894,6 +998,119 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
         heads = heads.with_leaves(new[1:])
         hist.append(loss)
     return _fold_certainty(lm, cert_acc, bt.ts_proxy), feats, heads, opt, torch.stack(hist)
+
+
+def _fold_exact(lm: npts.LocalMap, cert_acc: torch.Tensor,
+                ts_acc: torch.Tensor) -> npts.LocalMap:
+    """The local map with the uncached loop's certainty sums added and each
+    touched point's update stamp raised to the newest frame that sampled it."""
+    L = lm.attr_rows.shape[0] - 1
+    attr = lm.attr_rows.clone()
+    attr[:, npts.C_CERT] = attr[:, npts.C_CERT] + cert_acc
+    attr[:, npts.C_TSU] = torch.maximum(attr[:, npts.C_TSU], ts_acc)
+    attr[L] = npts.attr_sentinel_row(attr.device)
+    return dataclasses.replace(lm, attr_rows=attr)
+
+
+def mapping_loop(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor, heads: Heads,
+                 opt: AdamState, pool: PoolState, mcfg: MapperConfig, offsets: torch.Tensor,
+                 batch_idx: torch.Tensor, decoder_lr_scale: float, after_pgo: bool = False,
+                 color: Optional[ColorState] = None):
+    """The per-frame training loop with an exact kNN re-queried per batch,
+    the JAX package's uncached ``mapping_loop`` (its ``_mapping_loop_fast``
+    and ``_mapping_loop_general``, one function here: both compute the same
+    loss), run under ``PIN_SLAM_EXACT_KNN=1``.
+
+    ``feats`` is the (L+1, F) local feature table without a certainty
+    column; ``heads`` the SDF (and semantic) decoder leaves; ``color`` the
+    colour leaves (updated in place, as in ``mapping_loop_cached``).  Each
+    iteration reads its batch's samples from the pool (one gather-kernel
+    launch a call), runs ``npts.knn_search`` at them, and takes the loss of
+    ``autograd_loss_and_grads`` on that neighbour set, features layer-normed
+    with ``mc.layer_norm_on`` as ``npts.interpolate_features`` reads them;
+    the eikonal stencil's 6 x (B / gradient_decimation) points reuse their
+    base point's neighbours and features.  The decoders' gradients are
+    scaled by ``decoder_lr_scale``, one Adam step covers the features and
+    decoders (a second the colour leaves), and feats[L] is zeroed after it.  The IDW
+    weights of every iteration (the stencil's summed) go into the certainty
+    by one in-order scatter after the loop, and the newest sampling frame
+    into each neighbour's update stamp by a scatter-max (order-free).
+    Returns (lm with updated certainty / ts, feats, heads, opt, loss
+    history (T,))."""
+    dev = feats.device
+    T, B = batch_idx.shape
+    L = mc.local_capacity
+    wf = mc.weighted_first
+    n = B // mcfg.gradient_decimation if mcfg.ekional_loss_on else 0
+    enc = mc.pos_encode
+
+    flat_idx = batch_idx.reshape(-1)
+    rows = rowk.gather_rows(pool.rows, flat_idx)
+    coord = rows[:, P_COORD].reshape(T, B, 3)
+    labels = rows[:, P_LABEL].reshape(T, B).contiguous()
+    weights = torch.abs(rows[:, P_WEIGHT]).reshape(T, B)
+    ts = rows[:, P_TS].reshape(T, B)
+    in_pool = ((flat_idx < pool.fill) & (rows[:, P_TS] >= 0.0)).reshape(T, B)
+    del rows
+    sem_lab = (pool.sem_label[flat_idx].reshape(T, B)
+               if heads.sem is not None and pool.sem_label is not None else None)
+    col_lab = (rowk.gather_rows(pool.color_label, flat_idx).reshape(T, B, -1)
+               if color is not None else None)
+
+    # every batch's kNN (geometry: training moves no point), then one scatter
+    # plan per iteration for the feature rows' gradient
+    lidx = torch.stack([npts.knn_search(lm, mc, coord[t], offsets).lidx for t in range(T)])
+    k = lidx.shape[2]
+    valid = lidx < L
+    plans = rowk.scatter_plans(lidx.reshape(T, B * k), L + 1)
+    eps_mat = torch.eye(3, dtype=torch.float32, device=dev) * mcfg.num_grad_step
+
+    cert_idx, cert_val, hist = [], [], []
+    ts_acc = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
+    for t in range(T):
+        idx_t, v_t = lidx[t], valid[t]
+        nbr = lm.attr_rows[idx_t]                                         # (B, k, 16)
+        quat = nbr[..., npts.C_QUAT] if after_pgo else None
+        w, vblend, venc = idw_blend(coord[t], nbr[..., npts.C_POS], v_t, quat,
+                                    return_per_neighbor=True, pos_encode=enc)
+        st = _Step(gidx=idx_t, w=w, vin=vblend if wf else venc, labels=labels[t],
+                   weights=weights[t], in_pool=in_pool[t],
+                   sem_lab=None if sem_lab is None else sem_lab[t],
+                   col_lab=None if col_lab is None else col_lab[t])
+        cert_idx.append(idx_t.reshape(-1))
+        cert_val.append(torch.where(v_t, w, torch.zeros_like(w)).reshape(-1))
+        if n:
+            sub = coord[t, :n]
+            stencil = torch.cat([sub[None] + eps_mat[:, None, :], sub[None] - eps_mat[:, None, :]])
+            st.wst, vb_st, venc_st = idw_blend(
+                stencil, nbr[None, :n, :, npts.C_POS].expand(6, n, k, 3),
+                v_t[None, :n].expand(6, n, k),
+                quat[None, :n].expand(6, n, k, 4) if after_pgo else None,
+                return_per_neighbor=True, pos_encode=enc)                 # (6, n, k), ...
+            st.vst = vb_st if wf else venc_st
+            cert_idx.append(idx_t[:n].reshape(-1))
+            cert_val.append(torch.where(v_t[:n], torch.sum(st.wst, 0),
+                                        torch.zeros_like(st.wst[0])).reshape(-1))
+        tsb = torch.where(v_t, ts[t, :, None].expand(B, k), torch.zeros_like(w))
+        ts_acc.scatter_reduce_(0, idx_t.reshape(-1), tsb.reshape(-1), "amax")
+
+        loss, gf, gh, gc = autograd_loss_and_grads(
+            feats, heads, st, mcfg, rowk.plan_at(plans, t), certainty=False,
+            layer_norm=mc.layer_norm_on, color=color)
+        new, opt = adam_step(mcfg, [feats] + heads.leaves(),
+                             [gf] + [decoder_lr_scale * g for g in gh], opt)
+        feats = new[0]
+        feats[L] = 0.0
+        heads = heads.with_leaves(new[1:])
+        if color is not None:
+            newc, color.opt = adam_step(mcfg, color.leaves(),
+                                        [gc[0]] + [decoder_lr_scale * g for g in gc[1:]],
+                                        color.opt)
+            color.features, color.params = newc[0], newc[1:]
+        hist.append(loss)
+    cert = rowk.scatter_sum_rows(L + 1, torch.cat(cert_idx),
+                                 torch.cat(cert_val)[:, None].contiguous(), skip_row=L)[:, 0]
+    return _fold_exact(lm, cert, ts_acc), feats, heads, opt, torch.stack(hist)
 
 
 def compute_new_sample_mask(lm: npts.LocalMap, mc: npts.MapConfig, mcfg: MapperConfig,

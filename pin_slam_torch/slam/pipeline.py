@@ -46,6 +46,15 @@ a frame's points in confidently observed free space (the certainty of the
 map around them at least ``dynamic_certainty_thre``, their SDF at least
 ``dynamic_sdf_ratio_thre`` voxels) stay out of the map.
 
+With ``pos_encoding_band`` the offset vectors are encoded (NeRF or
+Gaussian features) wherever the map is queried or trained, the pool rows
+and the decoders widen with them, and the tracker takes its autograd path.
+The pool rows hold ``query_nn_k`` neighbours.  Under
+``PIN_SLAM_EXACT_KNN=1`` every training call runs the uncached
+``mapper.mapping_loop`` (a fresh kNN per batch, every head by autograd),
+which also trains ``layer_norm_on`` and the colour head beside the
+semantic head; the cached loop refuses those.
+
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
 health-gate decisions on the host.  Every random draw comes from one
@@ -92,23 +101,30 @@ from pin_slam_torch.utils.platform import not_ported, resolve_device
 TS_CAPACITY = 1 << 16
 
 
+def exact_knn_on() -> bool:
+    """``PIN_SLAM_EXACT_KNN=1``: train with the uncached ``mapper.mapping_loop``
+    (a fresh kNN per batch), as the JAX package does under the variable."""
+    return os.environ.get("PIN_SLAM_EXACT_KNN", "0") == "1"
+
+
 def check_ported(cfg) -> None:
     """Raise for every option this slice of the port does not cover."""
+    exact = exact_knn_on()
     unported = [
         ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
          cfg.dp_devices > 1),
         ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
-        ("pos_encoding_band > 0 (ROADMAP A 11 item 4)", cfg.pos_encoding_band > 0),
         ("o3d_vis_on (in-run mesh/SDF artifacts, ROADMAP A 11)", cfg.o3d_vis_on),
         # the JAX package's cached loop trains raw features while its
-        # queries normalise them (ROADMAP C 14)
-        ("layer_norm_on (ROADMAP C 14, A 11 item 4)", cfg.layer_norm_on),
-        # pool rows cache exactly 6 neighbours (P_KNN / P_W); a wider kNN
-        # would overwrite the weight columns
-        ("query_nn_k != 6 (pool rows sized from nn_k, ROADMAP C 2)", cfg.query_nn_k != 6),
+        # queries normalise them; only its uncached loop trains what they read
+        ("layer_norm_on on the cached training path (ROADMAP C 14; trained under "
+         "PIN_SLAM_EXACT_KNN=1)", cfg.layer_norm_on and not exact),
+        # the uncached loop trains every head by autograd
         ("the colour head with the semantic head or an SDF decoder outside the training "
-         "kernels (ROADMAP A 11 item 4)",
-         cfg.color_on and (cfg.semantic_on or cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on)),
+         "kernels on the cached path (ROADMAP A 11 item 4; trained under "
+         "PIN_SLAM_EXACT_KNN=1)",
+         not exact and cfg.color_on
+         and (cfg.semantic_on or cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on)),
         # knobs the JAX package measured and rejected (PERF_TPU.md); kept
         # there at their defaults, not carried into the port
         ("fresh_freespace_damp < 1.0", cfg.fresh_freespace_damp < 1.0),
@@ -156,10 +172,7 @@ class SlamSystem:
                  sync_stages: bool = False):
         cfg = self.config = config
         check_ported(cfg)
-        if os.environ.get("PIN_SLAM_EXACT_KNN", "0") == "1":
-            # the JAX package trains with its uncached mapping_loop then
-            raise not_ported("PIN_SLAM_EXACT_KNN=1, the exact-kNN training loop "
-                             "(ROADMAP A 11 item 4)")
+        self.exact_knn = exact_knn_on()
         self.device = dev = resolve_device(device)
         self.dataset = dataset if dataset is not None else SLAMDataset(cfg, device=dev)
         if self.dataset.device is None:
@@ -168,8 +181,9 @@ class SlamSystem:
         self.mcfg = mp.MapperConfig.from_config(cfg)
         self.sc = SamplerConfig.from_config(cfg)
         self.tc = trk.TrackerConfig.from_config(cfg)
-        # the training kernels, or torch autograd for what they do not cover
-        self.kernel_path = mp.kernel_path_supported(self.mcfg, cfg)
+        # the training kernels, or torch autograd for what they do not cover;
+        # under PIN_SLAM_EXACT_KNN=1 the uncached loop, by autograd
+        self.kernel_path = not self.exact_knn and mp.kernel_path_supported(self.mcfg, cfg)
         self.sync_stages = sync_stages
         self.rand = random_source or RandomSource(cfg.seed, dev)
 
@@ -188,19 +202,20 @@ class SlamSystem:
             self.append_tmpl, self.far_tmpl = self.offsets, far_offsets
 
         gen = torch.Generator().manual_seed(int(cfg.seed))
-        self.decoder = Decoder(cfg.feature_dim + 3, cfg.geo_mlp_hidden_dim,
+        in_dim = cfg.feature_dim + self.mc.vec_dim      # features + (encoded) offset vector
+        self.decoder = Decoder(in_dim, cfg.geo_mlp_hidden_dim,
                                cfg.geo_mlp_level, 1, cfg.mlp_bias_on, generator=gen,
                                device=dev)
         self.decoder.requires_grad_(False)
         self.sem_decoder = None
         if cfg.semantic_on:
-            self.sem_decoder = Decoder(cfg.feature_dim + 3, cfg.sem_mlp_hidden_dim,
+            self.sem_decoder = Decoder(in_dim, cfg.sem_mlp_hidden_dim,
                                        cfg.sem_mlp_level, cfg.sem_class_count,
                                        cfg.mlp_bias_on, generator=gen, device=dev)
             self.sem_decoder.requires_grad_(False)
         self.color_decoder = None
         if cfg.color_on:
-            self.color_decoder = Decoder(cfg.feature_dim + 3, cfg.color_mlp_hidden_dim,
+            self.color_decoder = Decoder(in_dim, cfg.color_mlp_hidden_dim,
                                          cfg.color_mlp_level, max(cfg.color_channel, 1),
                                          cfg.mlp_bias_on, generator=gen, device=dev)
             self.color_decoder.requires_grad_(False)
@@ -333,7 +348,8 @@ class SlamSystem:
             lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
             far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
             dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0,
-            quats=self.state.attr_rows[:, npts.C_QUAT] if self.after_pgo else None)
+            quats=self.state.attr_rows[:, npts.C_QUAT] if self.after_pgo else None,
+            pos_encode=mc.pos_encode)
         self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
                                    batch.sdf_label, batch.weight, batch.valid & ~dropped,
                                    frame_id, new_mask, gidx, w, vec, nvec,
@@ -361,7 +377,19 @@ class SlamSystem:
         with lm_out's features (and, with the colour state ``color``, its
         colour features) set to the trained ones."""
         idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
-        if self.kernel_path:
+        if self.exact_knn:
+            # the JAX package's run_exact: the certainty column stripped (the
+            # loop folds the certainty itself), fresh Adam moments on the slim
+            # leaves every call, the zero column put back; ``opt`` passes through
+            F, L = self.mc.feature_dim, self.mc.local_capacity
+            slim = feats[:, :F].contiguous()
+            if color is not None:
+                color.opt = mp.init_color_state(color.features, color.decoder).opt
+            lm2, slim, gvec, _, hist = mp.mapping_loop(
+                lm, self.mc, slim, gvec, mp.init_opt_state(slim, gvec), self.pool, self.mcfg,
+                self.offsets, idx, dec_scale, self.after_pgo, color=color)
+            feats = torch.cat([slim, slim.new_zeros((L + 1, 1))], 1)
+        elif self.kernel_path:
             lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
                 lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
                 self.after_pgo, color=color)
@@ -697,7 +725,7 @@ class SlamSystem:
         poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
         poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
         self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full))
-        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc)
+        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
 
         self.dataset.update_poses_after_pgo(new_poses)
         self.cur_pose = new_poses[fid].copy()
@@ -744,7 +772,7 @@ class SlamSystem:
         poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
         poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
         self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new))
-        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc)
+        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
         self._sync()
         losses = hist.cpu().numpy()
         return {"window": window, "window_start": window_start, "iters": num_iters,

@@ -123,6 +123,20 @@ def _sdf_intensity_grads(lm, mc, decoder, color_decoder, sdf_scale, cells, pts, 
     return sdf.detach(), grad, inten.detach(), c_grad, knn.nn_count, sdf_std.detach()
 
 
+def _autograd_sdf(lm, mc, decoder, sdf_scale, cells, pts, after_pgo):
+    """The query with positional encoding, whose input gradient has no
+    closed form here (the JAX package's ``jax.vjp`` path): a fresh kNN, the
+    interpolated (encoded) features, the SDF, and its gradient in ``pts``
+    by one ``autograd.grad``.  Returns (sdf, grad, nn_count, sdf_std)."""
+    knn = npts.knn_search(lm, mc, pts, cells)
+    with torch.enable_grad():
+        p = pts.detach().requires_grad_(True)
+        geo, w, _ = npts.interpolate_features(lm, mc, p, knn.lidx, after_pgo=after_pgo)
+        sdf, sdf_std = decoder.blended_sdf(geo, w, mc.weighted_first, sdf_scale)
+        grad, = torch.autograd.grad(sdf.sum(), p)
+    return sdf.detach(), grad, knn.nn_count, sdf_std.detach()
+
+
 def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decoder,
                 sdf_scale: float, offsets, source: torch.Tensor,
                 source_valid: torch.Tensor, R_init, t_init,
@@ -137,7 +151,10 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     map's colour features) it takes the JAX package's colour path: no
     candidate cache, a fresh kNN every iteration, the SDF's and the
     regressed intensity's gradients by autograd, and either the photometric
-    rows (``tc.photometric_on``) or the intensity-consistency weight.
+    rows (``tc.photometric_on``) or the intensity-consistency weight.  With
+    positional encoding (``mc.pos_encoding_band``) the geometry alone takes
+    that shape too (``_autograd_sdf``), as the JAX package takes ``jax.vjp``
+    there.
     ``source_normals`` (N, 3) in the sensor frame (``ops/normals.py``)
     weight each point by 0.5 + |n . g|, n rotated by the current rotation
     and g the SDF's unit gradient; 1 where ``source_normal_valid`` is
@@ -146,6 +163,7 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     color_on = (color_decoder is not None and source_colors is not None
                 and lm.color_features is not None)
     cells = offsets.cells if isinstance(offsets, npts.ProbeTemplate) else offsets
+    uncached = color_on or mc.pos_encoding_band > 0      # the autograd paths
     with torch.no_grad():
         src_intensity = color_to_intensity(source_colors) if color_on else None
         origin = lm.origin
@@ -167,6 +185,9 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
                 sdf, grad, inten, c_grad, nn_count, sdf_std = _sdf_intensity_grads(
                     lm, mc, decoder, color_decoder, sdf_scale, cells, cur + origin, after_pgo,
                     photometric)
+            elif uncached:
+                sdf, grad, nn_count, sdf_std = _autograd_sdf(
+                    lm, mc, decoder, sdf_scale, cells, cur + origin, after_pgo)
             else:
                 sdf, grad, nn_count, sdf_std = tg.sdf_value_and_grad_cached(
                     cache, lm, mc, decoder, sdf_scale, cur + origin, after_pgo)
@@ -251,7 +272,7 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
             return R, t
 
         cache = None
-        if color_on:
+        if uncached:
             while running():
                 R, t = gn_update(R, t, None)
         else:

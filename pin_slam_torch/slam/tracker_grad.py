@@ -8,6 +8,11 @@ frame by the passive rotation R_i of the neighbour's quaternion.
     sdf(p)  = sum_i w_i(p) o_i,  o_i = s * MLP([f_i ; R_i v_i(p)])     (per neighbour)
     dw_i/dp = (dwhat_i - w_i sum_j dwhat_j) / S,  dwhat_i = -2 v_i whati^2
     d(R_i v_i)/dp ^T g = R_i^T g  (the active rotation by the same quaternion)
+
+With ``layer_norm_on`` the f_i are the normalised feature rows
+(``npts.layer_norm``), which do not depend on p, so the same closed form
+holds (the JAX package's closed form reads the raw rows there, ROADMAP
+C 16).
 """
 
 from __future__ import annotations
@@ -99,6 +104,15 @@ def _core_pn(mc, layers, sdf_scale, pts, nbr_pos, quat, feats, valid):
     return sdf, grad, sdf_std
 
 
+def _features(lm, mc, safe, valid):
+    """The selected neighbours' feature rows, masked and, with
+    ``mc.layer_norm_on``, normalised as ``npts.interpolate_features`` does."""
+    feats = lm.geo_features[safe]
+    if not mc.layer_norm_on:
+        return feats
+    return npts.layer_norm(torch.where(valid[..., None], feats, torch.zeros_like(feats)))
+
+
 class CandCache(NamedTuple):
     """Per-source-point probe candidates, probed once per probe pose."""
     xs: torch.Tensor     # (B,M) candidate x (invalid -> 1e5)
@@ -163,7 +177,7 @@ def sdf_value_and_grad_cached(cache: CandCache, lm: npts.LocalMap, mc: npts.MapC
     pos_k = torch.stack([torch.gather(a, 1, sel) for a in (cache.xs, cache.ys, cache.zs)], -1)
     lidx_k = torch.gather(cache.lidx, 1, sel)
     safe = torch.where(valid, torch.clamp(lidx_k, max=L), torch.full_like(lidx_k, L))
-    feats = lm.geo_features[safe]
+    feats = _features(lm, mc, safe, valid)
     quat = lm.attr_rows[safe][..., npts.C_QUAT] if after_pgo else None
     layers = decoder.layers()
     if mc.weighted_first:
@@ -172,3 +186,31 @@ def sdf_value_and_grad_cached(cache: CandCache, lm: npts.LocalMap, mc: npts.MapC
     else:
         sdf, grad, sdf_std = _core_pn(mc, layers, sdf_scale, pts, pos_k, quat, feats, valid)
     return sdf, grad, nn_count, sdf_std
+
+
+def sdf_value_and_grad(lm: npts.LocalMap, mc: npts.MapConfig, decoder, sdf_scale: float,
+                       offsets: torch.Tensor, pts: torch.Tensor, after_pgo: bool = False):
+    """The uncached form: a fresh ``knn_search`` at ``pts`` with the (K, 3)
+    cell template ``offsets``, then the analytic core of the selected
+    neighbours in either interpolation mode.  Returns (sdf, grad, nn_count,
+    sdf_std).  Without positional encoding only (its input gradient takes
+    the tracker's autograd path, ``tracker._autograd_sdf``).  The tracker
+    does not call it: it keeps parity with the JAX package's uncached
+    form (ROADMAP A 11 item 7)."""
+    if mc.pos_encoding_band > 0:
+        raise ValueError("positional encoding takes the tracker's autograd path")
+    L = mc.local_capacity
+    knn = npts.knn_search(lm, mc, pts, offsets)
+    valid = knn.lidx < L
+    safe = torch.where(valid, knn.lidx, torch.full_like(knn.lidx, L))
+    pose = lm.attr_rows[safe]
+    quat = pose[..., npts.C_QUAT] if after_pgo else None
+    feats = _features(lm, mc, safe, valid)
+    layers = decoder.layers()
+    if mc.weighted_first:
+        sdf, grad = _core(mc, layers, sdf_scale, pts, pose[..., npts.C_POS], quat, feats, valid)
+        sdf_std = torch.zeros_like(sdf)
+    else:
+        sdf, grad, sdf_std = _core_pn(mc, layers, sdf_scale, pts, pose[..., npts.C_POS], quat,
+                                      feats, valid)
+    return sdf, grad, knn.nn_count, sdf_std

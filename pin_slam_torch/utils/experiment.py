@@ -94,7 +94,8 @@ def load_implicit_map(path: str, mc: npts.MapConfig, device=None,
     is asked for (raises without one).  With ``color`` the colour decoder
     (or None) follows, and the state holds the file's colour features
     (``mc.color_on``); with ``semantic`` the semantic decoder (or None)
-    comes last."""
+    comes last.  The file records no encoder: the decoders' width must be
+    ``mc``'s ``feature_dim + vec_dim``, as the JAX package builds them."""
     device = resolve_device(device)
     blob = dict(np.load(path, allow_pickle=False))
     n = blob["positions"].shape[0]
@@ -116,7 +117,12 @@ def load_implicit_map(path: str, mc: npts.MapConfig, device=None,
         state.color_features[:n] = t(blob["color_features"])
     state.count = torch.tensor(n, dtype=torch.int64, device=device)
     state = npts.recreate_hash(state, mc, int(blob["ts_create"].max(initial=0)))
-    out = (state, _decoder_of(blob, "geo", device))
+    geo = _decoder_of(blob, "geo", device)
+    want = mc.feature_dim + mc.vec_dim
+    if geo is not None and geo.hidden[0].in_features != want:
+        raise ValueError(f"the saved decoder reads {geo.hidden[0].in_features} inputs; this "
+                         f"configuration's features and offset encoding give {want}")
+    out = (state, geo)
     if color:
         out += (_decoder_of(blob, "color", device),)
     if semantic:

@@ -9,7 +9,10 @@ own sweep time, as a spinning LiDAR moving through the scene measures them;
 writers of a sequence in the KITTI and the Newer College (NCD) layouts on
 disk; and an RGB-D renderer (a painted room seen by a pinhole camera with
 Replica's intrinsics, ``render_rgbd``) with a writer of the layout the
-RGB-D converters write (``write_rgbd_sequence``)."""
+RGB-D converters write (``write_rgbd_sequence``); and the labelled
+corridor seen by a forward-looking solid-state LiDAR with a Livox Avia's
+field of view, written as PCD sweeps (``livox_corridor_scans``,
+``write_pcd_sequence``)."""
 
 import os
 
@@ -692,3 +695,65 @@ def write_semantic_kitti_sequence(root, seq, scans, labels, poses, Tr=KITTI_TR,
     Tr_inv = np.linalg.inv(Tr)
     write_poses(os.path.join(seq_dir, "poses.txt"), [Tr @ T @ Tr_inv for T in poses])
     return seq_dir
+
+
+# ----------------------------------------------------------------------
+# a solid-state LiDAR: the labelled corridor through a Livox Avia's view
+# ----------------------------------------------------------------------
+
+AVIA_FOV_DEG = (70.4, 77.2)            # horizontal, vertical (Livox Avia data sheet)
+
+
+def fov_scan(rng, world, origin, R, n_pts, fov_deg=AVIA_FOV_DEG, n_az=704, n_el=772,
+             min_range=0.5, max_range=30.0):
+    """Visible world points in the SENSOR frame of a forward-looking (+x)
+    LiDAR with a rectangular field of view ``fov_deg`` (degrees): the
+    nearest point per azimuth / elevation bin and backface culling, as
+    ``lidar_scan`` resolves occlusion, then ``n_pts`` drawn from them."""
+    points, normals = world
+    local = (points - origin) @ R
+    dist = np.linalg.norm(local, axis=1)
+    facing = np.einsum("ij,ij->i", origin - points, normals) > 0
+    h, v = (np.radians(a) / 2.0 for a in fov_deg)
+    az = np.arctan2(local[:, 1], local[:, 0])
+    el = np.arcsin(np.clip(local[:, 2] / np.maximum(dist, 1e-9), -1.0, 1.0))
+    keep = ((dist > min_range) & (dist < max_range) & facing & (np.abs(az) < h)
+            & (np.abs(el) < v))
+    pts, d, az, el = local[keep], dist[keep], az[keep], el[keep]
+    ia = np.clip(((az + h) / (2 * h) * n_az).astype(np.int64), 0, n_az - 1)
+    ie = np.clip(((el + v) / (2 * v) * n_el).astype(np.int64), 0, n_el - 1)
+    order = np.argsort(d, kind="stable")
+    _, first = np.unique((ia * n_el + ie)[order], return_index=True)
+    pts = pts[order[first]]
+    sub = rng.choice(pts.shape[0], min(n_pts, pts.shape[0]), replace=False)
+    return pts[sub].astype(np.float32)
+
+
+def livox_corridor_scans(seed, n_frames, n_pts, density=1.0):
+    """The labelled corridor's static surfaces seen through ``fov_scan`` from
+    ``labelled_corridor_pose``, drawn from ``seed``.  Returns (scans (N, 4)
+    float32 [x, y, z, intensity] in the sensor frame, poses (n, 4, 4) world
+    <- sensor)."""
+    rng = np.random.default_rng(seed)
+    pts, nrm, _ = labelled_corridor_world(rng, density)
+    scans, poses = [], []
+    for i in range(n_frames):
+        R, t = labelled_corridor_pose(i)
+        p = fov_scan(rng, (pts, nrm), t, R, n_pts)
+        scans.append(np.concatenate([p, rng.uniform(0, 1, (len(p), 1)).astype(np.float32)], 1))
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        poses.append(T)
+    return scans, np.stack(poses)
+
+
+def write_pcd_sequence(root, scans):
+    """Sweeps as ``<root>/%06d.pcd`` (binary x, y, z, intensity), the layout
+    of a folder of PCD sweeps (``run_livox.yaml``'s ``pc_path``).  Returns
+    ``root``."""
+    from pin_slam_torch.dataset import io as pio
+
+    os.makedirs(root, exist_ok=True)
+    for i, scan in enumerate(scans):
+        pio.write_pcd(os.path.join(root, f"{i:06d}.pcd"), scan[:, :3], scan[:, 3])
+    return root

@@ -161,6 +161,62 @@ def test_saved_map_loads_in_both_packages(writer, saved_maps):
         np.testing.assert_array_equal(np_(b), np.asarray(bj))
 
 
+@pytest.fixture(scope="module")
+def encoded_maps(saved_maps, tmp_path_factory):
+    """The saved map's points and features with a decoder at the width of
+    NeRF positional encoding of 4 bands (8 + 27 inputs), saved by each
+    package; the file records no encoder, the configuration gives it."""
+    from pin_slam_torch.config import Config as TConfig
+    from pin_slam_tpu.config import Config as JConfig
+
+    over = dict(map_capacity=1 << 13, local_map_capacity=1 << 11, buffer_size=1 << 15,
+                downsample_hash_size=1 << 15, pos_encoding_band=4)
+    jmc = jn.MapConfig.from_config(small_config(JConfig, **over))
+    tmc = tn.MapConfig.from_config(small_config(TConfig, **over))
+    assert tmc.vec_dim == 27
+    js = saved_maps["js"]
+    p = jdec.init_decoder(jax.random.PRNGKey(4), js.geo_features.shape[1] + 27, 64, 1, 1)
+    d = tmp_path_factory.mktemp("maps_pe")
+    jexp.save_implicit_map(str(d / "jax.npz"), js, p)
+    texp.save_implicit_map(str(d / "port.npz"), tn.state_from_numpy(js), decoder_from_jax(p))
+    return dict(jmc=jmc, tmc=tmc, js=js, dir=d)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_saved_map_with_encoding_loads_in_both_packages(writer, encoded_maps):
+    """A map saved with positional encoding on, by either package, loads in
+    both; both decode the same SDF at 1,000 seeded points (kNN, the encoded
+    interpolation and the decoder) within 1e-5."""
+    path = str(encoded_maps["dir"] / f"{writer}.npz")
+    jmc, tmc = encoded_maps["jmc"], encoded_maps["tmc"]
+    js, jp, _, _ = jexp.load_implicit_map(path, jmc)
+    ts_, dec = texp.load_implicit_map(path, tmc, "cpu")
+    assert dec.hidden[0].in_features == 8 + 27
+    travel = np.zeros(64, np.float32)
+    jlm = jn.build_local_map(js, jmc, jnp.zeros(3), jnp.int32(5), jnp.asarray(travel))
+    tlm = tn.build_local_map(ts_, tmc, torch.zeros(3), 5, torch.as_tensor(travel))
+    n = int(js.count)
+    rng = np.random.default_rng(6)
+    pts = (np.asarray(js.attr_rows)[rng.integers(0, n, 1000), :3]
+           + rng.normal(0, 0.2, (1000, 3))).astype(np.float32)
+    cells = jn.neighbor_offsets(2, 0.2)
+
+    def jsdf(q):
+        knn = jn.knn_search(jlm, jmc, q, jnp.asarray(cells))
+        g, _, w, _ = jn.interpolate_features(jlm, jmc, q, knn.lidx)
+        return jdec.blended_sdf(jp, g, w, jmc.weighted_first, 1.0)[0]
+
+    ref = jax.jit(jsdf)(jnp.asarray(pts))
+    knn = tn.knn_search(tlm, tmc, torch.as_tensor(pts), torch.as_tensor(cells))
+    g, w, _ = tn.interpolate_features(tlm, tmc, torch.as_tensor(pts), knn.lidx)
+    out = dec.blended_sdf(g, w, tmc.weighted_first, 1.0)[0]
+    assert (np_(knn.lidx) < tmc.local_capacity).any(1).mean() > 0.5
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=0, atol=1e-5)
+    # a configuration without the encoder cannot read this decoder
+    with pytest.raises(ValueError, match="27|35"):
+        texp.load_implicit_map(path, dataclasses.replace(tmc, pos_encoding_band=0), "cpu")
+
+
 # ----------------------------------------------------------------------
 # evaluation
 # ----------------------------------------------------------------------
@@ -360,7 +416,7 @@ def test_load_implicit_map_on_the_gpu_unless_asked(saved_maps, monkeypatch):
 
 @pytest.mark.parametrize("option, value, label", [
     ("dp_devices", 2, "ROADMAP A 12"), ("map_shards", 2, "ROADMAP A 12"),
-    ("layer_norm_on", True, "ROADMAP C 14"), ("pos_encoding_band", 4, "ROADMAP A 11")])
+    ("layer_norm_on", True, "ROADMAP C 14"), ("o3d_vis_on", True, "ROADMAP A 11")])
 def test_still_refused_options_name_their_roadmap_item(option, value, label, tmp_path):
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem

@@ -145,7 +145,7 @@ PROFILES = [
     ("lidar_slam/run_demo_cpu.yaml", None, "kitti", None),
     ("lidar_slam/run_demo_no_vis.yaml", None, "kitti", None),
     ("lidar_slam/run_ros_general.yaml", None, None, None),
-    ("lidar_slam/run_livox.yaml", None, None, "ROADMAP C 2"),
+    ("lidar_slam/run_livox.yaml", None, None, None),
     ("rgbd_slam/run_replica.yaml", "replica", "replica", None),
 ]
 

@@ -200,7 +200,7 @@ def test_entry_point_refuses_silent_cpu_fallback(monkeypatch):
 
 @pytest.mark.parametrize("option, value", [
     ("fresh_freespace_damp", 0.5), ("probe_dedup_near_budget", 0.25),
-    ("layer_norm_on", True), ("pos_encoding_band", 4)])
+    ("layer_norm_on", True), ("o3d_vis_on", True)])
 def test_unported_option_raises(option, value):
     """Options outside this slice (and knobs the JAX package measured and
     rejected) raise instead of being ignored."""

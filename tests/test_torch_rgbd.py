@@ -404,10 +404,12 @@ def test_replica_profile_builds_and_heads_still_refused():
     assert s.tc.photometric_on and s.tc.photometric_weight == pytest.approx(0.01)
     assert s.tc.term_thre_deg == pytest.approx(1e-3) and s.tc.term_thre_m == pytest.approx(1e-4)
     for over, label in ((dict(semantic_on=True), "ROADMAP A 11 item 4"),
-                        (dict(layer_norm_on=True), "layer_norm_on"),
-                        (dict(pos_encoding_band=4), "pos_encoding_band")):
+                        (dict(layer_norm_on=True), "layer_norm_on")):
         with pytest.raises(NotImplementedError, match=label):
             SlamSystem(cfg_of(**over), device="cpu")
+    # positional encoding is ported: every head reads the encoded offsets
+    s4 = SlamSystem(cfg_of(pos_encoding_band=4), device="cpu")
+    assert s4.color_decoder.hidden[0].in_features == s4.decoder.hidden[0].in_features == 8 + 27
 
 
 # ----------------------------------------------------------------------

@@ -511,9 +511,10 @@ def test_semantic_profile_options_are_ported(corridor, monkeypatch):
     """check_ported takes the semantic profile's options (semantic_on,
     filter_moving_object, dynamic_filter_on, estimate_normal) and the SDF
     decoders outside the kernels (geo_mlp_level 2, mlp_bias_on False),
-    which train by autograd; it still refuses positional encoding,
-    layer-norm (ROADMAP C 14) and query_nn_k != 6 (C 2), and SlamSystem
-    refuses PIN_SLAM_EXACT_KNN=1 (A 11 item 4)."""
+    which train by autograd, positional encoding and query_nn_k != 6; on the
+    cached training path it still refuses layer-norm (ROADMAP C 14) and the
+    colour head beside the semantic head (A 11 item 4), which
+    PIN_SLAM_EXACT_KNN=1 (the uncached loop) trains."""
     from pin_slam_torch.slam.pipeline import SlamSystem
 
     seq = corridor["seq"]
@@ -525,17 +526,20 @@ def test_semantic_profile_options_are_ported(corridor, monkeypatch):
         s2 = SlamSystem(_system_config(TConfig, seq, **over), device="cpu")
         assert not s2.kernel_path and s2.sem_decoder is None
     assert SlamSystem(_system_config(TConfig, seq, semantic_on=False), device="cpu").kernel_path
-    for over, label in ((dict(pos_encoding_band=4), "pos_encoding_band"),
-                        (dict(layer_norm_on=True), "ROADMAP C 14"),
-                        (dict(query_nn_k=8), "ROADMAP C 2"),
+    for over, label in ((dict(layer_norm_on=True), "ROADMAP C 14"),
                         (dict(color_on=True), "ROADMAP A 11 item 4")):
         with pytest.raises(NotImplementedError, match=label):
             SlamSystem(_system_config(TConfig, seq, **over), device="cpu")
+    s_pe = SlamSystem(_system_config(TConfig, seq, pos_encoding_band=4), device="cpu")
+    assert s_pe.sem_decoder.hidden[0].in_features == 8 + 27
+    s_k8 = SlamSystem(_system_config(TConfig, seq, query_nn_k=8), device="cpu")
+    assert s_k8.mcfg.nn_k == 8 and s_k8.pool.rows.shape[1] == s_k8.mcfg.pool_dim
     monkeypatch.setenv("PIN_SLAM_EXACT_KNN", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 11 item 4"):
-        SlamSystem(_system_config(TConfig, seq), device="cpu")
+    s_ex = SlamSystem(_system_config(TConfig, seq, layer_norm_on=True, color_on=True),
+                      device="cpu")
+    assert s_ex.exact_knn and not s_ex.kernel_path and s_ex.color_decoder is not None
     monkeypatch.setenv("PIN_SLAM_EXACT_KNN", "0")
-    SlamSystem(_system_config(TConfig, seq), device="cpu")
+    assert not SlamSystem(_system_config(TConfig, seq), device="cpu").exact_knn
 
 
 def test_semantic_decoder_comes_from_the_seed(corridor):
