@@ -184,6 +184,50 @@
    ``gather[exact_*-pool|feat]``, ``scatter[exact_*]`` (the feature
    gradient) and ``scatter[exact_*-cert]`` (the certainty sum, one column,
    some 1.6 M terms on B's shapes), from the last frame's inputs.
+16. Path I: ``config/lidar_slam/run_ros_general.yaml`` as shipped (a copy
+   changed only in ``output_root``: map 2^22, local 2^18, frame bucket 2^17,
+   source bucket 2^14, bs 10000, pool 2e7, voxel 0.4 m, range 2.5-80 m,
+   PGO bookkeeping on) through ``pin_slam_torch.ros.PinSlamRosNode`` under
+   chip_smoke's own fakes of ``rospy``, ``tf2_ros``,
+   ``sensor_msgs.point_cloud2`` and the message modules (``ros_fakes``):
+   16 sweeps of path F's corridor without its movers (~98 k points each)
+   fed to ``frame_callback`` as point-cloud messages, each timed with its
+   conversion.  Gates: every pose finite, position error < 0.5 m against
+   the scene's trajectory relative to its first pose (the profile gives no
+   poses); per frame one odometry message, one TF, the path one pose
+   longer, a ``~map/neural_points`` cloud of ceil(count / down_rate)
+   points (the ladder's rate), non-empty ``~frame/mapping`` and (from frame
+   1) ``~frame/registration`` clouds; the ``save_results`` service writes
+   the pose files, ``save_mesh`` a non-empty finite ``mesh/mesh.ply``,
+   ``finish()`` a ``pin_map.npz`` that reloads on the card.  One more
+   sweep is the capture frame of the rows ``rank_brick[pathI-far|near]``,
+   ``train_iter[pathI]``, ``eikonal[pathI]``, ``gather[pathI-pool|feat]``,
+   ``scatter[pathI]``.
+17. ``Egen``: 8 frames of path E's room with ``geo_mlp_level: 2`` (a copy of
+   ``run_replica.yaml`` changed in its paths and that key) through
+   ``cli.main``: the colour head beside an SDF decoder the kernels do not
+   take, both in the autograd loop.  Gates: every frame registers, error
+   < 0.2 m, colour MAE < 0.2 at map points with >= 6 neighbours, no
+   train_iter or eikonal launch, the feature and colour rows' gathers and
+   scatters once an iteration, the colour labels' gather once a call, frame
+   5's training call rerun from a snapshot bit-identical.  Rows
+   ``gather[Egen-feat|color]``, ``scatter[Egen|Egen-color]``.
+18. ``live_C``: path C's whole square loop with ``o3d_vis_on``,
+   ``mesh_freq_frame`` and ``sdfslice_freq_frame`` 32, ``pause_at_loop`` in
+   ``control.json`` and ``utils/viewer_server.py`` serving the run
+   directory on 127.0.0.1; a watcher thread POSTs ``mesh_now`` once, an
+   ``mc_res_m`` retune (5 / 8 of the profile's) once, and resumes the run
+   the loop hook paused after holding it ``LIVE_HOLD_S``.  Gates: C's pose
+   and closure gates; in-run meshes exactly at the cadence (32, 64), the
+   closure frames and one ``mesh_now`` frame, each non-empty and finite; the
+   first mesh after the retune on the new grid (``grid_share``); SDF slices
+   at 0, 32, 64; ``viewer.html`` and ``viewer_data.js`` with the last mesh
+   frame in their meta; the run held at the frame after the closure for at
+   least ``LIVE_HOLD_S`` with the viewer's meta paused, then resumed; no
+   pipeline warning (``_warned_keys`` empty); every kernel launched.
+19. ``vis_pin_map``: ``pin_slam_torch.vis_pin_map.main`` in process on
+   live_C's saved map, on the card, at 0.2 m.  Gates: a non-empty, finite
+   mesh over at least 0.8 of the map's xy extent, viewer.html written.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -870,7 +914,7 @@ def run_path_d(cap):
 CLI_FRAMES = 8
 CLI_ARTIFACTS = {"summary.json", "meta/run.json", "odom_poses_kitti.txt", "odom_poses_tum.txt",
                  "pose_eval.csv", "time_table.npy", "memory_footprint.npy",
-                 "map/pin_map.npz", "map/neural_points.ply"}
+                 "map/pin_map.npz", "map/neural_points.ply", "viewer.html"}
 
 
 def cli_kitti_phase():
@@ -3015,6 +3059,742 @@ def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False, vd=3):
             params, wf, 0.055, 0.08)
 
 
+# ----------------------------------------------------------------------
+# path I: run_ros_general.yaml through the port's ROS node, under fakes
+# ----------------------------------------------------------------------
+
+PATH_I = dict(profile="config/lidar_slam/run_ros_general.yaml", n_frames=16, seed=0,
+              n_points=1 << 17, density=2.5, topic="/points")
+I_GATE_POS_M = 0.5
+I_TOPICS = ("~odometry", "~pin_path", "~map/neural_points", "~frame/mapping",
+            "~frame/registration")
+
+
+def ros_fakes():
+    """Stand-ins for ``rospy``, ``tf2_ros``, ``sensor_msgs.point_cloud2`` and
+    the message and service modules, enough for ``PinSlamRosNode``: the
+    publishers keep their messages, ``read_points`` yields one tuple a point
+    as ROS's does, ``create_cloud`` keeps the points.  Returns (modules by
+    name, a record of publishers, services and subscribers)."""
+    import types
+
+    rec = types.SimpleNamespace(pubs={}, services={}, subscribers={})
+
+    def ns(**kw):
+        return types.SimpleNamespace(**kw)
+
+    class Pub:
+        def __init__(self, topic):
+            self.topic, self.msgs, self.lens = topic, [], []
+
+        def publish(self, m):
+            self.msgs.append(m)
+            # the path is one message, grown and republished: its length now
+            self.lens.append(len(m.poses) if hasattr(m, "poses") else None)
+
+    class Header:
+        def __init__(self):
+            self.stamp, self.frame_id = None, ""
+
+    class PoseStamped:
+        def __init__(self):
+            self.header = Header()
+            self.pose = ns(orientation=ns(x=0.0, y=0.0, z=0.0, w=1.0),
+                           position=ns(x=0.0, y=0.0, z=0.0))
+
+    class Odometry:
+        def __init__(self):
+            self.header, self.child_frame_id, self.pose = None, "", ns(pose=None)
+
+    class TransformStamped:
+        def __init__(self):
+            self.header, self.child_frame_id = Header(), ""
+            self.transform = ns(rotation=ns(x=0.0, y=0.0, z=0.0, w=1.0),
+                                translation=ns(x=0.0, y=0.0, z=0.0))
+
+    class Path:
+        def __init__(self):
+            self.header, self.poses = Header(), []
+
+    class PointField:
+        FLOAT32 = 7
+
+        def __init__(self, name, offset, datatype, count):
+            self.name, self.offset = name, offset
+
+    class PointCloud2:
+        def __init__(self, pts=None):
+            self.pts, self.header = pts, Header()
+
+    class Broadcaster:
+        def __init__(self):
+            self.sent = []
+
+        def sendTransform(self, m):
+            self.sent.append(m)
+
+    def mod(name, **attrs):
+        m = types.ModuleType(name)
+        m.__dict__.update(attrs)
+        return m
+
+    rospy = mod("rospy", init_node=lambda name: None,
+                get_param=lambda name, default=None: default,
+                Publisher=lambda topic, typ, queue_size=10: rec.pubs.setdefault(topic, Pub(topic)),
+                Service=lambda name, typ, cb: rec.services.setdefault(name, cb),
+                Subscriber=lambda topic, typ, cb, queue_size=4: rec.subscribers.setdefault(topic,
+                                                                                           cb),
+                Time=ns(now=lambda: time.time()), loginfo=lambda *a, **k: None)
+    pc2 = mod("sensor_msgs.point_cloud2",
+              read_points=lambda msg, field_names=None, skip_nans=True: map(
+                  tuple, msg.pts.tolist()),
+              create_cloud=lambda header, fields, pts: ns(header=header, pts=np.asarray(pts)))
+    nav_msg = mod("nav_msgs.msg", Path=Path, Odometry=Odometry)
+    std_msg = mod("std_msgs.msg", Header=Header)
+    geo_msg = mod("geometry_msgs.msg", PoseStamped=PoseStamped,
+                  TransformStamped=TransformStamped)
+    sens_msg = mod("sensor_msgs.msg", PointCloud2=PointCloud2, PointField=PointField)
+    srv_srv = mod("std_srvs.srv", Empty=object, EmptyResponse=ns)
+    mods = {"rospy": rospy, "nav_msgs": mod("nav_msgs", msg=nav_msg), "nav_msgs.msg": nav_msg,
+            "std_msgs": mod("std_msgs", msg=std_msg), "std_msgs.msg": std_msg,
+            "geometry_msgs": mod("geometry_msgs", msg=geo_msg), "geometry_msgs.msg": geo_msg,
+            "sensor_msgs": mod("sensor_msgs", msg=sens_msg, point_cloud2=pc2),
+            "sensor_msgs.msg": sens_msg, "sensor_msgs.point_cloud2": pc2,
+            "std_srvs": mod("std_srvs", srv=srv_srv), "std_srvs.srv": srv_srv,
+            "tf2_ros": mod("tf2_ros", TransformBroadcaster=Broadcaster)}
+    return mods, rec
+
+
+def np_cloud_size(count, ladder):
+    """The neural-point cloud's size the node publishes for a map of
+    ``count`` points: every ``down_rate``-th point, the rate from the
+    ladder, one step per 500 k points."""
+    down_rate = ladder[min(count // 500000, len(ladder) - 1)]
+    return -(-count // down_rate)
+
+
+def ros_publish_check(pubs, n_tf, counts, ladder):
+    """Fails unless the node published, for each of the ``len(counts)``
+    frames, one odometry message, one TF (``n_tf`` sent), the path one pose
+    longer each frame, a neural-point cloud of ``np_cloud_size(count)``
+    points (``counts``: the map's count after each frame), a non-empty
+    mapping cloud and, from the second frame on (tracking starts there), a
+    non-empty registration cloud."""
+    n = len(counts)
+    got = {t: len(pubs[t].msgs) if t in pubs else 0 for t in I_TOPICS}
+    want = {t: n for t in I_TOPICS}
+    want["~frame/registration"] = n - 1
+    if got != want or n_tf != n:
+        fail(f"path I: messages {got} (TF {n_tf}), expected {want} (TF {n})")
+    lengths = pubs["~pin_path"].lens
+    if lengths != list(range(1, n + 1)):
+        fail(f"path I: path lengths {lengths}")
+    sizes = [m.pts.shape[0] for m in pubs["~map/neural_points"].msgs]
+    if sizes != [np_cloud_size(c, ladder) for c in counts]:
+        fail(f"path I: neural-point clouds of {sizes} points for maps of {counts}")
+    for t in ("~frame/mapping", "~frame/registration"):
+        if any(m.pts.shape[0] == 0 for m in pubs[t].msgs):
+            fail(f"path I: an empty {t} cloud")
+
+
+def mesh_file_stats(path):
+    """(vertex count, all finite) of a PLY mesh; (0, False) when missing."""
+    from pin_slam_torch.dataset import io as pio
+
+    if not os.path.exists(path) or os.path.getsize(path) == 0:
+        return 0, False
+    d = pio.read_ply(path)
+    v = np.stack([d["x"], d["y"], d["z"]], 1) if "x" in d else np.zeros((0, 3))
+    return int(len(v)), bool(len(v) and np.isfinite(v).all() and len(d.get("faces", [])))
+
+
+def path_i_scans():
+    """``PATH_I["n_frames"] + 1`` sweeps of the labelled corridor's static
+    surfaces (path F's scene without its movers), ~98 k points each, in the
+    sensor frame, and the scene's poses (the last sweep is the capture
+    frame's)."""
+    from pin_slam_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(PATH_I["seed"])
+    world = syn.labelled_corridor_world(rng, PATH_I["density"])
+    scans, poses = [], []
+    for i in range(PATH_I["n_frames"] + 1):
+        R, t = syn.labelled_corridor_pose(i)
+        scans.append(syn.lidar_scan(rng, world[:2], t, R, PATH_I["n_points"], n_az=1800,
+                                    n_el=128).astype(np.float32))
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        poses.append(T)
+    return scans, np.stack(poses)
+
+
+def run_path_i(cap):
+    """Path I: ``run_ros_general.yaml`` as shipped (a copy changed only in
+    ``output_root``) through ``pin_slam_torch.ros.PinSlamRosNode`` under
+    ``ros_fakes``: 16 sweeps of the static corridor fed to the node's
+    ``frame_callback`` as point-cloud messages (each timed, the message's
+    conversion included), one more as the capture frame, then the
+    ``save_results`` and ``save_mesh`` services and ``finish``.  Gated (see
+    the module docstring) and reported."""
+    import shutil
+
+    import torch
+    import yaml
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.utils.experiment import load_implicit_map
+
+    t0 = time.perf_counter()
+    scans, gt_poses = path_i_scans()
+    setup_s = time.perf_counter() - t0
+    root = os.path.join(ROOT, "build", "path_i")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(ROOT, PATH_I["profile"])) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["output_root"] = os.path.join(root, "out")
+    yml = os.path.join(root, "run_ros_general.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    from pin_slam_torch.slam.pipeline import SlamSystem
+
+    mods, rec = ros_fakes()
+    saved = {name: sys.modules.get(name) for name in mods}
+    infos, orig_proc = [], SlamSystem.process_frame
+
+    def proc(self, frame):
+        infos.append(orig_proc(self, frame))
+        return infos[-1]
+
+    sys.modules.update(mods)
+    SlamSystem.process_frame = proc
+    try:
+        from pin_slam_torch.config import Config
+        from pin_slam_torch.ros import PinSlamRosNode
+
+        cfg = Config().load(yml)
+        node = PinSlamRosNode(cfg, cloud_topic=PATH_I["topic"])
+        system = node.slam.system
+        callback = rec.subscribers[PATH_I["topic"]]
+        n_frames = PATH_I["n_frames"]
+        cap.path = "I"
+        cap.plain_rank_calls = 0
+        _cuda.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts, poses = [], [], []
+        for scan in scans[:n_frames]:
+            msg = mods["sensor_msgs.msg"].PointCloud2(scan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            callback(msg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(int(system.state.count))
+            poses.append(system.cur_pose.copy())
+        launches = dict(_cuda.COUNTS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_tf = len(node.tf_broadcaster.sent)
+        ros_publish_check(rec.pubs, n_tf, counts, cfg.publish_np_map_down_rate_list)
+        cap.capturing = True
+        callback(mods["sensor_msgs.msg"].PointCloud2(scans[n_frames]))
+        torch.cuda.synchronize()
+        cap.capturing = False
+        cap.path = None
+
+        out = node.out_dir
+        t0 = time.perf_counter()
+        rec.services["~save_results"](None)
+        results_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec.services["~save_mesh"](None)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        mesh_v, mesh_ok = mesh_file_stats(os.path.join(out, "mesh", "mesh.ply"))
+        t0 = time.perf_counter()
+        node.slam.finish(out)
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
+        state2, _ = load_implicit_map(os.path.join(out, "map", "pin_map.npz"), system.mc)
+        reload_ok = (state2.attr_rows.device.type == "cuda"
+                     and int(state2.count) == int(system.state.count) > 0
+                     and torch.equal(state2.geo_features[:int(state2.count)],
+                                     system.state.geo_features[:int(state2.count)]))
+        del state2
+    finally:
+        SlamSystem.process_frame = orig_proc
+        cap.capturing = False
+        cap.path = None
+        for name, m in saved.items():
+            if m is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = m
+
+    est = np.stack(poses)
+    rel = np.linalg.inv(gt_poses[0]) @ gt_poses[:n_frames]
+    err = np.linalg.norm(est[:, :3, 3] - rel[:, :3, 3], axis=1)
+    stage = np.asarray(system.stage_times[1:n_frames])
+    res = {
+        "phase": "path_I", "profile": PATH_I["profile"], "argv": [os.path.relpath(yml, ROOT)],
+        "entry": "pin_slam_torch.ros.PinSlamRosNode.frame_callback (fake rospy)",
+        "frames": n_frames, "points_per_frame": [min(len(s) for s in scans),
+                                                 max(len(s) for s in scans)],
+        "setup_s": setup_s, "deskew_in_profile": cfg.deskew, "pgo_on": cfg.pgo_on,
+        "weighted_first": cfg.weighted_first, "kernel_path": system.kernel_path,
+        "capacities": {"map": cfg.map_capacity, "local": cfg.local_map_capacity,
+                       "frame_bucket": cfg.frame_bucket, "source_bucket": cfg.source_bucket,
+                       "pool": cfg.pool_capacity, "bs": cfg.bs, "voxel_m": cfg.voxel_size_m,
+                       "range_m": [cfg.min_range, cfg.max_range]},
+        "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:])),
+        "frame0_s": times[0], "callback_ms": [t * 1e3 for t in times],
+        "stage_ms_mean_after_frame0": _stage_ms(stage),
+        "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:n_frames]],
+        "reg_iters": [int(x.get("reg_iters", 0)) for x in infos[1:n_frames]],
+        "finite_poses": bool(np.isfinite(est).all()),
+        "max_pose_err_m": float(err.max()), "end_pose_err_m": float(err[-1]),
+        "map_points": counts, "np_cloud_points": [m.pts.shape[0] for m in
+                                                  rec.pubs["~map/neural_points"].msgs],
+        "save_results_s": results_s, "save_mesh_s": mesh_s, "finish_s": finish_s,
+        "mesh_vertices": mesh_v, "map_reload_ok": reload_ok, "launches": launches,
+        "max_memory_allocated_gb": peak_gb, "nvidia_smi": smi_line(),
+    }
+    emit(res)
+    if not res["finite_poses"] or not res["max_pose_err_m"] < I_GATE_POS_M:
+        fail(f"path I: pose error {res['max_pose_err_m']:.3f} m vs the corridor's trajectory "
+             f"(finite {res['finite_poses']})")
+    for f in ("odom_poses_kitti.txt", "odom_poses_tum.txt"):
+        if not os.path.exists(os.path.join(out, f)):
+            fail(f"path I: the save_results service wrote no {f}")
+    if not mesh_ok:
+        fail(f"path I: the save_mesh service's mesh: {mesh_v} vertices, finite {mesh_ok}")
+    if not reload_ok:
+        fail("path I: finish()'s pin_map.npz does not reload on the card")
+    iters = cfg.iters * (n_frames + cfg.init_iter_ratio - 1)
+    need = {"rank_brick": n_frames, "train_iter": iters, "eikonal": iters,
+            "gather": iters + n_frames, "scatter": iters}
+    for k, n in need.items():
+        if launches[k] < n:
+            fail(f"path I: kernel {k} launched {launches[k]} times, expected >= {n}")
+    if launches["rank"] or cap.plain_rank_calls:
+        fail(f"path I: the per-cell rank ({launches['rank']}) or the plain brick gather "
+             f"({cap.plain_rank_calls}) ran")
+    del node, system
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# live_C: path C's loop with the in-run artifacts and the control channel
+# ----------------------------------------------------------------------
+
+LIVE_FREQ = 32                    # mesh_freq_frame and sdfslice_freq_frame
+LIVE_MESH_NOW_AT = 40             # the watcher asks for a mesh once past this frame
+LIVE_RETUNE_AT = 48               # and retunes the mesher's resolution past this one
+LIVE_RETUNE = 0.625               # the new mc_res_m over the old (5 / 8: the two grids
+#                                   share every eighth plane)
+LIVE_HOLD_S = 1.0                 # how long the watcher holds the paused run
+
+
+def grid_share(verts, res, tol=1e-3):
+    """The share of mesh vertices with at least one coordinate on the
+    marching grid of spacing ``res`` (within ``tol`` x res): marching
+    tetrahedra put every vertex on an edge between two grid points, all but
+    the cube's main diagonal along a grid line or face, so about 0.8 of the
+    vertices of a mesh made at ``res`` have one (a sphere: 0.80-0.81), and
+    0.15-0.25 of one made at a spacing 5 / 8 or 8 / 5 of it."""
+    v = np.asarray(verts, np.float64) / res
+    on = np.abs(v - np.round(v)) < tol
+    return float(on.any(1).mean()) if len(v) else 0.0
+
+
+def _post(port, patch):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/control",
+                                 data=json.dumps(patch).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _live_meta(run_dir):
+    """The live viewer's status line (viewer_data.js's last object)."""
+    import re
+
+    with open(os.path.join(run_dir, "viewer_data.js")) as f:
+        m = re.search(r"(\{[^{}]*\})\);\s*$", f.read())
+    return json.loads(m.group(1)) if m else {}
+
+
+def live_c_phase(cap):
+    """live_C: path C (the square loop, PGO on) with ``o3d_vis_on``,
+    ``mesh_freq_frame`` and ``sdfslice_freq_frame`` 32 and ``pause_at_loop``
+    in ``control.json``, the run directory served by
+    ``utils/viewer_server.py`` on 127.0.0.1.  A watcher thread POSTs
+    ``mesh_now`` once past frame LIVE_MESH_NOW_AT, a retune of ``mc_res_m``
+    once past LIVE_RETUNE_AT, and when the loop hook has paused the run it
+    holds it LIVE_HOLD_S, then resumes it by POST ``{"pause": false}``.
+    Then the map is saved for the vis_pin_map phase.  Gated (see the module
+    docstring); returns (report, the saved pin_map.npz)."""
+    import shutil
+    import threading
+
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.utils import viewer_server
+
+    run_dir = os.path.join(ROOT, "build", "live_c")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    system, frames, gt = make_path("C", over=dict(o3d_vis_on=True, mesh_freq_frame=LIVE_FREQ,
+                                                  sdfslice_freq_frame=LIVE_FREQ,
+                                                  run_path=run_dir))
+    cfg = system.config
+    res0 = cfg.mc_res_m
+    res1 = float(np.float32(res0 * LIVE_RETUNE))
+    system._write_control({"pause_at_loop": True})
+    httpd = viewer_server.make_server(run_dir, 0)
+    port = httpd.server_address[1]
+    serve = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve.start()
+    stop = threading.Event()
+    seen = {}
+
+    def hold():
+        """The first pause: wait until the pipeline holds (its viewer meta
+        says paused), hold LIVE_HOLD_S, resume over HTTP."""
+        seen["pause_seen_at"] = system.frame_id
+        t0 = time.perf_counter()
+        while not _live_meta(run_dir).get("paused") and time.perf_counter() - t0 < 120:
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        time.sleep(LIVE_HOLD_S)
+        seen["frame_while_held"] = system.frame_id
+        seen["meta_while_held"] = _live_meta(run_dir)
+        seen["resume_reply"] = _post(port, {"pause": False})
+        seen["held_s"] = time.perf_counter() - t0
+
+    def watch():
+        try:
+            while not stop.is_set():
+                fid = system.frame_id
+                ctl = system._read_control()
+                if "mesh_now_posted_at" not in seen and fid >= LIVE_MESH_NOW_AT:
+                    seen["mesh_now_posted_at"] = fid
+                    _post(port, {"mesh_now": True})
+                elif ("retune_posted_at" not in seen and fid >= LIVE_RETUNE_AT
+                      and "mesh_now" not in ctl):
+                    seen["retune_posted_at"] = fid
+                    _post(port, {"mc_res_m": res1})
+                elif ctl.get("pause"):
+                    if "held_s" not in seen:
+                        hold()
+                    else:                        # a later closure: resume at once
+                        seen["later_pauses"] = seen.get("later_pauses", 0) + 1
+                        _post(port, {"pause": False})
+                time.sleep(0.02)
+        except Exception as e:          # recorded, and failed on below
+            seen["error"] = repr(e)
+        finally:
+            # never leave the run held
+            system._write_control({**system._read_control(), "pause": False})
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    infos, times = [], []
+    cap.path = "live_C"
+    _cuda.reset_counts()
+    watcher.start()
+    try:
+        for fr in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infos.append(system.process_frame(fr))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        stop.set()
+        watcher.join(timeout=30)
+        httpd.shutdown()
+        httpd.server_close()
+        serve.join(timeout=30)
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    n = len(frames)
+    poses = np.stack(system.dataset.pgo_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    odom = np.stack(system.dataset.odom_poses)
+    end_err_odom = float(np.linalg.norm(odom[-1, :3, 3] - gt[len(odom) - 1]))
+    loop_edges = [(e.i, e.j) for e in system.pgm.edges if abs(e.j - e.i) > 1]
+    closures = [i for i, x in enumerate(infos) if x.get("pgo_applied")]
+    mesh_frames = [i for i, x in enumerate(infos) if "mesh" in x.get("vis_ms", {})]
+    slice_frames = [i for i, x in enumerate(infos) if "sdf_slice" in x.get("vis_ms", {})]
+    cadence = [i for i in range(1, n) if i % LIVE_FREQ == 0]
+    now_frames = [i for i in mesh_frames if i not in cadence and i not in closures]
+    vis = os.path.join(run_dir, "vis")
+    stats = {i: mesh_file_stats(os.path.join(vis, f"mesh_{i:05d}.ply")) for i in mesh_frames}
+    retuned = [i for i in cadence if seen.get("retune_posted_at", n) < i]
+    shares = {}
+    for i in retuned[:1]:
+        from pin_slam_torch.dataset import io as pio
+
+        d = pio.read_ply(os.path.join(vis, f"mesh_{i:05d}.ply"))
+        v = np.stack([d["x"], d["y"], d["z"]], 1)
+        shares = {"frame": i, "new_res": grid_share(v, res1), "old_res": grid_share(v, res0)}
+    meta = _live_meta(run_dir) if os.path.exists(os.path.join(run_dir, "viewer_data.js")) else {}
+    after_closure = closures[0] + 1 if closures else None
+    res = {
+        "phase": "live_C", "profile": PATHS["C"]["profile"], "frames": n,
+        "frames_per_s": float(n / np.sum(times)), "closure_frames": closures,
+        "loop_factors": loop_edges, "after_pgo": system.after_pgo,
+        "end_err_pgo_m": float(err[-1]), "end_err_odom_m": end_err_odom,
+        "rmse_pgo_m": float(np.sqrt(np.mean(err ** 2))),
+        "mesh_frames": mesh_frames, "mesh_now_frames": now_frames, "slice_frames": slice_frames,
+        "mesh_vertices": {i: s[0] for i, s in stats.items()},
+        "vis_ms": {i: x["vis_ms"] for i, x in enumerate(infos) if x.get("vis_ms")},
+        "mc_res_m": [res0, res1], "retune_grid_share": shares, "watcher": seen,
+        "frame_after_closure_s": times[after_closure] if after_closure is not None
+        and after_closure < n else None,
+        "viewer_meta": meta, "warned_keys": sorted(system._warned_keys), "launches": counts,
+        "server": f"127.0.0.1:{port}",
+    }
+    emit(res)
+    if not loop_edges or not system.after_pgo or not closures:
+        fail(f"live_C: no loop closure (factors {loop_edges}, after_pgo {system.after_pgo})")
+    if not (res["end_err_pgo_m"] < 0.3 and res["end_err_pgo_m"] <= end_err_odom + 0.5) \
+            or res["rmse_pgo_m"] >= 0.15:
+        fail(f"live_C: endpoint error {res['end_err_pgo_m']:.3f} m, RMSE {res['rmse_pgo_m']:.3f}")
+    want = sorted(set(cadence) | set(closures))
+    if len(now_frames) != 1 or sorted(set(mesh_frames) - set(now_frames)) != want:
+        fail(f"live_C: meshes at {mesh_frames}, expected the cadence and closures {want} and "
+             f"one mesh_now frame ({now_frames})")
+    bad = {i: s for i, s in stats.items() if not s[1]}
+    if bad:
+        fail(f"live_C: empty or non-finite in-run meshes {bad}")
+    if slice_frames != [i for i in range(n) if i % LIVE_FREQ == 0] or not all(
+            os.path.getsize(os.path.join(vis, f"sdf_slice_{i:05d}.ply")) > 0
+            for i in slice_frames):
+        fail(f"live_C: SDF slices at {slice_frames}")
+    if not shares or not (shares["new_res"] > 0.6 and shares["old_res"] < 0.4):
+        fail(f"live_C: the retuned mesh's vertices on the grids: {shares}")
+    if not os.path.exists(os.path.join(run_dir, "viewer.html")) \
+            or meta.get("frame") != mesh_frames[-1]:
+        fail(f"live_C: live viewer meta {meta}, last mesh frame {mesh_frames[-1]}")
+    if ("error" in seen or seen.get("frame_while_held") != after_closure
+            or seen.get("resume_reply", {}).get("pause") is not False
+            or not seen.get("meta_while_held", {}).get("paused")
+            or not res["frame_after_closure_s"] or res["frame_after_closure_s"] < LIVE_HOLD_S):
+        fail(f"live_C: the run did not pause after the closure at {closures} and resume: "
+             f"{seen}, frame after it {res['frame_after_closure_s']} s")
+    if system._warned_keys:
+        fail(f"live_C: the pipeline warned: {sorted(system._warned_keys)}")
+    for k in counts:
+        if k != "rank" and counts[k] < 1:
+            fail(f"live_C: kernel {k} never launched")
+    cfg.save_map, cfg.save_mesh, cfg.save_merged_pc = True, False, False
+    system.save_artifacts(run_dir)
+    npz = os.path.join(run_dir, "map", "pin_map.npz")
+    del system
+    torch.cuda.empty_cache()
+    return res, npz
+
+
+# ----------------------------------------------------------------------
+# vis_pin_map: the offline mesher on live_C's saved map
+# ----------------------------------------------------------------------
+
+VIS_RES_M = 0.2
+VIS_EXTENT = 0.8                  # tests/test_mesh_fullmap.py's extent gate
+
+
+def xy_extent_ratio(verts, pts):
+    """The mesh's xy extent over the map's, the smaller of the two axes."""
+    span_pts = np.maximum(_xy_span(np.asarray(pts)), 1e-9)
+    return float(np.min(_xy_span(np.asarray(verts)) / span_pts))
+
+
+def vis_pin_map_phase(npz):
+    """``pin_slam_torch.vis_pin_map.main`` in process on ``npz``, on the
+    card, at VIS_RES_M.  Gated: a non-empty, finite mesh over at least
+    VIS_EXTENT of the map's xy extent, and viewer.html written."""
+    import torch
+
+    from pin_slam_torch import vis_pin_map
+    from pin_slam_torch.dataset import io as pio
+    from pin_slam_torch.ops import _cuda
+
+    out = os.path.join(os.path.dirname(npz), "vis_pin_map", "mesh.ply")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = vis_pin_map.main([npz, str(VIS_RES_M), out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_v, finite = mesh_file_stats(out)
+    with np.load(npz) as blob:
+        pts = blob["positions"]
+    d = pio.read_ply(out) if n_v else {}
+    ratio = xy_extent_ratio(np.stack([d["x"], d["y"], d["z"]], 1), pts) if n_v else 0.0
+    viewer = os.path.join(os.path.dirname(out), "viewer.html")
+    res = {"phase": "vis_pin_map", "map": os.path.relpath(npz, ROOT), "mc_res_m": VIS_RES_M,
+           "rc": rc, "wall_s": wall, "map_points": int(len(pts)), "mesh_vertices": n_v,
+           "finite": finite, "xy_extent_ratio": ratio,
+           "viewer_html_bytes": os.path.getsize(viewer) if os.path.exists(viewer) else 0,
+           "launches": dict(_cuda.COUNTS)}
+    emit(res)
+    if rc != 0 or not n_v or not finite or not ratio >= VIS_EXTENT or not res["viewer_html_bytes"]:
+        fail(f"vis_pin_map: rc {rc}, {n_v} vertices (finite {finite}), xy extent {ratio:.3f} of "
+             f"the map's, viewer.html {res['viewer_html_bytes']} bytes")
+    return res
+
+
+# ----------------------------------------------------------------------
+# Egen: path E's room with the colour head beside a deeper SDF decoder
+# ----------------------------------------------------------------------
+
+EGEN_FRAMES = 8
+
+
+def egen_phase(cap):
+    """Egen: path E's profile (a copy changed in its paths and in
+    ``geo_mlp_level: 2``) through ``pin_slam_torch.cli.main`` in process on
+    the first 8 frames of path E's room (written under build/ by path E): the
+    colour head beside an SDF decoder the training kernels do not take,
+    both trained by the autograd loop.  Gated (see the module docstring);
+    the last frame's row-kernel inputs are kept for the kernel rows."""
+    import torch
+    import yaml
+
+    from pin_slam_torch import cli
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.models.decoder import blended_head, regress_color
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.slam import mapper as mp
+    from pin_slam_torch.slam.pipeline import SlamSystem
+    from pin_slam_torch.utils import synthetic as syn
+
+    seq = os.path.join(ROOT, "build", "path_e", PATH_E["seq"])
+    if not os.path.isdir(os.path.join(seq, "rgbd_ply")):
+        fail(f"Egen: path E's room is not under {seq}")
+    with open(os.path.join(ROOT, PATH_E["profile"])) as f:
+        prof = yaml.safe_load(f)
+    prof["setting"]["pc_path"] = os.path.join(seq, "rgbd_ply")
+    prof["setting"]["pose_path"] = os.path.join(seq, "poses.txt")
+    prof["setting"]["output_root"] = os.path.join(ROOT, "build", "egen", "out")
+    prof.setdefault(_section_of("geo_mlp_level"), {})["geo_mlp_level"] = 2
+    os.makedirs(os.path.join(ROOT, "build", "egen"), exist_ok=True)
+    yml = os.path.join(ROOT, "build", "egen", "run_replica_deep.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(prof, f)
+
+    got, infos, calls, rerun = {}, [], [], {}
+    orig_proc, orig_loop = SlamSystem.process_frame, mp.mapping_loop_autograd
+
+    def proc(self, frame):
+        got["system"] = self
+        cap.store = self.frame_id == EGEN_FRAMES - 1
+        try:
+            infos.append(orig_proc(self, frame))
+            return infos[-1]
+        finally:
+            cap.store = False
+
+    def loop(*a, **kw):
+        system = got["system"]
+        snap = "snap" not in rerun and system.frame_id == E_RERUN_FRAME
+        if snap:
+            rerun["snap"] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_loop(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "iters": int(out[4].shape[0]),
+                      "finite": bool(torch.isfinite(out[4]).all())})
+        if snap:
+            color = kw["color"]
+            rerun["out"] = ([out[1].clone()] + [p.clone() for p in out[2].leaves()]
+                            + [color.features.clone()] + [p.clone() for p in color.params])
+        return out
+
+    cap.path = "Egen"
+    cap.plain_rank_calls = 0
+    _cuda.reset_counts()
+    SlamSystem.process_frame, mp.mapping_loop_autograd = proc, loop
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([yml, "--frames", str(EGEN_FRAMES)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        SlamSystem.process_frame, mp.mapping_loop_autograd = orig_proc, orig_loop
+        cap.path = None
+    counts = dict(_cuda.COUNTS)
+    system = got.get("system")
+    if rc != 0 or system is None:
+        fail(f"Egen: the CLI returned {rc}")
+    repeat_ok = None
+    if "snap" in rerun:
+        a, kw = rerun["snap"]
+        out = orig_loop(*a, **kw)
+        color = kw["color"]
+        again = ([out[1]] + list(out[2].leaves()) + [color.features] + list(color.params))
+        repeat_ok = all(_bits_equal(x, y) for x, y in zip(again, rerun["out"]))
+        del a, kw, out, again, rerun["snap"]
+    ds, mc = system.dataset, system.mc
+    est = np.stack(ds.odom_poses)
+    err = np.linalg.norm(est[:, :3, 3] - ds.gt_poses[:len(est), :3, 3], axis=1)
+    count = int(system.state.count)
+    pts = system.state.positions[:count]
+    errs, n_full = [], 0
+    with torch.no_grad():
+        for s in range(0, count, 1 << 16):
+            p = pts[s:s + (1 << 16)]
+            knn = npts.knn_search(system.lm, mc, p, system.offsets)
+            _, col, w, _ = npts.interpolate_features(system.lm, mc, p, knn.lidx,
+                                                     query_color=True)
+            pred = blended_head(regress_color, system.color_decoder, col, w, mc.weighted_first)
+            full = knn.nn_count >= 6
+            target = torch.as_tensor(syn.world_color(p.cpu().numpy()), device=p.device)
+            errs.append(torch.abs(pred - target)[full].sum(0).cpu().numpy())
+            n_full += int(full.sum())
+    color_mae = float(np.sum(errs) / max(3 * n_full, 1))
+    iters = sum(c["iters"] for c in calls)
+    tally = {f"{k}-{x}": cap.tally.get(("Egen", k, x), 0)
+             for k, xs in (("gather", ("pool", "label", "feat", "color")),
+                           ("scatter", ("main", "color"))) for x in xs}
+    res = {"phase": "Egen", "profile": PATH_E["profile"], "argv": [os.path.relpath(yml, ROOT),
+                                                                  "--frames", str(EGEN_FRAMES)],
+           "geo_mlp_level": system.config.geo_mlp_level, "kernel_path": system.kernel_path,
+           "color_on": system.config.color_on, "rc": rc, "run_s": run_s, "frames": len(infos),
+           "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+           "max_pose_err_m": float(err.max()), "map_points_full_nbhd": n_full,
+           "color_mae": color_mae, "train_calls": len(calls), "train_iters": iters,
+           "train_ms_per_iter": float(sum(c["ms"] for c in calls) / max(iters, 1)),
+           "train_rerun_bit_identical": repeat_ok, "row_tallies": tally, "launches": counts}
+    emit(res)
+    if system.kernel_path or system.color_decoder is None or not calls:
+        fail("Egen: the colour head did not train in the autograd loop")
+    if len(infos) != EGEN_FRAMES or not all(res["reg_valid"]) \
+            or not res["max_pose_err_m"] < E_GATE_POS_M:
+        fail(f"Egen: registration {res['reg_valid']}, pose error {res['max_pose_err_m']:.3f} m")
+    if not color_mae < E_GATE_COLOR or n_full == 0:
+        fail(f"Egen: colours regressed at {n_full} map points {color_mae:.3f} from the field")
+    if counts["train_iter"] or counts["eikonal"]:
+        fail(f"Egen: training kernels launched ({counts['train_iter']}, {counts['eikonal']})")
+    if not all(c["finite"] for c in calls):
+        fail("Egen: a non-finite training loss")
+    if any(tally[k] != iters for k in ("gather-feat", "gather-color", "scatter-main",
+                                       "scatter-color")) \
+            or tally["gather-label"] != len(calls):
+        fail(f"Egen: row-kernel launches {tally} for {iters} iterations in {len(calls)} calls")
+    if not repeat_ok:
+        fail(f"Egen: frame {E_RERUN_FRAME}'s training call rerun from its inputs differs")
+    del system, got
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3049,9 +3829,13 @@ def main() -> int:
         results["E"] = run_path_e(cap)
         results["F"] = run_path_f(cap)
         results["G"] = run_path_g(cap)
+        results["I"] = run_path_i(cap)
         exact = {name: exact_phase(name, cap) for name in EXACT_PHASES}
+        egen_phase(cap)
+        _, live_npz = live_c_phase(cap)
     finally:
         cap.uninstall()
+    vis_pin_map_phase(live_npz)
     cli_kitti_phase()
     train_general_phase()
 
@@ -3106,6 +3890,17 @@ def main() -> int:
             rows.append(scatter_phase(f"{name}{suffix}", n_rows, idx, val, kw.get("plan"),
                                       kw.get("skip_row"), cap.tally[(name, "scatter", kind)],
                                       frame_idx if kind == "main" else None))
+    # Egen: the autograd loop's feature and colour rows (gather forward,
+    # in-order scatter backward), once an iteration each
+    for kind in ("feat", "color"):
+        a, kw = cap.inputs[("Egen", "gather", kind)]
+        rows.append(gather_phase(f"Egen-{kind}", a, kw, cap.tally[("Egen", "gather", kind)]))
+    (frame_idx, _), _ = cap.inputs[("Egen", "plans", "frame")]
+    for kind, suffix in (("main", ""), ("color", "-color")):
+        (n_rows, idx, val), kw = cap.inputs[("Egen", "scatter", kind)]
+        rows.append(scatter_phase(f"Egen{suffix}", n_rows, idx, val, kw.get("plan"),
+                                  kw.get("skip_row"), cap.tally[("Egen", "scatter", kind)],
+                                  frame_idx))
     # bundle adjustment's shapes on path D: the feature gather (forward) and
     # the in-order scatter of its gradient (backward), one each an iteration
     a, kw = cap.inputs[("D", "gather", "ba")]

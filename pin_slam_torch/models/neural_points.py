@@ -731,6 +731,25 @@ def finalize_map(state: MapState, mc: MapConfig, travel_dist: torch.Tensor, cur_
                     hash_table=hash_table, color_features=color_features)
 
 
+def prune_map(state: MapState, mc: MapConfig, travel_dist: torch.Tensor, cur_ts: int,
+              prune_certainty_thre: float) -> MapState:
+    """Deactivate the inactive low-certainty points (travelled past the
+    window since their last update, certainty under the threshold) by
+    tombstoning: their positions move to the sentinel position, where no
+    query reaches them, and their rows are not reclaimed.  Returns a new
+    state; ``state`` is not modified.  (No caller: neither package wires
+    ``prune_map_on``.)"""
+    cap = mc.capacity
+    active = torch.arange(cap + 1, device=state.attr_rows.device) < state.count
+    diff_travel = torch.abs(travel_dist[int(cur_ts)] - state.attr_rows[:, C_TRU])
+    prune = active & (diff_travel > mc.travel_dist_window) \
+        & (state.attr_rows[:, C_CERT] < prune_certainty_thre)
+    attr = state.attr_rows.clone()
+    attr[:, C_POS] = torch.where(prune[:, None], torch.full_like(attr[:, C_POS], _SENTINEL_POS),
+                                 attr[:, C_POS])
+    return dataclasses.replace(state, attr_rows=attr)
+
+
 # ----------------------------------------------------------------------
 # states carried across from the JAX package (numpy arrays in)
 # ----------------------------------------------------------------------

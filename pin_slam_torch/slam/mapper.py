@@ -614,14 +614,16 @@ class _Batches:
     wst2: Optional[torch.Tensor] = None
     vst: Optional[torch.Tensor] = None
 
-    def step(self, t: int, wf: bool, sem_lab: Optional[torch.Tensor] = None) -> "_Step":
+    def step(self, t: int, wf: bool, sem_lab: Optional[torch.Tensor] = None,
+             col_lab: Optional[torch.Tensor] = None) -> "_Step":
         """Iteration t's inputs to ``autograd_loss_and_grads``."""
         B, k = self.safe_g.shape[1], self.safe_g.shape[2]
         n = self.n_grad
         st = _Step(gidx=self.safe_g[t], w=self.w[t],
                    vin=self.vin[t] if wf else self.vin[t].reshape(B, k, -1),
                    labels=self.labels[t], weights=self.weights[t], in_pool=self.in_pool[t],
-                   sem_lab=None if sem_lab is None else sem_lab[t])
+                   sem_lab=None if sem_lab is None else sem_lab[t],
+                   col_lab=None if col_lab is None else col_lab[t])
         if n:
             st.wst = self.wst2[t].reshape(6, n, k)
             st.vst = self.vst[t].reshape(6, n, -1) if wf else self.vst[t].reshape(6, n, k, -1)
@@ -960,7 +962,7 @@ def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, st: _Step,
 def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
                           heads: Heads, opt: AdamState, pool: PoolState, mcfg: MapperConfig,
                           batch_idx: torch.Tensor, decoder_lr_scale: float,
-                          after_pgo: bool = False):
+                          after_pgo: bool = False, color: Optional[ColorState] = None):
     """The per-frame training loop for the configurations the training
     kernels do not cover (``kernel_path_supported``): the same pool-cached
     batches, certainty channel and Adam as ``mapping_loop_cached``, with the
@@ -974,21 +976,30 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
     Adam step covers the features and every decoder leaf; feats[L] is
     zeroed after each step.  With a semantic head (``heads.sem`` and
     ``pool.sem_label``) the classes of the sampled rows are read once a
-    call.  Returns (lm with updated certainty / ts bookkeeping, feats,
-    heads, opt, loss history (T,))."""
+    call.  With ``color`` (and ``pool.color_label``) the colour labels of
+    the sampled rows are read once a call (the gather kernel), the colour
+    rows go through ``GatherRowsFn`` as the feature rows do (their gradient
+    through the in-order scatter on the same plans), and the colour leaves
+    take their own Adam step with the colour decoder's gradient scaled by
+    ``decoder_lr_scale``: the JAX package's one Adam step over the whole
+    tree, element by element the same; ``color`` is updated in place.
+    Returns (lm with updated certainty / ts bookkeeping, feats, heads, opt,
+    loss history (T,))."""
     T, B = batch_idx.shape
     L = mc.local_capacity
     F = feats.shape[1] - 1
     bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
     sem_lab = (pool.sem_label[bt.flat_idx].reshape(T, B)
                if heads.sem is not None and pool.sem_label is not None else None)
+    col_lab = (rowk.gather_rows(pool.color_label, bt.flat_idx).reshape(T, B, -1)
+               if color is not None else None)
     plans = rowk.scatter_plans(bt.safe_g.reshape(T, -1), L + 1)
     cert_acc = torch.zeros((L + 1,), dtype=torch.float32, device=feats.device)
     hist = []
     for t in range(T):
-        loss, gf, gh, _ = autograd_loss_and_grads(feats, heads,
-                                                  bt.step(t, mcfg.weighted_first, sem_lab),
-                                                  mcfg, rowk.plan_at(plans, t))
+        loss, gf, gh, gc = autograd_loss_and_grads(
+            feats, heads, bt.step(t, mcfg.weighted_first, sem_lab, col_lab), mcfg,
+            rowk.plan_at(plans, t), color=color)
         cert_acc = cert_acc + gf[:, F]
         gf[:, F] = 0.0
         new, opt = adam_step(mcfg, [feats] + heads.leaves(),
@@ -996,6 +1007,11 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
         feats = new[0]
         feats[L] = 0.0
         heads = heads.with_leaves(new[1:])
+        if color is not None:
+            newc, color.opt = adam_step(mcfg, color.leaves(),
+                                        [gc[0]] + [decoder_lr_scale * g for g in gc[1:]],
+                                        color.opt)
+            color.features, color.params = newc[0], newc[1:]
         hist.append(loss)
     return _fold_certainty(lm, cert_acc, bt.ts_proxy), feats, heads, opt, torch.stack(hist)
 

@@ -52,8 +52,16 @@ and the decoders widen with them, and the tracker takes its autograd path.
 The pool rows hold ``query_nn_k`` neighbours.  Under
 ``PIN_SLAM_EXACT_KNN=1`` every training call runs the uncached
 ``mapper.mapping_loop`` (a fresh kNN per batch, every head by autograd),
-which also trains ``layer_norm_on`` and the colour head beside the
-semantic head; the cached loop refuses those.
+which also trains ``layer_norm_on``; the cached loop refuses it.  The
+colour head beside the semantic head, or beside an SDF decoder outside the
+kernels, trains in the cached autograd loop.
+
+With ``o3d_vis_on`` (or a ``mesh_now`` request) the run writes in-run
+artifacts under ``<run>/vis`` (local-map meshes and SDF slices at their
+cadences) and refreshes a live ``viewer.html``; before every frame it reads
+its control file ``<run>/control.json`` (pause, step, mesh now, pause at
+the next loop closure, the in-run mesher's resolution), which
+``utils/viewer_server.py`` writes from the viewer's buttons.
 
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
@@ -64,7 +72,8 @@ JAX package's draws.
 At the end of a run (``run`` -> ``save_artifacts``) the map is finalised
 (merged and pruned) and, as the configuration asks, saved (``pin_map.npz``,
 ``neural_points.ply``), the merged point cloud written, and the whole map
-meshed chunk by chunk on the device (``mesh/mesh.ply``).
+meshed chunk by chunk on the device (``mesh/mesh.ply``); a self-contained
+``viewer.html`` is written last.
 
 Options this slice does not port raise ``NotImplementedError`` pointing at
 ROADMAP.md; none is ignored silently.
@@ -72,7 +81,9 @@ ROADMAP.md; none is ignored silently.
 
 from __future__ import annotations
 
+import json
 import os
+import re
 import time
 from typing import Optional
 
@@ -94,9 +105,10 @@ from pin_slam_torch.slam import mapper as mp
 from pin_slam_torch.slam import pgo as pgo_mod
 from pin_slam_torch.slam import tracker as trk
 from pin_slam_torch.slam.mesher import Mesher, MesherConfig, split_chunks
-from pin_slam_torch.utils import wandb_log
+from pin_slam_torch.utils import sensor_cad, wandb_log
 from pin_slam_torch.utils.experiment import save_implicit_map
 from pin_slam_torch.utils.platform import not_ported, resolve_device
+from pin_slam_torch.utils.viewer_html import export_html
 
 TS_CAPACITY = 1 << 16
 
@@ -114,17 +126,10 @@ def check_ported(cfg) -> None:
         ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
          cfg.dp_devices > 1),
         ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
-        ("o3d_vis_on (in-run mesh/SDF artifacts, ROADMAP A 11)", cfg.o3d_vis_on),
         # the JAX package's cached loop trains raw features while its
         # queries normalise them; only its uncached loop trains what they read
         ("layer_norm_on on the cached training path (ROADMAP C 14; trained under "
          "PIN_SLAM_EXACT_KNN=1)", cfg.layer_norm_on and not exact),
-        # the uncached loop trains every head by autograd
-        ("the colour head with the semantic head or an SDF decoder outside the training "
-         "kernels on the cached path (ROADMAP A 11 item 4; trained under "
-         "PIN_SLAM_EXACT_KNN=1)",
-         not exact and cfg.color_on
-         and (cfg.semantic_on or cfg.geo_mlp_level != 1 or not cfg.mlp_bias_on)),
         # knobs the JAX package measured and rejected (PERF_TPU.md); kept
         # there at their defaults, not carried into the port
         ("fresh_freespace_damp < 1.0", cfg.fresh_freespace_damp < 1.0),
@@ -261,6 +266,15 @@ class SlamSystem:
         #                                loop verification
         self.last_reg_cov = None
 
+        # the in-run artifacts and the control channel (control.json)
+        self._mesh_now = False         # a mesh + viewer refresh at the next frame
+        self._pause_at_loop = False    # pause right after a loop closure is applied
+        self._mc_overrides = {}        # live mc_res_m / mesh_min_nn of the in-run mesher
+        self._vis_mesher = None
+        self._sensor_glyph = None
+        self._mesh_cache = (None, None, None)   # the last mesh (vertices, faces, colours)
+        self._warned_keys = set()
+
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.sync_stages and self.device.type == "cuda":
@@ -396,7 +410,7 @@ class SlamSystem:
         else:
             lm2, feats, gvec, opt, hist = mp.mapping_loop_autograd(
                 lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
-                self.after_pgo)
+                self.after_pgo, color=color)
         lm2.geo_features = feats[:, :self.mc.feature_dim]
         if color is not None:
             lm2.color_features = color.features
@@ -420,6 +434,7 @@ class SlamSystem:
     def process_frame(self, frame: Frame) -> dict:
         cfg, dev = self.config, self.device
         info = {}
+        self._poll_control()
         with torch.no_grad():
             t0 = time.perf_counter()
             points = torch.as_tensor(frame.points, dtype=torch.float32, device=dev)
@@ -608,10 +623,198 @@ class SlamSystem:
                       step=self.frame_id)
         if self.pgm is not None:
             info["pgo_s"] = pgo_pre + pgo_post
+        if cfg.o3d_vis_on or self._mesh_now:
+            # mesh_now (control.json) overrides the gate: an explicit request
+            # for a mesh and a viewer refresh mid-run
+            self._periodic_artifacts(info)
         # kept on the device (no host sync a frame); read once at save time
         self.map_counts.append(self.state.count)
         self.frame_id += 1
         return info
+
+    # ------------------------------------------------------------------
+    def _run_path(self) -> str:
+        cfg = self.config
+        return cfg.run_path or os.path.join(cfg.output_root, cfg.name or "run")
+
+    def _periodic_artifacts(self, info: dict) -> None:
+        """In-run artifacts under ``<run>/vis`` (the reference's visualizer
+        refreshes, pin_slam.py:272-341): a mesh of the local map every
+        ``mesh_freq_frame`` frames, right after a loop closure's map
+        deformation and on ``mesh_now``, with the live ``viewer.html`` /
+        ``viewer_data.js`` refreshed beside it (trajectory, sensor glyph at
+        the current pose, the local map's points, a strided sample of at
+        most 40 k pool rows, the status line); an SDF slice at
+        ``sdf_slice_height`` above the sensor every ``sdfslice_freq_frame``
+        frames.  Runs after the frame's stage times are taken; the
+        milliseconds of each part go into ``info["vis_ms"]``.  A failed
+        viewer export warns once and never stops the run."""
+        cfg = self.config
+        fid = self.frame_id
+        run_path = self._run_path()
+        vis_dir = os.path.join(run_path, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        if self._vis_mesher is None:
+            over = self._mc_overrides
+            self._vis_mesher = Mesher(MesherConfig(
+                mc_res_m=float(over.get("mc_res_m", cfg.mc_res_m)),
+                mesh_min_nn=int(over.get("mesh_min_nn", cfg.mesh_min_nn)),
+                min_cluster_vertices=cfg.min_cluster_vertices,
+                query_bucket=cfg.mesh_query_bucket), self.mc, self.offsets)
+
+        mesh_due = ((fid > 0 and cfg.mesh_freq_frame > 0 and fid % cfg.mesh_freq_frame == 0)
+                    or info.get("pgo_applied") or self._mesh_now)
+        slice_due = cfg.sdfslice_freq_frame > 0 and fid % cfg.sdfslice_freq_frame == 0
+        self._mesh_now = False
+        if not (mesh_due or slice_due):
+            return
+        count = int(self.lm.count)
+        if count == 0:
+            return
+        ms = info.setdefault("vis_ms", {})
+        origin = self.cur_pose[:3, 3]
+        if mesh_due:
+            t0 = time.perf_counter()
+            pts = self.lm.positions[:count].cpu().numpy()
+            rad = cfg.max_range
+            amin = np.maximum(pts.min(axis=0), origin - rad) - 0.5
+            amax = np.minimum(pts.max(axis=0), origin + rad) + 0.5
+            out = self._vis_mesher.recon_aabb_mesh(
+                self.lm, self.decoder, self.sdf_scale, amin, amax,
+                color_decoder=self.color_decoder, sem_decoder=self.sem_decoder)
+            v, f = out[:2]
+            c = out[2] if len(out) == 4 else None
+            if v.shape[0]:
+                pio.write_ply(os.path.join(vis_dir, f"mesh_{fid:05d}.ply"), v, colors=c,
+                              normals=vertex_normals(v, f), faces=f)
+                self._mesh_cache = (v, f, c)
+            ms["mesh"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            try:
+                self._export_live_viewer(run_path, fid, pts, v, f, c)
+            except Exception as e:
+                self._warn_once("viewer", f"live viewer export failed: {e!r}")
+            ms["viewer"] = (time.perf_counter() - t0) * 1e3
+        if slice_due:
+            t0 = time.perf_counter()
+            height = origin[2] + cfg.sdf_slice_height
+            pts_sl, sdf_sl = self._vis_mesher.sdf_slice(self.lm, self.decoder, self.sdf_scale,
+                                                        origin, cfg.max_range, height)
+            if pts_sl.shape[0]:
+                pio.write_ply(os.path.join(vis_dir, f"sdf_slice_{fid:05d}.ply"), pts_sl,
+                              extra={"sdf": sdf_sl})
+            ms["sdf_slice"] = (time.perf_counter() - t0) * 1e3
+
+    def _export_live_viewer(self, run_path, fid, pts, v, f, c) -> None:
+        """The live viewer's refresh: one narrow copy of a strided pool
+        sample (world coordinates, label, frame id) to the host."""
+        cfg = self.config
+        poses = self.dataset.pgo_poses if cfg.pgo_on else self.dataset.odom_poses
+        traj = (np.stack([p[:3, 3] for p in poses]).astype(np.float32) if len(poses)
+                else None)
+        n_loops = (len([e for e in self.pgm.edges if abs(e.j - e.i) > 1])
+                   if self.pgm is not None else 0)
+        if self._sensor_glyph is None:
+            name = os.path.splitext(os.path.basename(cfg.sensor_cad_path or ""))[0] or "lidar"
+            self._sensor_glyph = sensor_cad.glyph(name)
+        gv, gf = self._sensor_glyph
+        gv_w = (gv @ self.cur_pose[:3, :3].T + self.cur_pose[:3, 3]).astype(np.float32)
+        stride = max(1, int(self.pool.rows.shape[0]) // 40000)
+        pool_rows = self.pool.rows[::stride, :6].cpu().numpy()
+        pool_ok = pool_rows[:, mp.P_TS] >= 0.0
+        export_html(os.path.join(run_path, "viewer.html"), neural_points=pts,
+                    mesh_verts=v if v.shape[0] else None,
+                    mesh_faces=f if v.shape[0] else None, mesh_colors=c, trajectory=traj,
+                    sensor_verts=gv_w, sensor_faces=gf,
+                    pool_points=pool_rows[pool_ok][:, mp.P_COORD],
+                    pool_labels=pool_rows[pool_ok][:, mp.P_LABEL], live=True,
+                    meta={"frame": fid, "rev": fid, "map_points": int(self.state.count),
+                          "loops": n_loops, "paused": False,
+                          "sensor": [float(x) for x in self.cur_pose[:3, 3]]})
+
+    # ------------------------------------------------------------------
+    # the control channel: <run>/control.json, written by hand, by
+    # utils/viewer_server.py (POST /control) or by the pause-at-loop hook
+    def _control_path(self) -> str:
+        return os.path.join(self._run_path(), "control.json")
+
+    def _read_control(self) -> dict:
+        try:
+            with open(self._control_path()) as f:
+                return json.load(f) or {}
+        except (OSError, ValueError):
+            return {}
+
+    def _write_control(self, state: dict) -> None:
+        path = self._control_path()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, path)
+
+    def _poll_control(self) -> None:
+        """Read ``control.json`` before a frame (the reference visualizer's
+        pause / step keys, utils/visualizer.py:211-242, 344-346): ``mesh_now``
+        (consumed), ``pause_at_loop`` (latched for the loop-closure hook),
+        ``mc_res_m`` / ``mesh_min_nn`` (the in-run mesher is rebuilt with
+        them when they change), and ``pause``, which holds the run until it
+        is cleared or ``step`` lets frames through one at a time."""
+        ctl = self._read_control()
+        if not ctl:
+            return
+        if ctl.pop("mesh_now", False):
+            self._mesh_now = True
+            self._write_control(ctl)
+        self._pause_at_loop = bool(ctl.get("pause_at_loop", False))
+        mc_over = {k: ctl[k] for k in ("mc_res_m", "mesh_min_nn") if k in ctl}
+        if mc_over and mc_over != self._mc_overrides:
+            self._mc_overrides = mc_over
+            self._vis_mesher = None          # rebuilt with the new parameters
+            print(f"[pipeline] live mesher retune: {mc_over}", flush=True)
+        waited = False
+        while ctl.get("pause"):
+            if int(ctl.get("step", 0) or 0) > 0:
+                ctl["step"] = int(ctl["step"]) - 1
+                self._write_control(ctl)     # one stepped frame consumed
+                break
+            if not waited:
+                print(f"[pipeline] paused at frame {self.frame_id} "
+                      f"(control.json; set pause=false or step=N)", flush=True)
+                self._refresh_viewer_meta(paused=True)
+                waited = True
+            time.sleep(0.25)
+            ctl = self._read_control()
+        if waited:
+            self._refresh_viewer_meta(paused=False)
+
+    def _refresh_viewer_meta(self, paused: bool) -> None:
+        """Rewrite only the live viewer's status line (``paused``, and a new
+        ``rev`` so an open page redraws), keeping the layers."""
+        sidecar = os.path.join(os.path.dirname(self._control_path()), "viewer_data.js")
+        if not os.path.exists(sidecar):
+            return
+        try:
+            with open(sidecar) as f:
+                txt = f.read()
+            m = re.search(r"(.*window\.__PIN_DATA\(.*, )(\{[^{}]*\})(\);)\s*$", txt, re.S)
+            if not m:
+                return
+            meta = json.loads(m.group(2))
+            meta["paused"] = paused
+            meta["rev"] = str(meta.get("rev", "")) + ("p" if paused else "r")
+            with open(sidecar + ".tmp", "w") as f:
+                f.write(m.group(1) + json.dumps(meta) + m.group(3))
+            os.replace(sidecar + ".tmp", sidecar)
+        except Exception as e:
+            self._warn_once("viewer_meta", f"viewer meta refresh failed: {e!r}")
+
+    def _warn_once(self, key: str, msg: str) -> None:
+        """Print a warning at most once a run per key, where an optional
+        artifact catches broadly so that it never stops a run."""
+        if key not in self._warned_keys:
+            self._warned_keys.add(key)
+            print(f"[pipeline] WARNING: {msg}", flush=True)
 
     # ------------------------------------------------------------------
     def _pgo_bookkeeping(self, fid: int) -> None:
@@ -735,6 +938,14 @@ class SlamSystem:
         self.after_pgo = True
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
+        # pause-at-loop (ref utils/visualizer.py:344-346): hold the run right
+        # after the closure so that the deformed map can be inspected
+        if self._pause_at_loop:
+            ctl = self._read_control()
+            ctl["pause"] = True
+            self._write_control(ctl)
+            print(f"[pipeline] loop closure applied at frame {fid}; pausing "
+                  f"(control.json pause_at_loop)", flush=True)
 
     def _bundle_adjustment(self) -> Optional[dict]:
         """Refine the last ``ba_frame`` poses (frame 0 stays fixed) and the
@@ -832,8 +1043,19 @@ class SlamSystem:
                 pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
                               colors=self.mesh_colors, normals=vertex_normals(verts, faces),
                               faces=faces)
-        if not cfg.silence:
-            print(f"[pipeline] {not_ported('viewer.html export (ROADMAP A 11)')}", flush=True)
+                self._mesh_cache = (verts, faces, self.mesh_colors)
+        # the self-contained viewer: the map's points, the last mesh (the
+        # whole map's, else the last in-run one), the trajectory
+        try:
+            poses = self.dataset.pgo_poses if cfg.pgo_on else self.dataset.odom_poses
+            traj = (np.stack([p[:3, 3] for p in poses]).astype(np.float32) if len(poses)
+                    else None)
+            mv, mf, mcol = self._mesh_cache
+            export_html(os.path.join(run_path, "viewer.html"), neural_points=pts,
+                        mesh_verts=mv, mesh_faces=mf, mesh_colors=mcol, trajectory=traj)
+        except Exception as e:   # the viewer is an artifact, never a crash
+            if not cfg.silence:
+                print(f"[pipeline] viewer export failed: {e}")
         return mesh
 
     def mesh_map(self, pts: np.ndarray):
@@ -899,7 +1121,7 @@ class SlamSystem:
             infos.append(self.process_frame(self.dataset.preprocess_frame(i)))
             if not cfg.silence:
                 print(f"frame {i}: {infos[-1]}", flush=True)
-        run_path = cfg.run_path or os.path.join(cfg.output_root, cfg.name or "run")
+        run_path = self._run_path()
         self.metrics = self.dataset.write_results(run_path)
         self.save_artifacts(run_path)
         if self.metrics:

@@ -358,7 +358,7 @@ def _listing(root):
 def test_run_writes_every_artifact(tmp_path):
     """A short run with save_map, save_mesh and save_merged_pc writes the
     files the JAX package's run() writes on the same sequence and
-    configuration, but its viewer.html: a non-empty mesh with normals, a
+    configuration, viewer.html included: a non-empty mesh with normals, a
     saved map that reloads to the finalised state, and the map's size per
     frame."""
     from pin_slam_torch.config import Config
@@ -372,8 +372,9 @@ def test_run_writes_every_artifact(tmp_path):
     jsystem = JSlamSystem(_run_config(JConfig, root, jrun))
     jsystem.tc = dataclasses.replace(jsystem.tc, min_valid_ratio=0.1)
     jsystem.run()
-    expected = _listing(jrun) - {"viewer.html"}
-    assert {"map/pin_map.npz", "mesh/mesh.ply", "memory_footprint.npy"} <= expected
+    expected = _listing(jrun)
+    assert {"map/pin_map.npz", "mesh/mesh.ply", "memory_footprint.npy",
+            "viewer.html"} <= expected
 
     run_path = str(tmp_path / "run")
     system = SlamSystem(_run_config(Config, root, run_path), device="cpu")
@@ -416,7 +417,7 @@ def test_load_implicit_map_on_the_gpu_unless_asked(saved_maps, monkeypatch):
 
 @pytest.mark.parametrize("option, value, label", [
     ("dp_devices", 2, "ROADMAP A 12"), ("map_shards", 2, "ROADMAP A 12"),
-    ("layer_norm_on", True, "ROADMAP C 14"), ("o3d_vis_on", True, "ROADMAP A 11")])
+    ("layer_norm_on", True, "ROADMAP C 14"), ("fresh_freespace_damp", 0.5, "ROADMAP")])
 def test_still_refused_options_name_their_roadmap_item(option, value, label, tmp_path):
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem

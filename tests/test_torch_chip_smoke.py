@@ -593,3 +593,148 @@ def test_capture_tallies_the_autograd_loop_rows():
         cap.uninstall()
     assert cap.tally == {("F", "gather", "pool"): 1, ("F", "gather", "feat"): 3,
                          ("F", "scatter", "main"): 3, ("F", "plans", "frame"): 1}
+
+
+def test_capture_tallies_the_colour_rows_of_the_autograd_loop():
+    """Egen's rows: with the colour head the autograd loop adds the colour
+    labels' gather once a call (3 columns), the colour rows' gather (8) and
+    their gradient's scatter once an iteration, told apart from the feature
+    rows (9)."""
+    import numpy as np
+
+    from pin_slam_torch.config import Config
+    from pin_slam_torch.models import neural_points as tn
+    from pin_slam_torch.models.decoder import Decoder
+    from pin_slam_torch.slam import mapper as tm
+    from torch_port_util import small_config
+
+    cfg = small_config(Config, color_on=True, color_channel=3, geo_mlp_level=2, bs=64,
+                       bs_new_sample=8, pool_capacity=1 << 10)
+    mc, mcfg = tn.MapConfig.from_config(cfg), tm.MapperConfig.from_config(cfg)
+    rng = np.random.default_rng(0)
+    st = tn.init_map_state(mc)
+    pts = torch.as_tensor(rng.uniform(-3, 3, (500, 3)).astype(np.float32))
+    travel = torch.zeros(64)
+    st = tn.map_insert(st, mc, pts, torch.ones(500, dtype=torch.bool), 0, travel,
+                       downsample_table_size=cfg.downsample_hash_size, insert_bucket=512)
+    lm = tn.build_local_map(st, mc, torch.zeros(3), 0, travel)
+    pool = tm.init_pool(mcfg, color_channel=3)
+    n = 140
+    gidx = torch.as_tensor(rng.integers(-1, int(st.count), (n, 6)).astype(np.int32))
+    pool = tm.pool_append(pool, mcfg, pts[:n], pts[:n], torch.zeros(n), torch.ones(n),
+                          torch.ones(n, dtype=torch.bool), 0, torch.ones(n, dtype=torch.bool),
+                          gidx, torch.full((n, 6), 1 / 6), torch.zeros(n, 3),
+                          color_label=torch.rand(n, 3))
+    g = torch.Generator().manual_seed(0)
+    heads = tm.init_heads(Decoder(11, 16, 2, 1, generator=g))
+    color = tm.init_color_state(torch.zeros(mc.local_capacity + 1, 8),
+                                Decoder(11, 16, 1, 3, generator=g))
+    feats = torch.zeros(mc.local_capacity + 1, 9)
+    idx = tm.sample_batch_indices(g, pool, mcfg, torch.tensor(True), 3)
+    cap = chip_smoke.Capture()
+    cap.install()
+    try:
+        cap.path = "Egen"
+        tm.mapping_loop_autograd(lm, mc, feats, heads, tm.init_opt_state(feats, heads), pool,
+                                 mcfg, idx, 1.0, color=color)
+    finally:
+        cap.uninstall()
+    assert cap.tally == {("Egen", "gather", "pool"): 1, ("Egen", "gather", "label"): 1,
+                         ("Egen", "gather", "feat"): 3, ("Egen", "gather", "color"): 3,
+                         ("Egen", "scatter", "main"): 3, ("Egen", "scatter", "color"): 3,
+                         ("Egen", "plans", "frame"): 1}
+
+
+def test_np_cloud_size_follows_the_ladder():
+    ladder = [11, 23, 37]
+    assert chip_smoke.np_cloud_size(0, ladder) == 0
+    assert chip_smoke.np_cloud_size(12, ladder) == 2                 # rows 0 and 11
+    assert chip_smoke.np_cloud_size(499_999, ladder) == 45455
+    assert chip_smoke.np_cloud_size(500_000, ladder) == 21740        # the second rung
+    assert chip_smoke.np_cloud_size(5_000_000, ladder) == 135136     # the last rung holds
+
+
+@pytest.fixture
+def ros_node(tmp_path, monkeypatch):
+    """The port's node on the CPU under chip_smoke's own fakes, two frames in."""
+    import numpy as np
+
+    from pin_slam_torch.config import Config
+
+    mods, rec = chip_smoke.ros_fakes()
+    for name, m in mods.items():
+        monkeypatch.setitem(sys.modules, name, m)
+    from pin_slam_torch.ros import PinSlamRosNode
+
+    cfg = Config()
+    cfg.min_range, cfg.max_range = 0.5, 20.0
+    cfg.bs, cfg.iters, cfg.init_iter_ratio, cfg.reg_iter_n = 1024, 3, 2, 20
+    cfg.map_capacity, cfg.local_map_capacity = 1 << 14, 1 << 12
+    cfg.buffer_size, cfg.frame_bucket, cfg.source_bucket = 1 << 16, 1 << 12, 1 << 10
+    cfg.downsample_hash_size, cfg.pool_capacity = 1 << 14, 1 << 15
+    cfg.silence = True
+    cfg._derive()
+    cfg.output_root = str(tmp_path)
+    node = PinSlamRosNode(cfg, cloud_topic="/points", device="cpu")
+    rng = np.random.default_rng(0)
+    counts = []
+    for f in range(2):
+        d = rng.normal(size=(4000, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        pts = (d * (5.0 / np.abs(d).max(1))[:, None] + [0.02 * f, 0, 0]).astype(np.float32)
+        rec.subscribers["/points"](mods["sensor_msgs.msg"].PointCloud2(pts))
+        counts.append(int(node.slam.system.state.count))
+    return node, rec, counts
+
+
+def test_ros_publish_check_accepts_the_node_and_fails_on_a_missing_message(ros_node):
+    node, rec, counts = ros_node
+    ladder = node.cfg.publish_np_map_down_rate_list
+    chip_smoke.ros_publish_check(rec.pubs, len(node.tf_broadcaster.sent), counts, ladder)
+    with pytest.raises(SystemExit, match="TF"):
+        chip_smoke.ros_publish_check(rec.pubs, 1, counts, ladder)
+    with pytest.raises(SystemExit, match="neural-point clouds"):
+        chip_smoke.ros_publish_check(rec.pubs, 2, [counts[0], counts[1] + 11], ladder)
+    rec.pubs["~odometry"].msgs.pop()
+    with pytest.raises(SystemExit, match="messages"):
+        chip_smoke.ros_publish_check(rec.pubs, 2, counts, ladder)
+
+
+def test_grid_share_tells_the_marching_spacing_apart():
+    """A sphere meshed at 0.25 m has about 0.8 of its vertices on a plane of
+    its grid and few on one of a 0.4 m grid (the two share every eighth
+    0.25 m plane), and the other way round: live_C's retune gate (> 0.6 on
+    the new grid, < 0.4 on the old)."""
+    import numpy as np
+
+    from pin_slam_torch.ops.marching_cubes import marching_tetrahedra
+
+    def sphere(res):
+        ax = np.arange(-12, 13) * res
+        g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1)
+        v, _ = marching_tetrahedra(np.linalg.norm(g, axis=-1) - 2.0, origin=(ax[0],) * 3,
+                                   spacing=res, use_native=False)
+        return v
+
+    v25, v40 = sphere(0.25), sphere(0.4)
+    assert len(v25) > 500
+    assert chip_smoke.grid_share(v25, 0.25) > 0.6 and chip_smoke.grid_share(v25, 0.4) < 0.4
+    assert chip_smoke.grid_share(v40, 0.4) > 0.6 and chip_smoke.grid_share(v40, 0.25) < 0.4
+    assert chip_smoke.grid_share(np.zeros((0, 3)), 0.25) == 0.0
+
+
+def test_mesh_stats_and_extent_ratio(tmp_path):
+    import numpy as np
+
+    from pin_slam_torch.dataset import io as pio
+
+    pts = np.array([[0, 0, 0], [10, 4, 1]], np.float32)
+    verts = np.array([[1, 0, 0], [9, 4, 0], [5, 2, 2]], np.float32)
+    assert chip_smoke.xy_extent_ratio(verts, pts) == pytest.approx(0.8)
+    path = str(tmp_path / "m.ply")
+    assert chip_smoke.mesh_file_stats(path) == (0, False)
+    pio.write_ply(path, verts, faces=np.array([[0, 1, 2]], np.int64))
+    assert chip_smoke.mesh_file_stats(path) == (3, True)
+    pio.write_ply(path, np.array([[0, 0, np.nan]] * 3, np.float32),
+                  faces=np.array([[0, 1, 2]], np.int64))
+    assert chip_smoke.mesh_file_stats(path) == (3, False)

@@ -74,8 +74,7 @@ def test_cli_writes_the_jax_cli_file_set(tmp_path, monkeypatch):
         (run,) = glob.glob(os.path.join(out, "*"))
         runs[name] = run
     ft, fj = _files(runs["torch"]), _files(runs["jax"])
-    # the JAX package alone writes the viewer export (ROADMAP A 11)
-    assert ft == [f for f in fj if f != "viewer.html"], (ft, fj)
+    assert ft == fj and "viewer.html" in ft, (ft, fj)
     for f in ("summary.json", "meta/run.json", "pose_eval.csv", "map/pin_map.npz"):
         assert f in ft
     st, sj = (json.load(open(os.path.join(runs[k], "summary.json"))) for k in ("torch", "jax"))

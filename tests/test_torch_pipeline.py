@@ -163,21 +163,28 @@ def _import_names(tree):
 
 def test_port_imports_no_jax():
     """pin_slam_torch/ and chip_smoke.py import neither JAX, nor anything of
-    the JAX package, nor bench.py (source scan + a clean interpreter)."""
+    the JAX package, nor bench.py, nor the JAX package's entry points
+    pin_slam_ros.py and vis_pin_map.py (source scan + a clean interpreter;
+    the port's own ros and vis_pin_map modules are among those scanned)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "pin_slam_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    assert {os.path.join(ROOT, "pin_slam_torch", f) for f in (
+        "ros.py", "vis_pin_map.py", "utils/viewer_html.py", "utils/viewer_server.py",
+        "utils/sensor_cad.py")} <= set(files)
+    banned = ("jax", "jaxlib", "pin_slam_tpu", "bench", "optax", "pin_slam_ros", "vis_pin_map")
     for f in files:
         with open(f) as fh:
             for name in _import_names(ast.parse(fh.read())):
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "pin_slam_tpu", "bench", "optax"), (f, name)
+                assert top not in banned, (f, name)
     code = ("import sys, importlib, pkgutil, pin_slam_torch\n"
             "for m in pkgutil.walk_packages(pin_slam_torch.__path__, 'pin_slam_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pin_slam_tpu', 'bench')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pin_slam_tpu', 'bench',\n"
+            "                                                 'pin_slam_ros', 'vis_pin_map')]\n"
             "assert not bad, bad\nprint('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT})
@@ -200,7 +207,7 @@ def test_entry_point_refuses_silent_cpu_fallback(monkeypatch):
 
 @pytest.mark.parametrize("option, value", [
     ("fresh_freespace_damp", 0.5), ("probe_dedup_near_budget", 0.25),
-    ("layer_norm_on", True), ("o3d_vis_on", True)])
+    ("layer_norm_on", True), ("dp_devices", 2)])
 def test_unported_option_raises(option, value):
     """Options outside this slice (and knobs the JAX package measured and
     rejected) raise instead of being ignored."""

@@ -511,10 +511,10 @@ def test_semantic_profile_options_are_ported(corridor, monkeypatch):
     """check_ported takes the semantic profile's options (semantic_on,
     filter_moving_object, dynamic_filter_on, estimate_normal) and the SDF
     decoders outside the kernels (geo_mlp_level 2, mlp_bias_on False),
-    which train by autograd, positional encoding and query_nn_k != 6; on the
-    cached training path it still refuses layer-norm (ROADMAP C 14) and the
-    colour head beside the semantic head (A 11 item 4), which
-    PIN_SLAM_EXACT_KNN=1 (the uncached loop) trains."""
+    which train by autograd, positional encoding, query_nn_k != 6 and the
+    colour head beside the semantic head (the autograd loop trains it); on
+    the cached training path it still refuses layer-norm (ROADMAP C 14),
+    which PIN_SLAM_EXACT_KNN=1 (the uncached loop) trains."""
     from pin_slam_torch.slam.pipeline import SlamSystem
 
     seq = corridor["seq"]
@@ -526,10 +526,11 @@ def test_semantic_profile_options_are_ported(corridor, monkeypatch):
         s2 = SlamSystem(_system_config(TConfig, seq, **over), device="cpu")
         assert not s2.kernel_path and s2.sem_decoder is None
     assert SlamSystem(_system_config(TConfig, seq, semantic_on=False), device="cpu").kernel_path
-    for over, label in ((dict(layer_norm_on=True), "ROADMAP C 14"),
-                        (dict(color_on=True), "ROADMAP A 11 item 4")):
-        with pytest.raises(NotImplementedError, match=label):
-            SlamSystem(_system_config(TConfig, seq, **over), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP C 14"):
+        SlamSystem(_system_config(TConfig, seq, layer_norm_on=True), device="cpu")
+    s_col = SlamSystem(_system_config(TConfig, seq, color_on=True), device="cpu")
+    assert not s_col.kernel_path and s_col.color_decoder is not None
+    assert s_col.sem_decoder is not None and s_col.pool.color_label is not None
     s_pe = SlamSystem(_system_config(TConfig, seq, pos_encoding_band=4), device="cpu")
     assert s_pe.sem_decoder.hidden[0].in_features == 8 + 27
     s_k8 = SlamSystem(_system_config(TConfig, seq, query_nn_k=8), device="cpu")

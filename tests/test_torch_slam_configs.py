@@ -184,9 +184,10 @@ def test_configuration_matches_jax(name, monkeypatch):
 @pytest.mark.parametrize("over, exact", [
     (dict(pos_encoding_band=4), False), (dict(pos_encoding_band=16, use_gaussian_pe=True), False),
     (dict(query_nn_k=8), False), (dict(), True), (dict(layer_norm_on=True), True),
-    (dict(color_on=True, semantic_on=True), True), (dict(color_on=True, geo_mlp_level=2), True)],
+    (dict(color_on=True, semantic_on=True), True), (dict(color_on=True, geo_mlp_level=2), True),
+    (dict(color_on=True, semantic_on=True), False), (dict(color_on=True, geo_mlp_level=2), False)],
     ids=["nerf", "gaussian", "k8", "exact", "exact_layer_norm", "exact_colour_semantic",
-         "exact_colour_deep_decoder"])
+         "exact_colour_deep_decoder", "colour_semantic", "colour_deep_decoder"])
 def test_lifted_refusals_pass_check_ported(over, exact, monkeypatch):
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import check_ported
@@ -199,11 +200,12 @@ def test_lifted_refusals_pass_check_ported(over, exact, monkeypatch):
 
 
 @pytest.mark.parametrize("over, label", [
-    (dict(layer_norm_on=True), "C 14"), (dict(color_on=True, semantic_on=True), "A 11 item 4")])
+    (dict(layer_norm_on=True), "C 14"),
+    (dict(layer_norm_on=True, color_on=True, semantic_on=True), "C 14")])
 def test_cached_path_still_refuses(over, label, monkeypatch):
     """Without PIN_SLAM_EXACT_KNN=1 the cached loop would train raw features
-    under layer-norm (the JAX package's C 14) or leave a head untrained: the
-    refusal names the ROADMAP item and the variable."""
+    under layer-norm (the JAX package's C 14), with or without the other
+    heads: the refusal names the ROADMAP item and the variable."""
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import check_ported
 
