@@ -228,6 +228,34 @@
 19. ``vis_pin_map``: ``pin_slam_torch.vis_pin_map.main`` in process on
    live_C's saved map, on the card, at 0.2 m.  Gates: a non-empty, finite
    mesh over at least 0.8 of the map's xy extent, viewer.html written.
+20. ``dp_nccl1``: a process group of world size 1 over NCCL on cuda:0,
+   brought up by ``parallel.distributed.initialize()`` from torchrun's
+   variables set in this process.  The data-parallel mapping loop at path
+   B's widths (``run_kitti.yaml``, KITTI capacities, bs 16384 x 15, its
+   collectives run) bit-identical to ``mapping_loop_cached`` on the same
+   indices; the DP mesher's grid query over one chunk identical to the
+   plain query; the loop's collective time.
+21. ``dp_B``: path B with ``dp_devices: 2`` as two processes on cuda:0
+   under gloo (``PIN_SLAM_DIST_BACKEND=gloo``; NCCL refuses two ranks on
+   one GPU), started by ``parallel.launch.spawn`` with a hard timeout
+   (a child's failure fails the run; the children only load the kernels
+   this process built), 8 frames and a capture frame.  Gates: B's gates;
+   both ranks' poses, map and decoder bit-identical; frame 5's training
+   call, rerun from a snapshot, bit-identical twice and within
+   tests/test_torch_parallel.py's tolerances of the one-rank loop on the
+   two ranks' stitched indices (eikonal off: the two take different
+   eikonal rows by construction); every kernel launched; the end-of-run
+   mesh through the DP mesher non-empty and finite.  Rank 0 holds the
+   training kernels, the gathers and the scatter at its per-rank shapes
+   (B = 8192) to their plain twins: rows ``*[dp_B]``.  Reports frames/s
+   and the all-reduce ms an iteration.
+22. ``shard_C``: path C with ``map_shards: 2``, two processes on cuda:0
+   under gloo.  Gates: C's closure and error gates; the shards' summed
+   count within tests/test_spatial.py's tolerance of path C's; both
+   ranks' poses identical; after the shards are densified, ``pin_map.npz``
+   reloads to the finalised map and the mesh covers >= 0.8 of its xy
+   extent.  Rank 0's rank kernel rows ``rank_brick[shard_C-far|near]``.
+   A real NCCL ring of two or more GPUs does not run here (one card).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -3795,6 +3823,501 @@ def egen_phase(cap):
     return res
 
 
+# ----------------------------------------------------------------------
+# multi-device: data parallelism and map sharding over torch.distributed
+# ----------------------------------------------------------------------
+
+DP_WORLD = 2                      # dp_B's and shard_C's ranks, both on cuda:0 under gloo
+DP_FRAMES = 8                     # dp_B's timed frames (path B's)
+DP_RERUN_FRAME = 5                # dp_B's training call rerun from its snapshot
+CHILD_TIMEOUT_S = 420             # each two-process phase, children killed past it
+# the one-rank loop on the two ranks' stitched indices against the DP loop:
+# tests/test_torch_parallel.py's tolerances (those of tests/test_parallel.py)
+DP_TOL_HIST = dict(rtol=1e-4, atol=1e-6)
+DP_TOL_FEATS = dict(rtol=1e-3, atol=2e-5)
+SHARD_COUNT_TOL = 0.02            # tests/test_spatial.py's live-backend count tolerance
+
+
+class CollectiveTimer:
+    """Wraps the collectives ``parallel.mesh`` calls: each is timed on the
+    host between two device synchronisations (the instrumentation adds the
+    syncs; gloo's collectives on CUDA tensors stage through the host and
+    block anyway), counted, and its bytes summed."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from pin_slam_torch.parallel import mesh as pmesh
+
+        self.pmesh, self.dist = pmesh, dist
+        self.reset()
+
+    def reset(self):
+        self.calls, self.ms, self.bytes = {}, {}, {}
+
+    def _wrap(self, name):
+        import torch
+
+        real = getattr(self.dist, name)
+
+        def timed(*a, **kw):
+            t = a[0] if name != "all_gather" else a[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.bytes[name] = self.bytes.get(name, 0) + t.numel() * t.element_size()
+            return out
+
+        return timed
+
+    def install(self):
+        import types
+
+        ns = types.SimpleNamespace(**{k: getattr(self.dist, k) for k in dir(self.dist)
+                                      if not k.startswith("__")})
+        for name in ("all_reduce", "all_gather"):
+            setattr(ns, name, self._wrap(name))
+        self.pmesh.dist = ns
+
+    def uninstall(self):
+        self.pmesh.dist = self.dist
+
+    def summary(self, iters, frames):
+        out = {"calls": dict(self.calls), "bytes": dict(self.bytes),
+               "ms": {k: float(v) for k, v in self.ms.items()}}
+        total = sum(self.ms.values())
+        out["ms_per_frame"] = total / max(frames, 1)
+        if iters:
+            out["all_reduce_ms_per_iter"] = self.ms.get("all_reduce", 0.0) / iters
+        return out
+
+
+def _digest(*ts):
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in ts:
+        a = t.detach().cpu().contiguous().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _rel_close(a, b, rtol, atol):
+    """Whether ``a`` is within ``atol + rtol |b|`` of ``b`` everywhere, and the
+    largest excess ratio."""
+    import torch
+
+    a, b = a.double(), b.double()
+    ratio = float(torch.max(torch.abs(a - b) / (atol + rtol * torch.abs(b))))
+    return ratio <= 1.0, ratio
+
+
+def dp_nccl1_phase():
+    """World size 1 over NCCL on cuda:0, brought up by ``initialize()`` from
+    torchrun's variables set in this process: the DP mapping loop at path
+    B's widths (run_kitti.yaml, KITTI capacities, bs 16384 x 15), whose
+    collectives run, bit-identical to ``mapping_loop_cached`` on the same
+    indices; the DP mesher's grid query over one chunk identical to the
+    plain query."""
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.parallel import distributed as pdist
+    from pin_slam_torch.parallel import launch
+    from pin_slam_torch.parallel import mesh as pmesh
+    from pin_slam_torch.slam import mapper as mp
+    from pin_slam_torch.slam.mesher import Mesher, MesherConfig
+
+    env = dict(PIN_SLAM_DIST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not pdist.initialize():
+            fail("dp_nccl1: initialize() did not start the process group")
+        inf = pdist.info()
+        if inf.backend != "nccl" or inf.device != torch.device("cuda", 0):
+            fail(f"dp_nccl1: {inf.backend} on {inf.device}, expected nccl on cuda:0")
+        mesh = pdist.make_global_mesh(1)
+        system, frames, _ = make_path("B", 3)
+        for fr in frames[:2]:
+            system.process_frame(fr)
+        cfg, mc, mcfg = system.config, system.mc, system.mcfg
+        lm = system.lm
+        feats, gvec = system._with_cert_column(lm), system.decoder.pack()
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        idx = mp.sample_batch_indices(gen, system.pool, mcfg,
+                                      torch.tensor(True, device="cuda"), int(cfg.iters))
+
+        def call(loop, **kw):
+            f, g = feats.clone(), gvec.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = loop(_clone(lm), mc, f, g, mp.init_opt_state(f, g), system.pool, mcfg, idx,
+                       1.0, system.after_pgo, **kw)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        ref, ref_ms = call(mp.mapping_loop_cached)
+        _cuda.reset_counts()
+        timer = CollectiveTimer()
+        timer.install()
+        try:
+            dp, dp_ms = call(mp.mapping_loop_cached, mesh=mesh)
+        finally:
+            timer.uninstall()
+        counts = dict(_cuda.COUNTS)
+        same = {name: _bits_equal(a, b) for name, a, b in (
+            ("hist", ref[4], dp[4]), ("feats", ref[1], dp[1]), ("decoder", ref[2], dp[2]),
+            ("attr", ref[0].attr_rows, dp[0].attr_rows))}
+
+        mcf = MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
+                           query_bucket=cfg.mesh_query_bucket)
+        count = int(lm.count)
+        pos = lm.positions[:count]
+        g = torch.Generator(device="cuda").manual_seed(12)
+        coords = (pos[torch.randint(0, count, (cfg.mesh_query_bucket,), device="cuda",
+                                    generator=g)]
+                  + 0.1 * torch.randn((cfg.mesh_query_bucket, 3), device="cuda",
+                                      generator=g)).cpu().numpy()
+        sdf1, nn1 = Mesher(mcf, mc, system.offsets).query_sdf_grid(lm, system.decoder,
+                                                                  system.sdf_scale, coords)
+        sdf2, nn2 = Mesher(mcf, mc, system.offsets, dp_mesh=mesh).query_sdf_grid(
+            lm, system.decoder, system.sdf_scale, coords)
+        res = {"phase": "dp_nccl1", "backend": inf.backend, "device": str(inf.device),
+               "world": inf.world, "bs": mcfg.bs, "iters": int(cfg.iters),
+               "weighted_first": cfg.weighted_first, "bit_identical": same,
+               "plain_loop_ms": ref_ms, "dp_loop_ms": dp_ms, "launches": counts,
+               "collectives": timer.summary(int(cfg.iters), 1),
+               "mesher_chunk": {"points": int(coords.shape[0]),
+                                "sdf_identical": bool(np.array_equal(sdf1, sdf2)),
+                                "nn_identical": bool(np.array_equal(nn1, nn2))}}
+        emit(res)
+        if not all(same.values()):
+            fail(f"dp_nccl1: the DP loop over NCCL differs from the plain loop: {same}")
+        if not (res["mesher_chunk"]["sdf_identical"] and res["mesher_chunk"]["nn_identical"]):
+            fail("dp_nccl1: the DP mesher's grid query differs from the plain query")
+        for k in ("train_iter", "eikonal", "gather", "scatter"):
+            if counts[k] < int(cfg.iters):
+                fail(f"dp_nccl1: kernel {k} launched {counts[k]} times in the DP loop")
+        del system
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        pdist.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _spawn_phase(name, child):
+    """Run ``chip_smoke:<child>`` as DP_WORLD processes on cuda:0 under gloo
+    (the kernels built by this process, which the children only load);
+    returns rank 0's result file.  A child's failure fails the run."""
+    from pin_slam_torch.parallel import launch
+
+    work = os.path.join(ROOT, "build", name)
+    os.makedirs(work, exist_ok=True)
+    for f in os.listdir(work):
+        if f.endswith(".json"):
+            os.remove(os.path.join(work, f))
+    t0 = time.perf_counter()
+    try:
+        launch.spawn(DP_WORLD, f"chip_smoke:{child}", work, workdir=work,
+                     env={"PIN_SLAM_DIST_BACKEND": "gloo"}, timeout=CHILD_TIMEOUT_S,
+                     pythonpath=[ROOT])
+    except RuntimeError as e:
+        fail(f"{name}: {e}")
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, wall
+
+
+def _child_start(name):
+    import torch
+
+    from pin_slam_torch.parallel import distributed as pdist
+
+    if not pdist.initialize():
+        raise SystemExit(f"{name}: no process group configured")
+    inf = pdist.info()
+    if inf.backend != "gloo" or inf.device != torch.device("cuda", 0):
+        raise SystemExit(f"{name}: {inf.backend} on {inf.device}, expected gloo on cuda:0")
+    return inf
+
+
+def _child_write(work, rank, res):
+    with open(os.path.join(work, f"rank{rank}.json.tmp"), "w") as f:
+        json.dump(res, f)
+    os.replace(os.path.join(work, f"rank{rank}.json.tmp"), os.path.join(work, f"rank{rank}.json"))
+
+
+def dp_b_child(work):
+    """One rank of dp_B: path B's profile and scene with ``dp_devices: 2``,
+    DP_FRAMES timed frames and a capture frame, the snapshot rerun, the
+    end-of-run mesh through the DP mesher; rank 0 checks and times the
+    kernels at its per-rank shapes."""
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.parallel import mesh as pmesh
+    from pin_slam_torch.slam import mapper as mp
+
+    inf = _child_start("dp_B")
+    cap = Capture()
+    cap.install()
+    timer = CollectiveTimer()
+    system, frames, gt = make_path("B", DP_FRAMES + 1, over={"dp_devices": DP_WORLD})
+    frames, capture_frame = frames[:-1], frames[-1]
+    cfg, mc = system.config, system.mc
+    snap = {}
+    loop = system._dp_loop
+
+    def spy(lm, mc_, feats, params, opt, pool, idx, scale, after_pgo=False, color=None):
+        if system.frame_id == DP_RERUN_FRAME and not snap:
+            snap.update(lm=_clone(lm), feats=feats.clone(), params=params.clone(),
+                        pool=_clone(pool), idx=idx.clone(), scale=scale, after_pgo=after_pgo)
+        return loop(lm, mc_, feats, params, opt, pool, idx, scale, after_pgo, color=color)
+
+    system._dp_loop = spy
+    cap.path = "dp_B"
+    _cuda.reset_counts()
+    timer.install()
+    infos, times = [], []
+    try:
+        for fr in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infos.append(system.process_frame(fr))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        timer.uninstall()
+    counts = dict(_cuda.COUNTS)
+    n_frames = len(frames)
+    iters = int(cfg.iters) * (n_frames + cfg.init_iter_ratio - 1)
+    poses = np.stack(system.dataset.odom_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    res = {"rank": inf.rank, "frames": n_frames, "bs_per_rank": system.train_mcfg.bs,
+           "frames_per_s_after_frame0": float(1.0 / np.mean(times[1:])),
+           "frame0_s": times[0], "stage_ms_mean_after_frame0": _stage_ms(
+               np.asarray(system.stage_times[1:n_frames])),
+           "reg_valid": [bool(x.get("reg_valid")) for x in infos[1:]],
+           "max_pose_err_m": float(err.max()),
+           "loss_finite": all(x.get("loss_finite", False) for x in infos),
+           "map_points": int(system.state.count), "launches": counts,
+           "collectives": timer.summary(iters, n_frames),
+           "digest": {"poses": _digest(poses),
+                      "map": _digest(system.state.attr_rows, system.state.geo_features),
+                      "decoder": _digest(system.decoder.pack())}}
+    cap.capturing = True
+    system.process_frame(capture_frame)
+    torch.cuda.synchronize()
+    cap.capturing, cap.path = False, None
+    res["iters_total"] = iters
+
+    # the snapshot's training call: the DP loop (twice, bit-identical) against
+    # the one-rank loop on the stitched indices, eikonal off (the two take
+    # different eikonal rows by construction)
+    no_eik = dataclasses.replace(system.mcfg, ekional_loss_on=False)
+    dp_loop = pmesh.make_sharded_mapping_loop(system.dp_mesh, no_eik)
+
+    def run(fn, idx, mcfg=None, **kw):
+        f, g = snap["feats"].clone(), snap["params"].clone()
+        args = (_clone(snap["lm"]), mc, f, g, mp.init_opt_state(f, g), snap["pool"])
+        if mcfg is None:
+            return fn(*args, idx, snap["scale"], snap["after_pgo"])
+        return fn(*args, mcfg, idx, snap["scale"], snap["after_pgo"], **kw)
+
+    d1 = run(dp_loop, snap["idx"])
+    d2 = run(dp_loop, snap["idx"])
+    stitched = torch.cat(list(pmesh.all_gather(system.dp_mesh, snap["idx"])), dim=1)
+    one = run(mp.mapping_loop_cached, stitched, no_eik)
+    F = mc.feature_dim
+    ok_h, r_h = _rel_close(d1[4], one[4], **DP_TOL_HIST)
+    ok_f, r_f = _rel_close(d1[1][:, :F], one[1][:, :F], **DP_TOL_FEATS)
+    res["rerun"] = {"frame": DP_RERUN_FRAME, "stitched_bs": int(stitched.shape[1]),
+                    "dp_twice_identical": _bits_equal(d1[1], d2[1]) and _bits_equal(d1[4], d2[4]),
+                    "hist_ok": ok_h, "hist_excess": r_h, "feats_ok": ok_f, "feats_excess": r_f,
+                    "tolerances": {"hist": DP_TOL_HIST, "feats": DP_TOL_FEATS}}
+
+    # the end of the run: the whole map's mesh through the DP mesher
+    cfg.save_mesh, cfg.save_map, cfg.save_merged_pc = True, False, False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verts, faces, _ = system.save_artifacts(os.path.join(work, f"run{inf.rank}"))
+    res["mesh"] = {"vertices": int(len(verts)), "faces": int(len(faces)),
+                   "finite": bool(np.isfinite(verts).all()) if len(verts) else False,
+                   "s": time.perf_counter() - t0}
+
+    rows = []
+    if inf.rank == 0:
+        for kind in ("train_iter", "eikonal"):
+            a, kw = cap.inputs[("dp_B", kind, "main")]
+            phase = train_phase if kind == "train_iter" else eik_phase
+            rows.append(phase("dp_B", a, kw, counts[kind]))
+        for kind in ("pool", "feat"):
+            a, kw = cap.inputs[("dp_B", "gather", kind)]
+            rows.append(gather_phase(f"dp_B-{kind}", a, kw, cap.tally[("dp_B", "gather", kind)]))
+        (frame_idx, _), _ = cap.inputs[("dp_B", "plans", "frame")]
+        (n_rows, idx, val), kw = cap.inputs[("dp_B", "scatter", "main")]
+        rows.append(scatter_phase("dp_B", n_rows, idx, val, kw.get("plan"), kw.get("skip_row"),
+                                  cap.tally[("dp_B", "scatter", "main")], frame_idx))
+    cap.uninstall()
+    res["rows"] = rows
+    _child_write(work, inf.rank, res)
+
+
+def dp_b_phase():
+    """dp_B: path B with ``dp_devices: 2`` as two processes on cuda:0 under
+    gloo.  Gates: B's own gates; both ranks' poses, map and decoder
+    bit-identical; the snapshot's DP loop rerun bit-identically and held to
+    the one-rank loop on the stitched indices; every kernel launched; the
+    DP mesher's end-of-run mesh non-empty and finite; rank 0's kernel rows
+    at the per-rank shapes (B = bs / 2) held to their plain twins."""
+    outs, wall = _spawn_phase("dp_B", "dp_b_child")
+    r0 = outs[0]
+    res = {"phase": "dp_B", "ranks": DP_WORLD, "backend": "gloo", "device": "cuda:0",
+           "wall_s": wall, **{k: v for k, v in r0.items() if k != "rows"}}
+    emit(res)
+    for row in r0["rows"]:
+        emit({"phase": "kernel", **row})
+    if any(o["digest"] != r0["digest"] for o in outs):
+        fail(f"dp_B: the ranks' poses, map or decoder differ: {[o['digest'] for o in outs]}")
+    if not all(r0["reg_valid"]) or r0["max_pose_err_m"] > 0.5 or not r0["loss_finite"]:
+        fail(f"dp_B: path B's gates: reg_valid {r0['reg_valid']}, pose error "
+             f"{r0['max_pose_err_m']:.3f} m, loss finite {r0['loss_finite']}")
+    n, it = r0["frames"], r0["iters_total"]
+    need = {"rank_brick": n, "train_iter": it, "eikonal": it, "gather": it + n, "scatter": it}
+    for k, v in need.items():
+        if r0["launches"][k] < v:
+            fail(f"dp_B: kernel {k} launched {r0['launches'][k]} times, expected >= {v}")
+    rr = r0["rerun"]
+    if not (rr["dp_twice_identical"] and rr["hist_ok"] and rr["feats_ok"]):
+        fail(f"dp_B: the rerun training call: {rr}")
+    if not (r0["mesh"]["vertices"] and r0["mesh"]["finite"]):
+        fail(f"dp_B: the DP mesher's mesh: {r0['mesh']}")
+    return res, r0["rows"]
+
+
+def shard_c_child(work):
+    """One rank of shard_C: path C (PGO on, the square loop) with
+    ``map_shards: 2``, a capture frame, then the end of the run (densify,
+    save_map, save_mesh); rank 0 checks and times the rank kernel on its
+    inputs."""
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.utils.experiment import load_implicit_map
+
+    inf = _child_start("shard_C")
+    cap = Capture()
+    cap.install()
+    timer = CollectiveTimer()
+    system, frames, gt = make_path("C", over={"map_shards": DP_WORLD})
+    cfg = system.config
+    cap.path = "shard_C"
+    _cuda.reset_counts()
+    timer.install()
+    infos, times = [], []
+    try:
+        for fr in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infos.append(system.process_frame(fr))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        timer.uninstall()
+    counts = dict(_cuda.COUNTS)
+    ds = system.dataset
+    poses = np.stack(ds.pgo_poses)
+    err = np.linalg.norm(poses[:, :3, 3] - np.stack(gt[:len(poses)]), axis=1)
+    odom = np.stack(ds.odom_poses)
+    cap.capturing = True
+    system.process_frame(frames[-1])
+    torch.cuda.synchronize()
+    cap.capturing, cap.path = False, None
+    res = {"rank": inf.rank, "frames": len(frames),
+           "frames_per_s": float(len(frames) / np.sum(times)),
+           "closure_frames": [i for i, x in enumerate(infos) if x.get("pgo_applied")],
+           "loop_factors": [(e.i, e.j) for e in system.pgm.edges if abs(e.j - e.i) > 1],
+           "after_pgo": system.after_pgo, "end_err_pgo_m": float(err[-1]),
+           "end_err_odom_m": float(np.linalg.norm(odom[-1, :3, 3] - gt[len(odom) - 1])),
+           "rmse_pgo_m": float(np.sqrt(np.mean(err ** 2))),
+           "map_points": system._map_count(), "shard_points": int(system.state.count),
+           "launches": counts, "collectives": timer.summary(0, len(frames)),
+           "digest": {"poses": _digest(poses)}}
+    cfg.save_map, cfg.save_mesh, cfg.save_merged_pc = True, True, False
+    run_dir = os.path.join(work, f"run{inf.rank}")
+    t0 = time.perf_counter()
+    verts, faces, _ = system.save_artifacts(run_dir)
+    count = int(system.state.count)
+    pts = system.state.positions[:count].cpu().numpy()
+    res["end"] = {"s": time.perf_counter() - t0, "finalized_points": count,
+                  "vertices": int(len(verts)), "faces": int(len(faces)),
+                  "finite": bool(np.isfinite(verts).all()) if len(verts) else False,
+                  "xy_extent_ratio": xy_extent_ratio(verts, pts) if len(verts) else 0.0}
+    rows = []
+    if inf.rank == 0:
+        npz = os.path.join(run_dir, "map", "pin_map.npz")
+        state2, _ = load_implicit_map(npz, system.mc)
+        res["end"]["reloaded_points"] = int(state2.count)
+        res["end"]["reload_equal"] = bool(int(state2.count) == count and torch.equal(
+            state2.attr_rows[:count, :3], system.state.attr_rows[:count, :3]))
+        for kind in ("far", "near"):
+            key = ("shard_C", "rank_brick", kind)
+            rows.append(rank_brick_phase(f"shard_C-{kind}", cap.inputs[key][0], cap.tally[key]))
+    cap.uninstall()
+    res["rows"] = rows
+    _child_write(work, inf.rank, res)
+
+
+def shard_c_phase(c1):
+    """shard_C: path C with ``map_shards: 2`` as two processes on cuda:0
+    under gloo.  Gates: C's closure and error gates; the shards' summed
+    count within tests/test_spatial.py's tolerance of path C's (map_shards
+    1) count ``c1``; both ranks' poses identical; the densified map saved,
+    reloaded equal, and meshed over >= 0.8 of its xy extent."""
+    outs, wall = _spawn_phase("shard_C", "shard_c_child")
+    r0 = outs[0]
+    res = {"phase": "shard_C", "ranks": DP_WORLD, "backend": "gloo", "device": "cuda:0",
+           "wall_s": wall, "map_points_map_shards_1": c1,
+           **{k: v for k, v in r0.items() if k != "rows"}}
+    emit(res)
+    for row in r0["rows"]:
+        emit({"phase": "kernel", **row})
+    if any(o["digest"] != r0["digest"] for o in outs):
+        fail("shard_C: the ranks' poses differ")
+    if not r0["loop_factors"] or not r0["after_pgo"]:
+        fail(f"shard_C: no loop closure ({r0['loop_factors']}, after_pgo {r0['after_pgo']})")
+    if not (r0["end_err_pgo_m"] < 0.3 and r0["end_err_pgo_m"] <= r0["end_err_odom_m"] + 0.5):
+        fail(f"shard_C: endpoint error {r0['end_err_pgo_m']:.3f} m")
+    if r0["rmse_pgo_m"] >= 0.15:
+        fail(f"shard_C: position RMSE {r0['rmse_pgo_m']:.3f} m")
+    c2 = r0["map_points"]
+    if abs(c1 - c2) > max(3, SHARD_COUNT_TOL * c1):
+        fail(f"shard_C: {c2} points over the shards against {c1} with map_shards 1")
+    end = r0["end"]
+    if not (end["reload_equal"] and end["vertices"] and end["finite"]
+            and end["xy_extent_ratio"] >= VIS_EXTENT):
+        fail(f"shard_C: the end of the run: {end}")
+    for k in ("rank_brick", "train_iter", "eikonal", "gather", "scatter"):
+        if r0["launches"][k] < 1:
+            fail(f"shard_C: kernel {k} never launched")
+    return res, r0["rows"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3838,6 +4361,9 @@ def main() -> int:
     vis_pin_map_phase(live_npz)
     cli_kitti_phase()
     train_general_phase()
+    dp_nccl1_phase()
+    _, dp_rows = dp_b_phase()
+    _, shard_rows = shard_c_phase(results["C"]["map_points"])
 
     rows = []
     for path, res in results.items():
@@ -3908,6 +4434,9 @@ def main() -> int:
     (n_rows, idx, val), kw = cap.inputs[("D", "scatter", "ba")]
     rows.append(scatter_phase("pathD-ba", n_rows, idx, val, kw.get("plan"),
                               kw.get("skip_row"), results["D"]["ba_scatter_launches"]))
+    # the per-rank shapes of dp_B and the rank kernel under shard_C, each
+    # held to its plain twin inside the child that captured it
+    rows += dp_rows + shard_rows
     # k = 8 (which the JAX kernels cannot run): checked and timed on random
     # inputs at the main path's widths; not a main-path shape, so these rows
     # stay out of the kernels line

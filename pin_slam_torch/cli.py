@@ -10,6 +10,15 @@ The run goes to ``<output_root>/<name>_<timestamp>/`` (``meta/run.json``, the
 trajectory and its evaluation, the map, the mesh as the profile asks) and
 ends with one summary line, also written to ``summary.json``.  It runs on
 the GPU unless ``--device cpu`` is given.
+
+Several processes (``dp_devices > 1``, ``map_shards > 1``):
+
+    PIN_SLAM_DIST=1 torchrun --nproc-per-node N -m pin_slam_torch.cli <config.yaml> ...
+
+brings the process group up first (``parallel/distributed.py``; also from
+``PIN_SLAM_COORDINATOR`` / ``PIN_SLAM_NUM_PROCESSES`` /
+``PIN_SLAM_PROCESS_ID``); every rank runs the same frames and rank 0 alone
+writes the run directory and the summary.
 """
 
 from __future__ import annotations
@@ -35,25 +44,57 @@ def main(argv=None) -> int:
 
     from pin_slam_torch.config import Config
     from pin_slam_torch.dataset.indexing import set_dataset_path
-    from pin_slam_torch.slam.pipeline import SlamSystem
-    from pin_slam_torch.utils.experiment import setup_experiment
+    from pin_slam_torch.parallel import distributed as pdist
 
     cfg = Config().load(args.config)
     if args.seed is not None:
         cfg.seed = args.seed
     if args.dataset_name:
         set_dataset_path(cfg, args.dataset_name, args.sequence)
-    run_path = setup_experiment(cfg, argv=list(argv) if argv is not None else sys.argv[1:])
-    print(f"[pin_slam_torch] run dir: {run_path}")
+    # multi-process bring-up (nothing without a configured launch)
+    started = pdist.info() is None and pdist.initialize(device=args.device)
+    try:
+        return _run(args, argv, cfg)
+    finally:
+        if started:
+            pdist.shutdown()
+
+
+def _run(args, argv, cfg) -> int:
+    """The run on this rank (the only one without a process group); rank 0
+    alone makes the run directory and writes the summary."""
+    from pin_slam_torch.parallel import distributed as pdist
+    from pin_slam_torch.slam.pipeline import SlamSystem
+    from pin_slam_torch.utils.experiment import setup_experiment
+
+    inf = pdist.info()
+    writer = inf is None or inf.rank == 0
+    if inf is not None:
+        print(f"[pin_slam_torch] torch.distributed: rank {inf.rank}/{inf.world} "
+              f"({inf.backend}, {inf.device})")
+    run_path = None
+    if writer:
+        run_path = setup_experiment(cfg, argv=list(argv) if argv is not None else sys.argv[1:])
+        print(f"[pin_slam_torch] run dir: {run_path}")
+    if inf is not None and inf.world > 1:
+        from pin_slam_torch.parallel import mesh as pmesh
+
+        run_path = pmesh.broadcast_object(pmesh.make_mesh(inf.world), run_path)
+        if not writer:
+            setup_experiment(cfg, create=False)
+            cfg.run_path = run_path
 
     t0 = time.time()
     system = SlamSystem(cfg, device=args.device)
     cfg.device = system.device.type
-    print(f"[pin_slam_torch] device: {system.device}")
+    if writer:
+        print(f"[pin_slam_torch] device: {system.device}")
     if len(system.dataset) == 0:
         print(f"[pin_slam_torch] no frames found under {cfg.pc_path}", file=sys.stderr)
         return 2
     system.run(num_frames=args.frames)
+    if not writer:
+        return 0
     wall = time.time() - t0
     n = system.frame_id
     summary = {"frames": n, "wall_s": round(wall, 1),

@@ -653,11 +653,14 @@ class _Step:
 
 
 def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: MapperConfig,
-                  batch_idx: torch.Tensor, after_pgo: bool) -> _Batches:
+                  batch_idx: torch.Tensor, after_pgo: bool, mesh=None) -> _Batches:
     """The pool rows of ``batch_idx`` (T, B) (one gather-kernel launch),
     their cached neighbours remapped to local rows, and the eikonal
     stencil's geometry (offset vectors rotated by the neighbours'
-    quaternions ``after_pgo``)."""
+    quaternions ``after_pgo``).  With ``mesh`` the newest frame id sampled
+    is the maximum over its ranks."""
+    if mesh is not None:
+        from pin_slam_torch.parallel import mesh as pmesh
     dev = pool.rows.device
     T, B = batch_idx.shape
     L, cap, k = mc.local_capacity, mc.capacity, mcfg.nn_k
@@ -679,6 +682,8 @@ def _read_batches(lm: npts.LocalMap, mc: npts.MapConfig, pool: PoolState, mcfg: 
     valid_k = (gidx >= 0) & (lidx < L)
     safe_g = torch.where(valid_k, lidx, torch.full_like(lidx, L))
     ts_proxy = torch.max(torch.where(in_pool, ts_flat.reshape(T, B), torch.zeros_like(labels)))
+    if mesh is not None:
+        ts_proxy = pmesh.pmax(mesh, ts_proxy)
 
     p_w, p_vec0 = mcfg.p_w, mcfg.p_vec0
     w = torch.where(valid_k, rows[:, p_w], torch.zeros_like(rows[:, p_w])).reshape(T, B, k)
@@ -726,7 +731,7 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
                         gvec: torch.Tensor, opt: AdamState, pool: PoolState,
                         mcfg: MapperConfig, batch_idx: torch.Tensor,
                         decoder_lr_scale: float, after_pgo: bool = False,
-                        color: Optional[ColorState] = None):
+                        color: Optional[ColorState] = None, mesh=None):
     """The per-frame training loop with pool-cached kNN (the kernel path).
 
     ``feats`` is the (L+1, F+1) local feature table whose column F is the
@@ -753,14 +758,24 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
     the colour leaves take their own Adam step; ``color`` is updated in
     place and the loss history holds both terms.
 
+    With ``mesh`` (a ``parallel.mesh.Mesh``; the JAX package's
+    ``axis_name``) the loop runs data-parallel: ``batch_idx`` is this rank's
+    batch, and before every Adam step the feature, decoder and colour
+    gradients and the loss are averaged over the ranks and the certainty
+    sums summed (one all-reduce for the geometry, one for the colour head);
+    the newest frame id sampled is the maximum over the ranks.  Every rank
+    then takes the same Adam step.
+
     Returns (lm with updated certainty / ts bookkeeping, feats, gvec, opt,
     loss history (T,))."""
+    if mesh is not None:
+        from pin_slam_torch.parallel import mesh as pmesh
     dev = feats.device
     T, B = batch_idx.shape
     F = feats.shape[1] - 1
     L, k = mc.local_capacity, mcfg.nn_k
     wf = mcfg.weighted_first
-    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
+    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo, mesh)
     n_grad, eik = bt.n_grad, mcfg.ekional_loss_on
     safe_g, w, vin, labels, weights = bt.safe_g, bt.w, bt.vin, bt.labels, bt.weights
 
@@ -802,7 +817,12 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
             val_cat = torch.cat([val_cat, dfe_e.reshape(-1, F + 1)])
         gfeat = rowk.scatter_sum_rows(L + 1, idx_it[t], val_cat,
                                       plan=rowk.plan_at(plans, t), skip_row=L)
-        cert_acc = cert_acc + gfeat[:, F]
+        if mesh is not None:
+            (gp, loss), (gfeat,) = pmesh.reduce_grads(mesh, [gp, loss], [gfeat])
+            cert_acc = cert_acc + gfeat[:, F]
+            gfeat = gfeat / mesh.size
+        else:
+            cert_acc = cert_acc + gfeat[:, F]
         gfeat[:, F] = 0.0
         (feats, gvec), opt = adam_step(mcfg, [feats, gvec], [gfeat, decoder_lr_scale * gp], opt)
         feats[L] = 0.0
@@ -811,12 +831,14 @@ def mapping_loop_cached(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tens
                                   bounds_checked=True).view(B, k, -1)
             loss_c, g_cf, g_dec = color_loss_and_grads(
                 color, cf, w[t], col_vin[t], col_lab[t], weights[t], col_surf[t], mcfg)
-            loss = loss + loss_c
             g_rows = g_cf.reshape(B * k, -1)
             if eik:
                 g_rows = torch.cat([g_rows, g_rows.new_zeros((n_grad * k, g_rows.shape[1]))])
             gcol = rowk.scatter_sum_rows(L + 1, idx_it[t], g_rows,
                                          plan=rowk.plan_at(plans, t), skip_row=L)
+            if mesh is not None:
+                (gcol, loss_c, *g_dec), _ = pmesh.reduce_grads(mesh, [gcol, loss_c] + g_dec)
+            loss = loss + loss_c
             new, color.opt = adam_step(mcfg, color.leaves(),
                                        [gcol] + [decoder_lr_scale * g for g in g_dec],
                                        color.opt)
@@ -962,7 +984,8 @@ def autograd_loss_and_grads(feats: torch.Tensor, heads: Heads, st: _Step,
 def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Tensor,
                           heads: Heads, opt: AdamState, pool: PoolState, mcfg: MapperConfig,
                           batch_idx: torch.Tensor, decoder_lr_scale: float,
-                          after_pgo: bool = False, color: Optional[ColorState] = None):
+                          after_pgo: bool = False, color: Optional[ColorState] = None,
+                          mesh=None):
     """The per-frame training loop for the configurations the training
     kernels do not cover (``kernel_path_supported``): the same pool-cached
     batches, certainty channel and Adam as ``mapping_loop_cached``, with the
@@ -982,13 +1005,17 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
     through the in-order scatter on the same plans), and the colour leaves
     take their own Adam step with the colour decoder's gradient scaled by
     ``decoder_lr_scale``: the JAX package's one Adam step over the whole
-    tree, element by element the same; ``color`` is updated in place.
+    tree, element by element the same; ``color`` is updated in place.  With
+    ``mesh`` the loop runs data-parallel as ``mapping_loop_cached`` does
+    (one all-reduce an iteration).
     Returns (lm with updated certainty / ts bookkeeping, feats, heads, opt,
     loss history (T,))."""
+    if mesh is not None:
+        from pin_slam_torch.parallel import mesh as pmesh
     T, B = batch_idx.shape
     L = mc.local_capacity
     F = feats.shape[1] - 1
-    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo)
+    bt = _read_batches(lm, mc, pool, mcfg, batch_idx, after_pgo, mesh)
     sem_lab = (pool.sem_label[bt.flat_idx].reshape(T, B)
                if heads.sem is not None and pool.sem_label is not None else None)
     col_lab = (rowk.gather_rows(pool.color_label, bt.flat_idx).reshape(T, B, -1)
@@ -1000,7 +1027,14 @@ def mapping_loop_autograd(lm: npts.LocalMap, mc: npts.MapConfig, feats: torch.Te
         loss, gf, gh, gc = autograd_loss_and_grads(
             feats, heads, bt.step(t, mcfg.weighted_first, sem_lab, col_lab), mcfg,
             rowk.plan_at(plans, t), color=color)
-        cert_acc = cert_acc + gf[:, F]
+        if mesh is not None:
+            nh = len(gh)
+            means, (gf,) = pmesh.reduce_grads(mesh, gh + (gc or []) + [loss], [gf])
+            gh, gc, loss = means[:nh], (means[nh:-1] if gc is not None else None), means[-1]
+            cert_acc = cert_acc + gf[:, F]
+            gf = gf / mesh.size
+        else:
+            cert_acc = cert_acc + gf[:, F]
         gf[:, F] = 0.0
         new, opt = adam_step(mcfg, [feats] + heads.leaves(),
                              [gf] + [decoder_lr_scale * g for g in gh], opt)

@@ -10,8 +10,10 @@ no hand-written kernel.  With a colour head each box's vertices are painted
 with the regressed colours at them (``paint_vertices``), with a semantic
 head they get the head's class at them (``paint_semantics``: the argmax of
 the IDW-blended log-probabilities), both in padded chunks of
-``query_bucket`` on the same view.  The data-parallel query is not ported
-and raises ``NotImplementedError``.
+``query_bucket`` on the same view.  With ``dp_mesh`` (a
+``parallel.mesh.Mesh``) each grid-query chunk is split over the mesh's
+ranks and the SDF and neighbour counts gathered (every rank gets the whole
+result), as the JAX package shards its chunks over a device mesh.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import torch
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder, blended_head, regress_color, sem_label_prob
 from pin_slam_torch.ops import marching_cubes as mcubes
-from pin_slam_torch.utils.platform import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +71,26 @@ def grid_query_sem(lm: npts.LocalMap, mc: npts.MapConfig, sem_decoder: Decoder,
 class Mesher:
     def __init__(self, cfg: MesherConfig, mc: npts.MapConfig, offsets: torch.Tensor,
                  dp_mesh=None):
-        if dp_mesh is not None:
-            raise not_ported("data-parallel mesh queries, dp_mesh (ROADMAP A 12)")
+        """``dp_mesh``: the grid queries' chunks are split over its ranks
+        (map and decoder replicated; ``query_bucket`` must divide evenly);
+        every rank of the mesh must run the same queries."""
         self.cfg = cfg
         self.mc = mc
         self.offsets = offsets
+        self._dp_mesh = dp_mesh
+        self._dp_queries = {}
+        if dp_mesh is not None and cfg.query_bucket % dp_mesh.size:
+            raise ValueError(f"query_bucket {cfg.query_bucket} not divisible by "
+                             f"{dp_mesh.size} ranks")
+
+    def _dp_query(self, sdf_scale: float):
+        key = float(sdf_scale)
+        if key not in self._dp_queries:
+            from pin_slam_torch.parallel import mesh as pmesh
+
+            self._dp_queries[key] = pmesh.make_sharded_query(self._dp_mesh, self.mc,
+                                                             self.offsets, key)
+        return self._dp_queries[key]
 
     # ------------------------------------------------------------------
     def query_sdf_grid(self, lm, decoder: Decoder, sdf_scale: float,
@@ -86,13 +102,17 @@ class Mesher:
         dev = lm.attr_rows.device
         sdf_out = torch.zeros((n,), dtype=torch.float32, device=dev)
         nn_out = torch.zeros((n,), dtype=torch.int64, device=dev)
+        dpq = self._dp_query(sdf_scale) if self._dp_mesh is not None else None
         with torch.no_grad():
             for s in range(0, n, B):
                 e = min(s + B, n)
                 chunk = np.zeros((B, 3), np.float32)
                 chunk[: e - s] = coords[s:e]
-                sdf, nn = grid_query(lm, self.mc, decoder, sdf_scale, self.offsets,
-                                     torch.as_tensor(chunk, device=dev))
+                pts = torch.as_tensor(chunk, device=dev)
+                if dpq is not None:
+                    sdf, nn = dpq(lm, decoder, pts)
+                else:
+                    sdf, nn = grid_query(lm, self.mc, decoder, sdf_scale, self.offsets, pts)
                 sdf_out[s:e] = sdf[: e - s]
                 nn_out[s:e] = nn[: e - s]
         return sdf_out.cpu().numpy(), nn_out.to(torch.int32).cpu().numpy()

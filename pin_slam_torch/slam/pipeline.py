@@ -63,6 +63,17 @@ its control file ``<run>/control.json`` (pause, step, mesh now, pause at
 the next loop closure, the in-run mesher's resolution), which
 ``utils/viewer_server.py`` writes from the viewer's buttons.
 
+With ``dp_devices > 1`` (launched as that many processes, ``parallel/
+distributed.py``) every rank runs this loop on the same frames and each
+training call splits its batch over the ranks (``parallel/mesh.py``): the
+gradients are averaged before the replicated Adam step, and the mesher's
+grid queries are split likewise.  With ``map_shards > 1`` the global map is
+sharded over the ranks (``parallel/spatial.py``): each frame's insert goes
+to the owning shards, and the local window every consumer reads is merged
+from the shards' windows.  Either way the pose books, the pool and the
+decoders stay bit-identical on every rank, and rank 0 alone writes the run
+directory.
+
 The JAX package fuses each stage into one jitted program; the port runs the
 same operations eagerly on the device, with the pose hand-over and the
 health-gate decisions on the host.  Every random draw comes from one
@@ -120,12 +131,19 @@ def exact_knn_on() -> bool:
 
 
 def check_ported(cfg) -> None:
-    """Raise for every option this slice of the port does not cover."""
-    exact = exact_knn_on()
+    """Raise for every option this slice of the port does not cover, and for
+    the combinations the JAX package refuses (``ValueError``)."""
+    if cfg.map_shards > 1:
+        if cfg.dp_devices > 1:
+            raise ValueError("map_shards > 1 requires dp_devices == 1 (the data and map "
+                             "axes are not composed; parallel/spatial.py)")
+        if cfg.ba_freq_frame > 0:
+            raise ValueError("map_shards > 1 requires ba_freq_frame=0 (bundle adjustment's "
+                             "joint pose and feature refinement is not sharded; PGO and "
+                             "the elastic deformation are)")
+    # data parallelism takes precedence over PIN_SLAM_EXACT_KNN, as in the JAX package
+    exact = exact_knn_on() and cfg.dp_devices <= 1
     unported = [
-        ("dp_devices > 1 (data-parallel mapping and mesh queries, ROADMAP A 12)",
-         cfg.dp_devices > 1),
-        ("map_shards > 1 (ROADMAP A 12)", cfg.map_shards > 1),
         # the JAX package's cached loop trains raw features while its
         # queries normalise them; only its uncached loop trains what they read
         ("layer_norm_on on the cached training path (ROADMAP C 14; trained under "
@@ -140,12 +158,21 @@ def check_ported(cfg) -> None:
 
 
 class RandomSource:
-    """Every random draw of the main path, from one ``torch.Generator``."""
+    """Every random draw of the main path, from one ``torch.Generator``.
 
-    def __init__(self, seed: int, device: torch.device):
+    With ``rank`` (data parallelism) the training batches come from a
+    generator of the rank's own, seeded from (seed, rank), and the shared
+    generator advances identically on every rank."""
+
+    def __init__(self, seed: int, device: torch.device, rank: Optional[int] = None):
         self.device = device
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(seed))
+        self.batch_gen = self.gen
+        if rank is not None:
+            self.batch_gen = torch.Generator(device=device)
+            self.batch_gen.manual_seed(int(np.random.SeedSequence(
+                [int(seed), int(rank)]).generate_state(1)[0]))
 
     def ray_noise(self, frame_id: int, sc: SamplerConfig, n: int):
         return draw_ray_noise(self.gen, sc, n, self.device)
@@ -154,7 +181,7 @@ class RandomSource:
                       mcfg: mp.MapperConfig, use_new: bool, num_iters: int):
         """chunk -1: the frame's main training, -2: a stop frame's training,
         0..: frame-0 extra chunks (tests key the JAX package's draws on it)."""
-        return mp.sample_batch_indices(self.gen, pool, mcfg,
+        return mp.sample_batch_indices(self.batch_gen, pool, mcfg,
                                        torch.tensor(use_new, device=self.device), num_iters)
 
     def ba_indices(self, frame_id: int, pool: mp.PoolState, bs: int, num_iters: int):
@@ -170,27 +197,68 @@ class SlamSystem:
     """Owns the device state and the host pose books; one frame at a time.
 
     ``device=None`` runs on the GPU (and raises if there is none); pass
-    ``device="cpu"`` to run the kernels' plain PyTorch versions on the CPU."""
+    ``device="cpu"`` to run the kernels' plain PyTorch versions on the CPU.
+    ``dp_devices > 1`` and ``map_shards > 1`` need a process group of that
+    many ranks (``parallel.distributed.initialize``), each on the device
+    the group gave it; without one they raise, naming the launch."""
 
     def __init__(self, config, dataset: Optional[SLAMDataset] = None,
                  device=None, random_source: Optional[RandomSource] = None,
                  sync_stages: bool = False):
         cfg = self.config = config
         check_ported(cfg)
-        self.exact_knn = exact_knn_on()
+        self.exact_knn = exact_knn_on() and cfg.dp_devices <= 1
         self.device = dev = resolve_device(device)
+        self.dp_mesh, self._spatial, self._slms, self._dense = None, None, None, False
+        ranks = None                   # the mesh whose ranks keep replicas in step
+        if cfg.dp_devices > 1:
+            from pin_slam_torch.parallel import distributed as pdist
+
+            self.dp_mesh = ranks = pdist.make_global_mesh(cfg.dp_devices)
+        elif cfg.map_shards > 1:
+            from pin_slam_torch.parallel import spatial as psp
+
+            mesh2d = psp.make_mesh2d(1, cfg.map_shards)
+            ranks = mesh2d.map
+        if ranks is not None:
+            if ranks.device.type != dev.type:
+                raise RuntimeError(f"the process group's ranks run on {ranks.device}, "
+                                   f"the system was asked for {dev}")
+            self.device = dev = ranks.device
+        self._ranks = ranks
+        self.is_writer = ranks is None or ranks.ranks[ranks.rank] == 0
         self.dataset = dataset if dataset is not None else SLAMDataset(cfg, device=dev)
         if self.dataset.device is None:
             self.dataset.device = dev
         self.mc = npts.MapConfig.from_config(cfg)
+        if cfg.map_shards > 1:
+            # per-shard insert bucket: big enough that frame 0 (every candidate
+            # new, ownership splitting them ~1 / shards) never truncates, small
+            # enough that map_insert's room guard lets a shard fill to ~cap / 2
+            shard_cap = cfg.map_capacity // cfg.map_shards
+            self._spatial = psp.LiveBackend(
+                mesh2d, self.mc, downsample_table_size=cfg.downsample_hash_size,
+                insert_bucket=max(256, min(cfg.frame_bucket, shard_cap // 2)))
+            self.mc = self._spatial.mc_merged
         self.mcfg = mp.MapperConfig.from_config(cfg)
         self.sc = SamplerConfig.from_config(cfg)
         self.tc = trk.TrackerConfig.from_config(cfg)
+        # data parallelism: each rank trains on bs / dp_devices rows a call
+        self._dp_loop = None
+        if self.dp_mesh is not None:
+            from pin_slam_torch.parallel import mesh as pmesh
+
+            self._dp_loop = pmesh.make_sharded_mapping_loop(self.dp_mesh, self.mcfg)
+        self.train_mcfg = self._dp_loop.mcfg if self._dp_loop is not None else self.mcfg
         # the training kernels, or torch autograd for what they do not cover;
         # under PIN_SLAM_EXACT_KNN=1 the uncached loop, by autograd
-        self.kernel_path = not self.exact_knn and mp.kernel_path_supported(self.mcfg, cfg)
+        self.kernel_path = (not self.exact_knn
+                            and mp.kernel_path_supported(self.train_mcfg, cfg))
+        if self._dp_loop is not None:
+            self._dp_loop.autograd = not self.kernel_path
         self.sync_stages = sync_stages
-        self.rand = random_source or RandomSource(cfg.seed, dev)
+        self.rand = random_source or RandomSource(
+            cfg.seed, dev, rank=self.dp_mesh.rank if self.dp_mesh is not None else None)
 
         self.offsets = torch.as_tensor(npts.neighbor_offsets(cfg.num_nei_cells,
                                                              cfg.search_alpha), device=dev)
@@ -235,7 +303,8 @@ class SlamSystem:
         if self._use_dedup and int(np.ceil(2.0 * cfg.max_range / self.mc.voxel_size)) >= 1024:
             self._use_dedup = False
 
-        self.state = npts.init_map_state(self.mc, dev)
+        self.state = (self._spatial.init_state() if self._spatial is not None
+                      else npts.init_map_state(self.mc, dev))
         self.lm = npts.init_local_map(self.mc, dev)
         self.pool = mp.init_pool(self.mcfg, dev, color_channel=max(cfg.color_channel, 1))
         self.sdf_scale = cfg.sdf_scale
@@ -346,11 +415,16 @@ class SlamSystem:
         vld_surf = batch.valid.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
         surf_mask = vld_surf & (torch.abs(lbl_surf)
                                 < cfg.surface_sample_range_m * cfg.map_surface_ratio)
-        self.state = npts.map_insert(
-            self.state, mc, cw_surf, surf_mask, frame_id, self._travel,
-            downsample_table_size=cfg.downsample_hash_size,
-            insert_bucket=min(cfg.frame_bucket, cw_surf.shape[0]))
-        lm = npts.build_local_map(self.state, mc, pose_t, frame_id, self._travel)
+        if self._spatial is None:
+            self.state = npts.map_insert(
+                self.state, mc, cw_surf, surf_mask, frame_id, self._travel,
+                downsample_table_size=cfg.downsample_hash_size,
+                insert_bucket=min(cfg.frame_bucket, cw_surf.shape[0]))
+            lm = npts.build_local_map(self.state, mc, pose_t, frame_id, self._travel)
+        else:
+            self.state = self._spatial.insert(self.state, cw_surf, surf_mask, frame_id,
+                                              self._travel)
+            self._slms, lm = self._spatial.extract(self.state, pose_t, frame_id, self._travel)
 
         new_full = mp.compute_new_sample_mask(lm, mc, mcfg, coord_world, batch.sdf_label,
                                               batch.valid)
@@ -362,13 +436,40 @@ class SlamSystem:
             lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
             far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
             dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0,
-            quats=self.state.attr_rows[:, npts.C_QUAT] if self.after_pgo else None,
+            quats=self._quats(lm) if self.after_pgo else None,
             pos_encode=mc.pos_encode)
         self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
                                    batch.sdf_label, batch.weight, batch.valid & ~dropped,
                                    frame_id, new_mask, gidx, w, vec, nvec,
                                    color_label=batch.color_label, sem_label=batch.sem_label)
         return lm
+
+    def _quats(self, lm) -> torch.Tensor:
+        """The global quaternion rows (cap + 1, 4) the post-PGO kNN probe
+        reads; under map sharding those of the merged window's members (the
+        only rows its probe can return), the rest the sentinel's."""
+        if self._spatial is None:
+            return self.state.attr_rows[:, npts.C_QUAT]
+        q = npts.attr_sentinel_row(self.device)[npts.C_QUAT].expand(
+            self.mc.capacity + 1, 4).clone()
+        q[lm.indices] = lm.attr_rows[:, npts.C_QUAT]
+        return q
+
+    def _write_back(self, lm) -> None:
+        """The trained local window back into the global map (into every
+        shard's own rows under map sharding)."""
+        if self._spatial is None:
+            self.state = npts.assign_local_to_global(self.state, lm, self.mc, self._travel)
+        else:
+            self.state = self._spatial.writeback(self.state, self._slms, lm.attr_rows,
+                                                 lm.geo_features, lm.color_features,
+                                                 self._travel)
+
+    def _map_count(self) -> int:
+        """The global map's points (every shard's under map sharding)."""
+        if self._spatial is not None and not self._dense:
+            return self._spatial.map_count(self.state)
+        return int(self.state.count)
 
     def _decoder_leaves(self):
         """The decoders as a training call takes them: the packed vector on
@@ -390,8 +491,13 @@ class SlamSystem:
         autograd; returns (lm_out, feats, decoder leaves, opt, loss history)
         with lm_out's features (and, with the colour state ``color``, its
         colour features) set to the trained ones."""
-        idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.mcfg, use_new, num_iters)
-        if self.exact_knn:
+        idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.train_mcfg, use_new,
+                                      num_iters)
+        if self._dp_loop is not None:
+            lm2, feats, gvec, opt, hist = self._dp_loop(
+                lm, self.mc, feats, gvec, opt, self.pool, idx, dec_scale, self.after_pgo,
+                color=color)
+        elif self.exact_knn:
             # the JAX package's run_exact: the certainty column stripped (the
             # loop folds the certainty itself), fresh Adam moments on the slim
             # leaves every call, the zero column put back; ``opt`` passes through
@@ -576,7 +682,7 @@ class SlamSystem:
                     # lost frame: keep the rebuilt local map and the untrained
                     # parameters (the JAX package trains and then discards)
                     lm_out, hist = lm2, None
-            self.state = npts.assign_local_to_global(self.state, lm_out, self.mc, self._travel)
+            self._write_back(lm_out)
             self.lm = lm_out
             self._load_decoders(gvec)
             if color is not None and hist is not None:
@@ -601,8 +707,7 @@ class SlamSystem:
                 self.lm, feats, gvec, opt, hist = self._train(
                     self.lm, feats, gvec, opt, fid, chunk, True, dec_scale, int(cfg.iters),
                     color)
-                self.state = npts.assign_local_to_global(self.state, self.lm, self.mc,
-                                                         self._travel)
+                self._write_back(self.lm)
                 self._load_decoders(gvec)
                 if color is not None:
                     color.load_into(self.color_decoder)
@@ -648,19 +753,24 @@ class SlamSystem:
         ``sdf_slice_height`` above the sensor every ``sdfslice_freq_frame``
         frames.  Runs after the frame's stage times are taken; the
         milliseconds of each part go into ``info["vis_ms"]``.  A failed
-        viewer export warns once and never stops the run."""
+        viewer export warns once and never stops the run.  With several
+        ranks every rank computes the same artifacts (the mesher's queries
+        are split over them) and rank 0 alone writes them."""
         cfg = self.config
         fid = self.frame_id
         run_path = self._run_path()
         vis_dir = os.path.join(run_path, "vis")
-        os.makedirs(vis_dir, exist_ok=True)
+        write = self.is_writer
+        if write:
+            os.makedirs(vis_dir, exist_ok=True)
         if self._vis_mesher is None:
             over = self._mc_overrides
             self._vis_mesher = Mesher(MesherConfig(
                 mc_res_m=float(over.get("mc_res_m", cfg.mc_res_m)),
                 mesh_min_nn=int(over.get("mesh_min_nn", cfg.mesh_min_nn)),
                 min_cluster_vertices=cfg.min_cluster_vertices,
-                query_bucket=cfg.mesh_query_bucket), self.mc, self.offsets)
+                query_bucket=cfg.mesh_query_bucket), self.mc, self.offsets,
+                dp_mesh=self.dp_mesh)
 
         mesh_due = ((fid > 0 and cfg.mesh_freq_frame > 0 and fid % cfg.mesh_freq_frame == 0)
                     or info.get("pgo_applied") or self._mesh_now)
@@ -685,27 +795,30 @@ class SlamSystem:
             v, f = out[:2]
             c = out[2] if len(out) == 4 else None
             if v.shape[0]:
-                pio.write_ply(os.path.join(vis_dir, f"mesh_{fid:05d}.ply"), v, colors=c,
-                              normals=vertex_normals(v, f), faces=f)
+                if write:
+                    pio.write_ply(os.path.join(vis_dir, f"mesh_{fid:05d}.ply"), v, colors=c,
+                                  normals=vertex_normals(v, f), faces=f)
                 self._mesh_cache = (v, f, c)
             ms["mesh"] = (time.perf_counter() - t0) * 1e3
+            map_points = self._map_count()
             t0 = time.perf_counter()
-            try:
-                self._export_live_viewer(run_path, fid, pts, v, f, c)
-            except Exception as e:
-                self._warn_once("viewer", f"live viewer export failed: {e!r}")
+            if write:
+                try:
+                    self._export_live_viewer(run_path, fid, pts, v, f, c, map_points)
+                except Exception as e:
+                    self._warn_once("viewer", f"live viewer export failed: {e!r}")
             ms["viewer"] = (time.perf_counter() - t0) * 1e3
         if slice_due:
             t0 = time.perf_counter()
             height = origin[2] + cfg.sdf_slice_height
             pts_sl, sdf_sl = self._vis_mesher.sdf_slice(self.lm, self.decoder, self.sdf_scale,
                                                         origin, cfg.max_range, height)
-            if pts_sl.shape[0]:
+            if pts_sl.shape[0] and write:
                 pio.write_ply(os.path.join(vis_dir, f"sdf_slice_{fid:05d}.ply"), pts_sl,
                               extra={"sdf": sdf_sl})
             ms["sdf_slice"] = (time.perf_counter() - t0) * 1e3
 
-    def _export_live_viewer(self, run_path, fid, pts, v, f, c) -> None:
+    def _export_live_viewer(self, run_path, fid, pts, v, f, c, map_points: int) -> None:
         """The live viewer's refresh: one narrow copy of a strided pool
         sample (world coordinates, label, frame id) to the host."""
         cfg = self.config
@@ -728,7 +841,7 @@ class SlamSystem:
                     sensor_verts=gv_w, sensor_faces=gf,
                     pool_points=pool_rows[pool_ok][:, mp.P_COORD],
                     pool_labels=pool_rows[pool_ok][:, mp.P_LABEL], live=True,
-                    meta={"frame": fid, "rev": fid, "map_points": int(self.state.count),
+                    meta={"frame": fid, "rev": fid, "map_points": map_points,
                           "loops": n_loops, "paused": False,
                           "sensor": [float(x) for x in self.cur_pose[:3, 3]]})
 
@@ -759,19 +872,38 @@ class SlamSystem:
         (consumed), ``pause_at_loop`` (latched for the loop-closure hook),
         ``mc_res_m`` / ``mesh_min_nn`` (the in-run mesher is rebuilt with
         them when they change), and ``pause``, which holds the run until it
-        is cleared or ``step`` lets frames through one at a time."""
-        ctl = self._read_control()
-        if not ctl:
+        is cleared or ``step`` lets frames through one at a time.  With
+        several ranks rank 0 reads the file and hands its decisions to the
+        others (one broadcast a frame), which wait for it while it pauses."""
+        if self.is_writer:
+            ctl = self._read_control()
+            decided = self._hold_control(ctl) if ctl else None
+        else:
+            decided = None
+        if self._ranks is not None:
+            from pin_slam_torch.parallel import mesh as pmesh
+
+            decided = pmesh.broadcast_object(self._ranks, decided,
+                                             src=self._ranks.ranks.index(0))
+        if decided is None:
             return
-        if ctl.pop("mesh_now", False):
-            self._mesh_now = True
-            self._write_control(ctl)
-        self._pause_at_loop = bool(ctl.get("pause_at_loop", False))
-        mc_over = {k: ctl[k] for k in ("mc_res_m", "mesh_min_nn") if k in ctl}
+        mesh_now, self._pause_at_loop, mc_over = decided
+        self._mesh_now = self._mesh_now or mesh_now
         if mc_over and mc_over != self._mc_overrides:
             self._mc_overrides = mc_over
             self._vis_mesher = None          # rebuilt with the new parameters
-            print(f"[pipeline] live mesher retune: {mc_over}", flush=True)
+            if self.is_writer:
+                print(f"[pipeline] live mesher retune: {mc_over}", flush=True)
+
+    def _hold_control(self, ctl: dict):
+        """Consume ``mesh_now``, hold the run while ``pause`` is set (``step``
+        lets frames through one at a time); returns (mesh now, pause at the
+        next loop closure, the in-run mesher's overrides)."""
+        mesh_now = bool(ctl.pop("mesh_now", False))
+        if mesh_now:
+            self._write_control(ctl)
+        decided = (mesh_now, bool(ctl.get("pause_at_loop", False)),
+                   {k: ctl[k] for k in ("mc_res_m", "mesh_min_nn") if k in ctl})
         waited = False
         while ctl.get("pause"):
             if int(ctl.get("step", 0) or 0) > 0:
@@ -787,6 +919,7 @@ class SlamSystem:
             ctl = self._read_control()
         if waited:
             self._refresh_viewer_meta(paused=False)
+        return decided
 
     def _refresh_viewer_meta(self, paused: bool) -> None:
         """Rewrite only the live viewer's status line (``paused``, and a new
@@ -896,8 +1029,12 @@ class SlamSystem:
         origin_loop = loop_pose[:3, 3].copy()
         tw = np.float32(min(mc.travel_dist_window,
                             max(0.5 * (travel[fid] - travel[loop_id]), 1e-3)))
-        lm_loop = npts.build_local_map(self.state, mc, self._f32_dev(origin_loop), loop_id,
-                                       self._travel, travel_window=float(tw))
+        if self._spatial is None:
+            lm_loop = npts.build_local_map(self.state, mc, self._f32_dev(origin_loop), loop_id,
+                                           self._travel, travel_window=float(tw))
+        else:
+            _, lm_loop = self._spatial.extract(self.state, self._f32_dev(origin_loop), loop_id,
+                                               self._travel, travel_window=float(tw))
         source, src_valid, nrm, nrm_valid = self.last_source
         res = trk.track_frame(
             lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
@@ -922,25 +1059,37 @@ class SlamSystem:
         pose_diff = pgm.get_pose_diff(poses)
         diff_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
         diff_full[:pose_diff.shape[0]] = pose_diff.astype(np.float32)
-        self.state = npts.adjust_map(self.state, mc, self._f32_dev(diff_full))
-        self.state = npts.recreate_hash(self.state, mc, fid,
-                                        downsample_table_size=cfg.downsample_hash_size)
         poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
         poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
         self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full))
-        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
+        if self._spatial is None:
+            self.state = npts.adjust_map(self.state, mc, self._f32_dev(diff_full))
+            self.state = npts.recreate_hash(self.state, mc, fid,
+                                            downsample_table_size=cfg.downsample_hash_size)
+            attr_rows = self.state.attr_rows
+        else:
+            # per shard (each point moves by its own timestamp's correction);
+            # the pool's cached neighbours read every shard's rows, gathered
+            # into the shard-block id layout
+            self.state = self._spatial.adjust(self.state, self._f32_dev(diff_full))
+            self.state = self._spatial.recreate(self.state, fid)
+            attr_rows = self._spatial.gather_attr_rows(self.state)
+        self.pool = mp.pool_refresh_cache(self.pool, attr_rows, mc, mc.pos_encode)
 
         self.dataset.update_poses_after_pgo(new_poses)
         self.cur_pose = new_poses[fid].copy()
-        self.lm = npts.build_local_map(self.state, mc, self._f32_dev(self.cur_pose[:3, 3]),
-                                       fid, self._travel)
+        origin = self._f32_dev(self.cur_pose[:3, 3])
+        if self._spatial is None:
+            self.lm = npts.build_local_map(self.state, mc, origin, fid, self._travel)
+        else:
+            self._slms, self.lm = self._spatial.extract(self.state, origin, fid, self._travel)
         self.lm_origin64 = self.cur_pose[:3, 3].copy()
         self.after_pgo = True
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
         # pause-at-loop (ref utils/visualizer.py:344-346): hold the run right
         # after the closure so that the deformed map can be inspected
-        if self._pause_at_loop:
+        if self._pause_at_loop and self.is_writer:
             ctl = self._read_control()
             ctl["pause"] = True
             self._write_control(ctl)
@@ -971,7 +1120,7 @@ class SlamSystem:
             self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
             self.offsets, self._f32_dev(poses_full), window_start, xi0, idx)
         self.lm.geo_features = feats
-        self.state = npts.assign_local_to_global(self.state, self.lm, mc, self._travel)
+        self._write_back(self.lm)
         dT = se3_expmap(xi).double().cpu().numpy()
         before = np.stack(poses_list[window_start:])[:, :3, 3]
         for i in range(window):
@@ -999,51 +1148,69 @@ class SlamSystem:
         map, the neural-point and merged clouds, and the whole-map mesh.
         Returns ``mesh_map``'s (vertices, faces, view counts) with
         ``save_mesh``, else None.  Finalisation compacts ``self.state``: call
-        this after the last frame."""
+        this after the last frame.  Under map sharding the shards are first
+        gathered into one dense map on every rank (``_densify_sharded_state``);
+        with several ranks each computes the same artifacts (the mesh's
+        queries split over the data-parallel ranks) and rank 0 alone writes
+        them."""
         cfg = self.config
-        os.makedirs(os.path.join(run_path, "map"), exist_ok=True)
-        if self.pgm is not None and self.pgm.pgo_count > 0:
-            self.pgm.write_g2o(os.path.join(run_path, "final_pose_graph.g2o"))
-            self.pgm.plot_loops(os.path.join(run_path, "loop_plot.png"))
+        write = self.is_writer
+        if self.map_counts:
+            # one read of the per-frame counts (under map sharding every
+            # shard's, summed); MB as the JAX package writes them
+            counts = torch.stack(self.map_counts)
+            if self._spatial is not None and not self._dense:
+                from pin_slam_torch.parallel import mesh as pmesh
+
+                counts = pmesh.psum(self._spatial.mesh, counts)
+            counts = counts.cpu().numpy()
+        if self._spatial is not None and not self._dense:
+            self._densify_sharded_state()
+        if write:
+            os.makedirs(os.path.join(run_path, "map"), exist_ok=True)
+            if self.pgm is not None and self.pgm.pgo_count > 0:
+                self.pgm.write_g2o(os.path.join(run_path, "final_pose_graph.g2o"))
+                self.pgm.plot_loops(os.path.join(run_path, "loop_plot.png"))
 
         with torch.no_grad():
             self.state = npts.finalize_map(
                 self.state, self.mc, self._travel, max(self.frame_id - 1, 0),
                 prune_certainty_thre=float(cfg.max_prune_certainty),
                 downsample_table_size=cfg.downsample_hash_size)
-        if self.map_counts:
-            # one read of the per-frame counts; MB as the JAX package writes them
-            counts = torch.stack(self.map_counts).cpu().numpy()
+        if self.map_counts and write:
             point_dim = cfg.feature_dim + 3 + 4 + (cfg.feature_dim if cfg.color_on else 0)
             np.save(os.path.join(run_path, "memory_footprint.npy"),
                     counts * point_dim * 4 / 2**20)
-        if self.stage_times:
+        if self.stage_times and write:
             tt = np.asarray(self.stage_times)
             np.save(os.path.join(run_path, "time_table.npy"), tt)
             _plot_stage_times(os.path.join(run_path, "time_details.png"), tt)
 
         count = int(self.state.count)
         pts = self.state.positions[:count].cpu().numpy()
-        if cfg.save_map:
+        if cfg.save_map and write:
             save_implicit_map(os.path.join(run_path, "map", "pin_map.npz"), self.state,
                               self.decoder, color_decoder=self.color_decoder,
                               sem_decoder=self.sem_decoder)
-        if cfg.save_merged_pc or cfg.save_map:
+        if (cfg.save_merged_pc or cfg.save_map) and write:
             pio.write_ply(os.path.join(run_path, "map", "neural_points.ply"), pts,
                           extra={"certainty": self.state.attr_rows[:count, npts.C_CERT]
                                  .cpu().numpy()})
-        if cfg.save_merged_pc and self.dataset.total_pc_count > 0:
+        if cfg.save_merged_pc and self.dataset.total_pc_count > 0 and write:
             self.dataset.write_merged_point_cloud(run_path, vox_down_m=3 * cfg.vox_down_m)
         mesh = None
         if cfg.save_mesh and count > 0:
             mesh = self.mesh_map(pts)
             verts, faces, _ = mesh
             if len(verts):
-                os.makedirs(os.path.join(run_path, "mesh"), exist_ok=True)
-                pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
-                              colors=self.mesh_colors, normals=vertex_normals(verts, faces),
-                              faces=faces)
+                if write:
+                    os.makedirs(os.path.join(run_path, "mesh"), exist_ok=True)
+                    pio.write_ply(os.path.join(run_path, "mesh", "mesh.ply"), verts,
+                                  colors=self.mesh_colors,
+                                  normals=vertex_normals(verts, faces), faces=faces)
                 self._mesh_cache = (verts, faces, self.mesh_colors)
+        if not write:
+            return mesh
         # the self-contained viewer: the map's points, the last mesh (the
         # whole map's, else the last in-run one), the trajectory
         try:
@@ -1057,6 +1224,24 @@ class SlamSystem:
             if not cfg.silence:
                 print(f"[pipeline] viewer export failed: {e}")
         return mesh
+
+    def _densify_sharded_state(self) -> None:
+        """Map sharding: gather and compact every shard's points into one
+        dense map in the merged layout (hash rebuilt) on every rank, so that
+        the end of a run runs on it unchanged."""
+        pos, attr, geo, col, _, count = self._spatial.gather_state_dense(self.state)
+        mc, dev = self.mc, self.device
+        cap = mc.capacity
+        count = min(count, cap)
+        dense = npts.init_map_state(mc, dev)
+        dense.attr_rows[:count] = torch.as_tensor(attr[:count], device=dev)
+        dense.geo_features[:count] = torch.as_tensor(geo[:count], device=dev)
+        if col is not None and dense.color_features is not None:
+            dense.color_features[:count] = torch.as_tensor(col[:count], device=dev)
+        dense.count = torch.tensor(count, dtype=torch.int64, device=dev)
+        self.state = npts.recreate_hash(dense, mc, max(self.frame_id - 1, 0),
+                                        downsample_table_size=self.config.downsample_hash_size)
+        self._dense = True
 
     def mesh_map(self, pts: np.ndarray):
         """The whole map's mesh from read-only radius views
@@ -1073,7 +1258,7 @@ class SlamSystem:
         mesher = Mesher(MesherConfig(mc_res_m=cfg.mc_res_m, mesh_min_nn=cfg.mesh_min_nn,
                                      min_cluster_vertices=cfg.min_cluster_vertices,
                                      query_bucket=cfg.mesh_query_bucket),
-                        mc, self.offsets)
+                        mc, self.offsets, dp_mesh=self.dp_mesh)
         margin = float(np.sqrt(mc.max_valid_dist2)) + 1.0
         chunk_m = 60.0
         while chunk_m > 4.0:
@@ -1096,7 +1281,7 @@ class SlamSystem:
                 v = npts.build_query_view(self.state, mc, self._f32_dev(center),
                                           np.float32(radius))
             view_counts.append(int(v.count))
-            if view_counts[-1] >= mc.local_capacity and not cfg.silence:
+            if view_counts[-1] >= mc.local_capacity and not cfg.silence and self.is_writer:
                 print(f"[pipeline] save_mesh: chunk at {center} overflows local "
                       f"capacity {mc.local_capacity}; reduce chunk_m")
             return v
@@ -1111,18 +1296,21 @@ class SlamSystem:
     def run(self, num_frames: Optional[int] = None) -> list:
         """Process the dataset's frames, then write the results (trajectory,
         with ground truth its metrics, kept in ``self.metrics``) and the
-        end-of-run artifacts; returns each frame's info dict."""
+        end-of-run artifacts; returns each frame's info dict.  With several
+        ranks rank 0 alone writes (and logs); every rank keeps the same
+        state."""
         cfg = self.config
-        wandb_log.setup_wandb(cfg)
+        if self.is_writer:
+            wandb_log.setup_wandb(cfg)
         n = len(self.dataset) if num_frames is None else min(num_frames, len(self.dataset))
         end = cfg.end_frame if cfg.end_frame > 0 else n
         infos = []
         for i in range(cfg.begin_frame, min(end, n), max(cfg.every_frame, 1)):
             infos.append(self.process_frame(self.dataset.preprocess_frame(i)))
-            if not cfg.silence:
+            if not cfg.silence and self.is_writer:
                 print(f"frame {i}: {infos[-1]}", flush=True)
         run_path = self._run_path()
-        self.metrics = self.dataset.write_results(run_path)
+        self.metrics = self.dataset.write_results(run_path) if self.is_writer else {}
         self.save_artifacts(run_path)
         if self.metrics:
             wandb_log.log({f"metrics/{k}": v for k, v in self.metrics.items()})

@@ -22,21 +22,24 @@ from pin_slam_torch.models.decoder import Decoder, decoder_from_jax
 from pin_slam_torch.utils.platform import resolve_device
 
 
-def setup_experiment(cfg, argv=None) -> str:
+def setup_experiment(cfg, argv=None, create: bool = True) -> str:
     """Create ``<output_root>/<name>_<timestamp>/`` with ``map/``, ``mesh/``
     and ``meta/``, set ``cfg.run_path`` / ``cfg.run_name``, seed numpy's
     global generator and torch's with ``cfg.seed``, and write
     ``meta/run.json`` (argv, seed, time, and the checkout's git commit when
-    there is one).  Returns the run path."""
+    there is one).  Returns the run path.  ``create`` False (a rank that
+    writes nothing) only names the run and seeds."""
     ts = time.strftime("%Y-%m-%d_%H-%M-%S")
     run_name = f"{cfg.name}_{ts}"
     run_path = os.path.join(cfg.output_root or "./experiments", run_name)
-    for sub in ("map", "mesh", "meta"):
-        os.makedirs(os.path.join(run_path, sub), exist_ok=True)
     cfg.run_path = run_path
     cfg.run_name = run_name
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
+    if not create:
+        return run_path
+    for sub in ("map", "mesh", "meta"):
+        os.makedirs(os.path.join(run_path, sub), exist_ok=True)
     meta = {"argv": argv or [], "seed": cfg.seed, "time": ts}
     try:
         meta["git_commit"] = subprocess.check_output(

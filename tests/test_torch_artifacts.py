@@ -415,18 +415,28 @@ def test_load_implicit_map_on_the_gpu_unless_asked(saved_maps, monkeypatch):
     assert state.attr_rows.device.type == "cpu"
 
 
-@pytest.mark.parametrize("option, value, label", [
-    ("dp_devices", 2, "ROADMAP A 12"), ("map_shards", 2, "ROADMAP A 12"),
-    ("layer_norm_on", True, "ROADMAP C 14"), ("fresh_freespace_damp", 0.5, "ROADMAP")])
-def test_still_refused_options_name_their_roadmap_item(option, value, label, tmp_path):
+@pytest.mark.parametrize("options, error, label", [
+    ({"dp_devices": 2}, RuntimeError, "torchrun --nproc-per-node 2"),
+    ({"map_shards": 2}, RuntimeError, "torchrun --nproc-per-node 2"),
+    ({"layer_norm_on": True}, NotImplementedError, "ROADMAP C 14"),
+    ({"fresh_freespace_damp": 0.5}, NotImplementedError, "ROADMAP"),
+    ({"map_shards": 2, "dp_devices": 2}, ValueError, "dp_devices"),
+    ({"map_shards": 2, "ba_freq_frame": 20}, ValueError, "ba_freq_frame")],
+    ids=["dp_devices-2-ROADMAP A 12", "map_shards-2-ROADMAP A 12",
+         "layer_norm_on-True-ROADMAP C 14", "fresh_freespace_damp-0.5-ROADMAP",
+         "map_shards-with-dp_devices", "map_shards-with-ba_freq_frame"])
+def test_still_refused_options_name_their_roadmap_item(options, error, label, tmp_path):
+    """The options the port still refuses name their ROADMAP item; the
+    multi-device options without a process group of their size name the
+    launch (they never run on fewer devices), and the combinations the JAX
+    package refuses raise its ValueError."""
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem
 
     root = str(tmp_path / "seq")
     _sequence(root, 1)
-    cfg = _run_config(Config, root, str(tmp_path / "run"))
-    setattr(cfg, option, value)
-    with pytest.raises(NotImplementedError, match=label):
+    cfg = _run_config(Config, root, str(tmp_path / "run"), **options)
+    with pytest.raises(error, match=label):
         SlamSystem(cfg, device="cpu")
 
 

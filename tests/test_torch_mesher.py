@@ -377,10 +377,25 @@ def test_split_chunks_matches(chunk_m):
 
 
 def test_unported_mesher_options_raise():
+    """Every mesher option is ported: painting, and data-parallel grid
+    queries (``dp_mesh``), which on a one-rank mesh query as the plain
+    mesher does and refuse a bucket that does not split over the ranks."""
+    from pin_slam_torch.parallel import mesh as pmesh
+
     m = _map()
     offs = torch.as_tensor(m["offsets"])
     tm.Mesher(tm.MesherConfig(semantic_on=True), m["tmc"], offs)   # semantic painting is ported
     tm.Mesher(tm.MesherConfig(color_on=True), m["tmc"], offs)      # painting is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP A 12"):
-        tm.Mesher(tm.MesherConfig(), m["tmc"], offs, dp_mesh=object())
+    one = pmesh.single_mesh("cpu")
+    cfg = tm.MesherConfig(query_bucket=384)
+    view = tn.build_query_view(m["ts"], m["tmc"], torch.zeros(3), 6.0)
+    g = np.random.default_rng(3).uniform(-4, 4, (1000, 3)).astype(np.float32)
+    sdf, nn = tm.Mesher(cfg, m["tmc"], offs).query_sdf_grid(view, m["dec"], 1.0, g)
+    sdf_dp, nn_dp = tm.Mesher(cfg, m["tmc"], offs, dp_mesh=one).query_sdf_grid(
+        view, m["dec"], 1.0, g)
+    np.testing.assert_array_equal(sdf_dp, sdf)
+    np.testing.assert_array_equal(nn_dp, nn)
+    with pytest.raises(ValueError, match="not divisible"):
+        tm.Mesher(cfg, m["tmc"], offs,
+                  dp_mesh=dataclasses.replace(one, size=5, ranks=(0, 1, 2, 3, 4)))
     assert dataclasses.asdict(tm.MesherConfig()) == dataclasses.asdict(jm.MesherConfig())

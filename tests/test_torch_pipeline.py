@@ -172,7 +172,8 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     assert {os.path.join(ROOT, "pin_slam_torch", f) for f in (
         "ros.py", "vis_pin_map.py", "utils/viewer_html.py", "utils/viewer_server.py",
-        "utils/sensor_cad.py")} <= set(files)
+        "utils/sensor_cad.py", "parallel/__init__.py", "parallel/distributed.py",
+        "parallel/mesh.py", "parallel/spatial.py", "parallel/launch.py")} <= set(files)
     banned = ("jax", "jaxlib", "pin_slam_tpu", "bench", "optax", "pin_slam_ros", "vis_pin_map")
     for f in files:
         with open(f) as fh:
@@ -205,18 +206,24 @@ def test_entry_point_refuses_silent_cpu_fallback(monkeypatch):
         SlamSystem(cfg2, device="cpu")
 
 
-@pytest.mark.parametrize("option, value", [
-    ("fresh_freespace_damp", 0.5), ("probe_dedup_near_budget", 0.25),
-    ("layer_norm_on", True), ("dp_devices", 2)])
-def test_unported_option_raises(option, value):
-    """Options outside this slice (and knobs the JAX package measured and
-    rejected) raise instead of being ignored."""
+@pytest.mark.parametrize("option, value, error, label", [
+    ("fresh_freespace_damp", 0.5, NotImplementedError, "ROADMAP"),
+    ("probe_dedup_near_budget", 0.25, NotImplementedError, "ROADMAP"),
+    ("layer_norm_on", True, NotImplementedError, "ROADMAP"),
+    ("dp_devices", 2, RuntimeError, "torchrun --nproc-per-node 2")],
+    ids=["fresh_freespace_damp-0.5", "probe_dedup_near_budget-0.25", "layer_norm_on-True",
+         "dp_devices-2"])
+def test_unported_option_raises(option, value, error, label):
+    """Options outside the port (and knobs the JAX package measured and
+    rejected) raise instead of being ignored; dp_devices > 1 without a
+    process group of that size raises, naming the launch, instead of
+    running on one device."""
     from pin_slam_torch.config import Config
     from pin_slam_torch.slam.pipeline import SlamSystem
 
     cfg = _config(Config, True)
     setattr(cfg, option, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=label):
         SlamSystem(cfg, device="cpu")
 
 

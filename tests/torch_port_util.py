@@ -53,3 +53,18 @@ def pack_jax_decoder(p):
     W2, b2 = p.out
     return torch.as_tensor(np.concatenate([np.ravel(W1), np.ravel(b1), np.ravel(W2),
                                            np.ravel(b2)]).astype(np.float32))
+
+
+def spawn_ranks(world, target, workdir, timeout=240, **kw):
+    """Run ``target`` (``module:function``, a module of tests/ that imports
+    no JAX at its top) with ``workdir`` in ``world`` child processes joined
+    over gloo on the CPU (a file rendezvous in ``workdir``, one torch thread
+    each); raises with the children's output if one fails.  Returns their
+    outputs."""
+    import os
+
+    from pin_slam_torch.parallel import launch
+
+    return launch.spawn(world, target, str(workdir), workdir=str(workdir), timeout=timeout,
+                        pythonpath=[os.path.dirname(os.path.abspath(__file__))], threads=1,
+                        **kw)
