@@ -2669,19 +2669,40 @@ def train_phase(label, args, kwargs, launches):
 
 def train_launch(B, k, wf, device, vd=3):
     """The train kernel's launch at (B, k, mode) on ``device``: rows per
-    block, blocks, threads per block, and (VD = 3) the blocks per SM its
-    registers allow."""
+    block, blocks, threads per block, the blocks per SM its build allows
+    and, for the general form (VD != 3), the padded input width of the build
+    that runs and the groups of rows its blocks take in turn."""
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
+    sms = _cuda.sm_count(device)
     if vd != tk.KERNEL_VD:
-        R = tk.general_rows_per_block(B, 1 if wf else k, _cuda.sm_count(device))
-        return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.GEN_THREADS,
-                "form": "general"}
+        resident = tk.general_resident_blocks("train_iter", device, bool(wf), vd)
+        R = tk.general_rows_per_block(B, 1 if wf else k, k, bool(wf), resident)
+        return {"form": "general", "width": tk.general_width(vd), "rows_per_block": R,
+                "groups": -(-B // R), "blocks": min(-(-B // R), resident),
+                "threads": tk.GEN_THREADS, "blocks_per_sm": resident // sms}
     resident = tk.train_resident_blocks(device, bool(wf))
     R = tk.train_rows_per_block(B, k, bool(wf), resident)
     return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.TRAIN_THREADS,
-            "blocks_per_sm": resident // _cuda.sm_count(device)}
+            "blocks_per_sm": resident // sms}
+
+
+def eik_launch(n, k, wf, device, vd=3):
+    """The eikonal kernel's launch at (n, k, mode) on ``device``, as
+    ``train_launch`` (the VD = 3 build sizes R from the SM count alone)."""
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.ops import train_kernel as tk
+
+    sms = _cuda.sm_count(device)
+    if vd != tk.KERNEL_VD:
+        resident = tk.general_resident_blocks("eikonal", device, bool(wf), vd)
+        R = tk.general_rows_per_block(n, 6 * (1 if wf else k), k, True, resident)
+        return {"form": "general", "width": tk.general_width(vd), "rows_per_block": R,
+                "groups": -(-n // R), "blocks": min(-(-n // R), resident),
+                "threads": tk.GEN_THREADS, "blocks_per_sm": resident // sms}
+    R = tk.eikonal_rows_per_block(n, k, bool(wf), sms)
+    return {"form": "VD=3", "rows_per_block": R, "blocks": -(-n // R), "threads": 256}
 
 
 def launched_twice(fn, args, label):
@@ -2698,7 +2719,6 @@ def launched_twice(fn, args, label):
 
 
 def eik_phase(label, args, kwargs, launches):
-    from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
     feats, wst, vst, esc, params, wf, scale, step = args
@@ -2709,15 +2729,11 @@ def eik_phase(label, args, kwargs, launches):
     t = timings(lambda: tk.eikonal_iter(*args), lambda: tk.eikonal_iter_plain(*args))
     flops = decodes(wf, n, k, 6 * decode_flops(vd))
     b, by = bound(nbytes(feats, wst, vst, esc, params, out_k[1], out_k[2]) + 4, flops)
-    sms = _cuda.sm_count(feats.get_device())
-    R = (tk.eikonal_rows_per_block(n, k, bool(wf), sms) if vd == tk.KERNEL_VD
-         else tk.general_rows_per_block(n, 6 * (1 if wf else k), sms))
     row = {"name": f"eikonal[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/eikonal.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:471", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
            "shape": {"n": n, "k": k, "VD": vd, "weighted_first": wf},
-           "launch": {"rows_per_block": R, "blocks": -(-n // R), "threads": 256,
-                      "form": "VD=3" if vd == tk.KERNEL_VD else "general"},
+           "launch": eik_launch(n, k, wf, feats.get_device(), vd),
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row

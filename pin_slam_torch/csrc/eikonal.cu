@@ -43,6 +43,14 @@
 // up to ~59 KB, above the 48 KB default after cudaFuncSetAttribute).
 // Float32 on the CUDA cores, as the port's precision policy asks; a
 // 3xTF32 mma.sync split of the 11 x 64 products is a later option.
+//
+// With positional encoding (VD != 3) the wrapper launches the general form
+// below (namespace eig; its design, shared with the train kernel's, is at
+// namespace gen in train_common.cuh): at path H's n = 1638, k = 6 per
+// neighbour, VD = 27, 0.0414 ms on the device against a 0.0092 ms bound
+// (operations; PR 12's first general form 0.145 ms), at pe_gaussian's
+// weighted_first VD = 35 0.0170 ms against 0.0018 (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).
 
 #include "train_common.cuh"
 
@@ -303,157 +311,224 @@ namespace eig {
 using namespace gen;
 
 // The general form for VD != 3 (positional encoding; gen:: in
-// train_common.cuh): the phases above with the decoder, each chunk's inputs
-// x (in = F + VD a decode) and the decoder-gradient owners' sums as the
-// general train kernel lays them out.
-template <bool WF>
-__global__ void __launch_bounds__(gen::GB) eikonal_general_kernel(
+// train_common.cuh), built for the padded input width IP.  The base rows come
+// in groups of R, each row with its 6 (weighted_first) or 6 k decodes (row,
+// stencil, neighbour); block b takes groups b, b + gridDim.x, ... in turn,
+// with the decoder loaded once and its decoder-gradient sums kept in
+// registers across its groups.  Per group:
+//   0. one flat copy each (cp.async, all in flight at once) of the rows'
+//      stencil weights (stencil by stencil), eikonal weights, feature rows
+//      (into the scratch) and each stencil's offset vectors (into x); then
+//      each decode's features from the staged rows: the blend over the
+//      neighbours with its stencil's weights (weighted_first, fma in order),
+//      or its neighbour's row;
+//   1. forward, tile by tile (gen::forward_tile);
+//   2. a warp a row: lane j < 6 the stencil's sdf (its neighbours' outputs
+//      blended in order), shuffled to every lane; the gradient's norm, the
+//      loss term; each decode's dO, a lane each;
+//   3. the group's decodes added to the decoder-gradient sums: dh in place
+//      of z with db1, dW2, db2 (gen::dh_pass), then dW1 (gen::backward);
+//   4. feature gradients: each (row, neighbour, column)'s six stencil terms
+//      (dx = dO P, times the stencil's weight with weighted_first) added in
+//      stencil order.
+// Then the block's partial row (gen::store_partial).
+template <int IP, bool WF>
+__global__ void __launch_bounds__(GB, 2) eikonal_general_kernel(
     const float* __restrict__ feats, const float* __restrict__ wst,
     const float* __restrict__ vst, const float* __restrict__ esc,
     const float* __restrict__ params, int n, int k, int vd, int R, float scale, float inv2e,
     float* __restrict__ dfeats, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Dims m = dims(vd);
-  const int kd = WF ? 1 : k;
+  constexpr int XP = Cls<IP>::XP;
+  const int in = F + vd, kd = WF ? 1 : k;
   const int dr = 6 * kd;                  // decodes per base row: (stencil, neighbour)
-  const Smem s = carve(sm, m, R * dr);
-  const int tid = threadIdx.x, lane = tid % LANES, slot = tid / LANES;
-  const int grp = tid / H, jo = tid % H;
-  const long row0 = (long)blockIdx.x * R;
-  const int rows = (int)min((long)R, (long)n - row0);
-  const int Dv = rows * dr;
-  const int nchunks = (Dv + SLOTS - 1) / SLOTS;
-  for (int e = tid; e < m.np; e += GB) sm[e] = params[e];
-  const float b2 = params[m.np - 1];
+  const Lay L = layout<IP>(R * dr, R * k * C, 6 * R * k, R);
+  float *xs = sm + L.xs, *zs = sm + L.zs, *od = sm + L.od, *pd = sm + L.pd;
+  float *ws = sm + L.ws, *pwr = sm + L.pwr, *es = sm + L.ra;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ngroups = (n + R - 1) / R;
+  const float rdr = 1.f / dr, rkd = 1.f / kd, rk = 1.f / k, rv = 1.f / vd;
+  GEN_STAMP_START;
+  load_decoder<IP>(sm, params, in);       // waited for with the first group's rows
+  const float b2 = params[in * H + 2 * H];
+  Grad<IP> a;
+  grad_init<IP>(a);
+  float loss = 0.f;
+  // x zero once: its columns past `in` stay zero (no copy reaches them), and
+  // rows past a group's decodes hold zeros or an earlier group's inputs,
+  // whose outputs are never stored
+  for (int e = tid; e < L.zs - L.xs; e += GB) xs[e] = 0.f;
+  __syncthreads();
 
-  auto build = [&](int c) {
-    for (int e = tid; e < SLOTS * m.in; e += GB) {
-      const int sl = e / m.in, i = e - sl * m.in;
-      const int d = c * SLOTS + sl;
-      float v = 0.f;
-      if (d < Dv) {
-        const int r = d / dr, rem = d - r * dr, j = rem / kd, kk = rem - j * kd;
-        const long row = row0 + r, sr = (long)j * n + row;
-        if (i < F) {
-          if (WF) {
-            const float* wj = wst + sr * k;
-            const float* fr = feats + row * k * C;
-            for (int q = 0; q < k; ++q) v = fmaf(wj[q], fr[q * C + i], v);
-          } else {
-            v = feats[(row * k + kk) * C + i];
-          }
-        } else {
-          v = vst[(sr * kd + kk) * vd + (i - F)];
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const long row0 = (long)grp * R;
+    const int rows = (int)min((long)R, (long)n - row0);
+    const int Dv = rows * dr, Dp = (Dv + TILE - 1) / TILE * TILE;
+
+    // 0. staging: ws (6, rows, k); the feature rows (rows, k, C) in zs
+    {
+      const int nw = rows * k;
+      const float rnw = 1.f / nw;
+      for (int e = tid; e < 6 * nw; e += GB) {
+        const int j = fdiv(e, rnw);
+        cp4(ws + e, wst + ((long)j * n + row0) * k + e - j * nw);
+      }
+      for (int e = tid; e < rows; e += GB) cp4(es + e, esc + row0 + e);
+      const float* f0 = feats + row0 * k * C;
+      for (int e = tid; e < rows * k * C; e += GB) cp4(zs + e, f0 + e);
+      const int nv = rows * kd * vd;
+      for (int j = 0; j < 6; ++j) {
+        const float* v0 = vst + ((long)j * n + row0) * kd * vd;
+        for (int e = tid; e < nv; e += GB) {
+          const int m = fdiv(e, rv), r = fdiv(m, rkd);   // m = r kd + kk
+          const int d = (r * 6 + j) * kd + m - r * kd;
+          cp4(xs + d * XP + F + e - m * vd, v0 + e);
         }
       }
-      s.xs[sl * m.xp + i] = v;
+      cp_wait();
     }
-  };
-
-  // 1. forward
-  for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();                      // decoder loaded / previous chunk's xs read
-    build(c);
     __syncthreads();
-    const float o = forward(s, s.xs + slot * m.xp, m.in, lane);
-    const int d = c * SLOTS + slot;
-    if (lane == 0 && d < Dv) s.od[d] = o + b2;
-  }
-  __syncthreads();
-
-  // 2. per row: the loss term and each decode's upstream gradient
-  for (int r = tid; r < rows; r += GB) {
-    const long row = row0 + r;
-    float* o = s.od + r * dr;
-    auto wgt = [&](int j, int kk) { return wst[((long)j * n + row) * k + kk]; };
-    float sdf[6];
-    for (int j = 0; j < 6; ++j) {
+    for (int e = tid; e < Dv * F; e += GB) {
+      const int d = e / F, f = e - d * F;
+      const int r = fdiv(d, rdr), rem = d - r * dr, j = fdiv(rem, rkd), kk = rem - j * kd;
+      float v;
       if (WF) {
-        sdf[j] = o[j] * scale;
+        const float* wj = ws + (j * rows + r) * k;
+        const float* fr = zs + r * k * C + f;
+        v = 0.f;
+        for (int q = 0; q < k; ++q) v = fmaf(wj[q], fr[q * C], v);
       } else {
-        float p = 0.f;
-        for (int kk = 0; kk < k; ++kk) p = fmaf(wgt(j, kk), o[j * k + kk], p);
-        sdf[j] = p * scale;
+        v = zs[(r * k + kk) * C + f];
+      }
+      xs[d * XP + f] = v;
+    }
+    __syncthreads();
+    GEN_STAMP(0);
+
+    // 1. forward
+    for (int t = 0; t < Dp / TILE; ++t) forward_tile<IP>(sm, xs, zs, od, pd, t, Dv, b2);
+    __syncthreads();
+    GEN_STAMP(1);
+
+    // 2. a warp a row: the loss term and each decode's upstream gradient
+    for (int r = warp; r < rows; r += GB / 32) {
+      float* o = od + r * dr;
+      const float* wr = ws + r * k;       // stencil j's weights at wr + j * rows * k
+      float sj = 0.f;
+      if (lane < 6) {
+        if (WF) {
+          sj = o[lane] * scale;
+        } else {
+          float p = 0.f;
+          for (int kk = 0; kk < k; ++kk) p = fmaf(wr[lane * rows * k + kk], o[lane * k + kk], p);
+          sj = p * scale;
+        }
+      }
+      float sdf[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) sdf[j] = __shfl_sync(FULL, sj, j);
+      const float e = es[r];
+      const float gx = (sdf[0] - sdf[3]) * inv2e;
+      const float gy = (sdf[1] - sdf[4]) * inv2e;
+      const float gz = (sdf[2] - sdf[5]) * inv2e;
+      const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+      if (lane == 0) pwr[r] = (nrm - 1.f) * (nrm - 1.f) * e;
+      const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
+      for (int m = lane; m < dr; m += 32) {
+        const int j = fdiv(m, rkd), kk = m - j * kd;
+        const float gj = j % 3 == 0 ? gx : (j % 3 == 1 ? gy : gz);
+        const float ds = j < 3 ? dg * gj : -dg * gj;
+        o[m] = WF ? ds * scale : ds * scale * wr[j * rows * k + kk];
       }
     }
-    const float e = esc[row];
-    const float gx = (sdf[0] - sdf[3]) * inv2e;
-    const float gy = (sdf[1] - sdf[4]) * inv2e;
-    const float gz = (sdf[2] - sdf[5]) * inv2e;
-    const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
-    s.pwr[r] = (nrm - 1.f) * (nrm - 1.f) * e;
-    const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
-    const float dsdf[6] = {dg * gx, dg * gy, dg * gz, -dg * gx, -dg * gy, -dg * gz};
-    for (int j = 0; j < 6; ++j) {
-      if (WF)
-        o[j] = dsdf[j] * scale;
-      else
-        for (int kk = 0; kk < k; ++kk) o[j * k + kk] = dsdf[j] * scale * wgt(j, kk);
-    }
-  }
-
-  // 3. backward, the decoder-gradient sums once a chunk
-  Acc a;
-  acc_init(a);
-  for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();                      // dO written / previous chunk's staging read
-    build(c);
     __syncthreads();
-    const int d = c * SLOTS + slot;
-    const bool act = d < Dv;
-    float dx[F];
-    backward(s, s.xs + slot * m.xp, m.in, lane, act ? s.od[d] : 0.f, s.hs + slot * HP,
-             s.dhs + slot * HP, dx);
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      if (act && f / 2 == lane) s.dxs[d * F + f] = dx[f];
-    __syncthreads();
-    acc_chunk(s, m, s.od + c * SLOTS, min(SLOTS, Dv - c * SLOTS), grp, jo, a);
-  }
-  __syncthreads();
+    GEN_STAMP(2);
 
-  // 4. feature gradients of the block's rows, in stencil order
-  const int per_row = k * C;
-  float* dst = dfeats + row0 * per_row;
-  for (int e = tid; e < rows * per_row; e += GB) {
-    const int r = e / per_row, rem = e - r * per_row, kk = rem / C, f = rem - kk * C;
-    const long row = row0 + r;
-    const float* dxr = s.dxs + (long)r * dr * F;
-    float v = 0.f;
-    if (f == F) {
-      for (int j = 0; j < 6; ++j) v += wst[((long)j * n + row) * k + kk];
-    } else if (WF) {
-      for (int j = 0; j < 6; ++j) v = fmaf(wst[((long)j * n + row) * k + kk], dxr[j * F + f], v);
-    } else {
-      for (int j = 0; j < 6; ++j) v += dxr[(j * k + kk) * F + f];
+    // 3. backward: the dh pass, then dW1
+    loss_add(loss, pwr, rows);
+    dh_pass<IP>(sm, zs, od, Dv, a);
+    __syncthreads();
+    backward<IP>(xs, zs, Dv, a);
+    GEN_STAMP(3);
+
+    // 4. feature gradients of the group's rows, in stencil order
+    float* dst = dfeats + row0 * k * C;
+    for (int e = tid; e < rows * k * C; e += GB) {
+      const int rq = e / C, f = e - rq * C;   // rq = r k + kk
+      const int r = fdiv(rq, rk), kk = rq - r * k;
+      float v = 0.f;
+      if (f == F) {
+        for (int j = 0; j < 6; ++j) v += ws[(j * rows + r) * k + kk];
+      } else if (WF) {
+        for (int j = 0; j < 6; ++j) {
+          const int d = r * 6 + j;
+          v = fmaf(ws[(j * rows + r) * k + kk], od[d] * pd[d * F + f], v);
+        }
+      } else {
+        for (int j = 0; j < 6; ++j) {
+          const int d = (r * 6 + j) * k + kk;
+          v += od[d] * pd[d * F + f];
+        }
+      }
+      dst[e] = v;
     }
-    dst[e] = v;
+    __syncthreads();                      // the group's staging read: the next one's, or
+    GEN_STAMP(4);                         // the streams' sums, reuse it
   }
 
   // 5. the block's partial row
-  store_partial(s, m, a, grp, jo, rows, partial + (long)blockIdx.x * m.ne);
+  store_partial<IP>(xs, a, loss, in, partial + (long)blockIdx.x * (in * H + 2 * H + 2));
+  GEN_STAMP(5);
 }
 
-template <bool WF>
+template <int IP, bool WF>
+int opt_in() {
+  static bool done = false;               // the dynamic shared memory above 48 KB
+  if (!done) {
+    const int err = (int)cudaFuncSetAttribute(eikonal_general_kernel<IP, WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              max_smem_floats<IP>() * 4);
+    if (err) return err;
+    done = true;
+  }
+  return 0;
+}
+
+template <int IP, bool WF>
 int launch_general(const void* feats, const void* wst, const void* vst, const void* esc,
                    const void* params, int n, int k, int vd, int R, float scale, float inv2e,
                    void* dfeats, void* partial, int nblocks, cudaStream_t st) {
-  static bool opted_in = false;           // the dynamic shared memory above 48 KB
-  if (!opted_in) {
-    const gen::Dims mx = gen::dims(gen::MAXVD);
-    const int err = (int)cudaFuncSetAttribute(
-        eikonal_general_kernel<WF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        gen::smem_floats(mx, gen::DMAX, gen::DMAX / 6) * 4);
-    if (err) return err;
-    opted_in = true;
-  }
-  const int D = R * 6 * (WF ? 1 : k);
-  eikonal_general_kernel<WF><<<nblocks, gen::GB, gen::smem_floats(gen::dims(vd), D, R) * 4,
-                               st>>>(
+  const int err = opt_in<IP, WF>();
+  if (err) return err;
+  const Lay L = layout<IP>(R * 6 * (WF ? 1 : k), R * k * C, 6 * R * k, R);
+  eikonal_general_kernel<IP, WF><<<nblocks, GB, L.total * 4, st>>>(
       (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
       (const float*)params, n, k, vd, R, scale, inv2e, (float*)dfeats, (float*)partial);
   return (int)cudaGetLastError();
+}
+
+template <int IP, bool WF>
+int blocks_per_sm() {
+  int nb = 0;
+  int err = opt_in<IP, WF>();
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, eikonal_general_kernel<IP, WF>, GB, max_smem_floats<IP>() * 4);
+  return err ? -err : nb;
+}
+
+template <bool WF>
+int launch_vd(const void* feats, const void* wst, const void* vst, const void* esc,
+              const void* params, int n, int k, int vd, int R, float scale, float inv2e,
+              void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  GEN_DISPATCH(launch_general, feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e, dfeats,
+               partial, nblocks, st)
+}
+
+template <bool WF>
+int blocks_per_sm_vd(int vd) {
+  GEN_DISPATCH(blocks_per_sm)
 }
 
 }  // namespace eig
@@ -481,25 +556,41 @@ extern "C" int eikonal_launch(const void* feats, const void* wst, const void* vs
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
 }
 
-// the general form: any vd in [1, gen::MAXVD]; R base rows per block
-// (R * decodes per row <= gen::DMAX); partial holds ceil(n / R) rows of
-// gen::dims(vd).ne
+// the general form: any vd in [1, gen::MAXVD], the build of its width
+// class; groups of R base rows (R * decodes per row <= gen::DMAX) over at
+// most `grid` blocks (the caller passes the blocks the card holds at once);
+// partial holds min(ceil(n / R), grid) rows of in * H + 2 H + 2
 extern "C" int eikonal_launch_vd(const void* feats, const void* wst, const void* vst,
                                  const void* esc, const void* params, int n, int k, int vd,
-                                 int weighted_first, int R, float scale, float inv2e,
+                                 int weighted_first, int R, int grid, float scale, float inv2e,
                                  void* dfeats, void* partial, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R < 1 || k < 1 || k > MAXK || vd < 1 || vd > gen::MAXVD ||
-      R * 6 * (weighted_first ? 1 : k) > gen::DMAX)
+  if (R < 1 || grid < 1 || k < 1 || k > MAXK || gen::width_of(vd) == 0 ||
+      R * 6 * (weighted_first ? 1 : k) > gen::DMAX || R * k * C > gen::STAGE)
     return (int)cudaErrorInvalidValue;
-  const int nblocks = (n + R - 1) / R;
+  const int nblocks = min((n + R - 1) / R, grid);
   if (nblocks > 0) {
     const int err = weighted_first
-        ? eig::launch_general<true>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
-                               dfeats, partial, nblocks, st)
-        : eig::launch_general<false>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
+        ? eig::launch_vd<true>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e, dfeats,
+                               partial, nblocks, st)
+        : eig::launch_vd<false>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
                                 dfeats, partial, nblocks, st);
     if (err) return err;
   }
-  return launch_reduce((const float*)partial, nblocks, (float*)out, st, gen::dims(vd).ne);
+  return launch_reduce((const float*)partial, nblocks, (float*)out, st,
+                       (F + vd) * H + 2 * H + 2);
 }
+
+// blocks of the general form's build for vd an SM holds at once, as its
+// registers and its most shared memory allow
+extern "C" int eikonal_general_blocks_per_sm(int weighted_first, int vd) {
+  return weighted_first ? eig::blocks_per_sm_vd<true>(vd) : eig::blocks_per_sm_vd<false>(vd);
+}
+
+#ifdef GEN_STAMPS
+// the general form's stamps of the last launch, (gen::STAMP_BLOCKS,
+// gen::NSTAMPS) int64, into host dst
+extern "C" int eikonal_general_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, gen::stamps, sizeof(gen::stamps));
+}
+#endif

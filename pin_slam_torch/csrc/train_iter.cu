@@ -73,6 +73,14 @@
 // the first STAMP_BLOCKS blocks reads clock64() at the kernel's start, after
 // each phase's barrier and at its end, and train_iter_stamps copies the
 // stamps out; without it STAMP is empty.
+//
+// With positional encoding (VD != 3) the wrapper launches the general form
+// below (namespace tig; its design, shared with the eikonal kernel's, is at
+// namespace gen in train_common.cuh): at path H's B = 16384, k = 6 per
+// neighbour, VD = 27, 0.0454 ms on the device against a 0.0153 ms bound
+// (operations; PR 12's first general form 0.189 ms), at pe_gaussian's
+// weighted_first VD = 35 0.0188 ms against 0.0031 (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).
 
 #include "train_common.cuh"
 
@@ -465,14 +473,26 @@ namespace tig {
 using namespace gen;
 
 // The general form for VD != 3 (positional encoding; gen:: in
-// train_common.cuh): R rows, D = R or R * k decodes a block in chunks of 64.
-// Per chunk the inputs are built from global memory (the blended features
-// with weighted_first, in the neighbour order of the VD = 3 kernel), then
-// forward; one thread a row: prediction, BCE, each decode's dO; per chunk
-// again: the inputs, backward, the decoder-gradient sums; then the rows'
-// feature gradients (w_k dx with weighted_first) and the block's partial.
-template <bool WF>
-__global__ void __launch_bounds__(gen::GB) train_iter_general_kernel(
+// train_common.cuh), built for the padded input width IP.  The rows come in
+// groups of R (D = R with weighted_first, else R k decodes); block b takes
+// groups b, b + gridDim.x, ... in turn, with the decoder loaded once and its
+// decoder-gradient sums kept in registers across its groups, so the grid is at
+// most the blocks the card holds at once and the block partials number no
+// more.  Per group:
+//   0. one flat copy each (cp.async, all in flight at once) of the rows' IDW
+//      weights, labels and loss weights, feature rows (into the scratch with
+//      weighted_first, else straight into x) and offset vectors (into x);
+//      then, with weighted_first, each decode's blended features (fma over
+//      the neighbours in order, as the VD = 3 kernel) from the staged rows;
+//   1. forward, tile by tile: z, o and P (gen::forward_tile);
+//   2. one thread a row: prediction, BCE, the loss term, each decode's dO;
+//   3. backward: the group's decodes added to the sums, dh in place of z with
+//      db1, dW2, db2 (gen::dh_pass), then dW1 (gen::backward);
+//   4. the rows' feature gradients, dx = dO P (w_k dx with weighted_first),
+//      the certainty column w.
+// Then the block's partial row (gen::store_partial).
+template <int IP, bool WF>
+__global__ void __launch_bounds__(GB, 2) train_iter_general_kernel(
     const float* __restrict__ feats, const float* __restrict__ w,
     const float* __restrict__ vin, const float* __restrict__ label,
     const float* __restrict__ wt, const float* __restrict__ params, int B, int k, int vd,
@@ -480,125 +500,174 @@ __global__ void __launch_bounds__(gen::GB) train_iter_general_kernel(
     float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Dims m = dims(vd);
-  const int kd = WF ? 1 : k;
-  const Smem s = carve(sm, m, R * kd);
-  const int tid = threadIdx.x, lane = tid % LANES, slot = tid / LANES;
-  const int grp = tid / H, jo = tid % H;
-  const long row0 = (long)blockIdx.x * R;
-  const int rows = (int)min((long)R, (long)B - row0);
-  const int Dv = rows * kd;
-  const int nchunks = (Dv + SLOTS - 1) / SLOTS;
-  for (int e = tid; e < m.np; e += GB) sm[e] = params[e];
-  const float b2 = params[m.np - 1];
+  constexpr int XP = Cls<IP>::XP;
+  const int in = F + vd, kd = WF ? 1 : k;
+  const Lay L = layout<IP>(R * kd, WF ? R * k * C : 0, R * k, R);
+  float *xs = sm + L.xs, *zs = sm + L.zs, *od = sm + L.od, *pd = sm + L.pd;
+  float *ws = sm + L.ws, *pwr = sm + L.pwr, *lab = sm + L.ra, *lwt = sm + L.rb;
+  const int tid = threadIdx.x;
+  const int ngroups = (B + R - 1) / R;
+  const float rv = 1.f / vd, rk = 1.f / k;
+  GEN_STAMP_START;
+  load_decoder<IP>(sm, params, in);       // waited for with the first group's rows
+  const float b2 = params[in * H + 2 * H];
+  Grad<IP> a;
+  grad_init<IP>(a);
+  float loss = 0.f;
+  // x zero once: its columns past `in` stay zero (no copy reaches them), and
+  // rows past a group's decodes hold zeros or an earlier group's inputs,
+  // whose outputs are never stored
+  for (int e = tid; e < L.zs - L.xs; e += GB) xs[e] = 0.f;
+  __syncthreads();
 
-  auto build = [&](int c) {
-    for (int e = tid; e < SLOTS * m.in; e += GB) {
-      const int sl = e / m.in, i = e - sl * m.in;
-      const int d = c * SLOTS + sl;
-      float v = 0.f;
-      if (d < Dv) {
-        const int r = d / kd, q = d - r * kd;
-        const long row = row0 + r;
-        if (i < F) {
-          if (WF) {
-            const float* fr = feats + row * k * C + i;
-            const float* wr = w + row * k;
-            for (int qq = 0; qq < k; ++qq) v = fmaf(wr[qq], fr[qq * C], v);
-          } else {
-            v = feats[(row * k + q) * C + i];
-          }
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const long row0 = (long)grp * R;
+    const int rows = (int)min((long)R, (long)B - row0);
+    const int Dv = rows * kd, Dp = (Dv + TILE - 1) / TILE * TILE;
+
+    // 0. staging
+    {
+      const float* w0 = w + row0 * k;
+      for (int e = tid; e < rows * k; e += GB) cp4(ws + e, w0 + e);
+      for (int e = tid; e < rows; e += GB) {
+        cp4(lab + e, label + row0 + e);
+        cp4(lwt + e, wt + row0 + e);
+      }
+      const float* f0 = feats + row0 * k * C;
+      for (int e = tid; e < rows * k * C; e += GB) {
+        if (WF) {
+          cp4(zs + e, f0 + e);
         } else {
-          v = vin[(row * kd + q) * vd + (i - F)];
+          const int d = e / C, c = e - d * C;
+          if (c < F) cp4(xs + d * XP + c, f0 + e);
         }
       }
-      s.xs[sl * m.xp + i] = v;
+      const float* v0 = vin + row0 * kd * vd;
+      for (int e = tid; e < Dv * vd; e += GB) {
+        const int d = fdiv(e, rv);
+        cp4(xs + d * XP + F + e - d * vd, v0 + e);
+      }
+      cp_wait();
     }
-  };
-
-  // 1. forward
-  for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();                      // decoder loaded / previous chunk's xs read
-    build(c);
     __syncthreads();
-    const float o = forward(s, s.xs + slot * m.xp, m.in, lane);
-    const int d = c * SLOTS + slot;
-    if (lane == 0 && d < Dv) s.od[d] = o + b2;
-  }
-  __syncthreads();
+    if (WF) {
+      for (int e = tid; e < Dv * F; e += GB) {
+        const int d = e / F, f = e - d * F;
+        float v = 0.f;
+        for (int q = 0; q < k; ++q) v = fmaf(ws[d * k + q], zs[(d * k + q) * C + f], v);
+        xs[d * XP + f] = v;
+      }
+      __syncthreads();
+    }
+    GEN_STAMP(0);
 
-  // 2. per row: the loss term and each decode's dO
-  for (int r = tid; r < rows; r += GB) {
-    const float* wr = w + (row0 + r) * k;
-    float* o = s.od + r * kd;
-    float pred = 0.f;
-    if (WF)
-      pred = o[0];
-    else
-      for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
-    float pw, dpred;
-    ti::bce(pred * scale, label[row0 + r], wt[row0 + r], inv_sigma, pw, dpred);
-    const float g = dpred * scale;
-    s.pwr[r] = pw;
-    if (WF)
-      o[0] = g;
-    else
-      for (int q = 0; q < k; ++q) o[q] = g * wr[q];
-  }
-
-  // 3. backward, the decoder-gradient sums once a chunk
-  Acc a;
-  acc_init(a);
-  for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();                      // dO written / previous chunk's staging read
-    build(c);
+    // 1. forward
+    for (int t = 0; t < Dp / TILE; ++t) forward_tile<IP>(sm, xs, zs, od, pd, t, Dv, b2);
     __syncthreads();
-    const int d = c * SLOTS + slot;
-    const bool act = d < Dv;
-    float dx[F];
-    backward(s, s.xs + slot * m.xp, m.in, lane, act ? s.od[d] : 0.f, s.hs + slot * HP,
-             s.dhs + slot * HP, dx);
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      if (act && f / 2 == lane) s.dxs[d * F + f] = dx[f];
-    __syncthreads();
-    acc_chunk(s, m, s.od + c * SLOTS, min(SLOTS, Dv - c * SLOTS), grp, jo, a);
-  }
-  __syncthreads();
+    GEN_STAMP(1);
 
-  // 4. the rows' feature gradients; the certainty column is w
-  float* dst = dfeats + row0 * k * C;
-  for (int e = tid; e < rows * k * C; e += GB) {
-    const int r = e / (k * C), rem = e - r * k * C, q = rem / C, f = rem - q * C;
-    const float wq = w[(row0 + r) * k + q];
-    dst[e] = f == F ? wq : (WF ? wq * s.dxs[r * F + f] : s.dxs[(r * k + q) * F + f]);
+    // 2. per row: the loss term and each decode's dO
+    for (int r = tid; r < rows; r += GB) {
+      const float* wr = ws + r * k;
+      float* o = od + r * kd;
+      float pred = 0.f;
+      if (WF)
+        pred = o[0];
+      else
+        for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
+      float pw, dpred;
+      ti::bce(pred * scale, lab[r], lwt[r], inv_sigma, pw, dpred);
+      const float g = dpred * scale;
+      pwr[r] = pw;
+      if (WF)
+        o[0] = g;
+      else
+        for (int q = 0; q < k; ++q) o[q] = g * wr[q];
+    }
+    __syncthreads();
+    GEN_STAMP(2);
+
+    // 3. backward: the dh pass, then dW1
+    loss_add(loss, pwr, rows);
+    dh_pass<IP>(sm, zs, od, Dv, a);
+    __syncthreads();
+    backward<IP>(xs, zs, Dv, a);
+    GEN_STAMP(3);
+
+    // 4. the rows' feature gradients; the certainty column is w
+    float* dst = dfeats + row0 * k * C;
+    for (int e = tid; e < rows * k * C; e += GB) {
+      const int rq = e / C, f = e - rq * C;   // rq = r k + q
+      const float wq = ws[rq];
+      float v;
+      if (f == F) {
+        v = wq;
+      } else if (WF) {
+        const int r = fdiv(rq, rk);
+        v = wq * (od[r] * pd[r * F + f]);
+      } else {
+        v = od[rq] * pd[rq * F + f];
+      }
+      dst[e] = v;
+    }
+    __syncthreads();                      // the group's staging read: the next one's, or
+    GEN_STAMP(4);                         // the streams' sums, reuse it
   }
 
   // 5. the block's partial row
-  store_partial(s, m, a, grp, jo, rows, partial + (long)blockIdx.x * m.ne);
+  store_partial<IP>(xs, a, loss, in, partial + (long)blockIdx.x * (in * H + 2 * H + 2));
+  GEN_STAMP(5);
 }
 
-template <bool WF>
+template <int IP, bool WF>
+int opt_in() {
+  static bool done = false;               // the dynamic shared memory above 48 KB
+  if (!done) {
+    const int err = (int)cudaFuncSetAttribute(train_iter_general_kernel<IP, WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              max_smem_floats<IP>() * 4);
+    if (err) return err;
+    done = true;
+  }
+  return 0;
+}
+
+template <int IP, bool WF>
 int launch_general(const void* feats, const void* w, const void* vin, const void* label,
                    const void* wt, const void* params, int B, int k, int vd, int R,
                    float scale, float inv_sigma, void* dfeats, void* partial, int nblocks,
                    cudaStream_t st) {
-  static bool opted_in = false;           // the dynamic shared memory above 48 KB
-  const gen::Dims m = gen::dims(vd);
-  if (!opted_in) {
-    const gen::Dims mx = gen::dims(gen::MAXVD);
-    const int err = (int)cudaFuncSetAttribute(
-        train_iter_general_kernel<WF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        gen::smem_floats(mx, gen::DMAX, gen::DMAX) * 4);
-    if (err) return err;
-    opted_in = true;
-  }
-  const int kd = WF ? 1 : k;
-  train_iter_general_kernel<WF><<<nblocks, gen::GB, gen::smem_floats(m, R * kd, R) * 4, st>>>(
+  const int err = opt_in<IP, WF>();
+  if (err) return err;
+  const Lay L = layout<IP>(R * (WF ? 1 : k), WF ? R * k * C : 0, R * k, R);
+  train_iter_general_kernel<IP, WF><<<nblocks, GB, L.total * 4, st>>>(
       (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
       (const float*)wt, (const float*)params, B, k, vd, R, scale, inv_sigma, (float*)dfeats,
       (float*)partial);
   return (int)cudaGetLastError();
+}
+
+template <int IP, bool WF>
+int blocks_per_sm() {
+  int n = 0;
+  int err = opt_in<IP, WF>();
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, train_iter_general_kernel<IP, WF>, GB, max_smem_floats<IP>() * 4);
+  return err ? -err : n;
+}
+
+template <bool WF>
+int launch_vd(const void* feats, const void* w, const void* vin, const void* label,
+              const void* wt, const void* params, int B, int k, int vd, int R, float scale,
+              float inv_sigma, void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  GEN_DISPATCH(launch_general, feats, w, vin, label, wt, params, B, k, vd, R, scale,
+               inv_sigma, dfeats, partial, nblocks, st)
+}
+
+template <bool WF>
+int blocks_per_sm_vd(int vd) {
+  GEN_DISPATCH(blocks_per_sm)
 }
 
 }  // namespace tig
@@ -626,36 +695,50 @@ extern "C" int train_iter_launch(const void* feats, const void* w, const void* v
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
 }
 
-// the general form: any vd in [1, MAXVD]; R rows per block (R * k <=
-// gen::DMAX for per-neighbour decoding, R <= gen::DMAX); partial holds
-// ceil(B / R) rows of gen::dims(vd).ne
+// the general form: any vd in [1, MAXVD], the build of its width class;
+// groups of R rows (R * k <= gen::DMAX for per-neighbour decoding; R <=
+// gen::DMAX and R * k * C <= gen::STAGE with weighted_first) over at most
+// `grid` blocks (the caller passes the blocks the card holds at once);
+// partial holds min(ceil(B / R), grid) rows of in * H + 2 H + 2
 extern "C" int train_iter_launch_vd(const void* feats, const void* w, const void* vin,
                                     const void* label, const void* wt, const void* params,
-                                    int B, int k, int vd, int weighted_first, int R,
+                                    int B, int k, int vd, int weighted_first, int R, int grid,
                                     float scale, float inv_sigma, void* dfeats, void* partial,
                                     void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R < 1 || k < 1 || k > MAXK || vd < 1 || vd > gen::MAXVD || B < 0 || R > gen::DMAX ||
-      (!weighted_first && R * k > gen::DMAX))
+  if (R < 1 || grid < 1 || k < 1 || k > MAXK || gen::width_of(vd) == 0 || B < 0 ||
+      R * (weighted_first ? 1 : k) > gen::DMAX ||
+      (weighted_first && R * k * C > gen::STAGE))
     return (int)cudaErrorInvalidValue;
-  const int nblocks = (B + R - 1) / R;
+  const int nblocks = min((B + R - 1) / R, grid);
   if (nblocks == 0) return (int)cudaGetLastError();
   const int err = weighted_first
-      ? tig::launch_general<true>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
+      ? tig::launch_vd<true>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
                              dfeats, partial, nblocks, st)
-      : tig::launch_general<false>(feats, w, vin, label, wt, params, B, k, vd, R, scale,
-                              inv_sigma, dfeats, partial, nblocks, st);
+      : tig::launch_vd<false>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
+                              dfeats, partial, nblocks, st);
   if (err) return err;
-  return launch_reduce((const float*)partial, nblocks, (float*)out, st, gen::dims(vd).ne);
+  return launch_reduce((const float*)partial, nblocks, (float*)out, st,
+                       (F + vd) * H + 2 * H + 2);
 }
 
-// the general form's limits and block geometry: threads, decodes per chunk,
-// decodes per block, widest offset vector
+// the general form's block geometry: threads, decodes per forward tile,
+// decodes per block, staging floats, widest offset vector
 extern "C" void train_iter_general_geometry(int* out) {
   out[0] = gen::GB;
-  out[1] = gen::SLOTS;
+  out[1] = gen::TILE;
   out[2] = gen::DMAX;
-  out[3] = gen::MAXVD;
+  out[3] = gen::STAGE;
+  out[4] = gen::MAXVD;
+}
+
+// the padded input width of the general form's build for vd (0: none)
+extern "C" int train_iter_general_width(int vd) { return gen::width_of(vd); }
+
+// blocks of the general form's build for vd an SM holds at once, as its
+// registers and its most shared memory allow
+extern "C" int train_iter_general_blocks_per_sm(int weighted_first, int vd) {
+  return weighted_first ? tig::blocks_per_sm_vd<true>(vd) : tig::blocks_per_sm_vd<false>(vd);
 }
 
 // blocks of the kernel an SM holds at once, as its registers allow
@@ -679,5 +762,13 @@ extern "C" void train_iter_geometry(int* out) {
 // the stamps of the last launch, (STAMP_BLOCKS, NSTAMPS) int64, into host dst
 extern "C" int train_iter_stamps(void* dst) {
   return (int)cudaMemcpyFromSymbol(dst, stamps, sizeof(stamps));
+}
+#endif
+
+#ifdef GEN_STAMPS
+// the general form's stamps of the last launch, (gen::STAMP_BLOCKS,
+// gen::NSTAMPS) int64, into host dst
+extern "C" int train_iter_general_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, gen::stamps, sizeof(gen::stamps));
 }
 #endif

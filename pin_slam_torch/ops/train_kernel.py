@@ -17,9 +17,11 @@ and the twins take any k up to 16.
 
 The offset vector's width VD is 3 without positional encoding: the kernels
 built for it (``train_iter_launch`` / ``eikonal_launch``) stay as they are.
-With encoding (VD = 9 .. ``MAX_VD``) the same wrappers launch the kernels'
-general forms (``*_launch_vd``, csrc/train_common.cuh ``gen``), which take
-VD at run time.
+With encoding (any other VD up to ``MAX_VD``) the same wrappers launch the
+kernels' general forms (``*_launch_vd``, csrc/train_common.cuh ``gen``),
+built once for each padded input width in ``GEN_WIDTHS`` (``general_width``)
+and taking VD at run time; rows per block come from that build's residency
+(``general_resident_blocks``, ``general_rows_per_block``).
 """
 
 from __future__ import annotations
@@ -135,9 +137,15 @@ TRAIN_DMAX = 1024     # decodes, and rows x k, per block
 TRAIN_BLOCK_PASSES = 8   # a block's fixed work (weights, staging, sums), in passes
 _TRAIN_ARGS = ([_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
                + [_cuda.P] * 4)
-_TRAIN_ARGS_VD = ([_cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
+_TRAIN_ARGS_VD = ([_cuda.P] * 6 + [_cuda.I] * 6 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 _TRAIN_RESIDENT = {}
-GEN_THREADS, GEN_SLOTS, GEN_DMAX = 256, 64, 512   # the general forms' block geometry
+# the general forms' block geometry (csrc/train_common.cuh gen): threads, decodes
+# per forward tile, decodes per block, floats of the block's row staging
+GEN_THREADS, GEN_TILE, GEN_DMAX = 256, 64, 128
+GEN_STAGE = GEN_DMAX * (KERNEL_H + 4)
+GEN_WIDTHS = (16, 24, 36, 48, 72)   # padded input widths F + VD of the builds
+GEN_BLOCK_TILES = 1                  # a block's fixed work (decoder, sums), in tiles
+_GEN_RESIDENT = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,26 +176,76 @@ def train_rows_per_block(B: int, k: int, weighted_first: bool, resident: int) ->
                            resident, TRAIN_BLOCK_PASSES)
 
 
-def general_rows_per_block(n: int, decodes_per_row: int, n_sms: int) -> int:
-    """Rows R per block of a general form (VD != 3): R * decodes_per_row
-    decodes, at most ``GEN_DMAX``, in chunks of ``GEN_SLOTS``, one block an
-    SM at a time."""
-    return _rows_per_block(n, decodes_per_row, GEN_DMAX // decodes_per_row, GEN_SLOTS, n_sms)
+def general_width(vd: int) -> int:
+    """The padded input width of the general form's build that takes offset
+    width ``vd``: the narrowest of ``GEN_WIDTHS`` holding F + VD inputs."""
+    if not 1 <= vd <= MAX_VD:
+        raise ValueError(f"the general forms take VD in [1, {MAX_VD}], not {vd}")
+    return next(w for w in GEN_WIDTHS if w >= KERNEL_F + vd)
+
+
+def general_max_rows(decodes_per_row: int, k: int, staged: bool) -> int:
+    """The most rows a general-form block takes: its decodes at most
+    ``GEN_DMAX`` and, where it stages its rows' k feature rows (the train
+    kernel with weighted_first, the eikonal kernel), those at most
+    ``GEN_STAGE`` floats."""
+    r = GEN_DMAX // decodes_per_row
+    return min(r, GEN_STAGE // (k * (KERNEL_F + 1))) if staged else r
+
+
+def general_rows_per_block(n: int, decodes_per_row: int, k: int, staged: bool,
+                           resident: int) -> int:
+    """Rows R a general-form block takes at a time (VD != 3): a group of R
+    rows, R * decodes_per_row decodes in tiles of ``GEN_TILE`` plus
+    ``GEN_BLOCK_TILES`` of fixed work, within the block's budget
+    (``general_max_rows``); ``resident`` blocks run at once (SMs x blocks per
+    SM of the build that runs), and the launch has at most that many blocks,
+    each taking groups in turn.  The train kernel has 1 or k decodes a row
+    and stages its rows with weighted_first; the eikonal kernel 6 or 6k and
+    always stages them."""
+    return _rows_per_block(n, decodes_per_row, general_max_rows(decodes_per_row, k, staged),
+                           GEN_TILE, resident, GEN_BLOCK_TILES)
 
 
 def _general_geometry() -> None:
-    """Raise unless csrc/train_iter.cu's general form has the block geometry
-    and the widest VD these wrappers assume (checked once)."""
+    """Raise unless csrc/train_iter.cu's general form has the block geometry,
+    the widest VD and the width classes these wrappers assume (checked
+    once)."""
     if not _GEN_CHECKED:
-        geom = (ctypes.c_int * 4)()
-        _cuda.lib("train_iter").train_iter_general_geometry(geom)
-        if tuple(geom) != (GEN_THREADS, GEN_SLOTS, GEN_DMAX, MAX_VD):
+        geom = (ctypes.c_int * 5)()
+        lib = _cuda.lib("train_iter")
+        lib.train_iter_general_geometry(geom)
+        want = (GEN_THREADS, GEN_TILE, GEN_DMAX, GEN_STAGE, MAX_VD)
+        if tuple(geom) != want:
             raise RuntimeError(f"csrc/train_iter.cu's general geometry {tuple(geom)} is not "
-                               f"({GEN_THREADS}, {GEN_SLOTS}, {GEN_DMAX}, {MAX_VD})")
+                               f"{want}")
+        for vd in range(1, MAX_VD + 1):
+            if lib.train_iter_general_width(vd) != general_width(vd):
+                raise RuntimeError(f"csrc/train_iter.cu builds VD {vd} at width "
+                                   f"{lib.train_iter_general_width(vd)}, not "
+                                   f"{general_width(vd)}")
         _GEN_CHECKED.append(True)
 
 
 _GEN_CHECKED = []
+
+
+def general_resident_blocks(kernel: str, device: int, weighted_first: bool, vd: int) -> int:
+    """Blocks of the general form of ``kernel`` ("train_iter" or "eikonal")
+    that ``device`` holds at once in the build for ``vd``, as its registers
+    and its most shared memory allow (cached).  The first call also checks
+    the build's geometry."""
+    key = (kernel, device, bool(weighted_first), general_width(vd))
+    n = _GEN_RESIDENT.get(key)
+    if n is None:
+        _general_geometry()
+        per = _cuda.fn(kernel, f"{kernel}_general_blocks_per_sm",
+                       [_cuda.I, _cuda.I])(int(weighted_first), vd)
+        if per < 1:
+            raise RuntimeError(f"occupancy query of {kernel}_general_kernel at VD {vd} "
+                               f"failed ({per})")
+        n = _GEN_RESIDENT[key] = _cuda.sm_count(device) * per
+    return n
 
 
 def train_resident_blocks(device: int, weighted_first: bool) -> int:
@@ -229,19 +287,20 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
     wf = bool(weighted_first)
     general = vd != KERNEL_VD
     if general:
-        _general_geometry()
-        R = general_rows_per_block(B, 1 if wf else k, _cuda.sm_count(dev))
+        grid = general_resident_blocks("train_iter", dev, wf, vd)
+        R = general_rows_per_block(B, 1 if wf else k, k, wf, grid)
+        nblocks = min(-(-B // R), grid)          # blocks take groups of R rows in turn
     else:
         R = train_rows_per_block(B, k, wf, train_resident_blocks(dev, wf))
-    nblocks = -(-B // R)
+        nblocks = -(-B // R)
     buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
     dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + ne]
     f = _cuda.fn("train_iter", "train_iter_launch_vd" if general else "train_iter_launch",
                  _TRAIN_ARGS_VD if general else _TRAIN_ARGS)
     _cuda.check(f(feats.data_ptr(), w.data_ptr(), vin.data_ptr(), label.data_ptr(),
                   wt.data_ptr(), params.data_ptr(),
-                  *((B, k, vd, int(wf), R) if general else (B, k, int(wf), R)), float(scale),
-                  float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * ne,
+                  *((B, k, vd, int(wf), R, nblocks) if general else (B, k, int(wf), R)),
+                  float(scale), float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * ne,
                   out.data_ptr(), _cuda.stream_ptr(dev)),
                 "train_iter_general_kernel" if general else "train_iter_kernel")
     _cuda.COUNTS["train_iter"] += 1
@@ -252,7 +311,7 @@ EIK_SLOTS = 64     # decodes per chunk of csrc/eikonal.cu (256 threads, 4 lanes 
 EIK_DMAX = 512     # decodes per block
 _EIK_ARGS = ([_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
              + [_cuda.P] * 4)
-_EIK_ARGS_VD = ([_cuda.P] * 5 + [_cuda.I] * 5 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
+_EIK_ARGS_VD = ([_cuda.P] * 5 + [_cuda.I] * 6 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 
 
 def eikonal_rows_per_block(n: int, k: int, weighted_first: bool, n_sms: int) -> int:
@@ -280,18 +339,20 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
     wf = bool(weighted_first)
     general = vd != KERNEL_VD
     if general:
-        _general_geometry()
-        R = general_rows_per_block(n, 6 * (1 if wf else k), _cuda.sm_count(dev))
+        grid = general_resident_blocks("eikonal", dev, wf, vd)
+        R = general_rows_per_block(n, 6 * (1 if wf else k), k, True, grid)
+        nblocks = min(-(-n // R), grid)          # blocks take groups of R rows in turn
     else:
         R = eikonal_rows_per_block(n, k, wf, _cuda.sm_count(dev))
-    nblocks = -(-n // R)
+        nblocks = -(-n // R)
     nf, ne = n * k * (KERNEL_F + 1), n_params(vd) + 1
     buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
     dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + ne]
     f = _cuda.fn("eikonal", "eikonal_launch_vd" if general else "eikonal_launch",
                  _EIK_ARGS_VD if general else _EIK_ARGS)
     _cuda.check(f(feats.data_ptr(), wst.data_ptr(), vst.data_ptr(), esc.data_ptr(),
-                  params.data_ptr(), *((n, k, vd, int(wf), R) if general else (n, k, int(wf), R)),
+                  params.data_ptr(),
+                  *((n, k, vd, int(wf), R, max(nblocks, 1)) if general else (n, k, int(wf), R)),
                   float(scale), float(1.0 / (2.0 * step)), dfeats.data_ptr(),
                   out.data_ptr() + 4 * ne, out.data_ptr(), _cuda.stream_ptr(dev)),
                 "eikonal_general_kernel" if general else "eikonal_kernel")

@@ -18,7 +18,9 @@ on an idle card: the host's launch path included) and ``device_ms``
 kernel, and of ``torch.index_select`` for the gathers; every gather is
 checked bit-exact against ``table[idx]`` and every train and eikonal launch
 against its plain version in float64.  The train kernel runs at B = 16384,
-k = 6 in both modes (path A's and path B's shapes).  The rank rows time
+k = 6 in both modes (path A's and path B's shapes), and its general form at
+path H's (per neighbour, VD 27) and pe_gaussian's (weighted_first, VD 35);
+the eikonal kernel at n = 1638 of the same four.  The rank rows time
 ``mapper._probe_rank`` (whatever that checkout runs for the brick layout:
 one fused kernel, or the torch brick gather followed by the rank kernel) on
 the near and far inputs of the second frame of chip_smoke's paths A, B and
@@ -49,9 +51,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # gather and its pool-row gather at path A's and path B's capacities
 GATHERS = [("A-feat", (1 << 16) + 1, 9, 98304), ("B-feat", (1 << 18) + 1, 9, 98304),
            ("A-pool", (1 << 21) + 1, 24, 245760), ("B-pool", (1 << 23) + 1, 42, 245760)]
-# (label, weighted_first): B = 16384 rows (train) and n = 16384 // 10 base
-# rows (eikonal), k = 6, as on both paths
-TRAINS = EIKONALS = [("A", True), ("B", False)]
+# (label, weighted_first, VD): B = 16384 rows (train) and n = 16384 // 10 base
+# rows (eikonal), k = 6, as on paths A and B (VD 3), and the general forms'
+# shapes on path H (NeRF bands 4) and pe_gaussian (Gaussian 16 bands)
+TRAINS = EIKONALS = [("A", True, 3), ("B", False, 3), ("H", False, 27),
+                     ("pe_gaussian", True, 35)]
 RANK_PATHS = ("A", "B", "C")
 # (label, rows N, rows with terms, sentinel share): the training loop's
 # feature table (local capacity + the sentinel row N - 1) at path A's and
@@ -233,22 +237,22 @@ def main():
         print(json.dumps({"checkout": label, "kernel": f"gather[{name}]", "N": N, "C": C,
                           "M": M, "bound_ms": b, **t}), flush=True)
         del table, idx, out
-    for name, wf in TRAINS if "train" in which else ():
-        a = cs.synthetic_train_args(wf, 16384, 6, 1)
+    for name, wf, vd in TRAINS if "train" in which else ():
+        a = cs.synthetic_train_args(wf, 16384, 6, 1, vd=vd)
         out = tk.train_iter(*a)
         err, _ = cs._cmp(out, tk.train_iter_plain, a, f"train_iter {name}")
         t = cs.timings(lambda: tk.train_iter(*a), lambda: tk.train_iter_plain(*a))
         print(json.dumps({"checkout": label, "kernel": f"train_iter[{name}]", "B": 16384,
-                          "k": 6, "weighted_first": wf, "max_abs_err_vs_plain": err, **t}),
-              flush=True)
-    for name, wf in EIKONALS if "eikonal" in which else ():
-        a = cs.synthetic_eik_args(wf, 16384 // 10, 6, 2)
+                          "k": 6, "VD": vd, "weighted_first": wf, "max_abs_err_vs_plain": err,
+                          **t}), flush=True)
+    for name, wf, vd in EIKONALS if "eikonal" in which else ():
+        a = cs.synthetic_eik_args(wf, 16384 // 10, 6, 2, vd=vd)
         out = tk.eikonal_iter(*a)
         err, _ = cs._cmp(out, tk.eikonal_iter_plain, a, f"eikonal {name}")
         t = cs.timings(lambda: tk.eikonal_iter(*a), lambda: tk.eikonal_iter_plain(*a))
         print(json.dumps({"checkout": label, "kernel": f"eikonal[{name}]", "n": 16384 // 10,
-                          "k": 6, "weighted_first": wf, "max_abs_err_vs_plain": err, **t}),
-              flush=True)
+                          "k": 6, "VD": vd, "weighted_first": wf, "max_abs_err_vs_plain": err,
+                          **t}), flush=True)
     torch.cuda.empty_cache()
     if "rank" in which:
         time_rank(cs, label)

@@ -1,11 +1,15 @@
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 scripts/profile_torch_port.py [A|B|C] [--warm 3] [--frames 3] [--trace-dir DIR]
+    python3 scripts/profile_torch_port.py [A|B|C|H|pe_gaussian] [--warm 3] [--frames 3]
+        [--trace-dir DIR] [--root DIR]
 
 Runs chip_smoke.py's path A (bench capacities, weighted_first), B
-(run_kitti.yaml at KITTI capacities) or C (run_kitti.yaml with PGO on, the
+(run_kitti.yaml at KITTI capacities), C (run_kitti.yaml with PGO on, the
 square loop; its loop closes at frame 92, so ``--warm 89 --frames 4``
-profiles the closure) for ``--warm`` frames, then profiles ``--frames`` more
+profiles the closure), H (B with NeRF encoding) or pe_gaussian (A with
+Gaussian features), of this checkout or of ``--root`` (another checkout,
+e.g. the parent unpacked under ``build/parent``: its chip_smoke paths and
+its pin_slam_torch) for ``--warm`` frames, then profiles ``--frames`` more
 with torch.profiler (CPU + CUDA activities).  Prints one
 JSON line: wall ms per frame, the device-busy share (sum of GPU kernel and
 memcpy time over the window's wall time), the number of kernel launches per
@@ -24,7 +28,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 # (module, attribute) of the functions whose GPU time is reported apart; the
 # pipeline calls each through that attribute
@@ -47,7 +50,8 @@ SPANS = [
 ]
 # the __global__ functions of pin_slam_torch/csrc
 PORT_KERNELS = ("rank_brick_kernel", "rank_kernel", "train_iter_kernel", "eikonal_kernel",
-                "reduce_partials", "gather_rows_kernel", "scatter_rows_kernel")
+                "train_iter_general_kernel", "eikonal_general_kernel", "reduce_partials",
+                "gather_rows_kernel", "scatter_rows_kernel")
 
 
 def install_spans():
@@ -125,11 +129,13 @@ def gpu_ms_by_span(events, work, n_frames):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", nargs="?", default="A", choices=["A", "B", "C"])
+    ap.add_argument("path", nargs="?", default="A", choices=["A", "B", "C", "H", "pe_gaussian"])
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace-dir", default=os.path.join(ROOT, "build", "profiles"))
+    ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -167,7 +173,7 @@ def main():
     prof.export_chrome_trace(os.path.join(args.trace_dir, f"profile_{args.path}.json"))
     smi = chip_smoke.smi_line()
     print(json.dumps({
-        "path": args.path, "frames": args.frames, "card": smi,
+        "path": args.path, "root": args.root, "frames": args.frames, "card": smi,
         "wall_ms_per_frame": wall * 1e3 / args.frames,
         "device_busy_share": busy_us / 1e6 / wall,
         "gpu_ops_per_frame": len(work) / args.frames,

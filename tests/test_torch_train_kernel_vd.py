@@ -113,8 +113,74 @@ def test_general_rows_per_block_cover_every_shape(wf):
     budget and every row is covered, for the train kernel (1 or k decodes a
     row) and the eikonal kernel (6 or 6k)."""
     for k in range(1, ttk.MAX_K + 1):
-        for per in ((1 if wf else k), 6 * (1 if wf else k)):
+        for per, staged in (((1 if wf else k), wf), (6 * (1 if wf else k), True)):
             for n in (1, 37, 1638, 16384):
-                R = ttk.general_rows_per_block(n, per, 132)
+                R = ttk.general_rows_per_block(n, per, k, staged, 132)
                 assert 1 <= R and R * per <= ttk.GEN_DMAX
                 assert -(-n // R) * R >= n
+
+
+def test_general_width_classes():
+    """Every VD in 1..64 but 3 (the VD = 3 build's) maps to exactly one of
+    the general forms' builds, the narrowest whose padded input width holds
+    its 8 + VD inputs; the widths in use (NeRF bands 1, 2, 4: VD 9, 15, 27;
+    Gaussian 16 bands: VD 35) each have a build at most 7 wider."""
+    assert ttk.GEN_WIDTHS == tuple(sorted(ttk.GEN_WIDTHS))
+    for vd in range(1, ttk.MAX_VD + 1):
+        if vd == ttk.KERNEL_VD:
+            continue
+        w = ttk.general_width(vd)
+        fits = [x for x in ttk.GEN_WIDTHS if x >= F + vd]
+        assert w == fits[0] and w in ttk.GEN_WIDTHS
+        assert w % 4 == 0                  # whole float4s of inputs
+    for vd in (9, 15, 27, 35):
+        assert ttk.general_width(vd) - (F + vd) <= 7
+    assert ttk.general_width(ttk.MAX_VD) == F + ttk.MAX_VD
+    for bad in (0, ttk.MAX_VD + 1):
+        with pytest.raises(ValueError):
+            ttk.general_width(bad)
+
+
+@pytest.mark.parametrize("resident", [1, 132, 264, 528])
+@pytest.mark.parametrize("kernel", ["train_iter", "eikonal"])
+def test_general_rows_per_block_under_residency(kernel, resident):
+    """The rows-per-block rule at a given residency: every (n, k, mode) is
+    covered within the block's budget (decodes at most GEN_DMAX; a staged
+    block's k feature rows at most GEN_STAGE floats), and R is the smallest
+    of the budget's rows with the least cost, ceil(blocks / resident) x
+    (tiles + the fixed tiles) -- so a launch that fits in one wave of
+    resident blocks is not given fewer, larger blocks."""
+    for k in range(1, ttk.MAX_K + 1):
+        for wf in (True, False):
+            if kernel == "train_iter":
+                per, staged = (1 if wf else k), wf
+            else:
+                per, staged = 6 * (1 if wf else k), True
+            cap = ttk.general_max_rows(per, k, staged)
+            assert cap >= 1 and cap * per <= ttk.GEN_DMAX
+            if staged:
+                assert cap * k * C <= ttk.GEN_STAGE
+            for n in (1, 7, 37, 819, 1638, 10000, 16384):
+                R = ttk.general_rows_per_block(n, per, k, staged, resident)
+                assert 1 <= R <= cap and -(-n // R) * R >= n
+
+                def cost(r):
+                    return (-(-(-(-n // r)) // resident)
+                            * (-(-(r * per) // ttk.GEN_TILE) + ttk.GEN_BLOCK_TILES))
+
+                best = min(cost(r) for r in range(1, cap + 1))
+                assert cost(R) == best
+                assert all(cost(r) > best for r in range(1, R))
+
+
+def test_general_rows_per_block_paths():
+    """The launches the paths make at 2 blocks an SM on 132 SMs (264
+    resident): path H's train kernel (B 16384, k 6 per neighbour) three
+    waves of 21-row blocks, its eikonal kernel (n 1638, 36 decodes a row)
+    three-row blocks; pe_gaussian's (weighted_first) one wave each."""
+    assert ttk.general_rows_per_block(16384, 6, 6, False, 264) == 21
+    assert ttk.general_rows_per_block(1638, 36, 6, True, 264) == 3
+    R = ttk.general_rows_per_block(16384, 1, 6, True, 264)
+    assert -(-16384 // R) <= 264 and R <= ttk.GEN_TILE
+    R = ttk.general_rows_per_block(1638, 6, 6, True, 264)
+    assert -(-1638 // R) <= 264 and R * 6 <= ttk.GEN_TILE
