@@ -174,6 +174,16 @@
    ``pos_encoding_freq: 1`` (at the default 200 neither package registers
    a frame of the corridor; at 1 both do, tests/test_torch_slam_configs.py),
    4 frames, with path A's gates; its kernel rows are at VD = 35.
+   ``wide_B``: path B with ``feature_dim: 16`` and ``mlp_hidden_dim: 128``
+   (feature rows of 17 floats, a (2^22 + 1) x 17 feature table, ~285 MB),
+   6 frames; ``pe_nerf11``: path H with ``pos_encoding_band: 11`` (VD =
+   69, the first offset width past the width classes), 4 frames.  B's
+   gates (and H's tracker gate on pe_nerf11), and both training kernels run
+   their tiled general form (``gtl`` in csrc/train_common.cuh) on every
+   iteration: no plain twin is called on any path.  The general forms'
+   edge sweep adds ``width_edges``: the tiled form at (F, H, VD) in
+   ``EDGE_WIDTHS`` up to the widest ``kernels_take`` accepts (64, 256,
+   195), k 1 / 6 / 8 / 16, both modes, at rows no multiple of any tile.
 15. ``exact_A`` and ``exact_B_ln``: ``PIN_SLAM_EXACT_KNN=1`` on path A's
    profile (weighted_first) and on path B's with ``layer_norm_on: True``
    (per neighbour), 4 frames each, training with ``mapper.mapping_loop``
@@ -334,7 +344,9 @@ class Capture:
     feature table has no certainty column) the 8-column rows are the
     feature rows and their gradient.  The one-column scatter is the exact
     loop's certainty sum, kind ``cert``.  It also counts calls of the fused
-    rank kernel's plain twin, which the main path on the card must not make."""
+    rank kernel's plain twin and of the training kernels' plain twins, which
+    the main path on the card must not make.  ``feat_c`` is the path's
+    feature-row width, F + 1."""
 
     def __init__(self):
         from pin_slam_torch.ops import rank_kernel, rows, train_kernel
@@ -342,7 +354,8 @@ class Capture:
         self.rk, self.tk, self.rows = rank_kernel, train_kernel, rows
         self.orig = (rank_kernel.probe_rank_brick, train_kernel.train_iter,
                      train_kernel.eikonal_iter, rows.gather_rows, rows.scatter_sum_rows,
-                     rank_kernel.probe_rank_brick_plain, rows.scatter_plans)
+                     rank_kernel.probe_rank_brick_plain, rows.scatter_plans,
+                     train_kernel.train_iter_plain, train_kernel.eikonal_iter_plain)
         self.path = None
         self.capturing = False
         self.store = False
@@ -352,6 +365,8 @@ class Capture:
         self.tally = {}
         self.rank_calls = 0
         self.plain_rank_calls = 0
+        self.plain_train_calls = 0
+        self.feat_c = 9                   # the feature rows' columns: F + 1
 
     def _keep(self, key, args, kwargs):
         import torch
@@ -371,7 +386,7 @@ class Capture:
 
     def install(self):
         (probe_rank_brick, train_iter, eikonal_iter, gather_rows, scatter_sum_rows,
-         rank_plain, scatter_plans) = self.orig
+         rank_plain, scatter_plans, train_plain, eik_plain) = self.orig
 
         def rank(*a, **kw):
             # every frame probes the shared endpoint balls first, then the
@@ -389,6 +404,14 @@ class Capture:
             self._keep((self.path, "train_iter", "main"), a, kw)
             return train_iter(*a, **kw)
 
+        def train_twin(*a, **kw):
+            self.plain_train_calls += 1
+            return train_plain(*a, **kw)
+
+        def eik_twin(*a, **kw):
+            self.plain_train_calls += 1
+            return eik_plain(*a, **kw)
+
         def eik(*a, **kw):
             self._keep((self.path, "eikonal", "main"), a, kw)
             return eikonal_iter(*a, **kw)
@@ -399,10 +422,10 @@ class Capture:
             # and the colour feature rows (F = 8) once per iteration; bundle
             # adjustment's feature rows (F = 8) once per iteration; the exact
             # loop's pool rows once per call, its feature rows (F = 8) once
-            # per iteration
+            # per iteration; the feature rows are ``feat_c`` = F + 1 wide
             C = a[0].shape[1]
             kind = ("ba" if self.in_ba else "feat" if self.slim and C == 8
-                    else {9: "feat", 8: "color", 3: "label"}.get(C, "pool"))
+                    else {self.feat_c: "feat", 8: "color", 3: "label"}.get(C, "pool"))
             self._keep((self.path, "gather", kind), a, kw)
             return gather_rows(*a, **kw)
 
@@ -429,12 +452,13 @@ class Capture:
 
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
          self.rows.gather_rows, self.rows.scatter_sum_rows, self.rk.probe_rank_brick_plain,
-         self.rows.scatter_plans) = rank, train, eik, gather, scatter, plain, plans
+         self.rows.scatter_plans, self.tk.train_iter_plain, self.tk.eikonal_iter_plain) = (
+            rank, train, eik, gather, scatter, plain, plans, train_twin, eik_twin)
 
     def uninstall(self):
         (self.rk.probe_rank_brick, self.tk.train_iter, self.tk.eikonal_iter,
          self.rows.gather_rows, self.rows.scatter_sum_rows, self.rk.probe_rank_brick_plain,
-         self.rows.scatter_plans) = self.orig
+         self.rows.scatter_plans, self.tk.train_iter_plain, self.tk.eikonal_iter_plain) = self.orig
 
 
 # ----------------------------------------------------------------------
@@ -464,6 +488,16 @@ PATHS = {
                         n_frames=4, mapping_bucket=0, dedup_budget=0.625,
                         over=dict(pos_encoding_band=16, use_gaussian_pe=True,
                                   pos_encoding_freq=1)),
+    # the training kernels' tiled form: B with a wider decoder (F 16, H 128),
+    # and H with NeRF band 11 (VD 69, past the width classes)
+    "wide_B": dict(profile="config/lidar_slam/run_kitti.yaml",
+                   caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 17,
+                   n_frames=6, mapping_bucket=1 << 16, dedup_budget=0.5, form="tiled",
+                   over=dict(feature_dim=16, geo_mlp_hidden_dim=128)),
+    "pe_nerf11": dict(profile="config/lidar_slam/run_kitti.yaml",
+                      caps=(1 << 22, 1 << 18, 1 << 23, 1 << 23), n_rays=1 << 17,
+                      n_frames=4, mapping_bucket=1 << 16, dedup_budget=0.5, form="tiled",
+                      over=dict(pos_encoding_band=11)),
 }
 # path C's overrides: those of the JAX package's square-loop test
 # (tests/test_full_slam.py), which let a loop close on an 8 m square
@@ -566,6 +600,8 @@ def run_path(name, cap, mesh=False):
     n_rays, n_frames, mapping_bucket = p["n_rays"], len(frames), p["mapping_bucket"]
     cap.path = name
     cap.plain_rank_calls = 0
+    cap.plain_train_calls = 0
+    cap.feat_c = cfg.feature_dim + 1
     _cuda.reset_counts()
     infos, times = [], []
     queries = {"cached": 0, "autograd": 0}        # the tracker's SDF evaluations by path
@@ -611,6 +647,8 @@ def run_path(name, cap, mesh=False):
     torch.cuda.synchronize()
     cap.capturing = False
     cap.path = None
+    cap.feat_c = 9
+    widths = (cfg.feature_dim, cfg.geo_mlp_hidden_dim, system.mcfg.vec_dim)
 
     stage = np.asarray(system.stage_times[1:n_frames])
     res = {
@@ -627,6 +665,10 @@ def run_path(name, cap, mesh=False):
         "local_points": int(system.lm.count), "pool_fill": int(system.pool.fill),
         "pos_encoding": {"band": cfg.pos_encoding_band, "gaussian": cfg.use_gaussian_pe,
                          "vec_dim": system.mcfg.vec_dim, "pool_dim": system.mcfg.pool_dim},
+        "decoder": {"F": widths[0], "H": widths[1], "VD": widths[2],
+                    "training_form": mp.train_kernel.general_form(*widths),
+                    "kernel_path": system.kernel_path},
+        "plain_twin_calls": cap.plain_train_calls,
         "tracker_queries": queries, "launches": counts,
         "max_memory_allocated_gb": peak_gb,
     }
@@ -682,6 +724,14 @@ def run_path(name, cap, mesh=False):
     for k, n in need.items():
         if counts[k] < n:
             fail(f"path {name}: kernel {k} launched {counts[k]} times, expected >= {n}")
+    # the training kernels' twins never run on the card's path; the paths
+    # that name a form run their training kernels in it
+    if cap.plain_train_calls:
+        fail(f"path {name}: the training kernels' plain twins ran {cap.plain_train_calls} "
+             f"times")
+    if p.get("form") and (res["decoder"]["training_form"] != p["form"]
+                          or not system.kernel_path):
+        fail(f"path {name}: training by {res['decoder']}, not the kernels' {p['form']} form")
     # the brick layout probes and ranks in one kernel: no per-cell ranking,
     # no plain brick gather
     if counts["rank"] or cap.plain_rank_calls:
@@ -2581,14 +2631,12 @@ def rank_cells_phase():
           "check": "gidx/valid/pos exact; two launches bit-identical"})
 
 
-def _parts(out):
+def _parts(out, IN):
     """(name, tensor, relative tolerance) of each separately scaled part of
-    a training kernel's (loss, dfeats, dparams)."""
-    from pin_slam_torch.ops import train_kernel as tk
-
+    a training kernel's (loss, dfeats, dparams) at IN decoder inputs."""
     loss, dfeats, dparams = out
-    F, H = tk.KERNEL_F, tk.KERNEL_H
-    IN = F + tk.offset_width(dparams)
+    F = dfeats.shape[-1] - 1
+    H = (dparams.shape[0] - 1) // (IN + 2)
     cuts = np.cumsum([0, IN * H, H, H, 1])
     leaves = [(n, dparams[a:b], TOL_REL, True) for n, a, b in
               zip(("dW1", "db1", "dW2", "db2"), cuts[:-1], cuts[1:])]
@@ -2599,31 +2647,82 @@ def _parts(out):
 
 CHECK_TEXT = (f"vs the plain version in float64, each of loss, dfeats, certainty, dW1, db1, "
               f"dW2, db2 within {TOL_REL} x its max ({TOL_CERT} for certainty); a decoder "
-              f"leaf also passes within {DEC_ULPS} ulps of the largest decoder gradient")
+              f"leaf also passes within {DEC_ULPS} ulps of the largest decoder gradient; a part "
+              f"outside is held again, at the same tolerance, to the float64 version with the "
+              f"float32 version's ReLU masks (a pre-activation within float32 rounding of 0)")
+
+
+def _aligned_plain(plain, args):
+    """``plain(*args)`` in float64 with the ReLU masks of its float32 run on
+    the same inputs, and the number of hidden units whose mask the float64
+    pre-activations would flip.  A pre-activation within float32 rounding of
+    0 can take the other side of the ReLU in float64 (the inputs'
+    conditioning, which the float32 plain version shows as well); with the
+    float32 masks the float64 run measures the arithmetic alone."""
+    import torch
+
+    from pin_slam_torch.ops import train_kernel as tk
+
+    orig, masks, flips = tk._mlp, [], [0]
+
+    def record(x, W1, b1, W2, b2):
+        masks.append(x @ W1 + b1 > 0)
+        return orig(x, W1, b1, W2, b2)
+
+    def replay(x, W1, b1, W2, b2):
+        z = x @ W1 + b1
+        m = masks.pop(0)
+        flips[0] += int(((z > 0) != m).sum())
+        return ((z * m) @ W2)[..., 0] + b2[0]
+
+    try:
+        tk._mlp = record
+        plain(*args)
+        tk._mlp = replay
+        out = plain(*[a.double() if isinstance(a, torch.Tensor) else a for a in args])
+    finally:
+        tk._mlp = orig
+    return out, flips[0]
 
 
 def _cmp(out_k, plain, args, label):
     """Holds a training kernel's outputs ``out_k`` against ``plain(*args)`` in
-    float32 (P) and in float64 (T), part by part (see TOL_REL above).
-    Returns (max |kernel - P| over the parts, {part: [|kernel - T|, |P - T|,
-    max|T|]}); fails if a part is out of tolerance."""
+    float32 (P) and in float64 (T), part by part (see TOL_REL above); a part
+    out of tolerance is held again to T with P's ReLU masks
+    (``_aligned_plain``).  Returns (max |kernel - P| over the parts, {part:
+    [|kernel - T|, |P - T|, max|T|] (+ [|kernel - T with P's masks|])}, and
+    the masks' flips where that ran); fails if a part is out of tolerance
+    both ways."""
     import torch
 
+    F, _, vd, _ = widths(args)
     out_p = plain(*args)
     out_t = plain(*[a.double() if isinstance(a, torch.Tensor) else a for a in args])
     dec_floor = DEC_ULPS * 2.0 ** -23 * float(out_t[2].abs().max())
+    aligned = None
     errs, detail = [], {}
-    for (what, k, tol, dec), (_, p, _, _), (_, t, _, _) in zip(
-            _parts(out_k), _parts(out_p), _parts(out_t)):
+    for i, ((what, k, tol, dec), (_, p, _, _), (_, t, _, _)) in enumerate(zip(
+            _parts(out_k, F + vd), _parts(out_p, F + vd), _parts(out_t, F + vd))):
         e_k = float((k.double() - t).abs().max())
         e_p = float((p.double() - t).abs().max())
         scale = float(t.abs().max())
         detail[what] = [e_k, e_p, scale]
         if not (e_k <= tol * scale or (dec and e_k <= dec_floor)):
-            fail(f"{label}: {what} max err {e_k:.3e} vs float64 (the plain version's own "
-                 f"{e_p:.3e}) > {tol} x {scale:.3e}"
-                 + (f" and > {dec_floor:.3e} ({DEC_ULPS} ulps of the largest decoder "
-                    f"gradient)" if dec else ""))
+            if aligned is None:
+                out_a, flips = _aligned_plain(plain, args)
+                aligned = _parts(out_a, F + vd)
+                detail["mask_flips"] = flips
+            t_a = aligned[i][1]
+            e_a = float((k.double() - t_a).abs().max())
+            scale_a = float(t_a.abs().max())
+            detail[what].append(e_a)
+            if not (e_a <= tol * scale_a or (dec and e_a <= dec_floor)):
+                fail(f"{label}: {what} max err {e_k:.3e} vs float64 (the plain version's own "
+                     f"{e_p:.3e}) > {tol} x {scale:.3e}"
+                     + (f" and > {dec_floor:.3e} ({DEC_ULPS} ulps of the largest decoder "
+                        f"gradient)" if dec else "")
+                     + f"; {e_a:.3e} with the float32 ReLU masks ({detail['mask_flips']} "
+                       f"flips)")
         errs.append(float((k - p).abs().max()))
     return max(errs), detail
 
@@ -2632,15 +2731,26 @@ def decodes(wf, rows, k, per_row):
     return rows * per_row * (1 if wf else k)
 
 
-def decode_flops(vd=3):
-    """Float32 operations one decode of a training kernel needs at offset
-    width ``vd`` (IN = 8 + vd inputs): the forward (IN x H FMAs, H bias
-    adds, H FMAs into the output), dh (H), the input gradient of the F
-    feature columns only (F x H FMAs: the offset vectors take none), and the
-    decoder-gradient sums (IN x H + H FMAs, H adds)."""
+def widths(args):
+    """(F, H, VD, k) of a training kernel's arguments (the train kernel's
+    nine or the eikonal kernel's eight)."""
     from pin_slam_torch.ops import train_kernel as tk
 
-    F, H = tk.KERNEL_F, tk.KERNEL_H
+    train = len(args) == 9
+    feats, vcols = args[0], args[2].shape[1]
+    params, wf = (args[5], args[6]) if train else (args[4], args[5])
+    k, F = feats.shape[1], feats.shape[2] - 1
+    vd = vcols if wf else vcols // k
+    return F, tk.hidden_width(params.shape[0], F, vd), vd, k
+
+
+def decode_flops(F, H, vd):
+    """Float32 operations one decode of a training kernel needs at F
+    features, H hidden units and offset width ``vd`` (IN = F + vd inputs):
+    the forward (IN x H FMAs, H bias adds, H FMAs into the output), dh (H),
+    the input gradient of the F feature columns only (F x H FMAs: the offset
+    vectors take none), and the decoder-gradient sums (IN x H + H FMAs, H
+    adds)."""
     IN = F + vd
     return (2 * IN * H + 3 * H) + H + 2 * F * H + (2 * IN * H + 3 * H)
 
@@ -2650,58 +2760,69 @@ def train_phase(label, args, kwargs, launches):
 
     feats, w, vin, label_t, wt, params, wf, scale, sigma = args
     B, k = w.shape
-    vd = tk.offset_width(params)
+    F, H, vd, _ = widths(args)
     out_k = launched_twice(tk.train_iter, args, f"train_iter kernel {label}")
     err, detail = _cmp(out_k, tk.train_iter_plain, args, f"train_iter kernel {label}")
     t = timings(lambda: tk.train_iter(*args), lambda: tk.train_iter_plain(*args))
-    flops = decodes(wf, B, k, decode_flops(vd)) + (2 * B * k * tk.KERNEL_F if wf else 2 * B * k)
+    flops = decodes(wf, B, k, decode_flops(F, H, vd)) + (2 * B * k * F if wf else 2 * B * k)
     b, by = bound(nbytes(feats, w, vin, label_t, wt, params, out_k[1], out_k[2]) + 4, flops)
     row = {"name": f"train_iter[{label}]", "route": "cuda",
            "source": "pin_slam_torch/csrc/train_iter.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:247", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-           "shape": {"B": B, "k": k, "VD": vd, "weighted_first": wf},
-           "launch": train_launch(B, k, wf, feats.get_device(), vd),
+           "shape": {"B": B, "k": k, "F": F, "H": H, "VD": vd, "weighted_first": wf},
+           "launch": train_launch(B, k, wf, feats.get_device(), vd, F, H),
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
 
 
-def train_launch(B, k, wf, device, vd=3):
-    """The train kernel's launch at (B, k, mode) on ``device``: rows per
-    block, blocks, threads per block, the blocks per SM its build allows
-    and, for the general form (VD != 3), the padded input width of the build
-    that runs and the groups of rows its blocks take in turn."""
+def general_launch_info(kernel, n, k, wf, device, vd, F, H):
+    """A general-form launch of ``kernel`` at (n, k, mode, F, H, VD): the
+    build that runs (a width class, or the tiled form with its plan), rows
+    per group, groups, blocks, threads, blocks per SM."""
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
+    R, blocks, resident = tk.general_launch(kernel, device, n, k, F, H, vd, wf)
+    form = tk.general_form(F, H, vd)
+    info = {"form": form, "rows_per_group": R, "groups": -(-n // R), "blocks": blocks,
+            "threads": tk.GEN_THREADS, "blocks_per_sm": resident // _cuda.sm_count(device)}
+    if form == "class":
+        info["width"] = tk.general_width(vd)
+    else:
+        res, dc, dmax, floats = tk.tiled_plan(F, H, vd, k, bool(wf), kernel == "eikonal")
+        info["plan"] = {"w1_resident": bool(res), "chunk_decodes": dc, "group_decodes": dmax,
+                        "smem_kb": floats * 4 / 1024}
+    return info
+
+
+def train_launch(B, k, wf, device, vd=3, F=8, H=64):
+    """The train kernel's launch at (B, k, mode) on ``device``: rows per
+    block, blocks, threads per block, the blocks per SM its build allows
+    and, for the general forms (any width but F 8, H 64, VD 3),
+    ``general_launch_info``."""
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.ops import train_kernel as tk
+
+    if tk.general_form(F, H, vd) != "dedicated":
+        return general_launch_info("train_iter", B, k, wf, device, vd, F, H)
     sms = _cuda.sm_count(device)
-    if vd != tk.KERNEL_VD:
-        resident = tk.general_resident_blocks("train_iter", device, bool(wf), vd)
-        R = tk.general_rows_per_block(B, 1 if wf else k, k, bool(wf), resident)
-        return {"form": "general", "width": tk.general_width(vd), "rows_per_block": R,
-                "groups": -(-B // R), "blocks": min(-(-B // R), resident),
-                "threads": tk.GEN_THREADS, "blocks_per_sm": resident // sms}
     resident = tk.train_resident_blocks(device, bool(wf))
     R = tk.train_rows_per_block(B, k, bool(wf), resident)
     return {"rows_per_block": R, "blocks": -(-B // R), "threads": tk.TRAIN_THREADS,
             "blocks_per_sm": resident // sms}
 
 
-def eik_launch(n, k, wf, device, vd=3):
+def eik_launch(n, k, wf, device, vd=3, F=8, H=64):
     """The eikonal kernel's launch at (n, k, mode) on ``device``, as
-    ``train_launch`` (the VD = 3 build sizes R from the SM count alone)."""
+    ``train_launch`` (the dedicated build sizes R from the SM count alone)."""
     from pin_slam_torch.ops import _cuda
     from pin_slam_torch.ops import train_kernel as tk
 
-    sms = _cuda.sm_count(device)
-    if vd != tk.KERNEL_VD:
-        resident = tk.general_resident_blocks("eikonal", device, bool(wf), vd)
-        R = tk.general_rows_per_block(n, 6 * (1 if wf else k), k, True, resident)
-        return {"form": "general", "width": tk.general_width(vd), "rows_per_block": R,
-                "groups": -(-n // R), "blocks": min(-(-n // R), resident),
-                "threads": tk.GEN_THREADS, "blocks_per_sm": resident // sms}
-    R = tk.eikonal_rows_per_block(n, k, bool(wf), sms)
+    if tk.general_form(F, H, vd) != "dedicated":
+        return general_launch_info("eikonal", n, k, wf, device, vd, F, H)
+    R = tk.eikonal_rows_per_block(n, k, bool(wf), _cuda.sm_count(device))
     return {"form": "VD=3", "rows_per_block": R, "blocks": -(-n // R), "threads": 256}
 
 
@@ -2723,17 +2844,17 @@ def eik_phase(label, args, kwargs, launches):
 
     feats, wst, vst, esc, params, wf, scale, step = args
     n, k = feats.shape[0], feats.shape[1]
-    vd = tk.offset_width(params)
+    F, H, vd, _ = widths(args)
     out_k = launched_twice(tk.eikonal_iter, args, f"eikonal kernel {label}")
     err, detail = _cmp(out_k, tk.eikonal_iter_plain, args, f"eikonal kernel {label}")
     t = timings(lambda: tk.eikonal_iter(*args), lambda: tk.eikonal_iter_plain(*args))
-    flops = decodes(wf, n, k, 6 * decode_flops(vd))
+    flops = decodes(wf, n, k, 6 * decode_flops(F, H, vd))
     b, by = bound(nbytes(feats, wst, vst, esc, params, out_k[1], out_k[2]) + 4, flops)
     row = {"name": f"eikonal[{label}]", "route": "cuda", "source": "pin_slam_torch/csrc/eikonal.cu",
            "replaces": "pin_slam_tpu/ops/train_kernel.py:471", "launches": launches,
            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-           "shape": {"n": n, "k": k, "VD": vd, "weighted_first": wf},
-           "launch": eik_launch(n, k, wf, feats.get_device(), vd),
+           "shape": {"n": n, "k": k, "F": F, "H": H, "VD": vd, "weighted_first": wf},
+           "launch": eik_launch(n, k, wf, feats.get_device(), vd, F, H),
            "check": CHECK_TEXT + "; two launches bit-identical", "err_vs_f64": detail}
     emit({"phase": "kernel", **row})
     return row
@@ -2741,6 +2862,13 @@ def eik_phase(label, args, kwargs, launches):
 
 EDGE_VDS = (3, 15, 27, 35, 64)     # no encoding, NeRF bands 2 and 4, Gaussian 16, the widest
 EDGE_KS = (1, 6, 8, 16)
+# the tiled form (F, H, VD): narrow, wide features, wide hidden layers, the
+# offset widths past the width classes (Gaussian 31 bands, NeRF 11 and 20),
+# and the widest the predicate takes (NeRF band 32); at rows that are no
+# multiple of any tile
+EDGE_WIDTHS = ((4, 32, 3), (16, 64, 3), (16, 128, 27), (32, 256, 3), (8, 64, 65), (8, 64, 69),
+               (8, 64, 123), (64, 256, 195))
+EDGE_WIDE_B, EDGE_WIDE_N = (1, 37, 4099), (1, 37, 1001)
 
 
 def train_edge_phase():
@@ -2799,6 +2927,40 @@ def eikonal_edge_phase():
                     cases += 1
     emit({"phase": "eikonal_edges", "cases": cases, "max_abs_err_vs_plain_by_vd": errs,
           "check": CHECK_TEXT + "; two launches bit-identical"})
+
+
+def width_edge_phase():
+    """Both training kernels at every (F, H, VD) of ``EDGE_WIDTHS`` x k in
+    ``EDGE_KS`` x both modes, on dyadic inputs, at B in ``EDGE_WIDE_B`` (train)
+    and n in ``EDGE_WIDE_N`` (eikonal): ``kernels_take`` holds each, two
+    launches bit-identical, and part by part against the plain version in
+    float64 at the stated tolerances.  Kept out of the kernels line."""
+    from pin_slam_torch.ops import train_kernel as tk
+
+    errs, plans, cases = {}, {}, 0
+    for F, H, vd in EDGE_WIDTHS:
+        for k in EDGE_KS:
+            if not tk.kernels_take(F, H, vd, k):
+                fail(f"kernels_take refuses the edge width F={F} H={H} VD={vd} k={k}")
+            for wf in (True, False):
+                for kernel, fn, plain, make, sizes in (
+                        ("train_iter", tk.train_iter, tk.train_iter_plain, synthetic_train_args,
+                         EDGE_WIDE_B),
+                        ("eikonal", tk.eikonal_iter, tk.eikonal_iter_plain, synthetic_eik_args,
+                         EDGE_WIDE_N)):
+                    plans[f"{kernel} F={F} H={H} VD={vd} k={k} wf={int(wf)}"] = \
+                        tk.tiled_plan(F, H, vd, k, wf, kernel == "eikonal")
+                    for n in sizes:
+                        label = f"{kernel} kernel width edge n={n} k={k} F={F} H={H} VD={vd} " \
+                                f"wf={int(wf)}"
+                        args = make(wf, n, k, 300 + 10 * n + k + 1000 * vd + F + H, dyadic=True,
+                                    vd=vd, F=F, H=H)
+                        err, _ = _cmp(launched_twice(fn, args, label), plain, args, label)
+                        key = f"F={F} H={H} VD={vd}"
+                        errs[key] = max(errs.get(key, 0.0), err)
+                        cases += 1
+    emit({"phase": "width_edges", "cases": cases, "max_abs_err_vs_plain_by_width": errs,
+          "tiled_plans": plans, "check": CHECK_TEXT + "; two launches bit-identical"})
 
 
 def gather_edge_phase():
@@ -3048,34 +3210,35 @@ def experiment_shape_rows():
     scatter_phase("experiment", L, idx, val, None, None, 0)
 
 
-def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False, vd=3):
-    """Random inputs at the main path's widths (F=8, H=64) and offset width
-    ``vd``.  ``dyadic``: as for ``synthetic_eik_args``, features, IDW
-    weights, offset vectors and decoder are small integers over powers of
-    two, so every hidden pre-activation is exact in float32."""
+def synthetic_train_args(wf, B, k, seed, device="cuda", dyadic=False, vd=3, F=8, H=64):
+    """Random inputs at F features, H hidden units (the main path's 8 and 64
+    by default) and offset width ``vd``.  ``dyadic``: as for
+    ``synthetic_eik_args``, features, IDW weights, offset vectors and
+    decoder are small integers over powers of two, so every hidden
+    pre-activation is exact in float32."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
-    nw1 = (8 + vd) * 64
+    nw1 = (F + vd) * H
     if dyadic:
         q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
                                                   device=device).float() / den
-        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, H), q(-32, 32, 128, H),
                             q(-8, 8, 64, 1)])
-        return (q(-16, 16, 8, B, k, 9), q(1, 16, 64, B, k),
+        return (q(-16, 16, 8, B, k, F + 1), q(1, 16, 64, B, k),
                 q(-8, 8, 32, B, vd if wf else vd * k), r(B) * 0.3, u(B) / B, params, wf,
                 0.055, 0.1)
     w = u(B, k)
     w = w / w.sum(1, keepdim=True)
-    params = torch.cat([r(nw1) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
-    return (r(B, k, 9), w, r(B, vd if wf else vd * k) * 0.2, r(B) * 0.3,
+    params = torch.cat([r(nw1) * 0.3, r(H) * 0.1, r(H) * 0.3, r(1) * 0.1])
+    return (r(B, k, F + 1), w, r(B, vd if wf else vd * k) * 0.2, r(B) * 0.3,
             u(B) / B, params, wf, 0.055, 0.1)
 
 
-def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False, vd=3):
-    """Random eikonal inputs at the main path's widths and offset width
+def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False, vd=3, F=8, H=64):
+    """Random eikonal inputs at F features, H hidden units and offset width
     ``vd``.  ``dyadic``: the features, stencil weights, offset vectors and
     decoder are small integers over powers of two, so every hidden
     pre-activation is exact in float32.  The float64 check then sees the
@@ -3087,19 +3250,19 @@ def synthetic_eik_args(wf, n, k, seed, device="cuda", dyadic=False, vd=3):
     g = torch.Generator(device=device).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=device)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
-    nw1 = (8 + vd) * 64
+    nw1 = (F + vd) * H
     if dyadic:
         q = lambda lo, hi, den, *s: torch.randint(lo, hi + 1, s, generator=g,
                                                   device=device).float() / den
-        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, 64), q(-32, 32, 128, 64),
+        params = torch.cat([q(-32, 32, 128, nw1), q(-8, 8, 64, H), q(-32, 32, 128, H),
                             q(-8, 8, 64, 1)])
-        return (q(-16, 16, 8, n, k, 9), q(1, 16, 64, 6 * n, k),
+        return (q(-16, 16, 8, n, k, F + 1), q(1, 16, 64, 6 * n, k),
                 q(-8, 8, 32, 6 * n, vd if wf else vd * k), u(n) * 0.5 / n, params, wf, 0.055,
                 0.08)
     wst = u(6 * n, k)
     wst = wst / wst.sum(1, keepdim=True)
-    params = torch.cat([r(nw1) * 0.3, r(64) * 0.1, r(64) * 0.3, r(1) * 0.1])
-    return (r(n, k, 9), wst, r(6 * n, vd if wf else vd * k) * 0.2, u(n) * 0.5 / n,
+    params = torch.cat([r(nw1) * 0.3, r(H) * 0.1, r(H) * 0.3, r(1) * 0.1])
+    return (r(n, k, F + 1), wst, r(6 * n, vd if wf else vd * k) * 0.2, u(n) * 0.5 / n,
             params, wf, 0.055, 0.08)
 
 
@@ -4464,6 +4627,7 @@ def main() -> int:
     rank_edge_phase()
     train_edge_phase()
     eikonal_edge_phase()
+    width_edge_phase()
     gather_edge_phase()
     scatter_edge_phase()
 

@@ -50,7 +50,9 @@
 // neighbour, VD = 27, 0.0414 ms on the device against a 0.0092 ms bound
 // (operations; PR 12's first general form 0.145 ms), at pe_gaussian's
 // weighted_first VD = 35 0.0170 ms against 0.0018 (NVIDIA H100 80GB HBM3,
-// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).
+// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).  At any other feature
+// width F, hidden width H or VD > 64 it launches the tiled general form
+// (namespace eit below, over gtl in train_common.cuh).
 
 #include "train_common.cuh"
 
@@ -533,6 +535,209 @@ int blocks_per_sm_vd(int vd) {
 
 }  // namespace eig
 
+// The tiled general form (gtl in train_common.cuh): any F, H and VD the
+// wrappers' predicate takes outside the width classes.  Per group of R base
+// rows, decode d = (r 6 + j) kd + kk as above:
+//   0. the stencil weights (stencil by stencil) and eikonal weights;
+//   1. chunk by chunk: x (the stencil's blend of the base row's k feature
+//      rows with weighted_first, fma in order from global memory, or the
+//      neighbour's row; then the stencil's offset vector: copies by
+//      cp.async, element by element), z, o;
+//   2. a warp a row: the stencil sdfs, the gradient's norm, the loss term,
+//      each decode's dO; warp 0 adds the loss and db2 terms;
+//   3. chunk by chunk (x and z staged again when the group has several):
+//      dh with db1 / dW2, dW1 into the block's partial row, dX into pd;
+//   4. the feature gradients, each (row, neighbour, column)'s six stencil
+//      terms added in stencil order.
+namespace eit {
+
+using namespace gtl;
+
+template <bool WF>
+__device__ __forceinline__ void build_x(float* xs, const float* __restrict__ feats,
+                                        const float* __restrict__ vst, const float* ws,
+                                        const Plan& P, int n, long row0, int rows, int k, int c0,
+                                        int Dc) {
+  const int in = P.in, F = P.F, C = P.C, vd = P.vd, kd = WF ? 1 : k, dr = 6 * kd;
+  const float rin = 1.f / in, rdr = 1.f / dr, rkd = 1.f / kd;
+  for (int e = threadIdx.x; e < Dc * in; e += GB) {
+    const int dd = gen::fdiv(e, rin), i = e - dd * in, d = c0 + dd;
+    const int r = gen::fdiv(d, rdr), rem = d - r * dr, j = gen::fdiv(rem, rkd);
+    const int kk = rem - j * kd;
+    float* dst = xs + dd * P.XP + i;
+    if (i >= F) {
+      cp4(dst, vst + (((long)j * n + row0 + r) * kd + kk) * vd + (i - F));
+    } else if (WF) {
+      const float* fr = feats + (row0 + r) * k * C + i;
+      const float* wj = ws + (j * rows + r) * k;
+      float v = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < k; ++q) v = fmaf(wj[q], __ldg(fr + q * C), v);
+      *dst = v;
+    } else {
+      cp4(dst, feats + ((row0 + r) * k + kk) * C + i);
+    }
+  }
+  cp_wait();
+}
+
+template <bool WF>
+__global__ void __launch_bounds__(GB, 2) eikonal_tiled_kernel(
+    const float* __restrict__ feats, const float* __restrict__ wst,
+    const float* __restrict__ vst, const float* __restrict__ esc,
+    const float* __restrict__ params, const __grid_constant__ Plan P, int n, int k, int R,
+    float scale, float inv2e, float* __restrict__ dfeats, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1s = sm + P.w1, *b1s = sm + P.b1, *w2s = sm + P.w2, *xs = sm + P.xs, *zs = sm + P.zs;
+  float *od = sm + P.od, *pd = sm + P.pd, *ws = sm + P.ws, *pwr = sm + P.pwr, *es = sm + P.ra;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kd = WF ? 1 : k, dr = 6 * kd, F = P.F, C = P.C;
+  const int ngroups = (n + R - 1) / R;
+  float* pb = partial + (long)blockIdx.x * (P.in * P.H + 2 * P.H + 2);
+  block_start(sm, params, P, pb);
+  const float b2 = params[P.in * P.H + 2 * P.H];
+  float sb1 = 0.f, sw2 = 0.f, db2 = 0.f, loss = 0.f;
+
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const long row0 = (long)grp * R;
+    const int rows = (int)min((long)R, (long)n - row0);
+    const int Dv = rows * dr, nch = (Dv + P.DC - 1) / P.DC;
+
+    // 0. staging: ws (6, rows, k), es (rows)
+    {
+      const int nw = rows * k;
+      for (int e = tid; e < 6 * nw; e += GB) {
+        const int j = e / nw;
+        cp4(ws + e, wst + ((long)j * n + row0) * k + e - j * nw);
+      }
+      for (int e = tid; e < rows; e += GB) cp4(es + e, esc + row0 + e);
+      cp_wait();
+    }
+    __syncthreads();
+
+    // 1. forward, chunk by chunk
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * P.DC, Dc = min(P.DC, Dv - c0);
+      build_x<WF>(xs, feats, vst, ws, P, n, row0, rows, k, c0, Dc);
+      __syncthreads();
+      forward(w1s, b1s, w2s, xs, zs, od + c0, b2, params, P, Dc);
+    }
+
+    // 2. a warp a row: the loss term and each decode's upstream gradient
+    for (int r = warp; r < rows; r += GB / 32) {
+      float* o = od + r * dr;
+      const float* wr = ws + r * k;       // stencil j's weights at wr + j * rows * k
+      float sj = 0.f;
+      if (lane < 6) {
+        if (WF) {
+          sj = o[lane] * scale;
+        } else {
+          float p = 0.f;
+          for (int kk = 0; kk < k; ++kk) p = fmaf(wr[lane * rows * k + kk], o[lane * k + kk], p);
+          sj = p * scale;
+        }
+      }
+      float sdf[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) sdf[j] = __shfl_sync(FULL, sj, j);
+      const float e = es[r];
+      const float gx = (sdf[0] - sdf[3]) * inv2e;
+      const float gy = (sdf[1] - sdf[4]) * inv2e;
+      const float gz = (sdf[2] - sdf[5]) * inv2e;
+      const float nrm = sqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+      if (lane == 0) pwr[r] = (nrm - 1.f) * (nrm - 1.f) * e;
+      const float dg = 2.f * (nrm - 1.f) * e / nrm * inv2e;
+      for (int m = lane; m < dr; m += 32) {
+        const int j = m / kd, kk = m - j * kd;
+        const float gj = j % 3 == 0 ? gx : (j % 3 == 1 ? gy : gz);
+        const float ds = j < 3 ? dg * gj : -dg * gj;
+        o[m] = WF ? ds * scale : ds * scale * wr[j * rows * k + kk];
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {                       // warp 0: the loss and db2 terms in a fixed order
+      const float l = warp_sum(pwr, rows), g = warp_sum(od, Dv);
+      loss += l;
+      db2 += g;
+    }
+
+    // 3. backward, chunk by chunk
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * P.DC, Dc = min(P.DC, Dv - c0);
+      if (nch > 1) {
+        __syncthreads();                  // the last chunk's x and dh read
+        build_x<WF>(xs, feats, vst, ws, P, n, row0, rows, k, c0, Dc);
+        __syncthreads();
+        forward(w1s, b1s, w2s, xs, zs, nullptr, 0.f, params, P, Dc);
+      }
+      dh_pass(zs, w2s, od + c0, P, Dc, sb1, sw2);
+      __syncthreads();
+      dw1_pass(xs, zs, pb, P, Dc);
+      feature_grad(w1s, zs, pd + c0 * P.FP, params, P, Dc);
+    }
+    __syncthreads();
+
+    // 4. feature gradients of the group's rows, in stencil order
+    float* dst = dfeats + row0 * k * C;
+    for (int e = tid; e < rows * k * C; e += GB) {
+      const int rq = e / C, f = e - rq * C;   // rq = r k + kk
+      const int r = rq / k, kk = rq - r * k;
+      float v = 0.f;
+      if (f == F) {
+        for (int j = 0; j < 6; ++j) v += ws[(j * rows + r) * k + kk];
+      } else if (WF) {
+        for (int j = 0; j < 6; ++j)
+          v = fmaf(ws[(j * rows + r) * k + kk], pd[(r * 6 + j) * P.FP + f], v);
+      } else {
+        for (int j = 0; j < 6; ++j) v += pd[((r * 6 + j) * k + kk) * P.FP + f];
+      }
+      dst[e] = v;
+    }
+    __syncthreads();                      // the group's staging read
+  }
+
+  // 5. the block's partial row (its dW1 is there already)
+  block_end(P, sb1, sw2, db2, loss, xs, pb);
+}
+
+template <bool WF>
+int opt_in() {
+  static bool done = false;               // the dynamic shared memory above 48 KB
+  if (!done) {
+    const int err = (int)cudaFuncSetAttribute(eikonal_tiled_kernel<WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              SMEM_ONE * 4);
+    if (err) return err;
+    done = true;
+  }
+  return 0;
+}
+
+template <bool WF>
+int launch(const void* feats, const void* wst, const void* vst, const void* esc,
+           const void* params, const Plan& P, int n, int k, int R, float scale, float inv2e,
+           void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  const int err = opt_in<WF>();
+  if (err) return err;
+  eikonal_tiled_kernel<WF><<<nblocks, GB, P.total * 4, st>>>(
+      (const float*)feats, (const float*)wst, (const float*)vst, (const float*)esc,
+      (const float*)params, P, n, k, R, scale, inv2e, (float*)dfeats, (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+template <bool WF>
+int blocks_per_sm(const Plan& P) {
+  int nb = 0;
+  int err = opt_in<WF>();
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, eikonal_tiled_kernel<WF>, GB,
+                                                             P.total * 4);
+  return err ? -err : nb;
+}
+
+}  // namespace eit
+
 using namespace eik;
 
 // R base rows per block (R * decodes per row <= 512); partial holds
@@ -556,29 +761,64 @@ extern "C" int eikonal_launch(const void* feats, const void* wst, const void* vs
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
 }
 
-// the general form: any vd in [1, gen::MAXVD], the build of its width
-// class; groups of R base rows (R * decodes per row <= gen::DMAX) over at
-// most `grid` blocks (the caller passes the blocks the card holds at once);
-// partial holds min(ceil(n / R), grid) rows of in * H + 2 H + 2
+// the general forms: (nf, nh, vd) = (8, 64, vd <= gen::MAXVD) runs the
+// build of vd's width class (groups of R base rows, R * decodes a row <=
+// gen::DMAX), any other width the predicate takes the tiled form (R *
+// decodes a row <= its plan's DMAX); over at most `grid` blocks (the caller
+// passes the blocks the card holds at once); partial holds min(ceil(n / R),
+// grid) rows of (nf + vd) nh + 2 nh + 2
 extern "C" int eikonal_launch_vd(const void* feats, const void* wst, const void* vst,
-                                 const void* esc, const void* params, int n, int k, int vd,
-                                 int weighted_first, int R, int grid, float scale, float inv2e,
-                                 void* dfeats, void* partial, void* out, void* stream) {
+                                 const void* esc, const void* params, int n, int k, int nf,
+                                 int nh, int vd, int weighted_first, int R, int grid, float scale,
+                                 float inv2e, void* dfeats, void* partial, void* out,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R < 1 || grid < 1 || k < 1 || k > MAXK || gen::width_of(vd) == 0 ||
-      R * 6 * (weighted_first ? 1 : k) > gen::DMAX || R * k * C > gen::STAGE)
-    return (int)cudaErrorInvalidValue;
+  const int dr = 6 * (weighted_first ? 1 : k);
+  if (R < 1 || grid < 1 || k < 1 || k > MAXK) return (int)cudaErrorInvalidValue;
   const int nblocks = min((n + R - 1) / R, grid);
-  if (nblocks > 0) {
-    const int err = weighted_first
-        ? eig::launch_vd<true>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e, dfeats,
-                               partial, nblocks, st)
-        : eig::launch_vd<false>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
-                                dfeats, partial, nblocks, st);
-    if (err) return err;
+  if (nf == F && nh == H && gen::width_of(vd) != 0) {
+    if (R * dr > gen::DMAX || R * k * C > gen::STAGE) return (int)cudaErrorInvalidValue;
+    if (nblocks > 0) {
+      const int err = weighted_first
+          ? eig::launch_vd<true>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
+                                 dfeats, partial, nblocks, st)
+          : eig::launch_vd<false>(feats, wst, vst, esc, params, n, k, vd, R, scale, inv2e,
+                                  dfeats, partial, nblocks, st);
+      if (err) return err;
+    }
+  } else {
+    const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, true);
+    if (!P.ok || R * dr > P.DMAX) return (int)cudaErrorInvalidValue;
+    if (nblocks > 0) {
+      const int err = weighted_first
+          ? eit::launch<true>(feats, wst, vst, esc, params, P, n, k, R, scale, inv2e, dfeats,
+                              partial, nblocks, st)
+          : eit::launch<false>(feats, wst, vst, esc, params, P, n, k, R, scale, inv2e, dfeats,
+                               partial, nblocks, st);
+      if (err) return err;
+    }
   }
   return launch_reduce((const float*)partial, nblocks, (float*)out, st,
-                       (F + vd) * H + 2 * H + 2);
+                       (nf + vd) * nh + 2 * nh + 2);
+}
+
+// the tiled form's plan for (nf, nh, vd, k, mode): ok, W1 resident, chunk
+// decodes, group decodes, shared-memory floats (ok = 0: none)
+extern "C" void eikonal_tiled_plan(int nf, int nh, int vd, int k, int weighted_first,
+                                   int* out) {
+  const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, true);
+  out[0] = P.ok;
+  out[1] = P.res;
+  out[2] = P.DC;
+  out[3] = P.DMAX;
+  out[4] = P.total;
+}
+
+// blocks of the tiled form an SM holds at once at that plan's shared memory
+extern "C" int eikonal_tiled_blocks_per_sm(int nf, int nh, int vd, int k, int weighted_first) {
+  const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, true);
+  if (!P.ok) return -(int)cudaErrorInvalidValue;
+  return weighted_first ? eit::blocks_per_sm<true>(P) : eit::blocks_per_sm<false>(P);
 }
 
 // blocks of the general form's build for vd an SM holds at once, as its

@@ -1,10 +1,12 @@
 // Shared pieces of the training-iteration and eikonal kernels
 // (csrc/train_iter.cu, csrc/eikonal.cu): the decoder's shapes, the
 // fixed-order sum of the blocks' partial gradients, and the decode tiles of
-// the kernels' general forms (any offset width VD, namespace gen).
+// the kernels' general forms (offset widths VD up to 64 at F = 8, H = 64,
+// namespace gen; every other width the predicate takes, namespace gtl).
 //
 // Both kernels take the one-hidden-layer decoder (W1 in x H, b1, W2, b2;
-// F = 8 features + VD offset dims in, H = 64 hidden) as one packed vector,
+// F features + VD offset dims in, H hidden; the dedicated kernels F = 8,
+// VD = 3, H = 64) as one packed vector,
 // and write their decoder gradients without float atomics: each block
 // stores its partial sums, one row of E floats, to a scratch buffer, and
 // `reduce_partials` adds the blocks in a fixed order, so a run is
@@ -13,7 +15,8 @@
 // The kernels built for VD = 3 (the offset vector unencoded) keep their
 // constants below; with positional encoding (VD != 3, up to MAXVD) the
 // general forms are built once for each padded input width class and take
-// VD at run time.  Each kernel's own design is described in its source.
+// VD at run time, and the tiled form takes F, H and VD at run time.  Each
+// kernel's own design is described in its source.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -497,3 +500,424 @@ __device__ __forceinline__ void store_partial(float* red, const Grad<IP>& a, flo
     case 72: return fn<72, WF>(__VA_ARGS__);                     \
     default: return (int)cudaErrorInvalidValue;                  \
   }
+
+// The tiled general form: every (F, H, VD) the wrappers' predicate takes
+// (ops/train_kernel.kernels_take: F <= 64, H <= 256, VD <= 195, k <= 16)
+// outside the width classes above (which keep F = 8, H = 64, VD <= 64).
+// F, H and VD are run-time values: the register blocks below are fixed
+// (4 x 4), and the loops run over input quads, 64-unit tiles of the hidden
+// layer and 64-decode tiles.  Zero padding is exact: inputs to IP (a
+// multiple of 8), hidden units to HP (a multiple of 64) with zero W1
+// columns, b1 and W2 entries (z = 0, relu 0, a [z > 0] mask of 0, zero
+// gradients), features to FP (a multiple of 4) in the feature gradient.
+// Per block (the launch has at most the resident blocks, each taking groups
+// of R rows in turn, as above), shared memory holds
+//   - W1 (IP, HP) for the whole launch when it fits ("resident"), else one
+//     64-unit slab at a time, staged again for each use;
+//   - b1, W2 (HP);
+//   - a chunk of DC decodes' inputs x (DC, IP) and pre-activations z
+//     (DC, HP); a group of D <= DMAX decodes runs in ceil(D / DC) chunks;
+//     with more than one, the backward stages each chunk's x and z again
+//     (the same bits: the same code on the same inputs), so a group's
+//     shared memory does not grow with D;
+//   - the group's outputs, then dO (DMAX), its feature gradients dX
+//     (DMAX, FP), its IDW weights and per-row values.
+// `plan` picks, in order, the first layout that fits two blocks an SM, then
+// one: W1 resident before a slab, DMAX 128 / 96 / 64, DC 128 / 64.  At the
+// widest (F 64, H 256, VD 195) W1 alone is 264 KB, so it streams in slabs.
+// Passes per chunk:
+//   forward: thread (ug, dg) computes 4 decodes x 4 units a tile, a float4
+//     of four inputs of each decode and a float4 of four units of each of
+//     four W1 rows per step (64 FMAs for 8 vector loads), the inputs in
+//     order from 0, then + b1; each tile's share of the outputs o (a
+//     thread's 4 units, then its 16 unit groups by xor shuffles) added to o
+//     tile after tile, + b2 last;
+//   dh: thread (j, s) (unit j, decode stream s of GB / HP) turns z into dh
+//     = [z > 0] dO W2_j in place over its stream's decodes and keeps db1_j
+//     and dW2_j in registers across the block's groups (streams added in
+//     order at the block's end);
+//   dW1 = X^T dH: task (input quad, unit quad) adds the chunk's decodes in
+//     order (16 FMAs for two float4 loads) and adds its 4 x 4 sums to the
+//     block's partial row in global memory; the block's own row, so each
+//     entry has one writer and a fixed order: groups in turn, chunks in
+//     turn, decodes in order (the dW1 sums of all units do not fit in
+//     registers at H = 256: 66 k floats);
+//   dX = dH W1[:F]^T: task (feature quad, decode) for four decodes a
+//     quarter of the chunk apart (lanes on consecutive decode rows: no bank
+//     conflicts), summed over the units in order (over slabs in order when
+//     W1 streams).
+// No float atomics: two launches give the same bits.
+namespace gtl {
+
+using gen::cp4;
+using gen::cp_wait;
+
+constexpr int GB = 256;                   // threads per block
+constexpr int UG = 16;                    // unit groups of a forward tile
+constexpr int UW = 4;                     // units a thread in the forward
+constexpr int DW = 4;                     // decodes a thread in the forward
+constexpr int UT = UG * UW;               // units a tile, and a W1 slab
+constexpr int TILE = GB / UG * DW;        // decodes a forward tile
+constexpr int MAXF = 64, MAXH = 256, MAXVD = 195;
+constexpr int SMEM_TWO = 115712 / 4;      // floats a block with two an SM (H100: 228 KB
+constexpr int SMEM_ONE = 232448 / 4;      // an SM, 1 KB reserved a block); one an SM
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(UT == 64 && TILE == 64 && MAXH <= GB, "tile layout; one dh thread a unit");
+
+__host__ __device__ constexpr int rup(int x, int m) { return (x + m - 1) / m * m; }
+
+// a launch's widths and its shared-memory layout (floats from the start)
+struct Plan {
+  int ok, F, H, vd, in, C, IP, XP, HP, ZP, FP;
+  int res, WC, DC, DMAX;                  // W1 resident; W1 columns staged; chunk; group
+  int w1, b1, w2, xs, zs, od, pd, ws, pwr, ra, rb, total;
+};
+
+// the layout for (F, H, vd, k) and mode (ok = 0: none fits, or a width
+// past the predicate's)
+__host__ __device__ inline Plan plan(int F, int H, int vd, int k, bool wf, bool eik) {
+  Plan p{};
+  if (F < 1 || F > MAXF || H < 1 || H > MAXH || vd < 1 || vd > MAXVD || k < 1 || k > tk::MAXK)
+    return p;
+  p.F = F;
+  p.H = H;
+  p.vd = vd;
+  p.in = F + vd;
+  p.C = F + 1;
+  p.IP = rup(p.in, 8);
+  p.XP = p.IP + 4;                        // 4 mod 8: two decode rows a warp on distinct banks
+  p.HP = rup(H, UT);
+  p.ZP = p.HP + 4;                        // 4 mod 32: consecutive rows on distinct banks
+  p.FP = rup(F, 4);
+  const int dr = (eik ? 6 : 1) * (wf ? 1 : k);   // decodes a row
+  const int budget[2] = {SMEM_TWO, SMEM_ONE};
+  const int dmax[3] = {128, 96, 64};
+  for (int b = 0; b < 2; ++b)
+    for (int res = 1; res >= 0; --res)
+      for (int m = 0; m < 3; ++m)
+        for (int DC = 128; DC >= TILE; DC -= TILE) {
+          const int DMAX = dmax[m];
+          if (DMAX < dr || DC > rup(DMAX, TILE)) continue;
+          const int rmax = DMAX / dr, nw = (eik ? 6 : 1) * rmax * k;
+          p.res = res;
+          p.WC = res ? p.HP : UT;
+          p.DC = DC;
+          p.DMAX = DMAX;
+          int o = 0;
+          p.w1 = o;
+          o += p.IP * p.WC;
+          p.b1 = o;
+          o += p.HP;
+          p.w2 = o;
+          o += p.HP;
+          p.xs = o;
+          o += DC * p.XP;
+          p.zs = o;
+          o += DC * p.ZP;
+          p.od = o;
+          o += rup(DMAX, 4);
+          p.pd = o;
+          o += DMAX * p.FP;
+          p.ws = o;
+          o += rup(nw, 4);
+          p.pwr = o;
+          o += rup(rmax, 4);
+          p.ra = o;
+          o += rup(rmax, 4);
+          p.rb = o;
+          o += rup(rmax, 4);
+          p.total = o;
+          if (o <= budget[b]) {
+            p.ok = 1;
+            return p;
+          }
+        }
+  p.ok = 0;
+  return p;
+}
+
+// W1 rows [0, rows) x hidden columns [c0, c0 + WC) into w1s (pitch WC), zero
+// past `in` rows and H columns; waited for with cp_wait
+__device__ __forceinline__ void stage_w1(float* w1s, const float* __restrict__ params,
+                                         const Plan& P, int c0, int rows) {
+  const int nc = P.WC;
+  for (int e = threadIdx.x; e < rows * nc; e += GB) {
+    const int i = e / nc, u = e - i * nc, j = c0 + u;
+    if (i < P.in && j < P.H)
+      cp4(w1s + e, params + i * P.H + j);
+    else
+      w1s[e] = 0.f;
+  }
+}
+
+// forward tile t of a chunk: z = x W1 (inputs in order) + b1 for the 64
+// units at W (pitch WC), b1, zs (pitch ZP), for the decodes below Dc; with
+// `od`, the tile's share of each output, sum_j relu(z_j) W2_j over its 64
+// units (each thread's 4 in order, then the 16 unit groups by xor
+// shuffles), added to od (set by the first unit tile)
+__device__ __forceinline__ void fwd_tile(const float* xs, const float* W, const float* b1,
+                                         const float* w2, float* zs, float* od, bool first,
+                                         const Plan& P, int t, int Dc) {
+  const int ug = threadIdx.x % UG, d0 = t * TILE + threadIdx.x / UG * DW;
+  const float* Wc = W + UW * ug;
+  float z[DW][UW];
+#pragma unroll
+  for (int p = 0; p < DW; ++p)
+#pragma unroll
+    for (int u = 0; u < UW; ++u) z[p][u] = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < P.IP; i += 4) {
+    float x[DW][4], w[4][UW];
+#pragma unroll
+    for (int p = 0; p < DW; ++p) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + (d0 + p) * P.XP + i);
+      x[p][0] = v.x;
+      x[p][1] = v.y;
+      x[p][2] = v.z;
+      x[p][3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(Wc + (i + q) * P.WC);
+      w[q][0] = v.x;
+      w[q][1] = v.y;
+      w[q][2] = v.z;
+      w[q][3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int p = 0; p < DW; ++p)
+#pragma unroll
+        for (int u = 0; u < UW; ++u) z[p][u] = fmaf(x[p][q], w[q][u], z[p][u]);
+  }
+  const float4 bv = *reinterpret_cast<const float4*>(b1 + UW * ug);
+  const float bb[UW] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+  for (int p = 0; p < DW; ++p) {
+#pragma unroll
+    for (int u = 0; u < UW; ++u) z[p][u] += bb[u];
+    if (d0 + p < Dc)
+      *reinterpret_cast<float4*>(zs + (d0 + p) * P.ZP + UW * ug) =
+          make_float4(z[p][0], z[p][1], z[p][2], z[p][3]);
+  }
+  if (od == nullptr) return;
+  const float4 wv = *reinterpret_cast<const float4*>(w2 + UW * ug);
+  const float ww[UW] = {wv.x, wv.y, wv.z, wv.w};
+  float o[DW];
+#pragma unroll
+  for (int p = 0; p < DW; ++p) {
+    o[p] = 0.f;
+#pragma unroll
+    for (int u = 0; u < UW; ++u) o[p] = fmaf(fmaxf(z[p][u], 0.f), ww[u], o[p]);
+#pragma unroll
+    for (int m = UG / 2; m >= 1; m >>= 1) o[p] += __shfl_xor_sync(FULL, o[p], m);
+  }
+  if (ug == 0)
+#pragma unroll
+    for (int p = 0; p < DW; ++p)
+      if (d0 + p < Dc) od[d0 + p] = first ? o[p] : od[d0 + p] + o[p];
+}
+
+// a chunk's forward (x staged): z for every unit tile, W1 slab by slab when
+// it streams, and with `od` the outputs o + b2 (``fwd_tile``); ends with a
+// barrier
+__device__ __forceinline__ void forward(float* w1s, const float* b1s, const float* w2s,
+                                        const float* xs, float* zs, float* od, float b2,
+                                        const float* __restrict__ params, const Plan& P, int Dc) {
+  const int nt = (Dc + TILE - 1) / TILE;
+  for (int ut = 0; ut < P.HP / UT; ++ut) {
+    if (!P.res) {
+      __syncthreads();                    // the last slab read
+      stage_w1(w1s, params, P, ut * UT, P.IP);
+      cp_wait();
+      __syncthreads();
+    }
+    const float* W = w1s + (P.res ? ut * UT : 0);
+    for (int t = 0; t < nt; ++t)
+      fwd_tile(xs, W, b1s + ut * UT, w2s + ut * UT, zs + ut * UT, od, ut == 0, P, t, Dc);
+  }
+  if (od != nullptr) {
+    __syncthreads();
+    for (int d = threadIdx.x; d < Dc; d += GB) od[d] += b2;
+  }
+  __syncthreads();
+}
+
+// z becomes dh = [z > 0] dO W2 in place; thread (j, s) (unit j, one of GB /
+// HP decode streams) adds unit j's db1 (dh) and dW2 (dO relu(z)) over
+// decodes s, s + streams, ... in order
+__device__ __forceinline__ void dh_pass(float* zs, const float* w2s, const float* dO,
+                                        const Plan& P, int Dc, float& sb1, float& sw2) {
+  const int ns = GB / P.HP, j = threadIdx.x % P.HP, st = threadIdx.x / P.HP;
+  if (st >= ns) return;
+  const float w2 = w2s[j];
+#pragma unroll 4
+  for (int d = st; d < Dc; d += ns) {
+    const float g = dO[d];
+    float* zp = zs + d * P.ZP + j;
+    const float z = *zp;
+    const float h = z > 0.f ? g * w2 : 0.f;
+    sb1 += h;
+    sw2 = fmaf(g, fmaxf(z, 0.f), sw2);
+    *zp = h;
+  }
+}
+
+// the chunk's dW1 = X^T dH added to the block's partial row pb
+__device__ __forceinline__ void dw1_pass(const float* xs, const float* zs,
+                                         float* __restrict__ pb, const Plan& P, int Dc) {
+  const int nj = P.HP / 4, nt = P.IP / 4 * nj;
+  for (int t = threadIdx.x; t < nt; t += GB) {
+    const int iq = t / nj, jq = t - iq * nj;
+    float a[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[r][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < Dc; ++d) {
+      const float4 xv = *reinterpret_cast<const float4*>(xs + d * P.XP + 4 * iq);
+      const float4 hv = *reinterpret_cast<const float4*>(zs + d * P.ZP + 4 * jq);
+      const float x[4] = {xv.x, xv.y, xv.z, xv.w}, h[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a[r][c] = fmaf(x[r], h[c], a[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * iq + r;
+      if (i < P.in)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (4 * jq + c < P.H) pb[i * P.H + 4 * jq + c] += a[r][c];
+    }
+  }
+}
+
+// pd (pitch FP) = (first ? 0 : pd) + dH W[:FP]^T over the nc units of dh
+// (zs, pitch ZP) and W (pitch WC), for the chunk's Dc decodes
+__device__ __forceinline__ void dx_pass(const float* zs, const float* W, float* pd, const Plan& P,
+                                        int Dc, int nc, bool first) {
+  const int nf = P.FP / 4, nd = (Dc + 3) / 4, nt = nf * nd;
+  for (int t = threadIdx.x; t < nt; t += GB) {
+    const int fq = t / nd, dq = t - fq * nd;
+    float a[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[p][q] = 0.f;
+#pragma unroll 2
+    for (int u = 0; u < nc; u += 4) {
+      float h[4][4], w[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(zs + (dq + p * nd) * P.ZP + u);
+        h[p][0] = v.x;
+        h[p][1] = v.y;
+        h[p][2] = v.z;
+        h[p][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(W + (4 * fq + q) * P.WC + u);
+        w[q][0] = v.x;
+        w[q][1] = v.y;
+        w[q][2] = v.z;
+        w[q][3] = v.w;
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int uu = 0; uu < 4; ++uu) a[p][q] = fmaf(h[p][uu], w[q][uu], a[p][q]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int d = dq + p * nd;
+      if (d < Dc)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float* o = pd + d * P.FP + 4 * fq + q;
+          *o = first ? a[p][q] : *o + a[p][q];
+        }
+    }
+  }
+}
+
+// the chunk's feature gradients dX = dH W1[:F]^T into pd, over the slabs in
+// order when W1 streams
+__device__ __forceinline__ void feature_grad(float* w1s, const float* zs, float* pd,
+                                             const float* __restrict__ params, const Plan& P,
+                                             int Dc) {
+  if (P.res) {
+    dx_pass(zs, w1s, pd, P, Dc, P.HP, true);
+    return;
+  }
+  for (int ut = 0; ut < P.HP / UT; ++ut) {
+    __syncthreads();                      // the last slab read
+    stage_w1(w1s, params, P, ut * UT, P.FP);
+    cp_wait();
+    __syncthreads();
+    dx_pass(zs + ut * UT, w1s, pd, P, Dc, UT, ut == 0);
+  }
+}
+
+// the decoder's b1, W2 (zero past H) and, when resident, W1; the block's
+// partial dW1 zeroed (it accumulates there); x zeroed once (its columns
+// past `in` stay zero).  Ends with a barrier.
+__device__ __forceinline__ void block_start(float* sm, const float* __restrict__ params,
+                                            const Plan& P, float* __restrict__ pb) {
+  const int n1 = P.in * P.H;
+  for (int j = threadIdx.x; j < P.HP; j += GB) {
+    sm[P.b1 + j] = j < P.H ? params[n1 + j] : 0.f;
+    sm[P.w2 + j] = j < P.H ? params[n1 + P.H + j] : 0.f;
+  }
+  if (P.res) stage_w1(sm + P.w1, params, P, 0, P.IP);
+  for (int e = threadIdx.x; e < P.DC * P.XP; e += GB) sm[P.xs + e] = 0.f;
+  for (int e = threadIdx.x; e < n1; e += GB) pb[e] = 0.f;
+  cp_wait();
+  __syncthreads();
+}
+
+// warp 0 adds the group's n terms v[0..n) to its running sum, lane l the
+// terms l, l + 32, ... in order, then xor shuffles (every lane the same
+// bits); call from all of warp 0
+__device__ __forceinline__ float warp_sum(const float* v, int n) {
+  float a = 0.f;
+  for (int i = threadIdx.x; i < n; i += 32) a += v[i];
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) a += __shfl_xor_sync(FULL, a, m);
+  return a;
+}
+
+// the block's partial row's last entries: db1, dW2 (the dh pass's streams,
+// staged at red and added in stream order by thread j: unit j), db2 and the
+// loss (thread 0).  Call after a barrier; red is free shared memory of 2 GB
+// floats.
+__device__ __forceinline__ void block_end(const Plan& P, float sb1, float sw2, float db2,
+                                          float loss, float* red, float* __restrict__ pb) {
+  const int n1 = P.in * P.H, t = threadIdx.x, ns = GB / P.HP;
+  if (t < ns * P.HP) {
+    red[t] = sb1;                         // thread (j, s) at s HP + j
+    red[GB + t] = sw2;
+  }
+  __syncthreads();
+  if (t < P.H) {
+    float a = red[t], b = red[GB + t];
+    for (int s = 1; s < ns; ++s) {
+      a += red[s * P.HP + t];
+      b += red[GB + s * P.HP + t];
+    }
+    pb[n1 + t] = a;
+    pb[n1 + P.H + t] = b;
+  }
+  if (t == 0) {
+    pb[n1 + 2 * P.H] = db2;
+    pb[n1 + 2 * P.H + 1] = loss;
+  }
+}
+
+}  // namespace gtl

@@ -80,7 +80,9 @@
 // neighbour, VD = 27, 0.0454 ms on the device against a 0.0153 ms bound
 // (operations; PR 12's first general form 0.189 ms), at pe_gaussian's
 // weighted_first VD = 35 0.0188 ms against 0.0031 (NVIDIA H100 80GB HBM3,
-// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).
+// 700.00 W; chip_smoke.py, scripts/kernel_ab.py).  At any other feature
+// width F, hidden width H or VD > 64 it launches the tiled general form
+// (namespace tit below, over gtl in train_common.cuh).
 
 #include "train_common.cuh"
 
@@ -672,6 +674,190 @@ int blocks_per_sm_vd(int vd) {
 
 }  // namespace tig
 
+// The tiled general form (gtl in train_common.cuh): any F, H and VD the
+// wrappers' predicate takes outside the width classes.  Per group of R rows:
+//   0. the rows' IDW weights, labels and loss weights (cp.async);
+//   1. chunk by chunk: x (the blended features with weighted_first, fma
+//      over the neighbours in order from global memory; else the
+//      neighbour's row; then the offset vector: copies by cp.async, every
+//      element its own, so rows of any width stay exact), z
+//      (gtl::forward), o;
+//   2. one thread a row: prediction, BCE, the loss term, each decode's dO;
+//      warp 0 adds the loss and db2 terms;
+//   3. chunk by chunk (x and z staged again when the group has several):
+//      dh with db1 / dW2, dW1 into the block's partial row, dX into pd;
+//   4. the rows' feature gradients (w_k dX with weighted_first), the
+//      certainty column w.
+namespace tit {
+
+using namespace gtl;
+
+template <bool WF>
+__device__ __forceinline__ void build_x(float* xs, const float* __restrict__ feats,
+                                        const float* __restrict__ vin, const float* ws,
+                                        const Plan& P, long row0, int k, int c0, int Dc) {
+  const int in = P.in, F = P.F, C = P.C, vd = P.vd;
+  const float rin = 1.f / in;
+  for (int e = threadIdx.x; e < Dc * in; e += GB) {
+    const int dd = gen::fdiv(e, rin), i = e - dd * in, d = c0 + dd;
+    float* dst = xs + dd * P.XP + i;
+    if (i >= F) {
+      cp4(dst, vin + (row0 * (WF ? 1 : k) + d) * vd + (i - F));
+    } else if (WF) {
+      const float* fr = feats + ((row0 + d) * k) * C + i;
+      const float* wr = ws + d * k;
+      float v = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < k; ++q) v = fmaf(wr[q], __ldg(fr + q * C), v);
+      *dst = v;
+    } else {
+      cp4(dst, feats + (row0 * k + d) * C + i);
+    }
+  }
+  cp_wait();
+}
+
+template <bool WF>
+__global__ void __launch_bounds__(GB, 2) train_iter_tiled_kernel(
+    const float* __restrict__ feats, const float* __restrict__ w,
+    const float* __restrict__ vin, const float* __restrict__ label,
+    const float* __restrict__ wt, const float* __restrict__ params,
+    const __grid_constant__ Plan P, int B, int k, int R, float scale, float inv_sigma,
+    float* __restrict__ dfeats, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1s = sm + P.w1, *b1s = sm + P.b1, *w2s = sm + P.w2, *xs = sm + P.xs, *zs = sm + P.zs;
+  float *od = sm + P.od, *pd = sm + P.pd, *ws = sm + P.ws, *pwr = sm + P.pwr;
+  float *lab = sm + P.ra, *lwt = sm + P.rb;
+  const int tid = threadIdx.x, kd = WF ? 1 : k, F = P.F, C = P.C;
+  const int ngroups = (B + R - 1) / R;
+  float* pb = partial + (long)blockIdx.x * (P.in * P.H + 2 * P.H + 2);
+  block_start(sm, params, P, pb);
+  const float b2 = params[P.in * P.H + 2 * P.H];
+  float sb1 = 0.f, sw2 = 0.f, db2 = 0.f, loss = 0.f;
+
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const long row0 = (long)grp * R;
+    const int rows = (int)min((long)R, (long)B - row0);
+    const int Dv = rows * kd, nch = (Dv + P.DC - 1) / P.DC;
+
+    // 0. staging
+    for (int e = tid; e < rows * k; e += GB) cp4(ws + e, w + row0 * k + e);
+    for (int e = tid; e < rows; e += GB) {
+      cp4(lab + e, label + row0 + e);
+      cp4(lwt + e, wt + row0 + e);
+    }
+    cp_wait();
+    __syncthreads();
+
+    // 1. forward, chunk by chunk
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * P.DC, Dc = min(P.DC, Dv - c0);
+      build_x<WF>(xs, feats, vin, ws, P, row0, k, c0, Dc);
+      __syncthreads();
+      forward(w1s, b1s, w2s, xs, zs, od + c0, b2, params, P, Dc);
+    }
+
+    // 2. per row: the loss term and each decode's dO
+    for (int r = tid; r < rows; r += GB) {
+      const float* wr = ws + r * k;
+      float* o = od + r * kd;
+      float pred = 0.f;
+      if (WF)
+        pred = o[0];
+      else
+        for (int q = 0; q < k; ++q) pred = fmaf(wr[q], o[q], pred);
+      float pw, dpred;
+      ti::bce(pred * scale, lab[r], lwt[r], inv_sigma, pw, dpred);
+      const float g = dpred * scale;
+      pwr[r] = pw;
+      if (WF)
+        o[0] = g;
+      else
+        for (int q = 0; q < k; ++q) o[q] = g * wr[q];
+    }
+    __syncthreads();
+    if (tid < 32) {                       // warp 0: the loss and db2 terms in a fixed order
+      const float l = warp_sum(pwr, rows), g = warp_sum(od, Dv);
+      loss += l;
+      db2 += g;
+    }
+
+    // 3. backward, chunk by chunk
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * P.DC, Dc = min(P.DC, Dv - c0);
+      if (nch > 1) {
+        __syncthreads();                  // the last chunk's x and dh read
+        build_x<WF>(xs, feats, vin, ws, P, row0, k, c0, Dc);
+        __syncthreads();
+        forward(w1s, b1s, w2s, xs, zs, nullptr, 0.f, params, P, Dc);
+      }
+      dh_pass(zs, w2s, od + c0, P, Dc, sb1, sw2);
+      __syncthreads();
+      dw1_pass(xs, zs, pb, P, Dc);
+      feature_grad(w1s, zs, pd + c0 * P.FP, params, P, Dc);
+    }
+    __syncthreads();
+
+    // 4. the rows' feature gradients; the certainty column is w
+    float* dst = dfeats + row0 * k * C;
+    for (int e = tid; e < rows * k * C; e += GB) {
+      const int rq = e / C, f = e - rq * C;   // rq = r k + q
+      const float wq = ws[rq];
+      float v;
+      if (f == F)
+        v = wq;
+      else if (WF)
+        v = wq * pd[(rq / k) * P.FP + f];
+      else
+        v = pd[rq * P.FP + f];
+      dst[e] = v;
+    }
+    __syncthreads();                      // the group's staging read
+  }
+
+  // 5. the block's partial row (its dW1 is there already)
+  block_end(P, sb1, sw2, db2, loss, xs, pb);
+}
+
+template <bool WF>
+int opt_in() {
+  static bool done = false;               // the dynamic shared memory above 48 KB
+  if (!done) {
+    const int err = (int)cudaFuncSetAttribute(train_iter_tiled_kernel<WF>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              SMEM_ONE * 4);
+    if (err) return err;
+    done = true;
+  }
+  return 0;
+}
+
+template <bool WF>
+int launch(const void* feats, const void* w, const void* vin, const void* label,
+           const void* wt, const void* params, const Plan& P, int B, int k, int R, float scale,
+           float inv_sigma, void* dfeats, void* partial, int nblocks, cudaStream_t st) {
+  const int err = opt_in<WF>();
+  if (err) return err;
+  train_iter_tiled_kernel<WF><<<nblocks, GB, P.total * 4, st>>>(
+      (const float*)feats, (const float*)w, (const float*)vin, (const float*)label,
+      (const float*)wt, (const float*)params, P, B, k, R, scale, inv_sigma, (float*)dfeats,
+      (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+template <bool WF>
+int blocks_per_sm(const Plan& P) {
+  int n = 0;
+  int err = opt_in<WF>();
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, train_iter_tiled_kernel<WF>,
+                                                             GB, P.total * 4);
+  return err ? -err : n;
+}
+
+}  // namespace tit
+
 using namespace ti;
 
 // R rows per block (R * k <= DMAX); partial holds ceil(B / R) rows of E.
@@ -695,31 +881,65 @@ extern "C" int train_iter_launch(const void* feats, const void* w, const void* v
   return launch_reduce((const float*)partial, nblocks, (float*)out, st);
 }
 
-// the general form: any vd in [1, MAXVD], the build of its width class;
-// groups of R rows (R * k <= gen::DMAX for per-neighbour decoding; R <=
-// gen::DMAX and R * k * C <= gen::STAGE with weighted_first) over at most
-// `grid` blocks (the caller passes the blocks the card holds at once);
-// partial holds min(ceil(B / R), grid) rows of in * H + 2 H + 2
+// the general forms: (nf, nh, vd) = (8, 64, vd <= MAXVD) runs the build of
+// vd's width class (groups of R rows: R * k <= gen::DMAX for per-neighbour
+// decoding; R <= gen::DMAX and R * k * C <= gen::STAGE with weighted_first),
+// any other width the predicate takes the tiled form (R * decodes a row <=
+// its plan's DMAX); over at most `grid` blocks (the caller passes the blocks
+// the card holds at once); partial holds min(ceil(B / R), grid) rows of
+// (nf + vd) nh + 2 nh + 2
 extern "C" int train_iter_launch_vd(const void* feats, const void* w, const void* vin,
                                     const void* label, const void* wt, const void* params,
-                                    int B, int k, int vd, int weighted_first, int R, int grid,
-                                    float scale, float inv_sigma, void* dfeats, void* partial,
-                                    void* out, void* stream) {
+                                    int B, int k, int nf, int nh, int vd, int weighted_first,
+                                    int R, int grid, float scale, float inv_sigma, void* dfeats,
+                                    void* partial, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R < 1 || grid < 1 || k < 1 || k > MAXK || gen::width_of(vd) == 0 || B < 0 ||
-      R * (weighted_first ? 1 : k) > gen::DMAX ||
-      (weighted_first && R * k * C > gen::STAGE))
-    return (int)cudaErrorInvalidValue;
+  const int kd = weighted_first ? 1 : k;
+  if (R < 1 || grid < 1 || k < 1 || k > MAXK || B < 0) return (int)cudaErrorInvalidValue;
   const int nblocks = min((B + R - 1) / R, grid);
-  if (nblocks == 0) return (int)cudaGetLastError();
-  const int err = weighted_first
-      ? tig::launch_vd<true>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
-                             dfeats, partial, nblocks, st)
-      : tig::launch_vd<false>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
-                              dfeats, partial, nblocks, st);
+  int err;
+  if (nf == F && nh == H && gen::width_of(vd) != 0) {
+    if (R * kd > gen::DMAX || (weighted_first && R * k * C > gen::STAGE))
+      return (int)cudaErrorInvalidValue;
+    if (nblocks == 0) return (int)cudaGetLastError();
+    err = weighted_first
+        ? tig::launch_vd<true>(feats, w, vin, label, wt, params, B, k, vd, R, scale, inv_sigma,
+                               dfeats, partial, nblocks, st)
+        : tig::launch_vd<false>(feats, w, vin, label, wt, params, B, k, vd, R, scale,
+                                inv_sigma, dfeats, partial, nblocks, st);
+  } else {
+    const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, false);
+    if (!P.ok || R * kd > P.DMAX) return (int)cudaErrorInvalidValue;
+    if (nblocks == 0) return (int)cudaGetLastError();
+    err = weighted_first
+        ? tit::launch<true>(feats, w, vin, label, wt, params, P, B, k, R, scale, inv_sigma,
+                            dfeats, partial, nblocks, st)
+        : tit::launch<false>(feats, w, vin, label, wt, params, P, B, k, R, scale, inv_sigma,
+                             dfeats, partial, nblocks, st);
+  }
   if (err) return err;
   return launch_reduce((const float*)partial, nblocks, (float*)out, st,
-                       (F + vd) * H + 2 * H + 2);
+                       (nf + vd) * nh + 2 * nh + 2);
+}
+
+// the tiled form's plan for (nf, nh, vd, k, mode): ok, W1 resident, chunk
+// decodes, group decodes, shared-memory floats (ok = 0: none)
+extern "C" void train_iter_tiled_plan(int nf, int nh, int vd, int k, int weighted_first,
+                                      int* out) {
+  const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, false);
+  out[0] = P.ok;
+  out[1] = P.res;
+  out[2] = P.DC;
+  out[3] = P.DMAX;
+  out[4] = P.total;
+}
+
+// blocks of the tiled form an SM holds at once at that plan's shared memory
+extern "C" int train_iter_tiled_blocks_per_sm(int nf, int nh, int vd, int k,
+                                              int weighted_first) {
+  const gtl::Plan P = gtl::plan(nf, nh, vd, k, weighted_first, false);
+  if (!P.ok) return -(int)cudaErrorInvalidValue;
+  return weighted_first ? tit::blocks_per_sm<true>(P) : tit::blocks_per_sm<false>(P);
 }
 
 // the general form's block geometry: threads, decodes per forward tile,

@@ -15,12 +15,14 @@ The plain twins compute the loss with torch ops and the gradients with
 backward.  Unlike the JAX kernels (which break at k = 8), both the kernels
 and the twins take any k up to 16.
 
-The offset vector's width VD is 3 without positional encoding: the kernels
-built for it (``train_iter_launch`` / ``eikonal_launch``) stay as they are.
-With encoding (any other VD up to ``MAX_VD``) the same wrappers launch the
-kernels' general forms (``*_launch_vd``, csrc/train_common.cuh ``gen``),
-built once for each padded input width in ``GEN_WIDTHS`` (``general_width``)
-and taking VD at run time; rows per block come from that build's residency
+At (F, H, VD) = (8, 64, 3) (no positional encoding, the default decoder)
+the wrappers launch the kernels built for those widths (``train_iter_launch``
+/ ``eikonal_launch``).  Every other width ``kernels_take`` accepts runs the
+kernels' general forms (``*_launch_vd``, csrc/train_common.cuh): at F = 8,
+H = 64 and VD up to ``MAX_VD`` the build of the padded input width in
+``GEN_WIDTHS`` (``general_width``, namespace ``gen``), any other F, H or VD
+the tiled form (namespace ``gtl``), whose shared-memory layout ``tiled_plan``
+mirrors.  Rows per block come from the build's residency
 (``general_resident_blocks``, ``general_rows_per_block``).
 """
 
@@ -34,19 +36,43 @@ import torch
 from pin_slam_torch.models.decoder import unpack
 from pin_slam_torch.ops import _cuda
 
-KERNEL_F, KERNEL_VD, KERNEL_H = 8, 3, 64   # the shapes the CUDA kernels are built for
+KERNEL_F, KERNEL_VD, KERNEL_H = 8, 3, 64   # the widths of the dedicated kernels
 MAX_K = 16
-MAX_VD = 64                                # the general forms' widest offset vector
+MAX_VD = 64                                # the width classes' widest VD (F = 8, H = 64)
+# the widest feature, hidden and offset widths of the tiled form: NeRF band 32
+# gives VD 3 (2 x 32 + 1) = 195
+TILED_MAX_F, TILED_MAX_H, TILED_MAX_VD = 64, 256, 195
 
 
-def n_params(vd: int) -> int:
+def kernels_take(F: int, H: int, vd: int, k: int) -> bool:
+    """Whether the CUDA training kernels take F features, H hidden units, an
+    offset vector of width ``vd`` and k neighbours: the one place that says
+    so (the wrappers on the card and ``mapper.kernel_path_supported`` ask
+    it).  The tiled form's ``tiled_plan`` fits every width inside it."""
+    return (1 <= F <= TILED_MAX_F and 1 <= H <= TILED_MAX_H and 1 <= vd <= TILED_MAX_VD
+            and 1 <= k <= MAX_K)
+
+
+def n_params(vd: int, F: int = KERNEL_F, H: int = KERNEL_H) -> int:
     """Length of the packed decoder at offset width ``vd``."""
-    return (KERNEL_F + vd) * KERNEL_H + 2 * KERNEL_H + 1
+    return (F + vd) * H + 2 * H + 1
 
 
-def offset_width(params: torch.Tensor, F: int = KERNEL_F, H: int = KERNEL_H) -> int:
-    """VD of a packed one-hidden-layer decoder with F features and H units."""
-    return (params.shape[0] - 1 - 2 * H) // H - F
+def hidden_width(n: int, F: int, vd: int) -> int:
+    """H of a packed one-hidden-layer decoder of ``n`` values with F + vd
+    inputs; ValueError unless ``n`` is such a decoder's length."""
+    if n <= 1 or (n - 1) % (F + vd + 2):
+        raise ValueError(f"{n} decoder values are no one-hidden-layer decoder of {F + vd} "
+                         f"inputs")
+    return (n - 1) // (F + vd + 2)
+
+
+def general_form(F: int, H: int, vd: int) -> str:
+    """Which build runs (F, H, vd): "dedicated" (8, 64, 3), "class" (F = 8,
+    H = 64, VD up to ``MAX_VD``: a width class of ``gen``) or "tiled"."""
+    if (F, H) == (KERNEL_F, KERNEL_H) and 1 <= vd <= MAX_VD:
+        return "dedicated" if vd == KERNEL_VD else "class"
+    return "tiled"
 
 
 def _mlp(x, W1, b1, W2, b2):
@@ -109,8 +135,8 @@ def eikonal_iter_plain(feats, wst, vst, esc, params, weighted_first: bool,
 
 def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
     """Input checks shared by the CPU and CUDA paths (so the CPU tests catch
-    what the kernels would refuse); the kernels' build shapes on CUDA only.
-    ``rows_of``: (tensor, expected leading dim) pairs."""
+    what the kernels would refuse); on CUDA also ``kernels_take``.
+    ``rows_of``: (tensor, expected leading dim) pairs.  Returns (VD, H)."""
     if not (1 <= k <= MAX_K) or feats.dim() != 3 or feats.shape[1] != k:
         raise ValueError(f"feats {tuple(feats.shape)} for k={k} (k <= {MAX_K})")
     dev = feats.get_device()               # an int: no torch.device built per tensor
@@ -120,15 +146,17 @@ def _check(feats, params, k, weighted_first, vcols, rows_of, *tensors):
     for t, rows in rows_of:
         if t.shape[0] != rows:
             raise ValueError(f"row count mismatch: {tuple(t.shape)} vs {rows}")
+    F = feats.shape[2] - 1
     vd = vcols if weighted_first else vcols // k
-    if feats.is_cuda:
-        if (feats.shape[2] != KERNEL_F + 1 or not 1 <= vd <= MAX_VD
-                or params.shape != (n_params(vd),)):
-            raise NotImplementedError(
-                f"the CUDA training kernels take F={KERNEL_F}, H={KERNEL_H} and VD up to "
-                f"{MAX_VD}; got feats {tuple(feats.shape)}, VD {vd}, {params.shape[0]} "
-                f"decoder values")
-    return vd
+    if F < 1 or vd < 1 or (not weighted_first and vcols % k) or params.dim() != 1:
+        raise ValueError(f"feats {tuple(feats.shape)}, {vcols} offset columns, params "
+                         f"{tuple(params.shape)}")
+    H = hidden_width(params.shape[0], F, vd)
+    if feats.is_cuda and not kernels_take(F, H, vd, k):
+        raise NotImplementedError(
+            f"the CUDA training kernels take F <= {TILED_MAX_F}, H <= {TILED_MAX_H}, VD <= "
+            f"{TILED_MAX_VD} (kernels_take); got F {F}, H {H}, VD {vd}")
+    return vd, H
 
 
 TRAIN_THREADS = 128   # threads per block of csrc/train_iter.cu
@@ -137,7 +165,7 @@ TRAIN_DMAX = 1024     # decodes, and rows x k, per block
 TRAIN_BLOCK_PASSES = 8   # a block's fixed work (weights, staging, sums), in passes
 _TRAIN_ARGS = ([_cuda.P] * 6 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
                + [_cuda.P] * 4)
-_TRAIN_ARGS_VD = ([_cuda.P] * 6 + [_cuda.I] * 6 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
+_TRAIN_ARGS_VD = ([_cuda.P] * 6 + [_cuda.I] * 8 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 _TRAIN_RESIDENT = {}
 # the general forms' block geometry (csrc/train_common.cuh gen): threads, decodes
 # per forward tile, decodes per block, floats of the block's row staging
@@ -230,22 +258,90 @@ def _general_geometry() -> None:
 _GEN_CHECKED = []
 
 
-def general_resident_blocks(kernel: str, device: int, weighted_first: bool, vd: int) -> int:
+# the tiled form's block budget, floats: two blocks an SM, then one (the
+# H100's 228 KB an SM with 1 KB reserved a block; 227 KB a block at most)
+TILED_BUDGETS = (115712 // 4, 232448 // 4)
+TILED_DMAX = (128, 96, 64)           # group decodes, in the order tried
+TILED_DC = (128, 64)                 # chunk decodes, in the order tried
+
+
+def _rup(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_plan(F: int, H: int, vd: int, k: int, weighted_first: bool, eikonal: bool):
+    """The tiled form's layout (csrc/train_common.cuh ``gtl::plan``): (W1
+    resident, chunk decodes DC, group decodes DMAX, shared-memory floats),
+    the first that fits two blocks an SM, else one; None if none fits or a
+    width is past ``kernels_take``."""
+    if not kernels_take(F, H, vd, k):
+        return None
+    IP, HP, FP = _rup(F + vd, 8), _rup(H, 64), _rup(F, 4)
+    dr = (6 if eikonal else 1) * (1 if weighted_first else k)
+    for budget in TILED_BUDGETS:
+        for res in (1, 0):
+            for dmax in TILED_DMAX:
+                for dc in TILED_DC:
+                    if dmax < dr or dc > _rup(dmax, 64):
+                        continue
+                    rmax = dmax // dr
+                    nw = (6 if eikonal else 1) * rmax * k
+                    total = (IP * (HP if res else 64) + 2 * HP + dc * (IP + 4) + dc * (HP + 4)
+                             + _rup(dmax, 4) + dmax * FP + _rup(nw, 4) + 3 * _rup(rmax, 4))
+                    if total <= budget:
+                        return res, dc, dmax, total
+    return None
+
+
+def general_resident_blocks(kernel: str, device: int, weighted_first: bool, vd: int,
+                            F: int = KERNEL_F, H: int = KERNEL_H, k: int = 1) -> int:
     """Blocks of the general form of ``kernel`` ("train_iter" or "eikonal")
-    that ``device`` holds at once in the build for ``vd``, as its registers
-    and its most shared memory allow (cached).  The first call also checks
-    the build's geometry."""
-    key = (kernel, device, bool(weighted_first), general_width(vd))
+    that ``device`` holds at once in the build for (F, H, vd) (and, for the
+    tiled form, k), as its registers and its most shared memory allow
+    (cached).  The first call also checks the build's geometry (the tiled
+    form's: its plan against ``tiled_plan``)."""
+    tiled = general_form(F, H, vd) == "tiled"
+    key = ((kernel, device, bool(weighted_first), F, H, vd, k) if tiled
+           else (kernel, device, bool(weighted_first), general_width(vd)))
     n = _GEN_RESIDENT.get(key)
     if n is None:
-        _general_geometry()
-        per = _cuda.fn(kernel, f"{kernel}_general_blocks_per_sm",
-                       [_cuda.I, _cuda.I])(int(weighted_first), vd)
+        if tiled:
+            got = (ctypes.c_int * 5)()
+            _cuda.fn(kernel, f"{kernel}_tiled_plan", [_cuda.I] * 5 + [_cuda.P])(
+                F, H, vd, k, int(weighted_first), ctypes.addressof(got))
+            want = tiled_plan(F, H, vd, k, bool(weighted_first), kernel == "eikonal")
+            if want is None or tuple(got) != (1,) + want:
+                raise RuntimeError(f"csrc/{kernel}.cu's tiled plan {tuple(got)} at F {F}, H {H}, "
+                                   f"VD {vd}, k {k} is not {want}")
+            per = _cuda.fn(kernel, f"{kernel}_tiled_blocks_per_sm", [_cuda.I] * 5)(
+                F, H, vd, k, int(weighted_first))
+        else:
+            _general_geometry()
+            per = _cuda.fn(kernel, f"{kernel}_general_blocks_per_sm",
+                           [_cuda.I, _cuda.I])(int(weighted_first), vd)
         if per < 1:
-            raise RuntimeError(f"occupancy query of {kernel}_general_kernel at VD {vd} "
-                               f"failed ({per})")
+            raise RuntimeError(f"occupancy query of {kernel}'s general form at F {F}, H {H}, "
+                               f"VD {vd} failed ({per})")
         n = _GEN_RESIDENT[key] = _cuda.sm_count(device) * per
     return n
+
+
+def general_launch(kernel: str, device: int, n: int, k: int, F: int, H: int, vd: int,
+                   weighted_first: bool):
+    """(rows per group R, blocks, resident blocks) of a general-form launch
+    of ``kernel`` over n rows: R within the build's budget (the width
+    class's ``general_max_rows``, the tiled plan's DMAX), at most the
+    resident blocks, each taking groups of R rows in turn."""
+    wf = bool(weighted_first)
+    per = (6 if kernel == "eikonal" else 1) * (1 if wf else k)
+    grid = general_resident_blocks(kernel, device, wf, vd, F, H, k)
+    if general_form(F, H, vd) == "tiled":
+        dmax = tiled_plan(F, H, vd, k, wf, kernel == "eikonal")[2]
+        R = _rows_per_block(n, per, dmax // per, GEN_TILE, grid, GEN_BLOCK_TILES)
+    else:
+        R = general_rows_per_block(n, per, k, wf or kernel == "eikonal", grid)
+    return R, min(-(-n // R), grid), grid
 
 
 def train_resident_blocks(device: int, weighted_first: bool) -> int:
@@ -273,36 +369,35 @@ def train_iter(feats, w, vin, label, wt, params, weighted_first: bool,
     vector (weighted_first) or (B,k*VD) per-neighbour vectors; label (B,);
     wt (B,) premultiplied ``weight * in_pool / denom``."""
     B, k = w.shape
-    vd = _check(feats, params, k, weighted_first, vin.shape[1],
-                [(t, B) for t in (feats, vin, label, wt)], w, vin, label, wt)
+    vd, H = _check(feats, params, k, weighted_first, vin.shape[1],
+                   [(t, B) for t in (feats, vin, label, wt)], w, vin, label, wt)
     if feats.is_cpu:
         return train_iter_plain(feats, w, vin, label, wt, params, weighted_first,
                                 scale, sigma)
     dev = feats.get_device()
-    nf = B * k * (KERNEL_F + 1)
-    ne = n_params(vd) + 1
+    C = feats.shape[2]
+    nf = B * k * C
+    ne = params.shape[0] + 1
     if B == 0:                                   # nothing to launch
         out = feats.new_zeros((ne,))
-        return out[-1], feats.new_empty((0, k, KERNEL_F + 1)), out[:-1]
+        return out[-1], feats.new_empty((0, k, C)), out[:-1]
     wf = bool(weighted_first)
-    general = vd != KERNEL_VD
+    general = general_form(C - 1, H, vd) != "dedicated"
     if general:
-        grid = general_resident_blocks("train_iter", dev, wf, vd)
-        R = general_rows_per_block(B, 1 if wf else k, k, wf, grid)
-        nblocks = min(-(-B // R), grid)          # blocks take groups of R rows in turn
+        R, nblocks, _ = general_launch("train_iter", dev, B, k, C - 1, H, vd, wf)
     else:
         R = train_rows_per_block(B, k, wf, train_resident_blocks(dev, wf))
         nblocks = -(-B // R)
     buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
-    dfeats, out = buf[:nf].view(B, k, KERNEL_F + 1), buf[nf:nf + ne]
+    dfeats, out = buf[:nf].view(B, k, C), buf[nf:nf + ne]
     f = _cuda.fn("train_iter", "train_iter_launch_vd" if general else "train_iter_launch",
                  _TRAIN_ARGS_VD if general else _TRAIN_ARGS)
     _cuda.check(f(feats.data_ptr(), w.data_ptr(), vin.data_ptr(), label.data_ptr(),
                   wt.data_ptr(), params.data_ptr(),
-                  *((B, k, vd, int(wf), R, nblocks) if general else (B, k, int(wf), R)),
+                  *((B, k, C - 1, H, vd, int(wf), R, nblocks) if general else (B, k, int(wf), R)),
                   float(scale), float(1.0 / sigma), dfeats.data_ptr(), out.data_ptr() + 4 * ne,
                   out.data_ptr(), _cuda.stream_ptr(dev)),
-                "train_iter_general_kernel" if general else "train_iter_kernel")
+                "train_iter's general form" if general else "train_iter_kernel")
     _cuda.COUNTS["train_iter"] += 1
     return out[-1], dfeats, out[:-1]
 
@@ -311,7 +406,7 @@ EIK_SLOTS = 64     # decodes per chunk of csrc/eikonal.cu (256 threads, 4 lanes 
 EIK_DMAX = 512     # decodes per block
 _EIK_ARGS = ([_cuda.P] * 5 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F]
              + [_cuda.P] * 4)
-_EIK_ARGS_VD = ([_cuda.P] * 5 + [_cuda.I] * 6 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
+_EIK_ARGS_VD = ([_cuda.P] * 5 + [_cuda.I] * 8 + [_cuda.F, _cuda.F] + [_cuda.P] * 4)
 
 
 def eikonal_rows_per_block(n: int, k: int, weighted_first: bool, n_sms: int) -> int:
@@ -328,8 +423,8 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
     in rows [j*n, (j+1)*n)); vst (6n,VD) or (6n,k*VD); esc (n,)
     premultiplied ``weight_e * in_pool / denom``."""
     n, k = feats.shape[0], feats.shape[1]
-    vd = _check(feats, params, k, weighted_first, vst.shape[1],
-                [(esc, n), (wst, 6 * n), (vst, 6 * n)], wst, vst, esc)
+    vd, H = _check(feats, params, k, weighted_first, vst.shape[1],
+                   [(esc, n), (wst, 6 * n), (vst, 6 * n)], wst, vst, esc)
     if wst.shape[1] != k:
         raise ValueError(f"wst {tuple(wst.shape)} for k={k}")
     if feats.is_cpu:
@@ -337,24 +432,24 @@ def eikonal_iter(feats, wst, vst, esc, params, weighted_first: bool,
                                   scale, step)
     dev = feats.get_device()
     wf = bool(weighted_first)
-    general = vd != KERNEL_VD
+    C = feats.shape[2]
+    general = general_form(C - 1, H, vd) != "dedicated"
     if general:
-        grid = general_resident_blocks("eikonal", dev, wf, vd)
-        R = general_rows_per_block(n, 6 * (1 if wf else k), k, True, grid)
-        nblocks = min(-(-n // R), grid)          # blocks take groups of R rows in turn
+        R, nblocks, _ = general_launch("eikonal", dev, n, k, C - 1, H, vd, wf)
     else:
         R = eikonal_rows_per_block(n, k, wf, _cuda.sm_count(dev))
         nblocks = -(-n // R)
-    nf, ne = n * k * (KERNEL_F + 1), n_params(vd) + 1
+    nf, ne = n * k * C, params.shape[0] + 1
     buf = feats.new_empty((nf + (nblocks + 1) * ne,))     # dfeats | out | block partials
-    dfeats, out = buf[:nf].view(n, k, KERNEL_F + 1), buf[nf:nf + ne]
+    dfeats, out = buf[:nf].view(n, k, C), buf[nf:nf + ne]
     f = _cuda.fn("eikonal", "eikonal_launch_vd" if general else "eikonal_launch",
                  _EIK_ARGS_VD if general else _EIK_ARGS)
     _cuda.check(f(feats.data_ptr(), wst.data_ptr(), vst.data_ptr(), esc.data_ptr(),
                   params.data_ptr(),
-                  *((n, k, vd, int(wf), R, max(nblocks, 1)) if general else (n, k, int(wf), R)),
+                  *((n, k, C - 1, H, vd, int(wf), R, max(nblocks, 1)) if general
+                    else (n, k, int(wf), R)),
                   float(scale), float(1.0 / (2.0 * step)), dfeats.data_ptr(),
                   out.data_ptr() + 4 * ne, out.data_ptr(), _cuda.stream_ptr(dev)),
-                "eikonal_general_kernel" if general else "eikonal_kernel")
+                "eikonal's general form" if general else "eikonal_kernel")
     _cuda.COUNTS["eikonal"] += 1
     return out[-1], dfeats, out[:-1]

@@ -585,12 +585,22 @@ def sample_batch_indices(gen: torch.Generator, pool: PoolState, mcfg: MapperConf
 def kernel_path_supported(mcfg: MapperConfig, cfg) -> bool:
     """Whether the training kernels cover this configuration: the geometry
     head (one hidden layer with biases) on the kernels, the colour head
-    beside them; no semantic head, no feature layer-norm.  Every other
-    configuration trains by ``mapping_loop_autograd``, as the JAX package
-    trains by autodiff what its kernels do not cover."""
-    return (not cfg.semantic_on and not cfg.layer_norm_on
+    beside them; no semantic head, no feature layer-norm; feature, hidden
+    and offset widths and k that ``train_kernel.kernels_take`` accepts.
+    Every other configuration trains by ``mapping_loop_autograd``, as the
+    JAX package trains by autodiff what its kernels do not cover; a width
+    past the kernels' is logged."""
+    if not (not cfg.semantic_on and not cfg.layer_norm_on
             and cfg.geo_mlp_level == 1 and cfg.mlp_bias_on
-            and (mcfg.bs // mcfg.gradient_decimation > 0 or not mcfg.ekional_loss_on))
+            and (mcfg.bs // mcfg.gradient_decimation > 0 or not mcfg.ekional_loss_on)):
+        return False
+    widths = (int(cfg.feature_dim), int(cfg.geo_mlp_hidden_dim), mcfg.vec_dim, mcfg.nn_k)
+    if not train_kernel.kernels_take(*widths):
+        print(f"[mapper] feature_dim {widths[0]}, mlp_hidden_dim {widths[1]}, offset width "
+              f"{widths[2]}, k {widths[3]}: past the training kernels' widths "
+              f"(train_kernel.kernels_take); training by mapping_loop_autograd", flush=True)
+        return False
+    return True
 
 
 @dataclasses.dataclass

@@ -60,6 +60,59 @@ def test_kernel_check_fails_on_a_wrong_part(kind, part):
         chip_smoke._cmp(_corrupt(plain(*args), part), plain, args, kind)
 
 
+@pytest.mark.parametrize("width", [(16, 128, 3), (8, 64, 69), (4, 32, 27)],
+                         ids=["F16-H128-VD3", "F8-H64-VD69", "F4-H32-VD27"])
+@pytest.mark.parametrize("kind", ["train", "eikonal"])
+def test_kernel_check_at_other_widths(kind, width):
+    """At the tiled form's widths the check reads F, H and VD off the
+    arguments (``widths``), splits the decoder gradient at F + VD inputs and
+    H units, accepts the plain outputs and fails on one wrong dW1 entry; the
+    bound counts that decode's operations."""
+    Fw, Hw, vd = width
+    make = chip_smoke.synthetic_train_args if kind == "train" else chip_smoke.synthetic_eik_args
+    plain = tk.train_iter_plain if kind == "train" else tk.eikonal_iter_plain
+    args = make(False, 40, 6, 3, device="cpu", vd=vd, F=Fw, H=Hw)
+    assert chip_smoke.widths(args) == (Fw, Hw, vd, 6)
+    out = plain(*args)
+    err, _ = chip_smoke._cmp(out, plain, args, kind)
+    assert err == 0.0 and out[1].shape[-1] == Fw + 1
+    bad = tuple(t.clone() for t in out)
+    bad[2][(Fw + vd) * Hw - 1] += 1e-3 * bad[2].abs().max()
+    with pytest.raises(SystemExit, match="dW1"):
+        chip_smoke._cmp(bad, plain, args, kind)
+    IN = Fw + vd
+    assert chip_smoke.decode_flops(Fw, Hw, vd) == 4 * IN * Hw + 7 * Hw + 2 * Fw * Hw
+
+
+def _flip_case():
+    """One decode whose pre-activation is 0 in float32 and 2^-30 in float64:
+    x = (1, 2^-30), W1 = (1, 1), b1 = -1 (F = VD = H = 1, B = k = 1)."""
+    feats = torch.tensor([[[1.0, 0.0]]])
+    params = torch.tensor([1.0, 1.0, -1.0, 0.5, 0.0])      # W1 (2, 1) | b1 | W2 | b2
+    return (feats, torch.ones(1, 1), torch.tensor([[2.0 ** -30]]), torch.tensor([0.3]),
+            torch.ones(1), params, True, 0.055, 0.1)
+
+
+def test_kernel_check_takes_the_float32_masks_on_a_flip():
+    """A pre-activation within float32 rounding of 0 takes the other side of
+    the ReLU in float64: the float32 plain version itself is then far from
+    the float64 one, and the check holds the part again to the float64
+    version with the float32 masks (one flip) at the same tolerance; a
+    wrong part still fails."""
+    args = _flip_case()
+    plain = tk.train_iter_plain
+    out = plain(*args)
+    assert float(out[1][0, 0, 0]) == 0.0                   # float32: the unit is off
+    err, detail = chip_smoke._cmp(out, plain, args, "flip")
+    assert err == 0.0 and detail["mask_flips"] == 1
+    e_k, e_p, scale, e_a = detail["dfeats"]
+    assert e_k == e_p > chip_smoke.TOL_REL * scale and e_a == 0.0
+    bad = (out[0], out[1].clone(), out[2])
+    bad[1][0, 0, 0] = 1e-3
+    with pytest.raises(SystemExit, match="dfeats"):
+        chip_smoke._cmp(bad, plain, args, "flip")
+
+
 def _row_case():
     from pin_slam_torch.ops import rows
 

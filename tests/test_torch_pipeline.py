@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
     """pin_slam_torch/ and chip_smoke.py import neither JAX, nor anything of
     the JAX package, nor bench.py, nor the JAX package's entry points
     pin_slam_ros.py and vis_pin_map.py (source scan + a clean interpreter;
-    the port's own ros and vis_pin_map modules are among those scanned)."""
+    the port's own ros and vis_pin_map modules and its dataset tools are
+    among those scanned)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "pin_slam_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -173,7 +174,8 @@ def test_port_imports_no_jax():
     assert {os.path.join(ROOT, "pin_slam_torch", f) for f in (
         "ros.py", "vis_pin_map.py", "utils/viewer_html.py", "utils/viewer_server.py",
         "utils/sensor_cad.py", "parallel/__init__.py", "parallel/distributed.py",
-        "parallel/mesh.py", "parallel/spatial.py", "parallel/launch.py")} <= set(files)
+        "parallel/mesh.py", "parallel/spatial.py", "parallel/launch.py",
+        "dataset/convert_dataset.py", "dataset/rosbag2ply.py")} <= set(files)
     banned = ("jax", "jaxlib", "pin_slam_tpu", "bench", "optax", "pin_slam_ros", "vis_pin_map")
     for f in files:
         with open(f) as fh:

@@ -1,4 +1,4 @@
-"""The four configurations this slice adds, through the port's SlamSystem
+"""Configurations beyond the default, through the port's SlamSystem
 against the JAX package's on the tiny synthetic corridor of
 tests/test_torch_pipeline.py, frame by frame from synced state (the same
 harness and the same pose tolerances: 2 cm / 0.2 deg):
@@ -20,6 +20,11 @@ harness and the same pose tolerances: 2 cm / 0.2 deg):
   features), so ``jnp.std`` gets the zero gradient ``torch.std`` has there;
   and the JAX tracker's closed-form path reads raw features under
   ``layer_norm_on``, so its cores get the normalised rows the port reads.
+
+* wider decoders on the training kernels' tiled form: ``feature_dim`` 16
+  with ``mlp_hidden_dim`` 128, per neighbour; and NeRF band 11 (VD = 69,
+  the first offset width past the width classes), per neighbour, at
+  ``pos_encoding_freq`` 20.
 
 Each runs 3 frames.  With k = 8 the JAX package's pool rows are k = 6
 wide: the sync carries the samples' columns (all its exact loop reads) into
@@ -46,6 +51,9 @@ CONFIGS = {
     "gauss16_wf": (dict(weighted_first=True, pos_encoding_band=16, use_gaussian_pe=True,
                         pos_encoding_freq=1), False),
     "exact_layer_norm": (dict(weighted_first=False, layer_norm_on=True), True),
+    "wide_f16_h128": (dict(weighted_first=False, feature_dim=16, geo_mlp_hidden_dim=128), False),
+    "nerf11_per_neighbor": (dict(weighted_first=False, pos_encoding_band=11,
+                                 pos_encoding_freq=20), False),
 }
 
 
@@ -155,7 +163,8 @@ def test_configuration_matches_jax(name, monkeypatch):
     tsys = TSlam(tcfg, device="cpu", random_source=JaxDraws(tcfg.seed, jsys.mcfg))
     tsys.tc = dataclasses.replace(tsys.tc, min_valid_ratio=0.1)
     assert tsys.exact_knn == exact and tsys.kernel_path == (not exact)
-    assert tsys.decoder.hidden[0].in_features == 8 + jsys.mcfg.vec_dim
+    assert tsys.decoder.hidden[0].in_features == tcfg.feature_dim + jsys.mcfg.vec_dim
+    assert tsys.decoder.hidden[0].out_features == tcfg.geo_mlp_hidden_dim
     if not exact:
         assert tsys.mcfg.pool_dim == jsys.mcfg.pool_dim
 

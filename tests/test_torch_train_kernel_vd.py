@@ -1,9 +1,12 @@
 """The training-iteration and eikonal kernels' plain twins at offset widths
 VD > 3 (positional encoding: NeRF bands 2 and 4 give VD 15 and 27, Gaussian
-Fourier features of 16 bands VD 35) against the JAX package's Pallas
-kernels in interpret mode, which take VD as a parameter, at k = 6 in both
-interpolation modes; and the packed decoder's width arithmetic the CUDA
-wrappers use to pick the kernels' VD = 3 build or their general form.
+Fourier features of 16 bands VD 35, NeRF band 11 VD 69) and at feature and
+hidden widths other than 8 and 64 (F 16 / H 128, F 4 / H 32) against the
+JAX package's Pallas kernels in interpret mode, which take F, H and VD as
+parameters, at k = 6 in both interpolation modes; the packed decoder's
+width arithmetic the CUDA wrappers use to pick the kernels' dedicated build
+or a general form; and the one shape predicate, ``kernels_take``, against
+``mapper.kernel_path_supported`` and the tiled form's layouts.
 
 Tolerances as in tests/test_torch_train_kernel.py: per-row outputs (dfeats)
 rtol 1e-5 / atol 1e-6; the loss and the decoder gradients (batch sums in
@@ -26,7 +29,7 @@ F, H = 8, 64
 C = F + 1
 
 
-def _decoder(rng, vd):
+def _decoder(rng, vd, F=F, H=H):
     return (rng.normal(size=(F + vd, H)).astype(np.float32) * 0.3,
             rng.normal(size=H).astype(np.float32) * 0.1,
             rng.normal(size=(H, 1)).astype(np.float32) * 0.3,
@@ -42,9 +45,10 @@ def _close_sum(got, ref, what, scale):
     assert np.abs(np.asarray(got, np.float64) - ref).max() <= 1e-5 * scale, what
 
 
-def _check(out, loss, dfeats, dW1, db1, dW2, db2, B, k, vd):
+def _check(out, loss, dfeats, dW1, db1, dW2, db2, B, k, vd, F=F, H=H):
     t_loss, t_df, t_gp = (np_(x) for x in out)
-    np.testing.assert_allclose(t_df, np.asarray(dfeats).reshape(B, k, C), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_df, np.asarray(dfeats).reshape(B, k, F + 1), rtol=1e-5,
+                               atol=1e-6)
     n1 = (F + vd) * H
     gmax = max(float(np.abs(np.asarray(g)).max()) for g in (dW1, db1, dW2, db2))
     _close_sum(t_loss, loss, "loss", max(gmax, abs(float(loss))))
@@ -54,11 +58,20 @@ def _check(out, loss, dfeats, dW1, db1, dW2, db2, B, k, vd):
     _close_sum(t_gp[-1], db2, "db2", gmax)
 
 
-@pytest.mark.parametrize("vd", [15, 27, 35])
+# (F, H, VD): the encodings at the default decoder, then other feature and
+# hidden widths (the tiled form's on the card)
+WIDTHS = [pytest.param((8, 64, 15), id="15"), pytest.param((8, 64, 27), id="27"),
+          pytest.param((8, 64, 35), id="35"), pytest.param((16, 128, 3), id="F16-H128-VD3"),
+          pytest.param((4, 32, 27), id="F4-H32-VD27"), pytest.param((8, 64, 69), id="69")]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("wf", [True, False], ids=["wf", "per_neighbor"])
-def test_train_twin_matches_pallas_at_vd(wf, vd):
+def test_train_twin_matches_pallas_at_vd(wf, width):
+    F, H, vd = width
+    C = F + 1
     B, k, sigma, scale = 40, 6, 0.1, 0.055
-    rng = np.random.default_rng(30 + vd)
+    rng = np.random.default_rng(30 + vd + F + H if (F, H) != (8, 64) else 30 + vd)
     feats = rng.standard_normal((B, k * C)).astype(np.float32)
     w = rng.random((B, k)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
@@ -66,7 +79,7 @@ def test_train_twin_matches_pallas_at_vd(wf, vd):
     vec = (rng.standard_normal((B, vd if wf else k * vd)) * 0.2).astype(np.float32)
     label = (rng.standard_normal(B) * 0.3).astype(np.float32)
     wt = (rng.random(B) * (rng.random(B) > 0.1) / B).astype(np.float32)
-    W = _decoder(rng, vd)
+    W = _decoder(rng, vd, F, H)
     cfg = jtk.TrainKernelConfig(B=B, k=k, F=F, VD=vd, H=H, sigma=sigma, scale=scale,
                                 weighted_first=wf, tiles=5)
     ref = jtk.fused_train_iter(cfg, *(jnp.asarray(a) for a in (feats, w, vec, label, wt)),
@@ -74,20 +87,22 @@ def test_train_twin_matches_pallas_at_vd(wf, vd):
     out = ttk.train_iter(torch.as_tensor(feats).view(B, k, C), torch.as_tensor(w),
                          torch.as_tensor(vec), torch.as_tensor(label), torch.as_tensor(wt),
                          _pack(*W), wf, scale, sigma)
-    _check(out, *ref, B=B, k=k, vd=vd)
+    _check(out, *ref, B=B, k=k, vd=vd, F=F, H=H)
 
 
-@pytest.mark.parametrize("vd", [15, 27, 35])
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("wf", [True, False], ids=["wf", "per_neighbor"])
-def test_eikonal_twin_matches_pallas_at_vd(wf, vd):
+def test_eikonal_twin_matches_pallas_at_vd(wf, width):
+    F, H, vd = width
+    C = F + 1
     n, k, scale, step = 37, 6, 0.055, 0.06
-    rng = np.random.default_rng(50 + vd)
+    rng = np.random.default_rng(50 + vd + F + H if (F, H) != (8, 64) else 50 + vd)
     feats = rng.standard_normal((n, k * C)).astype(np.float32)
     wst = rng.random((6 * n, k)).astype(np.float32)
     wst /= wst.sum(1, keepdims=True)
     vst = (rng.standard_normal((6 * n, vd if wf else k * vd)) * 0.2).astype(np.float32)
     esc = (rng.random(n) * (rng.random(n) > 0.1) * 0.5 / n).astype(np.float32)
-    W = _decoder(rng, vd)
+    W = _decoder(rng, vd, F, H)
     cfg = jtk.EikKernelConfig(n=n, k=k, F=F, VD=vd, H=H, scale=scale, step=step,
                               weighted_first=wf)
     ref = jtk.fused_eikonal_iter(cfg, *(jnp.asarray(a) for a in (feats, wst, vst, esc)),
@@ -95,15 +110,15 @@ def test_eikonal_twin_matches_pallas_at_vd(wf, vd):
     out = ttk.eikonal_iter(torch.as_tensor(feats).view(n, k, C), torch.as_tensor(wst),
                            torch.as_tensor(vst), torch.as_tensor(esc), _pack(*W), wf, scale,
                            step)
-    _check(out, *ref, B=n, k=k, vd=vd)
+    _check(out, *ref, B=n, k=k, vd=vd, F=F, H=H)
 
 
 @pytest.mark.parametrize("vd", [3, 9, 27, 35, ttk.MAX_VD])
 def test_packed_width_round_trips(vd):
-    """n_params and offset_width invert each other: the wrappers read VD off
-    the packed decoder to pick the VD = 3 build or the general form."""
-    p = torch.zeros(ttk.n_params(vd))
-    assert ttk.offset_width(p) == vd
+    """n_params and hidden_width invert each other: the wrappers read H off
+    the packed decoder (VD off the offset vectors) to pick the dedicated
+    build or a general form."""
+    assert ttk.hidden_width(ttk.n_params(vd), F, vd) == H
     assert ttk.n_params(vd) == (F + vd) * H + 2 * H + 1
 
 
