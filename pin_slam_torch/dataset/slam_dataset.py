@@ -26,6 +26,7 @@ from pin_slam_torch.dataset import io as pio
 from pin_slam_torch.ops.transforms import deskew_points, np_se3_inverse
 from pin_slam_torch.ops.voxel import pad_to
 from pin_slam_torch.utils.semantic_kitti import apply_learning_map
+from pin_slam_torch.utils import tracing
 from pin_slam_torch.utils.platform import resolve_device
 
 PC_EXTS = {".bin", ".ply", ".pcd", ".npy"}
@@ -145,44 +146,45 @@ class SLAMDataset:
         ``color_on`` the file's colours follow their points through every
         step (the voxel downsample runs on the device, in the pipeline), and
         so do the semantic classes."""
-        cfg = self.config
-        points, colors, ts, sem = self.read_frame(frame_id)
-        if not cfg.color_on:
-            colors = None
-        if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
-            points = intrinsic_correct(points, cfg.correction_deg)
-        # adaptive crop range (used for NCD): twice the scan's smaller
-        # horizontal half-extent, at most max_range
-        crop_max_range = cfg.max_range
-        if cfg.adaptive_range_on and points.shape[0] > 0:
-            pc_max, pc_min = points.max(axis=0), points.min(axis=0)
-            min_x_range = min(abs(pc_max[0]), abs(pc_min[0]))
-            min_y_range = min(abs(pc_max[1]), abs(pc_min[1]))
-            crop_max_range = min(cfg.max_range, 2.0 * max(min_x_range, min_y_range))
-        d = np.linalg.norm(points, axis=1)
-        keep = ((d > cfg.min_range) & (d < crop_max_range)
-                & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
-        points, colors, ts, sem = _take_all(keep, points, colors, ts, sem)
-        rng = np.random.default_rng(cfg.seed + frame_id)
-        if cfg.rand_downsample and cfg.rand_down_r < 1.0:
-            sel = rng.random(points.shape[0]) < cfg.rand_down_r
-            points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
-        bucket = cfg.frame_bucket
-        if points.shape[0] > bucket:
-            sel = rng.choice(points.shape[0], bucket, replace=False)
-            points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
-        if cfg.deskew and ts is not None and self.processed_frame > 0:
-            dev = self.device
-            points = deskew_points(
-                torch.as_tensor(points, dtype=torch.float32, device=dev),
-                torch.as_tensor(np.asarray(ts, np.float32), device=dev),
-                torch.as_tensor(self.last_odom_tran, dtype=torch.float32, device=dev)
-            ).cpu().numpy()
-        pad_pts, valid = pad_to(points.astype(np.float32), bucket)
-        pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
-        pad_col = pad_to(colors.astype(np.float32), bucket)[0] if colors is not None else None
-        pad_sem = pad_to(sem.astype(np.int32), bucket)[0] if sem is not None else None
-        return Frame(pad_pts, valid, points.shape[0], pad_ts, pad_col, pad_sem)
+        with tracing.span("pin_slam.dataset.preprocess"):
+            cfg = self.config
+            points, colors, ts, sem = self.read_frame(frame_id)
+            if not cfg.color_on:
+                colors = None
+            if cfg.kitti_correction_on and cfg.correction_deg != 0.0:
+                points = intrinsic_correct(points, cfg.correction_deg)
+            # adaptive crop range (used for NCD): twice the scan's smaller
+            # horizontal half-extent, at most max_range
+            crop_max_range = cfg.max_range
+            if cfg.adaptive_range_on and points.shape[0] > 0:
+                pc_max, pc_min = points.max(axis=0), points.min(axis=0)
+                min_x_range = min(abs(pc_max[0]), abs(pc_min[0]))
+                min_y_range = min(abs(pc_max[1]), abs(pc_min[1]))
+                crop_max_range = min(cfg.max_range, 2.0 * max(min_x_range, min_y_range))
+            d = np.linalg.norm(points, axis=1)
+            keep = ((d > cfg.min_range) & (d < crop_max_range)
+                    & (points[:, 2] > cfg.min_z) & (points[:, 2] < cfg.max_z))
+            points, colors, ts, sem = _take_all(keep, points, colors, ts, sem)
+            rng = np.random.default_rng(cfg.seed + frame_id)
+            if cfg.rand_downsample and cfg.rand_down_r < 1.0:
+                sel = rng.random(points.shape[0]) < cfg.rand_down_r
+                points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
+            bucket = cfg.frame_bucket
+            if points.shape[0] > bucket:
+                sel = rng.choice(points.shape[0], bucket, replace=False)
+                points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
+            if cfg.deskew and ts is not None and self.processed_frame > 0:
+                dev = self.device
+                points = tracing.read(deskew_points(
+                    tracing.upload(points, "points", dev, torch.float32),
+                    tracing.upload(np.asarray(ts, np.float32), "times", dev),
+                    tracing.upload(self.last_odom_tran, "motion", dev, torch.float32)),
+                    "deskewed").numpy()
+            pad_pts, valid = pad_to(points.astype(np.float32), bucket)
+            pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
+            pad_col = pad_to(colors.astype(np.float32), bucket)[0] if colors is not None else None
+            pad_sem = pad_to(sem.astype(np.int32), bucket)[0] if sem is not None else None
+            return Frame(pad_pts, valid, points.shape[0], pad_ts, pad_col, pad_sem)
 
     def initial_guess(self) -> np.ndarray:
         """Constant-velocity initial guess."""

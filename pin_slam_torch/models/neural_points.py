@@ -31,6 +31,7 @@ from pin_slam_torch.ops.scatter import nonzero_static, scatter_set_last
 from pin_slam_torch.ops.transforms import apply_quaternion_rotation, quat_multiply, rotmat_to_quat
 from pin_slam_torch.ops.voxel import (sqnorm3, voxel_down_sample_mask,
                                       voxel_down_sample_min_value_mask)
+from pin_slam_torch.utils import tracing
 
 _SENTINEL_POS = 1e8
 _INVALID_DIST2 = 9e3
@@ -182,10 +183,9 @@ C_TRU = 11
 
 
 def attr_sentinel_row(device=None) -> torch.Tensor:
-    row = torch.zeros((ATTR_DIM,), dtype=torch.float32, device=device)
-    row[:3] = _SENTINEL_POS
-    row[3] = 1.0
-    return row
+    row = [0.0] * ATTR_DIM
+    row[:4] = [_SENTINEL_POS] * 3 + [1.0]
+    return tracing.upload(row, "sentinel_row", device, torch.float32)
 
 
 @dataclasses.dataclass
@@ -241,7 +241,7 @@ def subcell_hash(mc: MapConfig, cells: torch.Tensor) -> torch.Tensor:
     if mc.nsub == 1:
         return spatial_hash(cells, mc.local_hash_size)
     bx, by, bz = mc.brick
-    bvec = torch.tensor([bx, by, bz], dtype=cells.dtype, device=cells.device)
+    bvec = tracing.upload([bx, by, bz], "brick_vec", cells.device, cells.dtype)
     bco = _floor_div(cells, bvec)
     sub = (cells - bco * bvec).to(torch.int64)
     s = sub[..., 0] * (by * bz) + sub[..., 1] * bz + sub[..., 2]
@@ -265,15 +265,15 @@ def _pack_hash_rows(mc: MapConfig, positions: torch.Tensor, count: torch.Tensor,
         Hl = mc.local_hash_size
         slot = torch.where(active, subcell_hash(mc, cells), torch.full_like(lidx, Hl))
         rows = torch.cat(cols + [torch.zeros((L + 1, 3), dtype=torch.float32, device=dev)], 1)
-        sentinel = torch.tensor([_SENTINEL_POS] * 3 + [L, mc.capacity, 0.0, 0.0, 0.0],
-                                dtype=torch.float32, device=dev)
+        sentinel = tracing.upload([_SENTINEL_POS] * 3 + [L, mc.capacity, 0.0, 0.0, 0.0],
+                                  "sentinel_row", dev, torch.float32)
         table = sentinel.expand(Hl + 1, HASH_ROW_DIM)
         return scatter_set_last(table, slot, rows)
     nsub, Hb = mc.nsub, mc.brick_rows
     slot = torch.where(active, subcell_hash(mc, cells), torch.full_like(lidx, Hb * nsub))
     rows = torch.cat(cols, 1)
-    sentinel = torch.tensor([_SENTINEL_POS] * 3 + [L, mc.capacity],
-                            dtype=torch.float32, device=dev)
+    sentinel = tracing.upload([_SENTINEL_POS] * 3 + [L, mc.capacity], "sentinel_row", dev,
+                              torch.float32)
     table = sentinel.expand((Hb + 1) * nsub, BRICK_SUB_DIM)
     return scatter_set_last(table, slot, rows)
 
@@ -529,7 +529,7 @@ def gather_brick_rows_fm(hash_rows: torch.Tensor, bricks: torch.Tensor, memb: to
     bx, by, bz = brick
     nsub = bx * by * bz
     g = grid_coords(probe_pts, voxel_size)
-    bvec = torch.tensor([bx, by, bz], dtype=g.dtype, device=g.device)
+    bvec = tracing.upload([bx, by, bz], "brick_vec", g.device, g.dtype)
     bco = _floor_div(g, bvec)
     p = (g - bco * bvec).to(torch.int64)
     bidx = p[:, 0] * (by * bz) + p[:, 1] * bz + p[:, 2]

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pin_slam_torch.ops import _cuda
+from pin_slam_torch.utils import tracing
 
 
 class ScatterPlan(NamedTuple):
@@ -56,7 +57,7 @@ def check_index(idx: torch.Tensor, n_rows: int) -> None:
     if idx.dtype != torch.int64:
         raise TypeError(f"row indices must be int64, got {idx.dtype}")
     if idx.numel():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
+        lo, hi = (tracing.read(v, "check_index", int) for v in torch.aminmax(idx))
         if lo < 0 or hi >= n_rows:
             raise IndexError(f"row index out of range [0, {n_rows}): min {lo}, max {hi}")
 
@@ -122,7 +123,9 @@ def scatter_plans(idx: torch.Tensor, n_rows: int) -> ScatterPlan:
     it = torch.arange(T, dtype=torch.int32, device=dev)[:, None]
     key = (idx2.to(torch.int32) + it * n_rows).reshape(-1)
     order = torch.sort(key, stable=True).indices.to(torch.int32).view(T, M) - it * M
-    counts = torch.bincount(key, minlength=T * n_rows).view(T, n_rows)
+    # bincount reads the keys' min and max on the host: two syncs
+    counts = tracing.call(torch.bincount, "bincount", key, minlength=T * n_rows,
+                          syncs=2).view(T, n_rows)
     offsets = torch.zeros((T, n_rows + 1), dtype=torch.int32, device=dev)
     offsets[:, 1:] = torch.cumsum(counts, 1, dtype=torch.int32)
     if idx.dim() == 1:

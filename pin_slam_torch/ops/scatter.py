@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from pin_slam_torch.utils import tracing
+
 
 def nonzero_static(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """int64 (size,) indices of the first ``size`` true entries of a 1-D mask."""
@@ -40,7 +42,7 @@ def scatter_set_last(table: torch.Tensor, slot: torch.Tensor,
     """``table.at[slot].set(rows)`` with in-order (last writer wins) semantics.
     Returns a new tensor; ``table`` is not modified."""
     win = last_writer(slot, table.shape[0])
-    hit = win >= 0
+    hit = tracing.call(torch.nonzero, "set_last", win >= 0)[:, 0]
     out = table.clone()
     out[hit] = rows[win[hit]]
     return out

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from pin_slam_torch.ops.hash3d import div_f32
+from pin_slam_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +182,10 @@ def build_node_descriptors(positions: torch.Tensor, count: torch.Tensor,
 
 
 def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    """A descriptor on the host (a counted read of a tensor)."""
+    if isinstance(t, torch.Tensor):
+        return tracing.read(t.detach(), "descriptor").numpy()
+    return np.asarray(t)
 
 
 class NeuralPointMapContextManager:
@@ -208,8 +212,8 @@ class NeuralPointMapContextManager:
         they reach the host at the next ``materialize_pending``."""
         dev = positions.device
         out = build_node_descriptors(
-            positions, count, torch.as_tensor(R_w, dtype=torch.float32, device=dev),
-            torch.as_tensor(t_w, dtype=torch.float32, device=dev), self.lateral_offsets(),
+            positions, count, tracing.upload(R_w, "pose_R", dev, torch.float32),
+            tracing.upload(t_w, "pose_t", dev, torch.float32), self.lateral_offsets(),
             self.lc.num_rings, self.lc.num_sectors, self.lc.max_radius, features=features,
             with_feature=self.lc.with_feature and features is not None)
         self._pending.append((frame_id, out))

@@ -116,12 +116,14 @@ from pin_slam_torch.slam import mapper as mp
 from pin_slam_torch.slam import pgo as pgo_mod
 from pin_slam_torch.slam import tracker as trk
 from pin_slam_torch.slam.mesher import Mesher, MesherConfig, split_chunks
-from pin_slam_torch.utils import sensor_cad, wandb_log
+from pin_slam_torch.utils import sensor_cad, tracing, wandb_log
 from pin_slam_torch.utils.experiment import save_implicit_map
 from pin_slam_torch.utils.platform import not_ported, resolve_device
 from pin_slam_torch.utils.viewer_html import export_html
 
 TS_CAPACITY = 1 << 16
+# the stage spans behind ``SlamSystem.stage_times``' columns
+STAGE_SPANS = ("upload", "odometry", "map_update", "training", "pgo")
 
 
 def exact_knn_on() -> bool:
@@ -182,7 +184,8 @@ class RandomSource:
         """chunk -1: the frame's main training, -2: a stop frame's training,
         0..: frame-0 extra chunks (tests key the JAX package's draws on it)."""
         return mp.sample_batch_indices(self.batch_gen, pool, mcfg,
-                                       torch.tensor(use_new, device=self.device), num_iters)
+                                       tracing.upload(use_new, "use_new", self.device),
+                                       num_iters)
 
     def ba_indices(self, frame_id: int, pool: mp.PoolState, bs: int, num_iters: int):
         """Bundle adjustment's (num_iters, bs) pool rows, uniform over the
@@ -200,7 +203,16 @@ class SlamSystem:
     ``device="cpu"`` to run the kernels' plain PyTorch versions on the CPU.
     ``dp_devices > 1`` and ``map_shards > 1`` need a process group of that
     many ranks (``parallel.distributed.initialize``), each on the device
-    the group gave it; without one they raise, naming the launch."""
+    the group gave it; without one they raise, naming the launch.
+
+    ``stage_times`` holds a row a frame, in seconds, of its five stage spans
+    (``STAGE_SPANS``: upload, odometry, map update, training, pgo; the
+    odometry column leaves out the back end's work before the map update,
+    the training column the pose graph's bookkeeping after it).  With
+    ``sync_stages`` (on the GPU) every stage ends in a synchronise, so a
+    column is the stage's device time as well; without it a column is host
+    time: what the host enqueued plus what it waited for in counted reads,
+    not device time."""
 
     def __init__(self, config, dataset: Optional[SLAMDataset] = None,
                  device=None, random_source: Optional[RandomSource] = None,
@@ -314,7 +326,7 @@ class SlamSystem:
             self.dataset.last_pose = self.cur_pose.copy()
         self.lm_origin64 = np.zeros(3)
         self.frame_id = 0
-        self.stage_times = []      # [preprocess, odometry, map update, training, pgo]
+        self.stage_times = []      # [upload, odometry, map update, training, pgo] a frame
         self.map_counts = []       # the map's count after each frame, device scalars
         self.mesh_colors = None    # the last whole-map mesh's vertex colours (colour head)
         self.mesh_sem_labels = None  # its vertex classes (semantic head)
@@ -347,7 +359,7 @@ class SlamSystem:
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.sync_stages and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            tracing.stage_sync(self.device)
 
     def _source_prep(self, points, valid, colors=None):
         """(source points, their validity): the frame's first point of each
@@ -388,60 +400,73 @@ class SlamSystem:
                       sem_labels=None):
         """(Dynamic filter ->) sample -> insert -> local map -> new flags ->
         kNN probe -> pool append (with ``colors`` (B, C) / ``sem_labels``
-        (B,), the samples' colour labels / classes too)."""
+        (B,), the samples' colour labels / classes too), each in its part
+        of the ``map_update`` span."""
         cfg, mc, mcfg, sc = self.config, self.mc, self.mcfg, self.sc
         dev = self.device
-        if not cfg.rand_downsample:
-            valid = valid & voxel_down_sample_mask(points, valid, cfg.vox_down_m,
-                                                   cfg.downsample_hash_size)
-        if cfg.dynamic_filter_on:
-            valid = valid & self.dynamic_static_mask(points, pose_R, pose_t)
-        if cfg.mapping_bucket and cfg.mapping_bucket < points.shape[0]:
-            Mb = cfg.mapping_bucket
-            cidx = nonzero_static(valid, Mb, points.shape[0])
-            n_val = torch.sum(valid)
-            points = torch.cat([points, torch.zeros((1, 3), device=dev)])[cidx]
-            valid = torch.arange(Mb, device=dev) < torch.clamp(n_val, max=Mb)
-            if colors is not None:
-                colors = torch.cat([colors, colors.new_zeros((1, colors.shape[1]))])[cidx]
-            if sem_labels is not None:
-                sem_labels = torch.cat([sem_labels, sem_labels.new_zeros((1,))])[cidx]
-        batch = sample_rays(sc, points, valid, self.rand.ray_noise(frame_id, sc, points.shape[0]),
-                            colors, sem_labels)
-        coord_world = batch.coord @ pose_R.T + pose_t
-        Sn, n_surf_tot = sc.ray_sample_count, 1 + sc.surface_sample_n
-        cw_surf = coord_world.reshape(-1, Sn, 3)[:, :n_surf_tot].reshape(-1, 3)
-        lbl_surf = batch.sdf_label.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
-        vld_surf = batch.valid.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
-        surf_mask = vld_surf & (torch.abs(lbl_surf)
-                                < cfg.surface_sample_range_m * cfg.map_surface_ratio)
+        part = tracing.part
+        with part("sample"):
+            if not cfg.rand_downsample:
+                valid = valid & voxel_down_sample_mask(points, valid, cfg.vox_down_m,
+                                                       cfg.downsample_hash_size)
+            if cfg.dynamic_filter_on:
+                valid = valid & self.dynamic_static_mask(points, pose_R, pose_t)
+            if cfg.mapping_bucket and cfg.mapping_bucket < points.shape[0]:
+                Mb = cfg.mapping_bucket
+                cidx = nonzero_static(valid, Mb, points.shape[0])
+                n_val = torch.sum(valid)
+                points = torch.cat([points, torch.zeros((1, 3), device=dev)])[cidx]
+                valid = torch.arange(Mb, device=dev) < torch.clamp(n_val, max=Mb)
+                if colors is not None:
+                    colors = torch.cat([colors, colors.new_zeros((1, colors.shape[1]))])[cidx]
+                if sem_labels is not None:
+                    sem_labels = torch.cat([sem_labels, sem_labels.new_zeros((1,))])[cidx]
+            batch = sample_rays(sc, points, valid,
+                                self.rand.ray_noise(frame_id, sc, points.shape[0]),
+                                colors, sem_labels)
+            coord_world = batch.coord @ pose_R.T + pose_t
+            Sn, n_surf_tot = sc.ray_sample_count, 1 + sc.surface_sample_n
+            cw_surf = coord_world.reshape(-1, Sn, 3)[:, :n_surf_tot].reshape(-1, 3)
+            lbl_surf = batch.sdf_label.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
+            vld_surf = batch.valid.reshape(-1, Sn)[:, :n_surf_tot].reshape(-1)
+            surf_mask = vld_surf & (torch.abs(lbl_surf)
+                                    < cfg.surface_sample_range_m * cfg.map_surface_ratio)
         if self._spatial is None:
-            self.state = npts.map_insert(
-                self.state, mc, cw_surf, surf_mask, frame_id, self._travel,
-                downsample_table_size=cfg.downsample_hash_size,
-                insert_bucket=min(cfg.frame_bucket, cw_surf.shape[0]))
-            lm = npts.build_local_map(self.state, mc, pose_t, frame_id, self._travel)
+            with part("insert"):
+                self.state = npts.map_insert(
+                    self.state, mc, cw_surf, surf_mask, frame_id, self._travel,
+                    downsample_table_size=cfg.downsample_hash_size,
+                    insert_bucket=min(cfg.frame_bucket, cw_surf.shape[0]))
+            with part("local_map"):
+                lm = npts.build_local_map(self.state, mc, pose_t, frame_id, self._travel)
         else:
-            self.state = self._spatial.insert(self.state, cw_surf, surf_mask, frame_id,
-                                              self._travel)
-            self._slms, lm = self._spatial.extract(self.state, pose_t, frame_id, self._travel)
+            with part("insert"):
+                self.state = self._spatial.insert(self.state, cw_surf, surf_mask, frame_id,
+                                                  self._travel)
+            with part("local_map"):
+                self._slms, lm = self._spatial.extract(self.state, pose_t, frame_id,
+                                                       self._travel)
 
-        new_full = mp.compute_new_sample_mask(lm, mc, mcfg, coord_world, batch.sdf_label,
-                                              batch.valid)
-        col = torch.arange(Sn, device=dev) < n_surf_tot
-        new_mask = (new_full.reshape(-1, Sn) & col[None, :]).reshape(-1)
-        n_rays_f = coord_world.shape[0] // Sn
-        n_far = n_rays_f * (Sn - 1 - sc.surface_sample_n)
-        gidx, w, vec, nvec, dropped = mp.append_knn(
-            lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
-            far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
-            dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0,
-            quats=self._quats(lm) if self.after_pgo else None,
-            pos_encode=mc.pos_encode)
-        self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
-                                   batch.sdf_label, batch.weight, batch.valid & ~dropped,
-                                   frame_id, new_mask, gidx, w, vec, nvec,
-                                   color_label=batch.color_label, sem_label=batch.sem_label)
+        with part("new_mask"):
+            new_full = mp.compute_new_sample_mask(lm, mc, mcfg, coord_world, batch.sdf_label,
+                                                  batch.valid)
+            col = torch.arange(Sn, device=dev) < n_surf_tot
+            new_mask = (new_full.reshape(-1, Sn) & col[None, :]).reshape(-1)
+        with part("append_knn"):
+            n_rays_f = coord_world.shape[0] // Sn
+            n_far = n_rays_f * (Sn - 1 - sc.surface_sample_n)
+            gidx, w, vec, nvec, dropped = mp.append_knn(
+                lm, mc, self.append_tmpl, coord_world, Sn, near_count=n_surf_tot,
+                far_offsets=self.far_tmpl, per_neighbor_vecs=not mcfg.weighted_first,
+                dedup_far_budget=int(n_far * cfg.probe_dedup_budget) if self._use_dedup else 0,
+                quats=self._quats(lm) if self.after_pgo else None,
+                pos_encode=mc.pos_encode)
+        with part("pool_append"):
+            self.pool = mp.pool_append(self.pool, mcfg, coord_world, batch.coord,
+                                       batch.sdf_label, batch.weight, batch.valid & ~dropped,
+                                       frame_id, new_mask, gidx, w, vec, nvec,
+                                       color_label=batch.color_label,
+                                       sem_label=batch.sem_label)
         return lm
 
     def _quats(self, lm) -> torch.Tensor:
@@ -458,12 +483,13 @@ class SlamSystem:
     def _write_back(self, lm) -> None:
         """The trained local window back into the global map (into every
         shard's own rows under map sharding)."""
-        if self._spatial is None:
-            self.state = npts.assign_local_to_global(self.state, lm, self.mc, self._travel)
-        else:
-            self.state = self._spatial.writeback(self.state, self._slms, lm.attr_rows,
-                                                 lm.geo_features, lm.color_features,
-                                                 self._travel)
+        with tracing.part("write_back"):
+            if self._spatial is None:
+                self.state = npts.assign_local_to_global(self.state, lm, self.mc, self._travel)
+            else:
+                self.state = self._spatial.writeback(self.state, self._slms, lm.attr_rows,
+                                                     lm.geo_features, lm.color_features,
+                                                     self._travel)
 
     def _map_count(self) -> int:
         """The global map's points (every shard's under map sharding)."""
@@ -491,32 +517,34 @@ class SlamSystem:
         autograd; returns (lm_out, feats, decoder leaves, opt, loss history)
         with lm_out's features (and, with the colour state ``color``, its
         colour features) set to the trained ones."""
-        idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.train_mcfg, use_new,
-                                      num_iters)
-        if self._dp_loop is not None:
-            lm2, feats, gvec, opt, hist = self._dp_loop(
-                lm, self.mc, feats, gvec, opt, self.pool, idx, dec_scale, self.after_pgo,
-                color=color)
-        elif self.exact_knn:
-            # the JAX package's run_exact: the certainty column stripped (the
-            # loop folds the certainty itself), fresh Adam moments on the slim
-            # leaves every call, the zero column put back; ``opt`` passes through
-            F, L = self.mc.feature_dim, self.mc.local_capacity
-            slim = feats[:, :F].contiguous()
-            if color is not None:
-                color.opt = mp.init_color_state(color.features, color.decoder).opt
-            lm2, slim, gvec, _, hist = mp.mapping_loop(
-                lm, self.mc, slim, gvec, mp.init_opt_state(slim, gvec), self.pool, self.mcfg,
-                self.offsets, idx, dec_scale, self.after_pgo, color=color)
-            feats = torch.cat([slim, slim.new_zeros((L + 1, 1))], 1)
-        elif self.kernel_path:
-            lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
-                lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
-                self.after_pgo, color=color)
-        else:
-            lm2, feats, gvec, opt, hist = mp.mapping_loop_autograd(
-                lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
-                self.after_pgo, color=color)
+        with tracing.part("batch"):
+            idx = self.rand.batch_indices(frame_id, chunk, self.pool, self.train_mcfg,
+                                          use_new, num_iters)
+        with tracing.part("loop"):
+            if self._dp_loop is not None:
+                lm2, feats, gvec, opt, hist = self._dp_loop(
+                    lm, self.mc, feats, gvec, opt, self.pool, idx, dec_scale, self.after_pgo,
+                    color=color)
+            elif self.exact_knn:
+                # the JAX package's run_exact: the certainty column stripped (the
+                # loop folds the certainty itself), fresh Adam moments on the slim
+                # leaves every call, the zero column put back; ``opt`` passes through
+                F, L = self.mc.feature_dim, self.mc.local_capacity
+                slim = feats[:, :F].contiguous()
+                if color is not None:
+                    color.opt = mp.init_color_state(color.features, color.decoder).opt
+                lm2, slim, gvec, _, hist = mp.mapping_loop(
+                    lm, self.mc, slim, gvec, mp.init_opt_state(slim, gvec), self.pool, self.mcfg,
+                    self.offsets, idx, dec_scale, self.after_pgo, color=color)
+                feats = torch.cat([slim, slim.new_zeros((L + 1, 1))], 1)
+            elif self.kernel_path:
+                lm2, feats, gvec, opt, hist = mp.mapping_loop_cached(
+                    lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
+                    self.after_pgo, color=color)
+            else:
+                lm2, feats, gvec, opt, hist = mp.mapping_loop_autograd(
+                    lm, self.mc, feats, gvec, opt, self.pool, self.mcfg, idx, dec_scale,
+                    self.after_pgo, color=color)
         lm2.geo_features = feats[:, :self.mc.feature_dim]
         if color is not None:
             lm2.color_features = color.features
@@ -538,37 +566,77 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def process_frame(self, frame: Frame) -> dict:
+        """One frame through the stages; returns its info dict, with
+        ``info["trace"]`` the frame's report (``utils/tracing.py``: the
+        spans' host milliseconds, the counted host syncs and their waits,
+        the event counts, the kernel launches).  ``stage_times`` gets the
+        frame's row of the five stage spans, in seconds."""
         cfg, dev = self.config, self.device
         info = {}
-        self._poll_control()
-        with torch.no_grad():
-            t0 = time.perf_counter()
-            points = torch.as_tensor(frame.points, dtype=torch.float32, device=dev)
-            valid = torch.as_tensor(frame.valid, device=dev)
-            colors = (torch.as_tensor(frame.colors, dtype=torch.float32, device=dev)
-                      if cfg.color_on and frame.colors is not None else None)
-            sem = (torch.as_tensor(frame.sem_labels, dtype=torch.int32, device=dev)
-                   if cfg.semantic_on and frame.sem_labels is not None else None)
-            tracked = cfg.track_on and self.frame_id > 0
-            # detection frames settle the pose books (and a loop closure may
-            # replace the pose) before the map update
-            detect_due = (self.pgm is not None and self.frame_id > 0
-                          and self.frame_id % max(cfg.pgo_freq, 1) == 0)
-            ba_due = (cfg.ba_freq_frame > 0 and self.frame_id > cfg.ba_frame // 2
-                      and (self.frame_id + 1) % cfg.ba_freq_frame == 0)
-            conservative = (not tracked or detect_due or ba_due
-                            or (self.frame_id > 0 and self.dataset.stop_status))
-            pgo_pre = pgo_post = 0.0
+        with tracing.frame(self.frame_id) as report:
+            info["trace"] = report
+            self._poll_control()
+            with torch.no_grad():
+                kept = self._frame_stages(frame, info)
+            self.stage_times.append([report["span_ms"].get(f"pin_slam.{s}", 0.0) * 1e-3
+                                     for s in STAGE_SPANS])
+            self.dataset.time_table.append(self.stage_times[-1])
+            if not kept:
+                self.frame_id += 1
+                info["skipped"] = True
+                return info
+            st = self.stage_times[-1]
+            wandb_log.log({"timing(s)/preprocess": st[0], "timing(s)/tracking": st[1],
+                           "timing(s)/mapping": st[2] + st[3], "timing(s)/pgo": st[4],
+                           **({"loss/loss_last": info["loss_last"]} if "loss_last" in info
+                              else {})},
+                          step=self.frame_id)
+            if cfg.o3d_vis_on or self._mesh_now:
+                # mesh_now (control.json) overrides the gate: an explicit request
+                # for a mesh and a viewer refresh mid-run
+                self._periodic_artifacts(info)
+            # kept on the device (no host sync a frame); read once at save time
+            self.map_counts.append(self.state.count)
+            self.frame_id += 1
+        return info
 
-            t1 = time.perf_counter()
-            booked = None
+    def _frame_stages(self, frame: Frame, info: dict) -> bool:
+        """The frame's stages, each in its span: upload, odometry (with a
+        conservative frame's pose-book settling), the back end's work before
+        the map update (pgo: descriptor, or loop closure and BA), map update,
+        training, and after it the deferred pose booking (odometry) and the
+        pose graph's bookkeeping (pgo).  Returns False for a frame skipped
+        after tracking was lost."""
+        cfg, dev = self.config, self.device
+        span = tracing.span
+        with span("pin_slam.upload"):
+            points = tracing.upload(frame.points, "points", dev, torch.float32)
+            valid = tracing.upload(frame.valid, "valid", dev)
+            colors = (tracing.upload(frame.colors, "colors", dev, torch.float32)
+                      if cfg.color_on and frame.colors is not None else None)
+            sem = (tracing.upload(frame.sem_labels, "sem_labels", dev, torch.int32)
+                   if cfg.semantic_on and frame.sem_labels is not None else None)
+        tracked = cfg.track_on and self.frame_id > 0
+        # detection frames settle the pose books (and a loop closure may
+        # replace the pose) before the map update
+        detect_due = (self.pgm is not None and self.frame_id > 0
+                      and self.frame_id % max(cfg.pgo_freq, 1) == 0)
+        ba_due = (cfg.ba_freq_frame > 0 and self.frame_id > cfg.ba_frame // 2
+                  and (self.frame_id + 1) % cfg.ba_freq_frame == 0)
+        conservative = (not tracked or detect_due or ba_due
+                        or (self.frame_id > 0 and self.dataset.stop_status))
+
+        booked = None
+        with span("pin_slam.odometry"):
             if tracked:
                 init_pose = self.dataset.initial_guess()
                 origin64 = self.lm_origin64
                 R_init = torch.as_tensor(init_pose[:3, :3], dtype=torch.float32)
                 t_init = torch.as_tensor(init_pose[:3, 3] - origin64, dtype=torch.float32)
-                src, src_valid, *src_col = self._source_prep(points, valid, colors)
-                nrm, nrm_valid = self._source_normals(src, src_valid)
+                with span("pin_slam.odometry.source_prep"):
+                    src, src_valid, *src_col = self._source_prep(points, valid, colors)
+                with span("pin_slam.odometry.normals"):
+                    nrm, nrm_valid = self._source_normals(src, src_valid)
                 self.last_source = (src, src_valid, nrm, nrm_valid)
                 res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
                                       self.append_tmpl, src, src_valid, R_init, t_init,
@@ -577,16 +645,17 @@ class SlamSystem:
                                       source_colors=src_col[0] if src_col else None,
                                       source_normals=nrm,
                                       source_normal_valid=nrm_valid)
-                # pose selection in float32, as the JAX package does on device
-                origin = self.lm.origin.cpu()
-                t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
-                t_est_w = res.t + origin
-                jump = bool(torch.linalg.norm(t_est_w - t_last_w)
-                            > 40.0 * cfg.surface_sample_range_m)
-                ok = res.valid and not jump
-                R_sel = res.R if ok else R_init
-                t_w = t_est_w if ok else t_init + origin
-                tran_sel = float(torch.linalg.norm(t_w - t_last_w))
+                with span("pin_slam.odometry.pose_select"):
+                    # pose selection in float32, as the JAX package does on device
+                    origin = tracing.read(self.lm.origin, "origin")
+                    t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
+                    t_est_w = res.t + origin
+                    jump = bool(torch.linalg.norm(t_est_w - t_last_w)
+                                > 40.0 * cfg.surface_sample_range_m)
+                    ok = res.valid and not jump
+                    R_sel = res.R if ok else R_init
+                    t_w = t_est_w if ok else t_init + origin
+                    tran_sel = float(torch.linalg.norm(t_w - t_last_w))
 
                 def fetch_and_book():
                     if res.valid:
@@ -604,73 +673,70 @@ class SlamSystem:
                     if self.tc.photometric_on and self.color_decoder is not None:
                         info["photo_count"] = res.photo_count
                 booked = fetch_and_book
+                if conservative:
+                    booked()
+                    booked = None
             else:
                 if not cfg.track_on and self.dataset.gt_pose_provided:
                     self.cur_pose = self.dataset.gt_poses[self.frame_id].copy()
                 self.dataset.update_odom_pose(self.cur_pose, True)
                 self.last_reg_cov = None
                 ok = True
+            self._sync()
 
-            if self.loop_mgr is not None and tracked and not conservative:
-                # descriptor of the PRE-update local map at the selected pose
-                tp = time.perf_counter()
-                feats = self.lm.geo_features if cfg.loop_with_feature else None
-                self.loop_mgr.add_node_device(self.frame_id, self.lm.positions, self.lm.count,
-                                              R_sel, t_w, feats)
+        if self.loop_mgr is not None and tracked and not conservative:
+            # descriptor of the PRE-update local map at the selected pose
+            with span("pin_slam.pgo"):
+                with span("pin_slam.pgo.descriptor"):
+                    feats = self.lm.geo_features if cfg.loop_with_feature else None
+                    self.loop_mgr.add_node_device(self.frame_id, self.lm.positions,
+                                                  self.lm.count, R_sel, t_w, feats)
                 self._sync()
-                pgo_pre += time.perf_counter() - tp
 
-            if conservative:
-                if booked is not None:
-                    booked()
-                    booked = None
-                if self.pgm is not None and not self.dataset.lose_track:
-                    tp = time.perf_counter()
+        if conservative:
+            if self.pgm is not None and not self.dataset.lose_track:
+                with span("pin_slam.pgo"):
                     self._loop_closure_stage(info)
                     self._sync()
-                    pgo_pre += time.perf_counter() - tp
-                if self.dataset.lose_track:
-                    t2 = time.perf_counter()
-                    self.stage_times.append([t1 - t0, t2 - t1 - pgo_pre, 0.0, 0.0, pgo_pre])
-                    self.dataset.time_table.append(self.stage_times[-1])
-                    self.frame_id += 1
-                    info["skipped"] = True
-                    return info
-                if ba_due:
-                    # bundle adjustment's time is the back end's (the pgo column)
-                    tp = time.perf_counter()
+            if self.dataset.lose_track:
+                return False
+            if ba_due:
+                # bundle adjustment's time is the back end's (the pgo column)
+                with span("pin_slam.pgo"):
                     info["ba"] = self._bundle_adjustment()
                     self._sync()
-                    pgo_pre += time.perf_counter() - tp
+            with span("pin_slam.odometry"), span("pin_slam.odometry.pose_select"):
                 R_sel = torch.as_tensor(self.cur_pose[:3, :3], dtype=torch.float32)
                 t_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
                 ok = True
                 td = self.dataset.travel_dist
                 tran_sel = float(np.float32(td[-1] - td[-2])) if len(td) > 1 else 0.0
-            self._sync()
 
-            t2 = time.perf_counter()
-            fid = self.frame_id
-            dec_scale = 0.0 if fid >= cfg.freeze_after_frame else 1.0
-            R_d, t_d = R_sel.to(dev), t_w.to(dev)
+        fid = self.frame_id
+        dec_scale = 0.0 if fid >= cfg.freeze_after_frame else 1.0
+        stop_frame = fid > 0 and self.dataset.stop_status
+        with span("pin_slam.map_update"):
+            R_d = tracing.upload(R_sel, "pose_R", dev)
+            t_d = tracing.upload(t_w, "pose_t", dev)
             self._travel_step(fid, tran_sel)
-            stop_frame = fid > 0 and self.dataset.stop_status
             gvec = self._decoder_leaves()
+            if not stop_frame:
+                self._stop_count = (self._stop_count + 1
+                                    if tran_sel < 0.01 * cfg.voxel_size_m else 0)
+                use_new = ok and not (self._stop_count > cfg.stop_frame_thre)
+                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid, colors, sem)
+                self._sync()
+
+        with span("pin_slam.training"):
             if stop_frame:
+                # a stop frame trains the existing local map, with no update
                 n_it = max(1, cfg.iters - 10) if cfg.adaptive_mode else int(cfg.iters)
                 feats = self._with_cert_column(self.lm)
                 opt = mp.init_opt_state(feats, gvec)
                 color = self._color_state(self.lm)
                 lm_out, feats, gvec, opt, hist = self._train(
                     self.lm, feats, gvec, opt, fid, -2, False, dec_scale, n_it, color)
-                t_map = time.perf_counter()
             else:
-                self._stop_count = (self._stop_count + 1
-                                    if tran_sel < 0.01 * cfg.voxel_size_m else 0)
-                use_new = ok and not (self._stop_count > cfg.stop_frame_thre)
-                lm2 = self._frame_update(points, valid & ok, R_d, t_d, fid, colors, sem)
-                self._sync()
-                t_map = time.perf_counter()
                 feats = self._with_cert_column(lm2)
                 opt = mp.init_opt_state(feats, gvec)
                 color = self._color_state(lm2)
@@ -688,20 +754,22 @@ class SlamSystem:
             if color is not None and hist is not None:
                 color.load_into(self.color_decoder)
 
-            if booked is not None:
+        if booked is not None:
+            # the tracker's result reaches the pose books while the card trains
+            with span("pin_slam.odometry"):
                 booked()
-                if self.pgm is not None:
-                    tp = time.perf_counter()
+            if self.pgm is not None:
+                with span("pin_slam.pgo"), span("pin_slam.pgo.bookkeeping"):
                     if self.dataset.lose_track:
                         if self.loop_mgr is not None:
                             self.loop_mgr.drop_pending(fid)
                     else:
                         self._pgo_bookkeeping(fid)
-                    pgo_post += time.perf_counter() - tp
+
+        with span("pin_slam.training"):
             self.lm_origin64 = self.cur_pose[:3, 3].copy()
             if (fid + 1) % cfg.pool_filter_freq == 0:
                 self.pool = mp.pool_filter(self.pool, self.mcfg, t_d)
-
             extra_chunks = cfg.init_iter_ratio - 1 if fid == 0 else 0
             for chunk in range(extra_chunks):
                 self.lm, feats, gvec, opt, hist = self._train(
@@ -712,30 +780,11 @@ class SlamSystem:
                 if color is not None:
                     color.load_into(self.color_decoder)
             if cfg.log_loss_per_frame and hist is not None:
-                info["loss_last"] = float(hist[-1])
-                info["loss_finite"] = bool(torch.isfinite(hist).all())
+                info["loss_last"] = tracing.read(hist[-1], "loss_last", float)
+                info["loss_finite"] = tracing.read(torch.isfinite(hist).all(), "loss_finite",
+                                                   bool)
             self._sync()
-            t3 = time.perf_counter()
-
-        self.stage_times.append([t1 - t0, t2 - t1 - pgo_pre, t_map - t2,
-                                 t3 - t_map - pgo_post, pgo_pre + pgo_post])
-        self.dataset.time_table.append(self.stage_times[-1])
-        st = self.stage_times[-1]
-        wandb_log.log({"timing(s)/preprocess": st[0], "timing(s)/tracking": st[1],
-                       "timing(s)/mapping": st[2] + st[3], "timing(s)/pgo": st[4],
-                       **({"loss/loss_last": info["loss_last"]} if "loss_last" in info
-                          else {})},
-                      step=self.frame_id)
-        if self.pgm is not None:
-            info["pgo_s"] = pgo_pre + pgo_post
-        if cfg.o3d_vis_on or self._mesh_now:
-            # mesh_now (control.json) overrides the gate: an explicit request
-            # for a mesh and a viewer refresh mid-run
-            self._periodic_artifacts(info)
-        # kept on the device (no host sync a frame); read once at save time
-        self.map_counts.append(self.state.count)
-        self.frame_id += 1
-        return info
+        return True
 
     # ------------------------------------------------------------------
     def _run_path(self) -> str:
@@ -778,45 +827,46 @@ class SlamSystem:
         self._mesh_now = False
         if not (mesh_due or slice_due):
             return
-        count = int(self.lm.count)
+        count = tracing.read(self.lm.count, "local_count", int)
         if count == 0:
             return
         ms = info.setdefault("vis_ms", {})
         origin = self.cur_pose[:3, 3]
         if mesh_due:
-            t0 = time.perf_counter()
-            pts = self.lm.positions[:count].cpu().numpy()
-            rad = cfg.max_range
-            amin = np.maximum(pts.min(axis=0), origin - rad) - 0.5
-            amax = np.minimum(pts.max(axis=0), origin + rad) + 0.5
-            out = self._vis_mesher.recon_aabb_mesh(
-                self.lm, self.decoder, self.sdf_scale, amin, amax,
-                color_decoder=self.color_decoder, sem_decoder=self.sem_decoder)
-            v, f = out[:2]
-            c = out[2] if len(out) == 4 else None
-            if v.shape[0]:
-                if write:
-                    pio.write_ply(os.path.join(vis_dir, f"mesh_{fid:05d}.ply"), v, colors=c,
-                                  normals=vertex_normals(v, f), faces=f)
-                self._mesh_cache = (v, f, c)
-            ms["mesh"] = (time.perf_counter() - t0) * 1e3
+            with tracing.span("pin_slam.vis.mesh") as sp:
+                pts = tracing.read(self.lm.positions[:count], "mesh_points").numpy()
+                rad = cfg.max_range
+                amin = np.maximum(pts.min(axis=0), origin - rad) - 0.5
+                amax = np.minimum(pts.max(axis=0), origin + rad) + 0.5
+                out = self._vis_mesher.recon_aabb_mesh(
+                    self.lm, self.decoder, self.sdf_scale, amin, amax,
+                    color_decoder=self.color_decoder, sem_decoder=self.sem_decoder)
+                v, f = out[:2]
+                c = out[2] if len(out) == 4 else None
+                if v.shape[0]:
+                    if write:
+                        pio.write_ply(os.path.join(vis_dir, f"mesh_{fid:05d}.ply"), v,
+                                      colors=c, normals=vertex_normals(v, f), faces=f)
+                    self._mesh_cache = (v, f, c)
+            ms["mesh"] = sp.ms
             map_points = self._map_count()
-            t0 = time.perf_counter()
-            if write:
-                try:
-                    self._export_live_viewer(run_path, fid, pts, v, f, c, map_points)
-                except Exception as e:
-                    self._warn_once("viewer", f"live viewer export failed: {e!r}")
-            ms["viewer"] = (time.perf_counter() - t0) * 1e3
+            with tracing.span("pin_slam.vis.viewer") as sp:
+                if write:
+                    try:
+                        self._export_live_viewer(run_path, fid, pts, v, f, c, map_points)
+                    except Exception as e:
+                        self._warn_once("viewer", f"live viewer export failed: {e!r}")
+            ms["viewer"] = sp.ms
         if slice_due:
-            t0 = time.perf_counter()
-            height = origin[2] + cfg.sdf_slice_height
-            pts_sl, sdf_sl = self._vis_mesher.sdf_slice(self.lm, self.decoder, self.sdf_scale,
-                                                        origin, cfg.max_range, height)
-            if pts_sl.shape[0] and write:
-                pio.write_ply(os.path.join(vis_dir, f"sdf_slice_{fid:05d}.ply"), pts_sl,
-                              extra={"sdf": sdf_sl})
-            ms["sdf_slice"] = (time.perf_counter() - t0) * 1e3
+            with tracing.span("pin_slam.vis.sdf_slice") as sp:
+                height = origin[2] + cfg.sdf_slice_height
+                pts_sl, sdf_sl = self._vis_mesher.sdf_slice(self.lm, self.decoder,
+                                                            self.sdf_scale, origin,
+                                                            cfg.max_range, height)
+                if pts_sl.shape[0] and write:
+                    pio.write_ply(os.path.join(vis_dir, f"sdf_slice_{fid:05d}.ply"), pts_sl,
+                                  extra={"sdf": sdf_sl})
+            ms["sdf_slice"] = sp.ms
 
     def _export_live_viewer(self, run_path, fid, pts, v, f, c, map_points: int) -> None:
         """The live viewer's refresh: one narrow copy of a strided pool
@@ -962,128 +1012,147 @@ class SlamSystem:
         if self.gt_loop_mgr is not None and self.dataset.gt_pose_provided:
             self.gt_loop_mgr.add_node(fid, self.dataset.gt_poses[fid])
 
-    def _f32_dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    def _f32_dev(self, a, site: str) -> torch.Tensor:
+        """``a`` as float32 on the device: a counted upload at ``site``."""
+        return tracing.upload(np.asarray(a, np.float32), site, self.device)
 
     def _loop_closure_stage(self, info: dict) -> None:
         """The pose-graph stage of a conservative frame: bookkeeping and the
         frame's descriptor, and on detection frames loop detection,
-        verification, optimisation and map deformation."""
+        verification, optimisation and map deformation, each in its span."""
         cfg, mc = self.config, self.mc
         fid = self.frame_id
         pgm = self.pgm
         travel = self.dataset.travel_dist
         cur = self.dataset.pgo_poses[fid].copy()
+        span = tracing.span
 
-        self._pgo_bookkeeping(fid)
-        drift = pgm.estimate_drift(travel, fid)
+        with span("pin_slam.pgo.bookkeeping"):
+            self._pgo_bookkeeping(fid)
+            drift = pgm.estimate_drift(travel, fid)
         if self.loop_mgr is not None and fid > 0:
-            feats = self.lm.geo_features if cfg.loop_with_feature else None
-            self.loop_mgr.add_node_device(fid, self.lm.positions, self.lm.count,
-                                          self._f32_dev(cur[:3, :3]), self._f32_dev(cur[:3, 3]),
-                                          feats)
+            with span("pin_slam.pgo.descriptor"):
+                feats = self.lm.geo_features if cfg.loop_with_feature else None
+                self.loop_mgr.add_node_device(fid, self.lm.positions, self.lm.count,
+                                              self._f32_dev(cur[:3, :3], "pose_R"),
+                                              self._f32_dev(cur[:3, 3], "pose_t"), feats)
         if fid == 0 or fid % max(cfg.pgo_freq, 1) != 0 or self.last_source is None:
             return
-        if self.loop_mgr is not None:
-            self.loop_mgr.materialize_pending()
 
-        # local loop first (pose distance within the drift radius), then the
-        # global scan-context search; repeated verification failures tighten
-        # the local acceptance distance (capped)
-        poses = np.stack(self.dataset.pgo_poses)
-        gt_trans = None
-        yaw = 0.0
-        if self.gt_loop_mgr is not None:
-            loop_id, _, gt_trans = self.gt_loop_mgr.detect_loop()
-        else:
-            penalty = 1.0 + 0.3 * min(self.loop_reg_failed_count, 4)
-            loop_id, _ = ld.detect_local_loop(
-                poses, travel, fid, drift, cfg.min_loop_travel_dist_ratio,
-                cfg.local_map_radius, cfg.max_loop_dist,
-                accept_divisor=penalty)
-            if loop_id < 0 and self.loop_mgr is not None:
-                loop_id, _, yaw = self.loop_mgr.detect_global_loop(drift, travel, fid,
-                                                                   poses=poses)
-        if loop_id < 0:
-            return
-        if cfg.loop_z_check_on:
-            # delta-z sanity check against multi-floor ambiguity
-            rel_guess = np_se3_inverse(poses[loop_id]) @ (
-                poses[loop_id] @ gt_trans if gt_trans is not None else cur)
-            if abs(rel_guess[2, 3]) > cfg.voxel_size_m * 4.0:
-                info["loop_z_rejected"] = True
+        with span("pin_slam.pgo.detect"):
+            if self.loop_mgr is not None:
+                self.loop_mgr.materialize_pending()
+            # local loop first (pose distance within the drift radius), then the
+            # global scan-context search; repeated verification failures tighten
+            # the local acceptance distance (capped)
+            poses = np.stack(self.dataset.pgo_poses)
+            gt_trans = None
+            yaw = 0.0
+            if self.gt_loop_mgr is not None:
+                loop_id, _, gt_trans = self.gt_loop_mgr.detect_loop()
+            else:
+                penalty = 1.0 + 0.3 * min(self.loop_reg_failed_count, 4)
+                loop_id, _ = ld.detect_local_loop(
+                    poses, travel, fid, drift, cfg.min_loop_travel_dist_ratio,
+                    cfg.local_map_radius, cfg.max_loop_dist,
+                    accept_divisor=penalty)
+                if loop_id < 0 and self.loop_mgr is not None:
+                    loop_id, _, yaw = self.loop_mgr.detect_global_loop(drift, travel, fid,
+                                                                       poses=poses)
+            if loop_id < 0:
                 return
-        info["loop_candidate"] = loop_id
+            if cfg.loop_z_check_on:
+                # delta-z sanity check against multi-floor ambiguity
+                rel_guess = np_se3_inverse(poses[loop_id]) @ (
+                    poses[loop_id] @ gt_trans if gt_trans is not None else cur)
+                if abs(rel_guess[2, 3]) > cfg.voxel_size_m * 4.0:
+                    info["loop_z_rejected"] = True
+                    return
+            info["loop_candidate"] = loop_id
 
-        # verification: register this frame's source cloud against the map
-        # around the loop pose, rebuilt with the travel window tightened to
-        # half the travel gap (the map roughly as it was at the loop frame)
-        loop_pose = poses[loop_id]
-        if gt_trans is not None:
-            guess = loop_pose @ gt_trans
-        else:
-            cz, sz = np.cos(yaw), np.sin(yaw)
-            guess = loop_pose.copy()
-            guess[:3, :3] = loop_pose[:3, :3] @ np.asarray([[cz, -sz, 0], [sz, cz, 0],
-                                                            [0, 0, 1.0]])
-        origin_loop = loop_pose[:3, 3].copy()
-        tw = np.float32(min(mc.travel_dist_window,
-                            max(0.5 * (travel[fid] - travel[loop_id]), 1e-3)))
-        if self._spatial is None:
-            lm_loop = npts.build_local_map(self.state, mc, self._f32_dev(origin_loop), loop_id,
-                                           self._travel, travel_window=float(tw))
-        else:
-            _, lm_loop = self._spatial.extract(self.state, self._f32_dev(origin_loop), loop_id,
+        with span("pin_slam.pgo.verify"):
+            # verification: register this frame's source cloud against the map
+            # around the loop pose, rebuilt with the travel window tightened to
+            # half the travel gap (the map roughly as it was at the loop frame)
+            loop_pose = poses[loop_id]
+            if gt_trans is not None:
+                guess = loop_pose @ gt_trans
+            else:
+                cz, sz = np.cos(yaw), np.sin(yaw)
+                guess = loop_pose.copy()
+                guess[:3, :3] = loop_pose[:3, :3] @ np.asarray([[cz, -sz, 0], [sz, cz, 0],
+                                                                [0, 0, 1.0]])
+            origin_loop = loop_pose[:3, 3].copy()
+            tw = np.float32(min(mc.travel_dist_window,
+                                max(0.5 * (travel[fid] - travel[loop_id]), 1e-3)))
+            origin_d = self._f32_dev(origin_loop, "loop_origin")
+            if self._spatial is None:
+                lm_loop = npts.build_local_map(self.state, mc, origin_d, loop_id,
                                                self._travel, travel_window=float(tw))
-        source, src_valid, nrm, nrm_valid = self.last_source
-        res = trk.track_frame(
-            lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
-            source, src_valid, torch.as_tensor(guess[:3, :3].astype(np.float32)),
-            torch.as_tensor((guess[:3, 3] - origin_loop).astype(np.float32)),
-            after_pgo=self.after_pgo, source_normals=nrm, source_normal_valid=nrm_valid)
-        if not res.valid:
-            self.loop_reg_failed_count += 1
-            info["loop_verified"] = False
-            return
-        info["loop_verified"] = True
+            else:
+                _, lm_loop = self._spatial.extract(self.state, origin_d, loop_id,
+                                                   self._travel, travel_window=float(tw))
+            source, src_valid, nrm, nrm_valid = self.last_source
+            res = trk.track_frame(
+                lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
+                source, src_valid, torch.as_tensor(guess[:3, :3].astype(np.float32)),
+                torch.as_tensor((guess[:3, 3] - origin_loop).astype(np.float32)),
+                after_pgo=self.after_pgo, source_normals=nrm, source_normal_valid=nrm_valid)
+            if not res.valid:
+                self.loop_reg_failed_count += 1
+                info["loop_verified"] = False
+                return
+            info["loop_verified"] = True
 
-        T_cur = np.eye(4)
-        T_cur[:3, :3] = res.R.double().numpy()
-        T_cur[:3, 3] = res.t.double().numpy() + origin_loop
-        cov = res.cov.double().numpy() if cfg.use_reg_cov_mat else None
-        pgm.add_loop_factor(fid, loop_id, np_se3_inverse(loop_pose) @ T_cur, cov)
-        pgm.last_loop_idx = fid
+        with span("pin_slam.pgo.optimize"):
+            T_cur = np.eye(4)
+            T_cur[:3, :3] = res.R.double().numpy()
+            T_cur[:3, 3] = res.t.double().numpy() + origin_loop
+            cov = res.cov.double().numpy() if cfg.use_reg_cov_mat else None
+            pgm.add_loop_factor(fid, loop_id, np_se3_inverse(loop_pose) @ T_cur, cov)
+            pgm.last_loop_idx = fid
+            new_poses = pgm.optimize_pose_graph()
+            pose_diff = pgm.get_pose_diff(poses)
+            diff_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+            diff_full[:pose_diff.shape[0]] = pose_diff.astype(np.float32)
+            poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+            poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
 
-        # optimise, then deform the map and re-derive the pool
-        new_poses = pgm.optimize_pose_graph()
-        pose_diff = pgm.get_pose_diff(poses)
-        diff_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
-        diff_full[:pose_diff.shape[0]] = pose_diff.astype(np.float32)
-        poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
-        poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
-        self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full))
-        if self._spatial is None:
-            self.state = npts.adjust_map(self.state, mc, self._f32_dev(diff_full))
-            self.state = npts.recreate_hash(self.state, mc, fid,
-                                            downsample_table_size=cfg.downsample_hash_size)
-            attr_rows = self.state.attr_rows
-        else:
-            # per shard (each point moves by its own timestamp's correction);
-            # the pool's cached neighbours read every shard's rows, gathered
-            # into the shard-block id layout
-            self.state = self._spatial.adjust(self.state, self._f32_dev(diff_full))
-            self.state = self._spatial.recreate(self.state, fid)
-            attr_rows = self._spatial.gather_attr_rows(self.state)
-        self.pool = mp.pool_refresh_cache(self.pool, attr_rows, mc, mc.pos_encode)
+        with span("pin_slam.pgo.deform"):
+            # deform the map and re-derive the pool
+            with span("pin_slam.pgo.deform.retransform"):
+                self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full, "poses"))
+            if self._spatial is None:
+                with span("pin_slam.pgo.deform.adjust_map"):
+                    self.state = npts.adjust_map(self.state, mc,
+                                                 self._f32_dev(diff_full, "pose_diff"))
+                with span("pin_slam.pgo.deform.recreate_hash"):
+                    self.state = npts.recreate_hash(
+                        self.state, mc, fid, downsample_table_size=cfg.downsample_hash_size)
+                attr_rows = self.state.attr_rows
+            else:
+                # per shard (each point moves by its own timestamp's correction);
+                # the pool's cached neighbours read every shard's rows, gathered
+                # into the shard-block id layout
+                with span("pin_slam.pgo.deform.adjust_map"):
+                    self.state = self._spatial.adjust(self.state,
+                                                      self._f32_dev(diff_full, "pose_diff"))
+                with span("pin_slam.pgo.deform.recreate_hash"):
+                    self.state = self._spatial.recreate(self.state, fid)
+                    attr_rows = self._spatial.gather_attr_rows(self.state)
+            with span("pin_slam.pgo.deform.refresh_cache"):
+                self.pool = mp.pool_refresh_cache(self.pool, attr_rows, mc, mc.pos_encode)
 
-        self.dataset.update_poses_after_pgo(new_poses)
-        self.cur_pose = new_poses[fid].copy()
-        origin = self._f32_dev(self.cur_pose[:3, 3])
-        if self._spatial is None:
-            self.lm = npts.build_local_map(self.state, mc, origin, fid, self._travel)
-        else:
-            self._slms, self.lm = self._spatial.extract(self.state, origin, fid, self._travel)
-        self.lm_origin64 = self.cur_pose[:3, 3].copy()
+        with span("pin_slam.pgo.local_map"):
+            self.dataset.update_poses_after_pgo(new_poses)
+            self.cur_pose = new_poses[fid].copy()
+            origin = self._f32_dev(self.cur_pose[:3, 3], "origin")
+            if self._spatial is None:
+                self.lm = npts.build_local_map(self.state, mc, origin, fid, self._travel)
+            else:
+                self._slms, self.lm = self._spatial.extract(self.state, origin, fid,
+                                                            self._travel)
+            self.lm_origin64 = self.cur_pose[:3, 3].copy()
         self.after_pgo = True
         self.loop_reg_failed_count = 0
         info["pgo_applied"] = True
@@ -1102,44 +1171,45 @@ class SlamSystem:
         ``iters`` iterations), write the poses back, then re-derive the
         pool's coordinates and cached kNN geometry (the map points do not
         move).  Returns the call's window, losses, mean pose shift and
-        wall time, or None for a window under two poses."""
-        cfg, mc = self.config, self.mc
-        t0 = time.perf_counter()
-        poses_list = self.dataset.pgo_poses if cfg.pgo_on else self.dataset.odom_poses
-        n_poses = len(poses_list)
-        window = min(cfg.ba_frame, n_poses - 1)
-        if window < 2:
-            return None
-        window_start = n_poses - window
-        poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
-        poses_full[:n_poses] = np.stack(poses_list).astype(np.float32)
-        num_iters = cfg.iters * 4
-        idx = self.rand.ba_indices(self.frame_id, self.pool, self.mcfg.bs, num_iters)
-        xi0 = torch.zeros((window, 6), dtype=torch.float32, device=self.device)
-        feats, xi, hist = mp.bundle_adjustment_loop(
-            self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
-            self.offsets, self._f32_dev(poses_full), window_start, xi0, idx)
-        self.lm.geo_features = feats
-        self._write_back(self.lm)
-        dT = se3_expmap(xi).double().cpu().numpy()
-        before = np.stack(poses_list[window_start:])[:, :3, 3]
-        for i in range(window):
-            poses_list[window_start + i] = dT[i] @ poses_list[window_start + i]
-        shift = np.linalg.norm(np.stack(poses_list[window_start:])[:, :3, 3] - before, axis=1)
-        self.cur_pose = poses_list[self.frame_id].copy()
-        self.dataset.last_pose = self.cur_pose.copy()
+        milliseconds (its span's), or None for a window under two poses."""
+        with tracing.span("pin_slam.pgo.ba") as ba:
+            cfg, mc = self.config, self.mc
+            poses_list = self.dataset.pgo_poses if cfg.pgo_on else self.dataset.odom_poses
+            n_poses = len(poses_list)
+            window = min(cfg.ba_frame, n_poses - 1)
+            if window < 2:
+                return None
+            window_start = n_poses - window
+            poses_full = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+            poses_full[:n_poses] = np.stack(poses_list).astype(np.float32)
+            num_iters = cfg.iters * 4
+            idx = self.rand.ba_indices(self.frame_id, self.pool, self.mcfg.bs, num_iters)
+            xi0 = torch.zeros((window, 6), dtype=torch.float32, device=self.device)
+            feats, xi, hist = mp.bundle_adjustment_loop(
+                self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
+                self.offsets, self._f32_dev(poses_full, "poses"), window_start, xi0, idx)
+            self.lm.geo_features = feats
+            self._write_back(self.lm)
+            dT = tracing.read(se3_expmap(xi).double(), "ba_poses").numpy()
+            before = np.stack(poses_list[window_start:])[:, :3, 3]
+            for i in range(window):
+                poses_list[window_start + i] = dT[i] @ poses_list[window_start + i]
+            shift = np.linalg.norm(np.stack(poses_list[window_start:])[:, :3, 3] - before, axis=1)
+            self.cur_pose = poses_list[self.frame_id].copy()
+            self.dataset.last_pose = self.cur_pose.copy()
 
-        poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
-        poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
-        self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new))
-        self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
-        self._sync()
-        losses = hist.cpu().numpy()
-        return {"window": window, "window_start": window_start, "iters": num_iters,
-                "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-                "loss_finite": bool(np.isfinite(losses).all()),
-                "mean_pose_shift_m": float(shift.mean()),
-                "ms": (time.perf_counter() - t0) * 1e3}
+            poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+            poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
+            self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new, "poses"))
+            self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
+            self._sync()
+            losses = tracing.read(hist, "ba_losses").numpy()
+            out = {"window": window, "window_start": window_start, "iters": num_iters,
+                   "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                   "loss_finite": bool(np.isfinite(losses).all()),
+                   "mean_pose_shift_m": float(shift.mean())}
+        out["ms"] = ba.ms
+        return out
 
     def save_artifacts(self, run_path: str):
         """End-of-run artifacts: the final pose graph and loop plot, the
@@ -1278,7 +1348,7 @@ class SlamSystem:
             center = ((amin + amax) / 2).astype(np.float32)
             radius = float(np.linalg.norm((amax - amin) / 2)) + margin
             with torch.no_grad():
-                v = npts.build_query_view(self.state, mc, self._f32_dev(center),
+                v = npts.build_query_view(self.state, mc, self._f32_dev(center, "view_center"),
                                           np.float32(radius))
             view_counts.append(int(v.count))
             if view_counts[-1] >= mc.local_capacity and not cfg.silence and self.is_writer:

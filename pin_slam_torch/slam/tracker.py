@@ -12,7 +12,10 @@ packed (N, g, residual, count) tensor comes back to the host per iteration;
 the damped 6x6 solve, the se(3) update and the convergence / health gates
 run on host float32 tensors with the same operations as the JAX package.
 That one host synchronisation per iteration is accepted in this slice
-(CUDA graphs are queued in ROADMAP.md).
+(CUDA graphs are queued in ROADMAP.md).  Every host sync and upload goes
+through ``utils/tracing.py`` (the packed fetch counts as ``gn_fetch``, once
+an iteration and once for the final statistics), charged to the caller's
+stage: odometry, or pgo in loop verification.
 
 As in the JAX package, registration runs in a sensor-centred shifted frame
 (translations relative to ``lm.origin``) so float32 stays well-conditioned.
@@ -31,6 +34,7 @@ from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.ops import smallmat
 from pin_slam_torch.ops.transforms import _cross, quat_to_rotmat, rotmat_to_quat, so3_expmap
 from pin_slam_torch.slam import tracker_grad as tg
+from pin_slam_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,20 +171,26 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     with torch.no_grad():
         src_intensity = color_to_intensity(source_colors) if color_on else None
         origin = lm.origin
-        src_count = max(int(torch.sum(source_valid)), 1)
-        r_max = _f32(torch.max(torch.where(source_valid, torch.linalg.norm(source, dim=-1),
-                                           torch.zeros_like(source[:, 0]))).cpu())
+        src_count = max(tracing.read(torch.sum(source_valid), "src_count", int), 1)
+        r_max = _f32(tracing.read(torch.max(torch.where(
+            source_valid, torch.linalg.norm(source, dim=-1), torch.zeros_like(source[:, 0]))),
+            "r_max"))
         probe_margin = 0.25 * mc.voxel_size
         max_sdf_std = tc.surface_sample_range * tc.max_sdf_std_ratio
 
+        def upload_pose(R, t):
+            return tracing.upload(R, "pose_R", dev), tracing.upload(t, "pose_t", dev)
+
         def probe(R, t):
-            return tg.probe_candidates(lm, mc, source @ R.to(dev).T + t.to(dev) + origin,
-                                       offsets)
+            with tracing.part("probe"):
+                R_d, t_d = upload_pose(R, t)
+                return tg.probe_candidates(lm, mc, source @ R_d.T + t_d + origin, offsets)
 
         photometric = color_on and tc.photometric_on
 
         def one_step(R, t, cache=None):
-            cur = source @ R.to(dev).T + t.to(dev)
+            R_d, t_d = upload_pose(R, t)
+            cur = source @ R_d.T + t_d
             if color_on:
                 sdf, grad, inten, c_grad, nn_count, sdf_std = _sdf_intensity_grads(
                     lm, mc, decoder, color_decoder, sdf_scale, cells, cur + origin, after_pgo,
@@ -198,7 +208,7 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
             residual = sdf
             w = _gm_weight(tc.GM_dist, residual) * _gm_weight(tc.GM_grad, grad_norm - 1.0)
             if source_normals is not None:
-                n_w = source_normals @ R.to(dev).T
+                n_w = source_normals @ tracing.upload(R, "pose_R", dev).T
                 grad_unit = grad / torch.clamp(grad_norm, min=1e-12)[:, None]
                 w_normal = 0.5 + torch.abs(torch.sum(n_w * grad_unit, dim=-1))
                 if source_normal_valid is not None:
@@ -226,8 +236,9 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
                 photo_n = torch.sum(w != 0.0).to(torch.float32)
             res_cm = (torch.sum(torch.where(mask, torch.abs(residual), torch.zeros_like(residual)))
                       / torch.clamp(valid_count, min=1) * 100.0)
-            packed = torch.cat([N.reshape(-1), g, res_cm[None],
-                                valid_count.to(torch.float32)[None], photo_n[None]]).cpu()
+            packed = tracing.read(torch.cat([N.reshape(-1), g, res_cm[None],
+                                             valid_count.to(torch.float32)[None],
+                                             photo_n[None]]), "gn_fetch")
             return (packed[:36].reshape(6, 6), packed[36:42], packed[42], int(packed[43]),
                     int(packed[44]))
 
@@ -246,30 +257,31 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
 
         def gn_update(R, t, cache):
             """One damped Gauss-Newton step from (R, t) and its gates."""
-            N, g, res_cm, vc, _ = one_step(R, t, cache)
-            xi = solve(N, g)
-            w_norm = torch.linalg.norm(xi[:3])
-            v_norm = torch.linalg.norm(xi[3:])
-            scale = torch.clamp(torch.minimum(0.5 / torch.clamp(w_norm, min=1e-12),
-                                              2.0 / torch.clamp(v_norm, min=1e-12)), max=1.0)
-            xi = xi * scale
-            dR = so3_expmap(xi[:3])
-            dt = xi[3:]
-            R = quat_to_rotmat(rotmat_to_quat(dR @ R))
-            t = dR @ t + dt
-            last_res = st["last_res"]
-            grew = bool((res_cm - last_res) / torch.clamp(last_res, min=1e-9)
-                        > tc.max_increment_ratio)
-            enough = (vc >= tc.min_valid_points
-                      and bool(_f32(vc) / _f32(src_count) >= tc.min_valid_ratio))
-            st["valid"] = st["valid"] and not grew and enough
-            st["last_res"] = last_res if grew else res_cm
-            rot_deg = torch.arccos(torch.clamp((torch.trace(dR) - 1) / 2, -1.0, 1.0)) \
-                * (180.0 / math.pi)
-            st["converged"] = bool((rot_deg < tc.term_thre_deg)
-                                   & (torch.linalg.norm(dt) < tc.term_thre_m))
-            st["i"] += 1
-            return R, t
+            with tracing.part("gn_step"):
+                N, g, res_cm, vc, _ = one_step(R, t, cache)
+                xi = solve(N, g)
+                w_norm = torch.linalg.norm(xi[:3])
+                v_norm = torch.linalg.norm(xi[3:])
+                scale = torch.clamp(torch.minimum(0.5 / torch.clamp(w_norm, min=1e-12),
+                                                  2.0 / torch.clamp(v_norm, min=1e-12)), max=1.0)
+                xi = xi * scale
+                dR = so3_expmap(xi[:3])
+                dt = xi[3:]
+                R = quat_to_rotmat(rotmat_to_quat(dR @ R))
+                t = dR @ t + dt
+                last_res = st["last_res"]
+                grew = bool((res_cm - last_res) / torch.clamp(last_res, min=1e-9)
+                            > tc.max_increment_ratio)
+                enough = (vc >= tc.min_valid_points
+                          and bool(_f32(vc) / _f32(src_count) >= tc.min_valid_ratio))
+                st["valid"] = st["valid"] and not grew and enough
+                st["last_res"] = last_res if grew else res_cm
+                rot_deg = torch.arccos(torch.clamp((torch.trace(dR) - 1) / 2, -1.0, 1.0)) \
+                    * (180.0 / math.pi)
+                st["converged"] = bool((rot_deg < tc.term_thre_deg)
+                                       & (torch.linalg.norm(dt) < tc.term_thre_m))
+                st["i"] += 1
+                return R, t
 
         cache = None
         if uncached:
@@ -287,7 +299,8 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
                 cache = probe(R, t)
 
         R = quat_to_rotmat(rotmat_to_quat(R))
-        N, g, res_cm, vc, photo_n = one_step(R, t, cache)
+        with tracing.part("gn_final"):
+            N, g, res_cm, vc, photo_n = one_step(R, t, cache)
         valid = st["valid"] and bool(res_cm <= tc.surface_sample_range * 0.5 * 100.0)
         min_eig = smallmat.sym_eigvals_min3(N[3:, 3:])
         if tc.eigenvalue_check:
