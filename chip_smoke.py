@@ -367,6 +367,7 @@ class Capture:
         self.plain_rank_calls = 0
         self.plain_train_calls = 0
         self.feat_c = 9                   # the feature rows' columns: F + 1
+        self.twin = None                  # the tracker's kernel-against-twin replays (TrackTwin)
 
     def _keep(self, key, args, kwargs):
         import torch
@@ -618,11 +619,14 @@ def run_path(name, cap, mesh=False):
     tg.sdf_value_and_grad_cached, trk._autograd_sdf = q_cached, q_auto
     try:
         for fr in frames:
+            replay0 = cap.twin.replay_s if cap.twin else 0.0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             infos.append(system.process_frame(fr))
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            # the tracker's twin replays (TrackTwin) are not the frame's
+            times.append(time.perf_counter() - t0
+                         - ((cap.twin.replay_s if cap.twin else 0.0) - replay0))
     finally:
         tg.sdf_value_and_grad_cached, trk._autograd_sdf = orig_q
     counts = dict(_cuda.COUNTS)
@@ -724,6 +728,12 @@ def run_path(name, cap, mesh=False):
     for k, n in need.items():
         if counts[k] < n:
             fail(f"path {name}: kernel {k} launched {counts[k]} times, expected >= {n}")
+    # the cached tracker steps through the track-step kernel; the encoded
+    # (autograd) tracker never does
+    if (counts["track_step"] > 0) != (cfg.pos_encoding_band == 0) \
+            or counts["track_step"] < (n_frames - 1 if cfg.pos_encoding_band == 0 else 0):
+        fail(f"path {name}: track_step launched {counts['track_step']} times over {n_frames} "
+             f"frames (positional encoding {cfg.pos_encoding_band})")
     # the training kernels' twins never run on the card's path; the paths
     # that name a form run their training kernels in it
     if cap.plain_train_calls:
@@ -1370,8 +1380,11 @@ def run_path_e(cap):
     if not repeat_ok:
         fail("path E: the training call rerun from its inputs differs")
     for k in counts:
-        if k != "rank" and counts[k] < 1:
+        if k not in ("rank", "track_step") and counts[k] < 1:
             fail(f"path E: kernel {k} never launched")
+    if counts["track_step"]:
+        fail(f"path E: the colour tracker launched the track-step kernel {counts['track_step']} "
+             f"times")
     if counts["rank"] or cap.plain_rank_calls:
         fail(f"path E: the brick probe went through the per-cell rank kernel "
              f"({counts['rank']}) or the plain brick gather ({cap.plain_rank_calls})")
@@ -4497,6 +4510,438 @@ def shard_c_phase(c1):
     return res, r0["rows"]
 
 
+# ----------------------------------------------------------------------
+# the tracker's cached Gauss-Newton step (ops/track_kernel.py)
+# ----------------------------------------------------------------------
+
+# N, g and the residual against the twin, as a share of each one's own
+# scale (the sum of its terms' magnitudes, ``track_scales``): the kernel
+# sums rows, warps and blocks in its own fixed order, the twin through
+# cuBLAS and torch's reductions
+TRACK_TOL = 1e-5
+TRACK_EDGE_WIDTHS = ((8, 64), (3, 20), (16, 128), (64, 256))
+
+
+class TrackTwin:
+    """Wraps ``tracker.track_frame`` while the paths run.  Every call that
+    launched the track-step kernel is run again with the kernel's plain twin
+    (``track_kernel.track_step_plain``, the same inputs) and the two results'
+    iterations, validity and convergence are compared; each iteration's step
+    is recorded as its stop ratio, max(rotation / term_thre_deg, translation
+    / term_thre_m) (the step converges below 1), read where the tracker
+    calls ``so3_expmap`` on the step.  The first kernel step's inputs of a
+    path's capture frame (``cap.capturing`` or ``cap.store``) are kept for
+    the kernel rows.  ``replay_s`` sums the replays' seconds (``run_path``
+    takes them out of its frame times)."""
+
+    def __init__(self, cap):
+        from pin_slam_torch.ops import track_kernel
+        from pin_slam_torch.slam import tracker
+
+        self.cap, self.tk, self.trk = cap, track_kernel, tracker
+        self.orig = (tracker.track_frame, track_kernel.track_step, tracker.so3_expmap)
+        self.inputs = {}
+        self.frames = {}                  # path -> [(kernel, twin) decisions]
+        self.flips = []
+        self.replay_s = 0.0
+        self.steps = []
+
+    def install(self):
+        import copy
+        import math
+        import types
+
+        import torch
+
+        from pin_slam_torch.ops import _cuda
+
+        track_frame, track_step, so3_expmap = self.orig
+        cap = self
+
+        def step(*a, **kw):
+            path = cap.cap.path
+            if (cap.cap.capturing or cap.cap.store) and path not in cap.inputs:
+                lm = a[1]
+                keep = [x.clone() if isinstance(x, torch.Tensor) else x for x in a[4:]]
+                extra = dict(zip(("after_pgo", "source_normals", "source_normal_valid"),
+                                 keep[7:]), **kw)
+                cap.inputs[path] = (
+                    [a[0]._make(x.clone() for x in a[0]),
+                     types.SimpleNamespace(geo_features=lm.geo_features.clone(),
+                                           attr_rows=lm.attr_rows.clone(),
+                                           origin=lm.origin.clone()),
+                     a[2], copy.deepcopy(a[3])] + keep[:7], extra)
+            return track_step(*a, **kw)
+
+        def expmap(w):
+            # w = xi[:3] of the tracker's scaled step xi; its translation is xi[3:]
+            dR = so3_expmap(w)
+            rot = math.degrees(math.acos(max(-1.0, min(1.0, (float(torch.trace(dR)) - 1) / 2))))
+            xi = w._base if w._base is not None else w
+            cap.steps.append((rot, float(torch.linalg.norm(xi[3:]))))
+            return dR
+
+        def frame(*a, **kw):
+            before = _cuda.COUNTS["track_step"]
+            cap.steps = []
+            res = track_frame(*a, **kw)
+            if _cuda.COUNTS["track_step"] == before:
+                return res
+            tc = a[2]
+            ratios = [[max(r / tc.term_thre_deg, d / tc.term_thre_m) for r, d in cap.steps]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap.tk.track_step = lambda *s, **skw: cap.tk.track_step_plain(*s[:9], *s[10:], **skw)
+            cap.steps = []
+            try:
+                twin = track_frame(*a, **kw)
+            finally:
+                cap.tk.track_step = step
+            ratios.append([max(r / tc.term_thre_deg, d / tc.term_thre_m) for r, d in cap.steps])
+            torch.cuda.synchronize()
+            cap.replay_s += time.perf_counter() - t0
+            got = [(r.iterations, r.valid, r.converged) for r in (res, twin)]
+            path = cap.cap.path
+            cap.frames.setdefault(path, []).append(got)
+            if got[0] != got[1]:
+                n = min(got[0][0], got[1][0])
+                dt = float(torch.linalg.norm(res.t - twin.t))
+                rot = math.degrees(math.acos(max(-1.0, min(1.0, (float(torch.trace(
+                    res.R @ twin.R.T)) - 1) / 2))))
+                cap.flips.append({
+                    "path": path, "call": len(cap.frames[path]) - 1,
+                    "kernel_iters_valid_converged": got[0], "twin_iters_valid_converged": got[1],
+                    "stop_ratio_at_deciding_step": [rs[n - 1] if 0 < n <= len(rs) else None
+                                                    for rs in ratios],
+                    "poses_apart_over_stop": [dt / tc.term_thre_m, rot / tc.term_thre_deg],
+                    "same_registration": (got[0][1:] == got[1][1:] == (True, True)
+                                          and abs(got[0][0] - got[1][0]) == 1
+                                          and dt < tc.term_thre_m and rot < tc.term_thre_deg),
+                    "residual_cm": [res.sdf_residual_cm, twin.sdf_residual_cm],
+                    "valid_count": [res.valid_count, twin.valid_count],
+                    "min_eigenvalue": [res.min_eigenvalue, twin.min_eigenvalue]})
+            return res
+
+        self.trk.track_frame, self.tk.track_step, self.trk.so3_expmap = frame, step, expmap
+
+    def uninstall(self):
+        self.trk.track_frame, self.tk.track_step, self.trk.so3_expmap = self.orig
+
+
+def track_scales(args, kwargs):
+    """Each packed part's own scale for ``track_check``: the largest sum of
+    the magnitudes of its terms (N: |J_a| w |J_b|, g: |J_a| w |r|, the
+    residual: |r| over the count), in float64 from the twin's per-row SDF
+    and gradient.  g is a sum of terms of both signs, so its entries can be
+    far smaller than the terms whose rounding they carry."""
+    import torch
+
+    from pin_slam_torch.ops.transforms import _cross
+    from pin_slam_torch.slam import tracker_grad as tg
+
+    cache, lm, mc, decoder, sdf_scale, source, valid, R, t, _, tc = args
+    nrm, nv = kwargs.get("source_normals"), kwargs.get("source_normal_valid")
+    with torch.no_grad():
+        cur = source @ R.to(source.device).T + t.to(source.device)
+        sdf, grad, nn, std = tg.sdf_value_and_grad_cached(
+            cache, lm, mc, decoder, sdf_scale, cur + lm.origin, kwargs.get("after_pgo", False))
+        cur, sdf, grad = cur.double(), sdf.double(), grad.double()
+        gn = torch.linalg.norm(grad, dim=-1)
+        mask = (valid & (nn >= tc.mask_min_nn_count) & (gn > tc.min_grad_norm)
+                & (gn < tc.max_grad_norm) & (std < tc.surface_sample_range * tc.max_sdf_std_ratio))
+
+        def gm(k, r):
+            return (k / (k * k + r * r)) ** 2
+
+        w = gm(tc.GM_dist, sdf) * gm(tc.GM_grad, gn - 1.0)
+        if nrm is not None:
+            n_w = nrm.double() @ R.to(source.device).double().T
+            wn = 0.5 + torch.abs(torch.sum(n_w * grad / gn.clamp(min=1e-12)[:, None], dim=-1))
+            w = w * (wn if nv is None else torch.where(nv, wn, torch.ones_like(wn)))
+        w = torch.where(mask, w, torch.zeros_like(w))
+        count = max(int(mask.sum()), 1)
+        w = w / max(2.0 * float(w.sum()) / count, 1e-12)
+        J = torch.cat([_cross(cur, grad), grad], dim=-1).abs()
+        Jw = J * w[:, None]
+        return {"N": float((J.T @ Jw).max()), "g": float((Jw.T @ sdf.abs()).max()),
+                "res_cm": float(torch.where(mask, sdf.abs(), 0.0).sum()) / count * 100.0}
+
+
+def track_check(out_k, out_p, label, scales, exact=None, by_float64=False):
+    """Fails unless the kernel's packed vector matches the twin's: N, g and
+    the residual within ``TRACK_TOL`` of their own scale (``track_scales``),
+    the valid count and the photometric count exact.  ``exact()``, where
+    given, is the twin in float64: a failure reports both versions'
+    distances to it; with ``by_float64`` (random inputs, where a row's IDW
+    gradient can cancel far past float32's reach) a part past the tolerance
+    still passes when the kernel is no farther from the twin than the twin
+    is from float64.  Returns each part's largest error over its scale."""
+    parts = {"N": slice(0, 36), "g": slice(36, 42), "res_cm": slice(42, 43)}
+    a, b = out_k.detach().double().cpu(), out_p.detach().double().cpu()
+    if a.shape != (45,) or b.shape != (45,) or not bool(a.isfinite().all()):
+        fail(f"track_step[{label}]: packed vectors {tuple(a.shape)} / {tuple(b.shape)}, "
+             f"finite {bool(a.isfinite().all())}")
+    errs, x = {}, None
+    for name, sl in parts.items():
+        errs[name] = float((a[sl] - b[sl]).abs().max()) / max(scales[name], 1e-30)
+        if errs[name] <= TRACK_TOL:
+            continue
+        if exact is None:
+            fail(f"track_step[{label}]: {name} off by {errs[name]:.3g} of its scale "
+                 f"(tolerance {TRACK_TOL})")
+        x = exact().detach().cpu() if x is None else x
+        twin64 = float((b[sl] - x[sl]).abs().max()) / max(scales[name], 1e-30)
+        if not (by_float64 and errs[name] <= twin64):
+            kern64 = float((a[sl] - x[sl]).abs().max()) / max(scales[name], 1e-30)
+            fail(f"track_step[{label}]: {name} off by {errs[name]:.3g} of its scale "
+                 f"(tolerance {TRACK_TOL}); to float64: kernel {kern64:.3g}, twin {twin64:.3g}")
+    if a[43] != b[43] or a[44] != b[44]:
+        fail(f"track_step[{label}]: valid count {float(a[43])} / {float(b[43])}, photometric "
+             f"count {float(a[44])} / {float(b[44])}")
+    return errs
+
+
+def synthetic_track_args(wf, N, M, k, seed, device="cuda", n_valid=None, F=8, H=64,
+                         after_pgo=False, normals=False, ties=False, layer_norm=False,
+                         origin=(1234.5, -876.25, 12.75)):
+    """A track step's arguments on random inputs shaped like a trained map's:
+    N source rows of which the first ``n_valid`` are valid, each with M
+    cached candidates within 0.6 m of its point (a sixth of them not in the
+    map), each candidate a map row of its own whose features vary smoothly
+    with its position (0.5 sin of a random linear field, plus noise of
+    0.02), so that the
+    neighbours' predictions agree as a trained map's do; near-identity
+    quaternions (a pose-graph correction); features with a certainty column
+    beside them, as the map stores them; a decoder of F + 3 -> H -> 1 scaled
+    so that the median gradient norm is 1.  ``ties``: candidate columns 2,
+    4, ... repeat the position of the column before them with another row
+    (so the k-th and (k+1)-th nearest are often a tie).  ``origin``: the
+    local map's, by default a kilometre out, as the cells' maps are.
+    Returns the ``track_step`` positional arguments (origin among them) and
+    keywords."""
+    import types
+
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.models.decoder import Decoder
+    from pin_slam_torch.slam import tracker_grad as tg
+    from pin_slam_torch.slam.tracker import TrackerConfig
+
+    g = torch.Generator().manual_seed(seed)
+    n_valid = N if n_valid is None else n_valid
+    L = N * M
+    origin = torch.tensor(origin)
+    ang = torch.rand(3, generator=g) * 0.2 - 0.1
+    R = torch.linalg.matrix_exp(torch.tensor([[0.0, -ang[2], ang[1]], [ang[2], 0.0, -ang[0]],
+                                              [-ang[1], ang[0], 0.0]]))
+    t = torch.rand(3, generator=g) - 0.5
+    source = torch.rand((N, 3), generator=g) * 20.0 - 10.0
+    valid = torch.arange(N) < n_valid
+    p = source @ R.T + t + origin
+    pos = p[:, None, :] + torch.rand((N, M, 3), generator=g) * 1.2 - 0.6
+    if ties:
+        pos[:, 2:M - 1:2] = pos[:, 1:M - 2:2]
+    lidx = torch.arange(L).reshape(N, M)
+    feat = torch.zeros((L + 1, F + 1))
+    field, phase = torch.randn((3, F), generator=g) * 0.5, torch.rand(F, generator=g) * 6.3
+    feat[:L, :F] = (0.5 * torch.sin((pos - origin).reshape(L, 3) @ field + phase)
+                    + torch.randn((L, F), generator=g) * 0.02)
+    attr = torch.zeros((L + 1, npts.ATTR_DIM))
+    attr[:L, :3] = pos.reshape(L, 3)
+    q = torch.cat([torch.ones((L + 1, 1)), torch.randn((L + 1, 3), generator=g) * 0.05], 1)
+    attr[:, 3:7] = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    attr[L, 3:7] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    out = torch.rand((N, M), generator=g) < 1.0 / 6.0
+    lidx = torch.where(out, torch.full_like(lidx, L), lidx)
+    pos = torch.where(out[..., None], torch.full_like(pos, 1e5), pos)
+    cache = tg.CandCache(xs=pos[..., 0].contiguous(), ys=pos[..., 1].contiguous(),
+                         zs=pos[..., 2].contiguous(), lidx=lidx)
+    mc = npts.MapConfig(capacity=L, local_capacity=L, hash_size=1 << 12, voxel_size=0.4,
+                        feature_dim=F, nn_k=k, max_valid_dist2=0.75 ** 2 * 3 / 4,
+                        local_map_radius=50.0, travel_dist_window=100.0, weighted_first=wf,
+                        layer_norm_on=layer_norm)
+    decoder = Decoder(F + 3, H, 1, 1, generator=g).requires_grad_(False)
+    nrm = nv = None
+    if normals:
+        nrm = torch.randn((N, 3), generator=g)
+        nrm = nrm / torch.linalg.norm(nrm, dim=-1, keepdim=True)
+        nv = torch.rand(N, generator=g) < 0.8
+    lm = types.SimpleNamespace(geo_features=feat[:, :F], attr_rows=attr, origin=origin)
+    # the decoder's scale: the median gradient norm of the valid rows at 1;
+    # the spread gate at twice the median spread
+    _, grad, _, std = tg.sdf_value_and_grad_cached(cache, lm, mc, decoder, 1.0, p, after_pgo)
+    gn = torch.linalg.norm(grad[:max(n_valid, 1)], dim=-1)
+    scale = 1.0 / max(float(gn.median()), 1e-6)
+    std_ratio = max(2.0 * scale * float(std[:max(n_valid, 1)].median()) / 0.25, 1.0)
+    tc = TrackerConfig(mask_min_nn_count=min(k, 6), max_sdf_std_ratio=std_ratio)
+
+    def dev(x):
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    decoder = decoder.to(device)
+    feat_d, attr_d = feat.to(device), attr.to(device)
+    lm = types.SimpleNamespace(geo_features=feat_d[:, :F], attr_rows=attr_d,
+                               origin=origin.to(device))
+    cache = tg.CandCache(*(dev(x) for x in cache))
+    args = [cache, lm, mc, decoder, scale, dev(source), dev(valid), R, t, origin, tc]
+    return args, dict(after_pgo=after_pgo, source_normals=dev(nrm), source_normal_valid=dev(nv))
+
+
+def _plain64_of(args, kwargs):
+    """The twin's call in float64 on the same inputs (for a failure's
+    report: each float32 version's distance to it)."""
+    import copy
+    import types
+
+    import torch
+
+    from pin_slam_torch.ops import track_kernel
+
+    def d(x):
+        return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+    cache, lm, mc, decoder, sdf_scale, source, valid, R, t, _, tc = args
+    lm64 = types.SimpleNamespace(geo_features=d(lm.geo_features), attr_rows=d(lm.attr_rows),
+                                 origin=d(lm.origin))
+    return lambda: track_kernel.track_step_plain(
+        cache._make(d(x) for x in cache), lm64, mc, copy.deepcopy(decoder).double(), sdf_scale,
+        d(source), valid, d(R), d(t), tc, **{k: d(v) for k, v in kwargs.items()})
+
+
+def _plain_of(args, kwargs):
+    """The twin's call on ``track_step``'s arguments (it reads the origin
+    from the map)."""
+    from pin_slam_torch.ops import track_kernel
+
+    return lambda: track_kernel.track_step_plain(*args[:9], *args[10:], **kwargs)
+
+
+def track_bound(args, kwargs):
+    """(least ms, what bounds it) of one step: the valid rows' source row,
+    flag and M candidates (xyz, int64 index), their k neighbours' feature
+    rows (and quaternions after a pose-graph optimisation, normals where
+    given), the decoder and the packed vector; operations of k decodes a row
+    per neighbour (the forward, its output, the 3-wide input gradient), or
+    one decode and its full input gradient with weighted_first."""
+    cache, lm, mc, decoder, _, source, valid = args[:7]
+    n = int(valid.sum())
+    M = cache.lidx.shape[1]
+    k = min(mc.nn_k, M)
+    F = lm.geo_features.shape[1]
+    W1 = decoder.layers()[0][0]
+    IN, H = W1.shape
+    row = 12 + 1 + M * 20 + k * 4 * (F + (4 if kwargs.get("after_pgo") else 0))
+    row += 13 if kwargs.get("source_normals") is not None else 0
+    nbytes_ = n * row + 4 * (IN * H + 2 * H + 1) + 4 * 45
+    if mc.weighted_first:
+        flops = n * (2 * IN * H + 2 * H + 2 * IN * H + 2 * k * IN)
+    else:
+        flops = n * k * (2 * IN * H + 2 * H + 2 * 3 * H)
+    return bound(nbytes_, flops)
+
+
+def track_step_phase(label, args, kwargs, launches):
+    """A kernel row of the track step on one captured (or random) input:
+    checked against the twin, two launches bit-identical, timed."""
+    import torch
+
+    from pin_slam_torch.ops import track_kernel
+
+    def kern():
+        return track_kernel.track_step(*args, **kwargs)
+
+    cache, lm, mc, decoder = args[:4]
+    with torch.no_grad():
+        plain = _plain_of(args, kwargs)
+        errs = track_check(kern(), plain(), label, track_scales(args, kwargs),
+                           _plain64_of(args, kwargs))
+        identical_check(kern(), kern(), f"track_step[{label}]")
+        times = timings(kern, plain)
+    bms, what = track_bound(args, kwargs)
+    row = {"name": f"track_step[{label}]", "route": "cuda", "launches": launches,
+           "shape": {"N": int(args[5].shape[0]), "valid": int(args[6].sum()),
+                     "M": int(cache.lidx.shape[1]), "k": min(mc.nn_k, cache.lidx.shape[1]),
+                     "F": int(lm.geo_features.shape[1]), "H": int(decoder.layers()[0][0].shape[1]),
+                     "weighted_first": bool(mc.weighted_first),
+                     "after_pgo": bool(kwargs.get("after_pgo")),
+                     "normals": kwargs.get("source_normals") is not None,
+                     "layer_norm": bool(mc.layer_norm_on)},
+           "grid": track_kernel.track_grid(int(args[5].shape[0]), args[5].get_device()),
+           "err_vs_plain": errs, "bound_ms": bms, "bound_by": what, **times}
+    emit({"phase": "kernel", **row})
+    return row
+
+
+def track_edge_phase():
+    """The track step on random inputs: at the cells' shape on a map a
+    kilometre out (where one ulp of a point is 1e-3 of an offset, so only a
+    point formed as the twin forms it passes) in both modes with and without
+    after_pgo and normals, held to ``TRACK_TOL``; then near the world's
+    origin at every decoder width class x both modes x k / M / N edges, with
+    and without after_pgo, normals, ties and layer norm (``track_check``
+    with ``by_float64``: a few random rows can cancel past float32's
+    reach).  Two launches bit-identical in every case."""
+    import torch
+
+    from pin_slam_torch.ops import track_kernel
+
+    def case(label, args, kw, by_float64):
+        out = track_kernel.track_step(*args, **kw)
+        e = track_check(out, _plain_of(args, kw)(), label, track_scales(args, kw),
+                        _plain64_of(args, kw), by_float64=by_float64)
+        identical_check(out, track_kernel.track_step(*args, **kw), label)
+        return max(e.values())
+
+    errs, cases = {}, 0
+    with torch.no_grad():
+        for wf in (True, False):
+            for extra in ({}, {"after_pgo": True, "normals": True}):
+                args, kw = synthetic_track_args(wf, 16384, 16, 6, 90 + cases, n_valid=3300,
+                                                **extra)
+                key = f"far wf{int(wf)}"
+                errs[key] = max(errs.get(key, 0.0),
+                                case(f"far wf{int(wf)} {sorted(extra)}", args, kw, False))
+                cases += 1
+        for F, H in TRACK_EDGE_WIDTHS:
+            for wf in (True, False):
+                for k, M in ((1, 16), (6, 16), (8, 32), (16, 16)):
+                    for N, n_valid in ((1, 1), (37, 30), (16384, 3300)):
+                        c = cases
+                        args, kw = synthetic_track_args(
+                            wf, N, M, k, 100 + c, n_valid=n_valid, F=F, H=H,
+                            after_pgo=c % 2 == 1, normals=c % 3 == 1, ties=c % 4 == 2,
+                            layer_norm=c % 5 == 3, origin=(12.5, -4.25, 1.75))
+                        key = f"F{F}-H{H}"
+                        errs[key] = max(errs.get(key, 0.0), case(
+                            f"edge F{F} H{H} wf{int(wf)} k{k} M{M} N{N}", args, kw, True))
+                        cases += 1
+    emit({"phase": "track_edges", "cases": cases, "max_err_over_scale": errs,
+          "tolerance": TRACK_TOL})
+
+
+def track_decisions(twin):
+    """The whole-frame comparison: every tracked frame of every path, run
+    with the kernel and again with its twin, must give the same iterations,
+    validity and convergence.  A flip is reported with its margins (each
+    run's stop ratio at the deciding iteration, the final poses' distance
+    over the stop thresholds, both residuals, valid counts and least
+    eigenvalues); it fails the run unless both runs registered and
+    converged one iteration apart, ending closer than one stop step (0.5 mm,
+    0.01 deg) to each other: a slowly converging registration whose last
+    steps sit at the threshold, not a different registration."""
+    frames = {path: len(v) for path, v in twin.frames.items()}
+    emit({"phase": "track_step", "frames_compared": frames, "flips": twin.flips,
+          "replay_s": twin.replay_s})
+    if not frames:
+        fail("track_step: no tracked frame launched the kernel")
+    bad = [f for f in twin.flips if not f["same_registration"]]
+    if bad:
+        fail(f"track_step: {len(bad)} tracked frame(s) decided otherwise with the twin: "
+             f"{bad[:3]}")
+
+
+
 def main() -> int:
     try:
         import torch
@@ -4525,6 +4970,8 @@ def main() -> int:
 
     cap = Capture()
     cap.install()
+    cap.twin = TrackTwin(cap)
+    cap.twin.install()
     try:
         results = {name: run_path(name, cap, mesh=True) for name in PATHS}
         results["D"] = run_path_d(cap)
@@ -4536,7 +4983,9 @@ def main() -> int:
         egen_phase(cap)
         _, live_npz = live_c_phase(cap)
     finally:
+        cap.twin.uninstall()
         cap.uninstall()
+    track_decisions(cap.twin)
     vis_pin_map_phase(live_npz)
     cli_kitti_phase()
     train_general_phase()
@@ -4616,6 +5065,15 @@ def main() -> int:
     # the per-rank shapes of dp_B and the rank kernel under shard_C, each
     # held to its plain twin inside the child that captured it
     rows += dp_rows + shard_rows
+    # the tracker's step on each path's capture frame: A weighted_first, B
+    # per neighbour at the cells' shape, C after the pose-graph optimisation,
+    # F with normals, G at k = 8
+    for path in ("A", "B", "C", "F", "G"):
+        if path not in cap.twin.inputs:
+            fail(f"path {path}: no track-step launch captured")
+        a, kw = cap.twin.inputs[path]
+        rows.append(track_step_phase(f"path{path}", a, kw,
+                                     results[path]["launches"]["track_step"]))
     # k = 8 (which the JAX kernels cannot run): checked and timed on random
     # inputs at the main path's widths; not a main-path shape, so these rows
     # stay out of the kernels line
@@ -4628,6 +5086,7 @@ def main() -> int:
     train_edge_phase()
     eikonal_edge_phase()
     width_edge_phase()
+    track_edge_phase()
     gather_edge_phase()
     scatter_edge_phase()
 

@@ -638,16 +638,18 @@ class SlamSystem:
                 with span("pin_slam.odometry.normals"):
                     nrm, nrm_valid = self._source_normals(src, src_valid)
                 self.last_source = (src, src_valid, nrm, nrm_valid)
+                # the map's origin on the host: the tracker's kernel takes it by
+                # value, and pose selection adds it back
+                origin = tracing.read(self.lm.origin, "origin")
                 res = trk.track_frame(self.lm, self.mc, self.tc, self.decoder, self.sdf_scale,
                                       self.append_tmpl, src, src_valid, R_init, t_init,
                                       after_pgo=self.after_pgo,
                                       color_decoder=self.color_decoder,
                                       source_colors=src_col[0] if src_col else None,
                                       source_normals=nrm,
-                                      source_normal_valid=nrm_valid)
+                                      source_normal_valid=nrm_valid, origin=origin)
                 with span("pin_slam.odometry.pose_select"):
                     # pose selection in float32, as the JAX package does on device
-                    origin = tracing.read(self.lm.origin, "origin")
                     t_last_w = torch.as_tensor(self.cur_pose[:3, 3], dtype=torch.float32)
                     t_est_w = res.t + origin
                     jump = bool(torch.linalg.norm(t_est_w - t_last_w)
@@ -1097,7 +1099,8 @@ class SlamSystem:
                 lm_loop, mc, self.tc_loop, self.decoder, self.sdf_scale, self.append_tmpl,
                 source, src_valid, torch.as_tensor(guess[:3, :3].astype(np.float32)),
                 torch.as_tensor((guess[:3, 3] - origin_loop).astype(np.float32)),
-                after_pgo=self.after_pgo, source_normals=nrm, source_normal_valid=nrm_valid)
+                after_pgo=self.after_pgo, source_normals=nrm, source_normal_valid=nrm_valid,
+                origin=torch.as_tensor(np.asarray(origin_loop, np.float32)))
             if not res.valid:
                 self.loop_reg_failed_count += 1
                 info["loop_verified"] = False

@@ -11,11 +11,13 @@ computes the per-point SDF, gradient and the 6x6 normal equations, and one
 packed (N, g, residual, count) tensor comes back to the host per iteration;
 the damped 6x6 solve, the se(3) update and the convergence / health gates
 run on host float32 tensors with the same operations as the JAX package.
-That one host synchronisation per iteration is accepted in this slice
-(CUDA graphs are queued in ROADMAP.md).  Every host sync and upload goes
-through ``utils/tracing.py`` (the packed fetch counts as ``gn_fetch``, once
-an iteration and once for the final statistics), charged to the caller's
-stage: odometry, or pgo in loop verification.
+The cached step (no colour, no encoding) is one launch of the track-step
+kernel (``ops/track_kernel.py``, the pose passed by value) wherever
+``track_kernel.track_kernel_takes`` holds; past it, and on the CPU, its
+plain twin.  Every host sync and upload goes through ``utils/tracing.py``
+(the packed fetch counts as ``gn_fetch``, once an iteration and once for
+the final statistics), charged to the caller's stage: odometry, or pgo in
+loop verification.
 
 As in the JAX package, registration runs in a sensor-centred shifted frame
 (translations relative to ``lm.origin``) so float32 stays well-conditioned.
@@ -31,8 +33,8 @@ import torch
 
 from pin_slam_torch.models import decoder as dec
 from pin_slam_torch.models import neural_points as npts
-from pin_slam_torch.ops import smallmat
-from pin_slam_torch.ops.transforms import _cross, quat_to_rotmat, rotmat_to_quat, so3_expmap
+from pin_slam_torch.ops import smallmat, track_kernel
+from pin_slam_torch.ops.transforms import quat_to_rotmat, rotmat_to_quat, so3_expmap
 from pin_slam_torch.slam import tracker_grad as tg
 from pin_slam_torch.utils import tracing
 
@@ -91,10 +93,6 @@ class TrackResult(NamedTuple):
     photo_count: int = 0       # points with a photometric weight in the final statistics
 
 
-def _gm_weight(k: float, r: torch.Tensor) -> torch.Tensor:
-    return (k / (k * k + r * r)) ** 2
-
-
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
@@ -141,12 +139,22 @@ def _autograd_sdf(lm, mc, decoder, sdf_scale, cells, pts, after_pgo):
     return sdf.detach(), grad, knn.nn_count, sdf_std.detach()
 
 
+def kernel_route(mc: npts.MapConfig, decoder, M: int) -> bool:
+    """Whether the cached step of a map with ``mc`` and this geometry
+    decoder, over M cached candidates a row, is the track-step kernel's
+    (``track_kernel.track_kernel_takes``); the colour and encoded paths
+    never reach it."""
+    layers = decoder.layers()
+    return track_kernel.track_kernel_takes(mc.feature_dim, layers[0][0].shape[1],
+                                           len(layers) - 1, min(mc.nn_k, M), M)
+
+
 def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decoder,
                 sdf_scale: float, offsets, source: torch.Tensor,
                 source_valid: torch.Tensor, R_init, t_init,
                 after_pgo: bool = False, color_decoder=None,
                 source_colors=None, source_normals=None,
-                source_normal_valid=None) -> TrackResult:
+                source_normal_valid=None, origin=None) -> TrackResult:
     """Register ``source`` (sensor frame, padded, on the map's device)
     against the implicit map.  R_init / t_init: the initial guess with the
     translation expressed in the shifted frame (world minus ``lm.origin``).
@@ -162,7 +170,9 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     ``source_normals`` (N, 3) in the sensor frame (``ops/normals.py``)
     weight each point by 0.5 + |n . g|, n rotated by the current rotation
     and g the SDF's unit gradient; 1 where ``source_normal_valid`` is
-    False."""
+    False.  ``origin``: ``lm.origin``'s value on the host (float32), which
+    the track-step kernel takes by value; read from the map where the
+    kernel needs it and the caller did not give it."""
     dev = source.device
     color_on = (color_decoder is not None and source_colors is not None
                 and lm.color_features is not None)
@@ -170,13 +180,11 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
     uncached = color_on or mc.pos_encoding_band > 0      # the autograd paths
     with torch.no_grad():
         src_intensity = color_to_intensity(source_colors) if color_on else None
-        origin = lm.origin
         src_count = max(tracing.read(torch.sum(source_valid), "src_count", int), 1)
         r_max = _f32(tracing.read(torch.max(torch.where(
             source_valid, torch.linalg.norm(source, dim=-1), torch.zeros_like(source[:, 0]))),
             "r_max"))
         probe_margin = 0.25 * mc.voxel_size
-        max_sdf_std = tc.surface_sample_range * tc.max_sdf_std_ratio
 
         def upload_pose(R, t):
             return tracing.upload(R, "pose_R", dev), tracing.upload(t, "pose_t", dev)
@@ -184,61 +192,40 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
         def probe(R, t):
             with tracing.part("probe"):
                 R_d, t_d = upload_pose(R, t)
-                return tg.probe_candidates(lm, mc, source @ R_d.T + t_d + origin, offsets)
+                return tg.probe_candidates(lm, mc, source @ R_d.T + t_d + lm.origin, offsets)
 
         photometric = color_on and tc.photometric_on
+        kernel = False                 # the cached step is the kernel's (set at the first probe)
 
         def one_step(R, t, cache=None):
-            R_d, t_d = upload_pose(R, t)
-            cur = source @ R_d.T + t_d
-            if color_on:
-                sdf, grad, inten, c_grad, nn_count, sdf_std = _sdf_intensity_grads(
-                    lm, mc, decoder, color_decoder, sdf_scale, cells, cur + origin, after_pgo,
-                    photometric)
-            elif uncached:
-                sdf, grad, nn_count, sdf_std = _autograd_sdf(
-                    lm, mc, decoder, sdf_scale, cells, cur + origin, after_pgo)
+            if not uncached:
+                if kernel:
+                    packed = track_kernel.track_step(
+                        cache, lm, mc, decoder, sdf_scale, source, source_valid, R, t,
+                        origin, tc, after_pgo, source_normals, source_normal_valid)
+                else:
+                    packed = track_kernel.track_step_plain(
+                        cache, lm, mc, decoder, sdf_scale, source, source_valid, R, t, tc,
+                        after_pgo, source_normals, source_normal_valid)
             else:
-                sdf, grad, nn_count, sdf_std = tg.sdf_value_and_grad_cached(
-                    cache, lm, mc, decoder, sdf_scale, cur + origin, after_pgo)
-            grad_norm = torch.linalg.norm(grad, dim=-1)
-            mask = (source_valid & (nn_count >= tc.mask_min_nn_count)
-                    & (grad_norm > tc.min_grad_norm) & (grad_norm < tc.max_grad_norm)
-                    & (sdf_std < max_sdf_std))
-            residual = sdf
-            w = _gm_weight(tc.GM_dist, residual) * _gm_weight(tc.GM_grad, grad_norm - 1.0)
-            if source_normals is not None:
-                n_w = source_normals @ tracing.upload(R, "pose_R", dev).T
-                grad_unit = grad / torch.clamp(grad_norm, min=1e-12)[:, None]
-                w_normal = 0.5 + torch.abs(torch.sum(n_w * grad_unit, dim=-1))
-                if source_normal_valid is not None:
-                    w_normal = torch.where(source_normal_valid, w_normal,
-                                           torch.ones_like(w_normal))
-                w = w * w_normal
-            if color_on and not tc.photometric_on and tc.consist_weight_on:
-                w = w * torch.exp(-torch.abs(inten - src_intensity))
-            w = torch.where(mask, w, torch.zeros_like(w))
-            valid_count = torch.sum(mask)
-            w_mean = torch.sum(w) / torch.clamp(valid_count, min=1)
-            w = w / torch.clamp(2.0 * w_mean, min=1e-12)
-            J = torch.cat([_cross(cur, grad), grad], dim=-1)
-            Jw = J * w[:, None]
-            N = J.T @ Jw
-            g = -(Jw.T @ residual)
-            photo_n = torch.zeros((), dtype=torch.float32, device=dev)
-            if photometric:
-                # the photometric rows: the regressed intensity against the
-                # source's, with the geometric weights
-                J_c = torch.cat([_cross(cur, c_grad), c_grad], dim=-1)
-                Jw_c = J_c * w[:, None]
-                N = N + tc.photometric_weight * (J_c.T @ Jw_c)
-                g = g - tc.photometric_weight * (Jw_c.T @ (inten - src_intensity))
-                photo_n = torch.sum(w != 0.0).to(torch.float32)
-            res_cm = (torch.sum(torch.where(mask, torch.abs(residual), torch.zeros_like(residual)))
-                      / torch.clamp(valid_count, min=1) * 100.0)
-            packed = tracing.read(torch.cat([N.reshape(-1), g, res_cm[None],
-                                             valid_count.to(torch.float32)[None],
-                                             photo_n[None]]), "gn_fetch")
+                R_d, t_d = upload_pose(R, t)
+                cur = source @ R_d.T + t_d
+                consist = photo = None
+                if color_on:
+                    sdf, grad, inten, c_grad, nn_count, sdf_std = _sdf_intensity_grads(
+                        lm, mc, decoder, color_decoder, sdf_scale, cells, cur + lm.origin,
+                        after_pgo, photometric)
+                    if photometric:
+                        photo = (c_grad, inten - src_intensity)
+                    elif tc.consist_weight_on:
+                        consist = torch.exp(-torch.abs(inten - src_intensity))
+                else:
+                    sdf, grad, nn_count, sdf_std = _autograd_sdf(
+                        lm, mc, decoder, sdf_scale, cells, cur + lm.origin, after_pgo)
+                packed = track_kernel.normal_equations(
+                    tc, cur, sdf, grad, nn_count, sdf_std, source_valid, R, source_normals,
+                    source_normal_valid, consist, photo)
+            packed = tracing.read(packed, "gn_fetch")
             return (packed[:36].reshape(6, 6), packed[36:42], packed[42], int(packed[43]),
                     int(packed[44]))
 
@@ -291,6 +278,9 @@ def track_frame(lm: npts.LocalMap, mc: npts.MapConfig, tc: TrackerConfig, decode
             # outer loop: one candidate probe per epoch; inner loop: GN
             # iterations until the pose has moved past the probe margin
             cache = probe(R, t)
+            kernel = kernel_route(mc, decoder, cache.lidx.shape[1])
+            if kernel and origin is None and source.is_cuda:
+                origin = tracing.read(lm.origin, "origin")
             while running():
                 pR, pt = R, t
                 while running() and bool(torch.linalg.norm(t - pt)

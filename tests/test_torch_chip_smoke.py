@@ -791,3 +791,39 @@ def test_mesh_stats_and_extent_ratio(tmp_path):
     pio.write_ply(path, np.array([[0, 0, np.nan]] * 3, np.float32),
                   faces=np.array([[0, 1, 2]], np.int64))
     assert chip_smoke.mesh_file_stats(path) == (3, False)
+
+
+def _highest_index_first(exact_k_min):
+    """``exact_k_min`` with the tie-break turned round: the highest column
+    first among equal values."""
+    return lambda d2, k: d2.shape[-1] - 1 - exact_k_min(d2.flip(-1), k)
+
+
+@pytest.mark.parametrize("wf", [True, False], ids=["wf", "per_neighbor"])
+@pytest.mark.parametrize("fault", ["none", "tie_break", "dropped_normal_weight"])
+def test_track_check_fails_on_a_planted_fault(monkeypatch, wf, fault):
+    """The track-step phase's check accepts the twin's own packed vector and
+    fails on a step that breaks ties among equal candidates the other way
+    round, or that drops the normal weight."""
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.ops import track_kernel
+
+    args, kw = chip_smoke.synthetic_track_args(wf, 600, 16, 6, 5, device="cpu", n_valid=500,
+                                               ties=True, normals=True)
+    good = chip_smoke._plain_of(args, kw)()
+    scales = chip_smoke.track_scales(args, kw)
+    assert good[43] > 100
+    # a part's scale is at least its largest entry
+    assert scales["N"] >= good[:36].abs().max() and scales["g"] >= good[36:42].abs().max()
+    assert scales["res_cm"] == pytest.approx(float(good[42]), rel=1e-5)
+    if fault == "none":
+        assert chip_smoke.track_check(good, good, "twin", scales) == \
+            {"N": 0.0, "g": 0.0, "res_cm": 0.0}
+        return
+    if fault == "tie_break":
+        monkeypatch.setattr(npts, "exact_k_min", _highest_index_first(npts.exact_k_min))
+        bad = chip_smoke._plain_of(args, kw)()
+    else:
+        bad = track_kernel.track_step_plain(*args[:9], *args[10:], kw["after_pgo"])
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.track_check(bad, good, fault, scales)
