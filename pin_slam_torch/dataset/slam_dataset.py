@@ -49,9 +49,11 @@ class SLAMDataset:
     """Frames from ``config.pc_path`` and ground truth from
     ``config.pose_path`` (through ``config.calib_path``'s ``Tr`` when that
     file exists), or, when ``scans`` is given, frames held in memory ((N, >=3)
-    float arrays, sensor frame) with optional ground-truth poses ``gt_poses``
-    (n, 4, 4).  With ``config.deskew`` the frames are deskewed on ``device``
-    (None: the GPU, raising without one; ``SlamSystem`` passes its own)."""
+    float arrays, sensor frame: x, y, z, then intensity, then each point's
+    time, as a file's ``t`` / ``time`` field carries it) with optional
+    ground-truth poses ``gt_poses`` (n, 4, 4).  With ``config.deskew`` the
+    frames are deskewed on ``device`` (None: the GPU, raising without one;
+    ``SlamSystem`` passes its own)."""
 
     def __init__(self, config, scans: Optional[List[np.ndarray]] = None,
                  gt_poses: Optional[np.ndarray] = None, device=None):
@@ -112,13 +114,14 @@ class SLAMDataset:
         the points with raw id 0 or 1 (unlabeled, outlier) are dropped, and
         under ``filter_moving_object`` those of the moving classes (raw id
         >= 100) too.  With ``deskew`` on, a frame whose file carries no
-        timestamps gets them from its scan yaw."""
+        timestamps gets them from its scan yaw.  A scan held in memory
+        carries its intensity in column 3 and its points' times in column 4."""
         sem = None
         if self.scans is not None:
             scan = np.asarray(self.scans[frame_id])
             points = scan[:, :3].astype(np.float32)
             colors = scan[:, 3:4].astype(np.float32) if scan.shape[1] > 3 else None
-            ts = None
+            ts = scan[:, 4].astype(np.float32) if scan.shape[1] > 4 else None
         else:
             path = self.pc_filenames[frame_id]
             points, colors, ts = pio.read_point_cloud(path)
@@ -175,11 +178,12 @@ class SLAMDataset:
                 points, colors, ts, sem = _take_all(sel, points, colors, ts, sem)
             if cfg.deskew and ts is not None and self.processed_frame > 0:
                 dev = self.device
-                points = tracing.read(deskew_points(
-                    tracing.upload(points, "points", dev, torch.float32),
-                    tracing.upload(np.asarray(ts, np.float32), "times", dev),
-                    tracing.upload(self.last_odom_tran, "motion", dev, torch.float32)),
-                    "deskewed").numpy()
+                with tracing.span("pin_slam.dataset.deskew"):
+                    points = tracing.read(deskew_points(
+                        tracing.upload(points, "points", dev, torch.float32),
+                        tracing.upload(np.asarray(ts, np.float32), "times", dev),
+                        tracing.upload(self.last_odom_tran, "motion", dev, torch.float32)),
+                        "deskewed").numpy()
             pad_pts, valid = pad_to(points.astype(np.float32), bucket)
             pad_ts = pad_to(ts.astype(np.float32), bucket)[0] if ts is not None else None
             pad_col = pad_to(colors.astype(np.float32), bucket)[0] if colors is not None else None

@@ -1188,24 +1188,30 @@ class SlamSystem:
             num_iters = cfg.iters * 4
             idx = self.rand.ba_indices(self.frame_id, self.pool, self.mcfg.bs, num_iters)
             xi0 = torch.zeros((window, 6), dtype=torch.float32, device=self.device)
-            feats, xi, hist = mp.bundle_adjustment_loop(
-                self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
-                self.offsets, self._f32_dev(poses_full, "poses"), window_start, xi0, idx)
-            self.lm.geo_features = feats
-            self._write_back(self.lm)
-            dT = tracing.read(se3_expmap(xi).double(), "ba_poses").numpy()
-            before = np.stack(poses_list[window_start:])[:, :3, 3]
-            for i in range(window):
-                poses_list[window_start + i] = dT[i] @ poses_list[window_start + i]
-            shift = np.linalg.norm(np.stack(poses_list[window_start:])[:, :3, 3] - before, axis=1)
-            self.cur_pose = poses_list[self.frame_id].copy()
-            self.dataset.last_pose = self.cur_pose.copy()
+            with tracing.span("pin_slam.pgo.ba.loop"):
+                feats, xi, hist = mp.bundle_adjustment_loop(
+                    self.lm, mc, self.lm.geo_features, self.decoder, self.pool, self.mcfg,
+                    self.offsets, self._f32_dev(poses_full, "poses"), window_start, xi0, idx)
+                self._sync()
+            tracing.count("ba.iters", num_iters)
+            with tracing.span("pin_slam.pgo.ba.refresh"):
+                self.lm.geo_features = feats
+                self._write_back(self.lm)
+                dT = tracing.read(se3_expmap(xi).double(), "ba_poses").numpy()
+                before = np.stack(poses_list[window_start:])[:, :3, 3]
+                for i in range(window):
+                    poses_list[window_start + i] = dT[i] @ poses_list[window_start + i]
+                shift = np.linalg.norm(np.stack(poses_list[window_start:])[:, :3, 3] - before,
+                                       axis=1)
+                self.cur_pose = poses_list[self.frame_id].copy()
+                self.dataset.last_pose = self.cur_pose.copy()
 
-            poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
-            poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
-            self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new, "poses"))
-            self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc, mc.pos_encode)
-            self._sync()
+                poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+                poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
+                self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new, "poses"))
+                self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc,
+                                                  mc.pos_encode)
+                self._sync()
             losses = tracing.read(hist, "ba_losses").numpy()
             out = {"window": window, "window_start": window_start, "iters": num_iters,
                    "loss_first": float(losses[0]), "loss_last": float(losses[-1]),

@@ -23,6 +23,8 @@ gathered into a report for each frame.
 - ``stage_sync(device)``: the synchronise a ``sync_stages`` run makes at
   each stage's end, counted apart as ``sync.stage``, its wait under
   ``wait_ms["stage.<stage>"]``.
+- ``count(key, n)``: adds ``n`` to ``counts[key]``, a count of work that is
+  no sync (``ba.iters``): such keys never start with ``sync.``.
 
 The stage of a sync or a wait is that of the innermost open span (``frame``
 outside every stage span).  ``frame(frame_id)`` opens the ``pin_slam.frame``
@@ -139,6 +141,11 @@ def call(fn: Callable, site: str, *args, syncs: int = 1, **kwargs):
     out = fn(*args, **kwargs)
     _blocked(site, t0, syncs)
     return out
+
+
+def count(key: str, n: int) -> None:
+    """Adds ``n`` to the current report's ``counts[key]``."""
+    _add(_report["counts"], key, n)
 
 
 def stage_sync(device) -> None:
