@@ -266,6 +266,14 @@
    reloads to the finalised map and the mesh covers >= 0.8 of its xy
    extent.  Rank 0's rank kernel rows ``rank_brick[shard_C-far|near]``.
    A real NCCL ring of two or more GPUs does not run here (one card).
+23. ``pool_pass``: the replay pool's pass after a pose change
+   (``ops/pool_kernel.py``) at ``kitti_hdl64.loop``'s and
+   ``ncd_os0_128.quad``'s pools, each after ``POOL_SETUP_FRAMES`` of the
+   cell's own frames through the program, with the pose books and the map
+   deformed by per-frame corrections; the kernel against its plain twin (the
+   parent's two calls) by column group (``pool_check``, ``POOL_TOL``), both
+   timed, the bound at the pool's fill: rows ``pool_pass[<cell>]``.
+   ``pool_edges``: every k 1..8 in both layouts on random pools.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -1013,8 +1021,8 @@ def cli_kitti_phase():
     ``pc_path`` (the dataset root) and ``output_root``.  Gated: return code
     0, 8 frames in summary.json, the artifact set of a run(), the ground
     truth read through calib.txt equal to the scene's within 1e-9 m, finite
-    poses, every kernel launched.  The position error is reported, not
-    gated: the tracker keeps the profile's own gates here."""
+    poses, every kernel launched but the pool pass.  The position error is
+    reported, not gated: the tracker keeps the profile's own gates here."""
     import glob
     import shutil
 
@@ -1096,8 +1104,9 @@ def cli_kitti_phase():
         fail(f"cli_kitti: the ground truth through calib.txt is {gt_err} m off the scene's")
     if len(est) != CLI_FRAMES or not np.isfinite(est).all():
         fail("cli_kitti: the trajectory is incomplete or not finite")
+    # 8 frames close no loop and run no BA: no pool pass
     for k in counts:
-        if k != "rank" and counts[k] < 1:
+        if k not in ("rank", "pool_pass") and counts[k] < 1:
             fail(f"cli_kitti: kernel {k} never launched")
     shutil.rmtree(root, ignore_errors=True)
     return res
@@ -4504,7 +4513,7 @@ def shard_c_phase(c1):
     if not (end["reload_equal"] and end["vertices"] and end["finite"]
             and end["xy_extent_ratio"] >= VIS_EXTENT):
         fail(f"shard_C: the end of the run: {end}")
-    for k in ("rank_brick", "train_iter", "eikonal", "gather", "scatter"):
+    for k in ("rank_brick", "train_iter", "eikonal", "gather", "scatter", "pool_pass"):
         if r0["launches"][k] < 1:
             fail(f"shard_C: kernel {k} never launched")
     return res, r0["rows"]
@@ -4941,6 +4950,274 @@ def track_decisions(twin):
              f"{bad[:3]}")
 
 
+# ----------------------------------------------------------------------
+# the replay pool's re-derivation after a pose change (ops/pool_kernel.py)
+# ----------------------------------------------------------------------
+
+POOL_CELLS = ("kitti_hdl64.loop", "ncd_os0_128.quad")
+POOL_SETUP_FRAMES = 60
+POOL_SEED = 3923500081
+# the kernel against its plain twin, by the columns it writes.  Coordinates:
+# the twin's 3-term product runs in a batched GEMM (its order and fused
+# multiply-adds are the library's), the kernel's as one FMA chain; either
+# rounds each term at most twice, so 4 ulps of the pool's largest
+# coordinate.  The rest is held against the twin's refresh of the kernel's
+# own coordinates (one ulp of a 100 m coordinate, 7.6e-6 m, would move a
+# weight at a 1 mm offset by 1 %): weights 1e-6 (8 ulps of 1: the twin sums
+# the k inverse distances in a reduction's order, then divides); offset
+# vectors 1e-5 m (offsets are below sqrt(max_valid_dist2), 1.6 m; the
+# rotation's terms are below 3 |v|, so 1e-5 is 20 ulps of 4.7 m; the
+# library's cross product and the blend's GEMM may fuse what the kernel
+# rounds apart).  Every other column keeps its bits; rows past the fill are
+# the twin's.
+POOL_COORD_ULPS = 4
+POOL_TOL = {"weights": 1e-6, "blend": 1e-5, "per_neighbour": 1e-5}
+
+
+def pool_groups(k, width):
+    """{written column group: its columns} of a pool row of ``width``
+    floats at k neighbours (``mapper.pool_layout``)."""
+    groups = {"coord": slice(0, 3), "weights": slice(9 + k, 9 + 2 * k),
+              "blend": slice(9 + 2 * k, 12 + 2 * k)}
+    if width > 12 + 2 * k:
+        groups["per_neighbour"] = slice(12 + 2 * k, width)
+    return groups
+
+
+def pool_check(out, twin, refresh, before, k, fill, label):
+    """Fails unless the kernel's rows ``out`` hold coordinates within
+    ``POOL_COORD_ULPS`` ulps of the pool's largest coordinate of the twin's
+    (``twin``: the plain twin's rows), every other written column within
+    ``POOL_TOL`` of ``refresh`` (the twin's refresh of ``out``'s own
+    coordinates), the columns the pass does not own (3 .. 8 + k: label,
+    weight, frame id, sensor-frame coordinates, neighbour ids) bit-identical
+    to ``before``, and rows from ``fill`` on equal to the twin's.  Returns
+    {group: {"err", "tol", "err_vs_twin"}} and the share of rows whose
+    coordinates carry the twin's bits."""
+    import torch
+
+    groups = pool_groups(k, out.shape[1])
+    scale = float(twin[:, :3].abs().max())
+    tol_c = POOL_COORD_ULPS * 2.0 ** (float(np.floor(np.log2(max(scale, 1e-30)))) - 23)
+    res = {}
+    for g, cols in groups.items():
+        ref = twin if g == "coord" else refresh
+        err = float((out[:, cols] - ref[:, cols]).abs().max())
+        tol = tol_c if g == "coord" else POOL_TOL[g]
+        res[g] = {"err": err, "tol": tol,
+                  "err_vs_twin": float((out[:, cols] - twin[:, cols]).abs().max())}
+        if not err <= tol:
+            fail(f"{label}: column group {g} off its reference by {err} (tolerance {tol})")
+    own = slice(3, 9 + k)
+    if not torch.equal(out[:, own].contiguous().view(torch.int32),
+                       before[:, own].contiguous().view(torch.int32)):
+        fail(f"{label}: a column the pass does not own changed")
+    if not torch.equal(out[fill:], twin[fill:]):
+        fail(f"{label}: rows past the fill ({fill}) differ from the twin's")
+    same = (out[:, :3].view(torch.int32) == twin[:, :3].view(torch.int32)).all(1)
+    return res, float(same.to(torch.float64).mean())
+
+
+def pool_bound(rows, attr, k, fill):
+    """(bound ms, what bounds it, the gathers' ms were every valid
+    neighbour of a live row a 32-byte sector from device memory, the live
+    rows' valid neighbour count, distinct neighbours): the rows read and
+    written once, the distinct neighbours' position and quaternion (28 B)
+    read once; operations 18 a row (the coordinates) and 49 a neighbour."""
+    import torch
+
+    ids = rows[:fill, 9:9 + k].to(torch.int64)
+    live = ids[ids >= 0].clamp(max=attr.shape[0] - 1)
+    n_valid, n_distinct = int(live.numel()), int(torch.unique(live).numel())
+    ms, by = bound(2 * nbytes(rows) + 28 * n_distinct, rows.shape[0] * (18 + 49 * k))
+    return ms, by, 32 * n_valid / H100_BYTES_PER_S * 1e3, n_valid, n_distinct
+
+
+def _rot(q):
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def synthetic_pool_args(k, wf, n, seed, device="cuda", cap=4096, T=40):
+    """(pool, poses, attribute rows, map configuration) of a random pool of
+    n rows, the last fifth past the fill: live rows near clusters of 8 map
+    points, a tenth of their ids -1, a tenth another cluster's point (past
+    max_valid_dist2), a few the sentinel or past it, a few frame ids -1,
+    every 50th live row without a neighbour; rotated quaternions."""
+    import types
+
+    import torch
+
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.slam import mapper as mp
+
+    rng = np.random.default_rng(seed)
+    width = 12 + 2 * k + (0 if wf else 3 * k)
+    fill = n * 4 // 5
+    poses = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    for f in range(T):
+        poses[f, :3, :3] = _rot(np.concatenate([[1.0], rng.normal(0, 0.15, 3)]))
+        poses[f, :3, 3] = rng.uniform(-50, 50, 3)
+    n_cl = (cap - 8) // 8
+    centre = rng.uniform(-50, 50, (n_cl, 3))
+    pos = (centre[:, None, :] + rng.normal(0, 0.25, (n_cl, 8, 3))).reshape(-1, 3)
+    attr = np.zeros((cap + 1, npts.ATTR_DIM), np.float32)
+    attr[:, 3] = 1.0
+    attr[:len(pos), :3] = pos
+    q = np.concatenate([np.ones((len(pos), 1)), rng.normal(0, 0.1, (len(pos), 3))], 1)
+    attr[:len(pos), 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    attr[cap, :3] = 1e8
+    rows = np.zeros((n, width), np.float32)
+    rows[:, 9:9 + k] = -1.0
+    cl, ts = rng.integers(0, n_cl, fill), rng.integers(0, T, fill)
+    target = centre[cl] + rng.normal(0, 0.3, (fill, 3))
+    R, t = poses[ts, :3, :3].astype(np.float64), poses[ts, :3, 3].astype(np.float64)
+    ids = cl[:, None] * 8 + np.stack([rng.permutation(8)[:k] for _ in range(fill)])
+    u = rng.uniform(size=(fill, k))
+    ids = np.where(u < 0.1, -1, ids)
+    ids = np.where((u >= 0.1) & (u < 0.2), rng.integers(0, len(pos), (fill, k)), ids)
+    ids = np.where(u > 0.995, cap + rng.integers(0, 3, (fill, k)), ids)
+    ids[::50] = -1
+    rows[:fill, 5] = np.where(rng.uniform(size=fill) < 0.02, -1, ts)
+    rows[:fill, 6:9] = np.einsum("nji,nj->ni", R, target - t)
+    rows[:fill, 9:9 + k] = ids
+    rows[:fill, 3:5] = rng.normal(size=(fill, 2))
+    rows[:fill, :3] = rng.normal(size=(fill, 3))
+    rows[:fill, 9 + k:] = rng.normal(size=(fill, width - 9 - k))
+    z = torch.zeros((), dtype=torch.int64, device=device)
+    pool = mp.PoolState(rows=torch.as_tensor(rows, device=device), head=z + fill,
+                        fill=z + fill, new_idx=torch.zeros((4,), dtype=torch.int64,
+                                                           device=device), new_count=z)
+    mc = types.SimpleNamespace(capacity=cap, nn_k=k, max_valid_dist2=1.08)
+    return pool, torch.as_tensor(poses, device=device), torch.as_tensor(attr, device=device), mc
+
+
+def pool_compare(pool, poses, attr, mc, label):
+    """The kernel's pass (twice) and the plain twin's on copies of
+    ``pool``; ``pool_check`` and the two launches' bits.  Returns the
+    check's result, the kernel's and the twin's rows."""
+    import dataclasses as dc
+
+    import torch
+
+    from pin_slam_torch.ops import _cuda
+    from pin_slam_torch.ops import pool_kernel as pk
+    from pin_slam_torch.slam import mapper as mp
+
+    before = pool.rows.clone()
+    k, fill = mc.nn_k, int(pool.fill)
+    n0 = _cuda.COUNTS["pool_pass"]
+    out = pk.pool_pass(dc.replace(pool, rows=before.clone()), poses, attr, mc).rows
+    again = pk.pool_pass(dc.replace(pool, rows=before.clone()), poses, attr, mc).rows
+    if _cuda.COUNTS["pool_pass"] != n0 + 2:
+        fail(f"{label}: the pool pass did not launch its kernel")
+    twin = pk.pool_pass_plain(dc.replace(pool, rows=before.clone()), poses, attr, mc).rows
+    refresh = mp.pool_refresh_cache(dc.replace(pool, rows=out.clone()), attr, mc).rows
+    torch.cuda.synchronize()
+    identical_check(out, again, label)
+    res = pool_check(out, twin, refresh, before, k, fill, label)
+    del again, refresh
+    return res, before, out, twin
+
+
+def pool_pass_phase(cell):
+    """The pool pass at a cell's pool after a real set-up: the cell's
+    configuration and generator, ``POOL_SETUP_FRAMES`` frames through the
+    program, then per-frame pose corrections (0.02 rad, 0.2 m) applied to
+    the pose books and, by ``adjust_map``, to the map (rotated
+    quaternions).  The kernel against its plain twin (``pool_check``),
+    both timed (``ms`` / ``dev`` as the kernel table's; the twin is the
+    parent's two calls, chunked), the bound at the pool's fill.  Returns the
+    kernels line's row."""
+    import dataclasses as dc
+
+    import torch
+
+    from pin_slam_torch.dataset.slam_dataset import SLAMDataset
+    from pin_slam_torch.models import neural_points as npts
+    from pin_slam_torch.ops import pool_kernel as pk
+    from pin_slam_torch.slam.pipeline import TS_CAPACITY, SlamSystem
+    from slambench import harness
+
+    dev = torch.device("cuda")
+    spec = harness.load_cell(cell)
+    cfg = harness.build_config(spec, POOL_SEED)
+    gen = harness.traffic_module("generators", spec.traffic["generator"]).make(
+        spec.config["sensor"], spec.traffic, POOL_SEED, dev)
+    seq = gen.sequence(POOL_SETUP_FRAMES)
+    ds = SLAMDataset(cfg, scans=seq.scans, gt_poses=seq.gt_poses, device=dev)
+    system = SlamSystem(cfg, dataset=ds, device=dev)
+    t0 = time.perf_counter()
+    for i in range(POOL_SETUP_FRAMES):
+        system.process_frame(ds.preprocess_frame(i))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mc, pool = system.mc, system.pool
+    books = np.stack(harness.pose_books(system)).astype(np.float32)
+    rng = np.random.default_rng(POOL_SEED)
+    diff = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+    for f in range(len(books)):
+        diff[f, :3, :3] = _rot(np.concatenate([[1.0], rng.normal(0, 0.01, 3)]))
+        diff[f, :3, 3] = rng.normal(0, 0.2, 3)
+    poses = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
+    poses[:len(books)] = diff[:len(books)] @ books
+    poses = torch.as_tensor(poses, device=dev)
+    attr = npts.adjust_map(system.state, mc, torch.as_tensor(diff, device=dev)).attr_rows
+    label = f"pool_pass[{cell}]"
+    (res, same), before, out, twin = pool_compare(pool, poses, attr, mc, label)
+    k, fill = mc.nn_k, int(pool.fill)
+    b_ms, b_by, gather_ms, n_valid, n_distinct = pool_bound(before, attr, k, fill)
+    del twin
+    work = dc.replace(pool, rows=out)
+    t = timings(lambda: pk.pool_pass(work, poses, attr, mc),
+                lambda: pk.pool_pass_plain(work, poses, attr, mc))
+    row = {"kernel": "pool_pass", "path": cell, "label": label,
+           "shape": {"rows": before.shape[0], "width": before.shape[1], "k": k,
+                     "weighted_first": before.shape[1] == 12 + 2 * k, "fill": fill,
+                     "attr_rows": attr.shape[0], "poses": poses.shape[0],
+                     "valid_neighbours": n_valid, "distinct_neighbours": n_distinct},
+           "setup_frames": POOL_SETUP_FRAMES, "setup_s": setup_s,
+           "bound_ms": b_ms, "bound_by": b_by, "gather_sectors_ms": gather_ms, **t,
+           "x_bound": t["device_ms"] / b_ms, "errors": res, "coord_bits_equal_share": same,
+           "tolerance": {"coord_ulps": POOL_COORD_ULPS, **POOL_TOL}}
+    emit({"phase": "pool_pass", **row})
+    del system, work, out, before, attr
+    torch.cuda.empty_cache()
+    return row
+
+
+def pool_edge_phase():
+    """Every instantiation of the pool-pass kernel (k 1..8, both layouts)
+    against the plain twin on random pools whose row counts leave a partial
+    tile and a tail of fewer than 4 floats; a misaligned view of the rows
+    refused."""
+    import dataclasses as dc
+
+    import torch
+
+    from pin_slam_torch.ops import pool_kernel as pk
+
+    cases, worst = 0, {}
+    for k in range(1, pk.MAX_K + 1):
+        for wf in (True, False):
+            n = 1001 + 2 * k + int(wf)
+            pool, poses, attr, mc = synthetic_pool_args(k, wf, n, 100 + k, "cuda")
+            (res, _), *_ = pool_compare(pool, poses, attr, mc, f"pool_edges[k{k}-wf{int(wf)}]")
+            for g, r in res.items():
+                worst[g] = max(worst.get(g, 0.0), r["err"] / r["tol"])
+            cases += 1
+    pool, poses, attr, mc = synthetic_pool_args(6, False, 1001, 7, "cuda")
+    flat = torch.zeros(pool.rows.numel() + 1, device="cuda")
+    bad = flat[1:].view(pool.rows.shape)
+    try:
+        pk.pool_pass(dc.replace(pool, rows=bad), poses, attr, mc)
+        fail("pool_edges: a misaligned view of the rows was not refused")
+    except ValueError:
+        pass
+    emit({"phase": "pool_edges", "cases": cases, "max_err_over_tol": worst})
+
 
 def main() -> int:
     try:
@@ -5074,6 +5351,9 @@ def main() -> int:
         a, kw = cap.twin.inputs[path]
         rows.append(track_step_phase(f"path{path}", a, kw,
                                      results[path]["launches"]["track_step"]))
+    # the pool's pass after a pose change, at each pool-pass cell's pool
+    for cell in POOL_CELLS:
+        rows.append(pool_pass_phase(cell))
     # k = 8 (which the JAX kernels cannot run): checked and timed on random
     # inputs at the main path's widths; not a main-path shape, so these rows
     # stay out of the kernels line
@@ -5089,6 +5369,7 @@ def main() -> int:
     track_edge_phase()
     gather_edge_phase()
     scatter_edge_phase()
+    pool_edge_phase()
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 COUNTS: Dict[str, int] = {"rank_brick": 0, "rank": 0, "train_iter": 0, "eikonal": 0,
-                          "gather": 0, "scatter": 0, "track_step": 0}
+                          "gather": 0, "scatter": 0, "track_step": 0, "pool_pass": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _SMS: Dict[int, int] = {}

@@ -18,7 +18,7 @@ settled before the map update: local (pose-distance) then global
 (scan-context) loop detection, verification by registering the frame's
 source cloud against the map rebuilt around the loop frame, and on success
 pose-graph optimisation, map deformation (``adjust_map``, ``recreate_hash``)
-and the pool's re-derivation (``pool_retransform``, ``pool_refresh_cache``).
+and the pool's re-derivation (``pool_kernel.pool_pass``).
 From then on (``after_pgo``) every offset vector is rotated into its
 neighbour's frame.
 
@@ -105,6 +105,7 @@ from pin_slam_torch.dataset import io as pio
 from pin_slam_torch.dataset.slam_dataset import Frame, SLAMDataset
 from pin_slam_torch.models import neural_points as npts
 from pin_slam_torch.models.decoder import Decoder
+from pin_slam_torch.ops import pool_kernel
 from pin_slam_torch.ops.marching_cubes import vertex_normals
 from pin_slam_torch.ops.normals import estimate_normals
 from pin_slam_torch.ops.sampler import SamplerConfig, draw_ray_noise, sample_rays
@@ -1122,9 +1123,9 @@ class SlamSystem:
             poses_full[:new_poses.shape[0]] = new_poses.astype(np.float32)
 
         with span("pin_slam.pgo.deform"):
-            # deform the map and re-derive the pool
-            with span("pin_slam.pgo.deform.retransform"):
-                self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_full, "poses"))
+            # deform the map, then re-derive the pool from the new poses and
+            # the moved points in one pass (neither adjust_map nor
+            # recreate_hash reads the pool)
             if self._spatial is None:
                 with span("pin_slam.pgo.deform.adjust_map"):
                     self.state = npts.adjust_map(self.state, mc,
@@ -1143,8 +1144,11 @@ class SlamSystem:
                 with span("pin_slam.pgo.deform.recreate_hash"):
                     self.state = self._spatial.recreate(self.state, fid)
                     attr_rows = self._spatial.gather_attr_rows(self.state)
-            with span("pin_slam.pgo.deform.refresh_cache"):
-                self.pool = mp.pool_refresh_cache(self.pool, attr_rows, mc, mc.pos_encode)
+            poses_d = self._f32_dev(poses_full, "poses")
+            with span("pin_slam.pgo.deform.pool"):
+                self.pool = pool_kernel.pool_pass(self.pool, poses_d, attr_rows, mc,
+                                                  mc.pos_encode)
+                self._sync()
 
         with span("pin_slam.pgo.local_map"):
             self.dataset.update_poses_after_pgo(new_poses)
@@ -1208,10 +1212,11 @@ class SlamSystem:
 
                 poses_new = np.tile(np.eye(4, dtype=np.float32), (TS_CAPACITY, 1, 1))
                 poses_new[:n_poses] = np.stack(poses_list).astype(np.float32)
-                self.pool = mp.pool_retransform(self.pool, self._f32_dev(poses_new, "poses"))
-                self.pool = mp.pool_refresh_cache(self.pool, self.state.attr_rows, mc,
-                                                  mc.pos_encode)
-                self._sync()
+                poses_d = self._f32_dev(poses_new, "poses")
+                with tracing.span("pin_slam.pgo.ba.pool"):
+                    self.pool = pool_kernel.pool_pass(self.pool, poses_d, self.state.attr_rows,
+                                                      mc, mc.pos_encode)
+                    self._sync()
             losses = tracing.read(hist, "ba_losses").numpy()
             out = {"window": window, "window_start": window_start, "iters": num_iters,
                    "loss_first": float(losses[0]), "loss_last": float(losses[-1]),

@@ -164,7 +164,8 @@ def test_ba_loop_three_iterations_against_reference_adam(ba_run):
 
 def test_ba_spans_and_count_in_the_report(ba_run):
     """The BA frame's report holds the loop and the refresh spans inside
-    ``pin_slam.pgo.ba``, and ``ba.iters`` (4 x iters); the frames before it
+    ``pin_slam.pgo.ba``, the pool pass's span inside the refresh, and
+    ``ba.iters`` (4 x iters) and one ``pool.passes``; the frames before it
     hold none of them, nor a deskew's."""
     system, infos = ba_run
     rep = infos[BA_AT - 1]["trace"]
@@ -172,9 +173,11 @@ def test_ba_spans_and_count_in_the_report(ba_run):
     assert {"pin_slam.pgo.ba", "pin_slam.pgo.ba.loop", "pin_slam.pgo.ba.refresh"} <= set(spans)
     assert spans["pin_slam.pgo.ba.loop"] + spans["pin_slam.pgo.ba.refresh"] \
         <= spans["pin_slam.pgo.ba"]
+    assert spans["pin_slam.pgo.ba.pool"] <= spans["pin_slam.pgo.ba.refresh"]
     assert rep["counts"]["ba.iters"] == 4 * system.config.iters == infos[BA_AT - 1]["ba"]["iters"]
+    assert rep["counts"]["pool.passes"] == 1
     for info in infos[:BA_AT - 1]:
         r = info["trace"]
         assert not any(k.startswith("pin_slam.pgo.ba") or k == "pin_slam.dataset.deskew"
                        for k in r["span_ms"])
-        assert "ba.iters" not in r["counts"]
+        assert "ba.iters" not in r["counts"] and "pool.passes" not in r["counts"]

@@ -827,3 +827,58 @@ def test_track_check_fails_on_a_planted_fault(monkeypatch, wf, fault):
         bad = track_kernel.track_step_plain(*args[:9], *args[10:], kw["after_pgo"])
     with pytest.raises(SystemExit, match="FAILED"):
         chip_smoke.track_check(bad, good, fault, scales)
+
+
+@pytest.mark.parametrize("fault", ["none", "weight", "vector", "coord", "label", "past_fill"])
+def test_pool_check_fails_on_a_planted_fault(fault):
+    """chip_smoke's check of the pool pass, with the plain twin's rows in
+    the kernel's place: it accepts them (every error 0, the coordinates'
+    bits the twin's) and fails on a weight 1e-5 off, an offset vector 1e-4
+    m off, a coordinate 1 mm off, a changed label (a column the pass does
+    not own) and a row past the fill that differs from the twin's."""
+    import dataclasses
+
+    from pin_slam_torch.ops import pool_kernel as pk
+    from pin_slam_torch.slam import mapper as mp
+
+    k = 6
+    pool, poses, attr, mc = chip_smoke.synthetic_pool_args(k, False, 401, 3, device="cpu")
+    fill = int(pool.fill)
+    before = pool.rows.clone()
+    twin = pk.pool_pass_plain(dataclasses.replace(pool, rows=before.clone()), poses, attr,
+                              mc).rows
+    out = twin.clone()
+    r = int(torch.nonzero(out[:fill, 9 + k] > 0)[0])
+    if fault == "weight":
+        out[r, 9 + k] += 1e-5
+    elif fault == "vector":
+        out[r, 9 + 2 * k + 3] += 1e-4
+    elif fault == "coord":
+        out[r, 0] += 1e-3
+    elif fault == "label":
+        out[r, 3] = torch.nextafter(out[r, 3], torch.tensor(1e9))
+    elif fault == "past_fill":
+        out[fill + 1, 9 + k] = 1e-7
+    refresh = mp.pool_refresh_cache(dataclasses.replace(pool, rows=out.clone()), attr, mc).rows
+    if fault == "none":
+        res, same = chip_smoke.pool_check(out, twin, refresh, before, k, fill, "pool")
+        assert set(res) == {"coord", "weights", "blend", "per_neighbour"} and same == 1.0
+        assert all(v["err"] == 0.0 and v["err_vs_twin"] == 0.0 for v in res.values())
+        assert 0.0 < res["coord"]["tol"] < 1e-4
+    else:
+        with pytest.raises(SystemExit, match="FAILED"):
+            chip_smoke.pool_check(out, twin, refresh, before, k, fill, "pool")
+
+
+def test_pool_bound_counts_rows_and_distinct_neighbours():
+    """The pool pass's bound: every row read and written once, each
+    distinct neighbour's 28 bytes once; the gathers' sectors apart."""
+    pool, _, attr, _ = chip_smoke.synthetic_pool_args(8, True, 1000, 4, device="cpu")
+    rows = pool.rows
+    ms, by, gather_ms, n_valid, n_distinct = chip_smoke.pool_bound(rows, attr, 8, 800)
+    ids = rows[:800, 9:17]
+    assert n_valid == int((ids >= 0).sum()) and 0 < n_distinct < n_valid
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * rows.numel() * 4 + 28 * n_distinct)
+                               / chip_smoke.H100_BYTES_PER_S * 1e3)
+    assert gather_ms == pytest.approx(32 * n_valid / chip_smoke.H100_BYTES_PER_S * 1e3)

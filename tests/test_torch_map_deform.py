@@ -2,7 +2,9 @@
 JAX package's, on a map and pool the port built from three frames of the
 synthetic corridor scene (CPU): ``adjust_map`` (allclose), ``recreate_hash``
 (hash table exact), ``build_local_map`` with a travel window (exact),
-``pool_retransform`` and ``pool_refresh_cache`` (allclose), and the
+``pool_retransform`` and ``pool_refresh_cache`` (allclose), the closure's
+order (both after ``adjust_map`` and ``recreate_hash``, as one
+``pool_kernel.pool_pass``), and the
 ``after_pgo`` branches with non-identity quaternions: ``interpolate_features``
 and the tracker's ``sdf_value_and_grad_cached``.
 
@@ -164,8 +166,18 @@ def _jax_pool(tp):
                          new_count=jnp.int32(int(tp.new_count)))
 
 
-def test_pool_retransform_and_refresh_match_jax(built, deformed, monkeypatch):
+@pytest.mark.parametrize("order", ["two_calls", "closure"])
+def test_pool_retransform_and_refresh_match_jax(built, deformed, monkeypatch, order):
+    """``two_calls``: ``pool_retransform``, then ``pool_refresh_cache`` from
+    the retransformed and from the original pool.  ``closure``: the order of
+    a closure's deformation, ``adjust_map`` and ``recreate_hash``, then one
+    ``pool_kernel.pool_pass`` (the plain twin here) against the JAX
+    package's retransform before ``adjust_map`` and refresh after
+    ``recreate_hash``."""
+    from pin_slam_torch.models import neural_points as tn
+    from pin_slam_torch.ops import pool_kernel as pk
     from pin_slam_torch.slam import mapper as tm
+    from pin_slam_tpu.models import neural_points as jn
     from pin_slam_tpu.slam import mapper as jmp
 
     s = built["s"]
@@ -173,6 +185,27 @@ def test_pool_retransform_and_refresh_match_jax(built, deformed, monkeypatch):
     for f in range(3):
         poses[f] = built["diff"][f] @ np.asarray(s.dataset.odom_poses[f], np.float32)
     jp = jmp.pool_retransform(_jax_pool(s.pool), jnp.asarray(poses))
+    if order == "closure":
+        # both recreate the hash from the JAX package's deformed map (as
+        # test_recreate_hash_matches_jax does), so that adjust_map's rounding
+        # (test_adjust_map_matches_jax) does not compound into the pool
+        cfg, jmc, js = built["cfg"], deformed["jmc"], deformed["js"]
+        js = jn.recreate_hash(js, jmc, jnp.int32(2), downsample_table_size=cfg.downsample_hash_size)
+        ts = tn.recreate_hash(tn.state_from_numpy(deformed["js"]), s.mc, 2,
+                              downsample_table_size=cfg.downsample_hash_size)
+        tr = pk.pool_pass(tm.pool_from_numpy(s.pool), torch.as_tensor(poses), ts.attr_rows, s.mc)
+        a = np_(tr.rows)
+        np.testing.assert_allclose(a[:, :3], np_(jp.rows)[:, :3], rtol=0, atol=2e-5)
+        # the JAX refresh reads the port's coordinates, as the two-call case
+        # refreshes both from one pool: a coordinate's last bit moves a
+        # weight at a short offset past rtol 1e-5
+        jr = jmp.pool_refresh_cache(jp._replace(rows=jp.rows.at[:, :3].set(a[:, :3])),
+                                    js.attr_rows, jmc)
+        b = np_(jr.rows)
+        np.testing.assert_array_equal(a[:, 3:tm.P_W.start], b[:, 3:tm.P_W.start])
+        np.testing.assert_allclose(a[:, tm.P_W.start:], b[:, tm.P_W.start:],
+                                   rtol=1e-5, atol=1e-6)
+        return
     tp = tm.pool_retransform(tm.pool_from_numpy(s.pool), torch.as_tensor(poses))
     np.testing.assert_allclose(np_(tp.rows), np_(jp.rows), rtol=0, atol=2e-5)
 

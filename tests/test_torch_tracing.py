@@ -125,7 +125,7 @@ def test_loop_verification_is_charged_to_pgo(pgo_run):
 
 
 MAP_PARTS = ("sample", "insert", "local_map", "new_mask", "append_knn", "pool_append")
-DEFORM_PARTS = ("retransform", "adjust_map", "recreate_hash", "refresh_cache")
+DEFORM_PARTS = ("adjust_map", "recreate_hash", "pool")
 
 
 def test_map_update_parts(pgo_run, plain_run):
@@ -145,8 +145,12 @@ def test_closure_deform_parts(pgo_run):
     parts = [spans[f"pin_slam.pgo.deform.{p}"] for p in DEFORM_PARTS]
     assert all(ms > 0.0 for ms in parts)
     assert sum(parts) <= spans["pin_slam.pgo.deform"] <= spans["pin_slam.pgo"]
+    # one pass over the pool rows a closure (the plain twin on the CPU)
+    assert closing["trace"]["counts"]["pool.passes"] == 1
+    assert "pool_pass" not in closing["trace"]["launches"]
     for info in infos[:CLOSE_AT]:
         assert not any(k.startswith("pin_slam.pgo.deform") for k in info["trace"]["span_ms"])
+        assert "pool.passes" not in info["trace"]["counts"]
 
 
 def test_frame_takes_over_only_the_dataset_stage():
